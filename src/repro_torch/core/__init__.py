@@ -1,0 +1,2 @@
+from repro_torch.core import ucfl  # noqa: F401  (registers "ucfl")
+from repro_torch.core.strategy import REGISTRY, FedConfig, Strategy  # noqa: F401

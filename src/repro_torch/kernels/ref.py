@@ -1,0 +1,55 @@
+"""Plain torch versions of the PS-side kernels.
+
+These are the semantic ground truth of :mod:`repro_torch.kernels`: the CPU
+path of :mod:`repro_torch.kernels.ops` dispatches here, the CPU parity
+tests compare them with ``repro.kernels.ref``, and ``chip_smoke.py`` holds
+every CUDA kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def mix_aggregate(w, theta):
+    """User-centric mixing: ``out[i] = sum_j w[i, j] * theta[j]``.
+
+    w (k, m), theta (m, d) -> (k, d) in ``theta.dtype``, f32 accumulate.
+    """
+    out = w.to(torch.float32) @ theta.to(torch.float32)
+    return out.to(theta.dtype)
+
+
+def gram(g):
+    """Gram matrix ``G G^T`` of (m, d) stacked gradients, f32 accumulate."""
+    g32 = g.to(torch.float32)
+    return g32 @ g32.T
+
+
+def delta_from_gram(gr):
+    """``max(G_ii + G_jj - 2 G_ij, 0)``: squared distances from a Gram matrix."""
+    sq = torch.diagonal(gr)
+    return torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * gr, 0.0)
+
+
+def pairwise_delta(g):
+    """Pairwise squared L2 distances between rows of ``g`` (m, d) -> (m, m)."""
+    return delta_from_gram(gram(g))
+
+
+def kmeans_assign(points, centroids):
+    """Nearest-centroid assignment.
+
+    points (m, f), centroids (k, f) -> labels (m,) int32 and the clamped
+    squared distance (m,) f32 to the chosen centroid. Ties go to the
+    lowest centroid index, as ``torch.argmin`` and ``jnp.argmin`` do.
+    """
+    p = points.to(torch.float32)
+    c = centroids.to(torch.float32)
+    d = (
+        torch.sum(p * p, dim=1)[:, None]
+        + torch.sum(c * c, dim=1)[None, :]
+        - 2.0 * (p @ c.T)
+    )
+    d = torch.clamp_min(d, 0.0)
+    labels = torch.argmin(d, dim=1)
+    return labels.to(torch.int32), d.gather(1, labels[:, None])[:, 0]

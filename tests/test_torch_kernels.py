@@ -1,0 +1,86 @@
+"""The port's kernel ops against the reference's Pallas kernels.
+
+On the CPU the port's ops run their plain torch versions
+(``repro_torch.kernels.ref``); the reference runs its Pallas kernels in
+interpret mode, as ``tests/test_kernels.py`` does. Tolerances: f32 sums in
+another order, so rtol 1e-5 (atol 1e-5 for values near 0); k-means labels
+are exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro_torch.kernels import ops
+from torch_parity import f32, n, t
+
+SHAPES_MIX = [(1, 1, 128), (4, 8, 300), (16, 16, 1024), (5, 7, 97), (3, 20, 513)]
+
+
+@pytest.mark.parametrize("k,m,d", SHAPES_MIX)
+def test_mix_aggregate_matches_reference(k, m, d):
+    rng = np.random.default_rng(k * 100 + m)
+    w = rng.normal(size=(k, m)).astype(np.float32)
+    th = rng.normal(size=(m, d)).astype(np.float32)
+    want = ref_ops.mix_aggregate(f32(w), f32(th), impl="interpret")
+    got = ops.mix_aggregate(t(w), t(th))
+    assert got.dtype == torch.float32 and got.shape == (k, d)
+    np.testing.assert_allclose(n(got), n(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,d", [(3, 64), (7, 300), (12, 1111)])
+def test_gram_and_delta_match_reference(m, d):
+    rng = np.random.default_rng(m + d)
+    g = rng.normal(size=(m, d)).astype(np.float32)
+    want = ref_ops.pairwise_delta(f32(g), impl="interpret")
+    got = ops.pairwise_delta(t(g))
+    scale = float(np.max(np.abs(n(want))))
+    np.testing.assert_allclose(n(got), n(want), rtol=1e-5, atol=1e-5 * scale)
+    np.testing.assert_allclose(n(ops.gram(t(g))), g @ g.T, rtol=1e-5, atol=1e-4)
+    assert np.all(n(got) >= 0) and np.all(np.diag(n(got)) == 0)
+
+
+@pytest.mark.parametrize("m,f,k", [(10, 5, 3), (100, 100, 4), (33, 17, 8)])
+def test_kmeans_assign_matches_reference(m, f, k):
+    rng = np.random.default_rng(m * f + k)
+    p = rng.normal(size=(m, f)).astype(np.float32)
+    c = rng.normal(size=(k, f)).astype(np.float32)
+    wl, wd = ref_ops.kmeans_assign(f32(p), f32(c), impl="interpret")
+    gl, gd = ops.kmeans_assign(t(p), t(c))
+    assert gl.dtype == torch.int32 and gd.dtype == torch.float32
+    np.testing.assert_array_equal(n(gl), n(wl))
+    np.testing.assert_allclose(n(gd), n(wd), rtol=1e-5, atol=1e-5)
+
+
+def test_kmeans_assign_tie_goes_to_lowest_index():
+    p = np.eye(4, 6, dtype=np.float32)
+    c = np.zeros((3, 6), np.float32)  # three identical centroids
+    labels, dist = ops.kmeans_assign(t(p), t(c))
+    np.testing.assert_array_equal(n(labels), 0)
+    wl, _ = ref_ops.kmeans_assign(f32(p), f32(c), impl="interpret")
+    np.testing.assert_array_equal(n(labels), n(wl))
+    np.testing.assert_allclose(n(dist), 1.0)
+
+
+def test_dispatch_rules():
+    x = torch.ones(2, 3)
+    w = torch.ones(1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.mix_aggregate(w, x, impl="cuda")
+    with pytest.raises(ValueError, match="unknown kernel impl"):
+        ops.mix_aggregate(w, x, impl="pallas")
+    np.testing.assert_array_equal(n(ops.mix_aggregate(w, x, impl="ref")), 2.0)
+    assert ops.ALIGN == 128
+    assert [ops.aligned_dim(d) for d in (0, 1, 128, 129, 47571)] == [0, 128, 128, 256, 47616]
+
+
+def test_mix_aggregate_zero_width():
+    out = ops.mix_aggregate(torch.ones(3, 4), torch.ones(4, 0))
+    assert out.shape == (3, 0)
+
+
+def test_gram_split_plan_covers_d():
+    from repro_torch.kernels.pairwise_delta import DEPTH, split_plan
+    for m, d, sms in [(100, 47571, 132), (6, 1, 132), (300, 10_000, 132), (1, 31, 1)]:
+        splits, chunk = split_plan(m, d, sms)
+        assert chunk % DEPTH == 0 and splits * chunk >= d > (splits - 1) * chunk

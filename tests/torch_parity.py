@@ -1,0 +1,124 @@
+"""Shared helpers of the port's parity tests (``tests/test_torch_*.py``).
+
+Inputs are built once as numpy arrays from a seed; the reference
+(``repro``, jax on the CPU) and the port (``repro_torch``, torch on the
+CPU) both run on them. TF32 is off, so CUDA runs of these helpers compute
+in full f32 like the reference.
+"""
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.data import synthetic as ref_synthetic
+from repro_torch import interop
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+CPU = "cpu"
+
+# the small federated task every slice-level parity test shares
+SMALL = dict(m=6, n=80, n_test=20, num_classes=6, hw=(16, 16))
+BATCH = 20
+VAR_BATCH = 20
+
+
+def _glorot(rng, shape):
+    limit = (6.0 / (int(np.prod(shape[:-1])) + shape[-1])) ** 0.5
+    return rng.uniform(-limit, limit, size=shape).astype(np.float32)
+
+
+def lenet_params(rng, hw, classes, *, bias=0.0):
+    """numpy LeNet-5 weights in the reference's shapes (HWIO convs):
+    Glorot-uniform as ``repro.models.lenet.init``, biases set to ``bias``."""
+    h, w = hw
+    flat = ((h - 4) // 2 - 4) // 2 * (((w - 4) // 2 - 4) // 2) * 16
+    shapes = {"c1_w": (5, 5, 1, 6), "c2_w": (5, 5, 6, 16), "f1_w": (flat, 120),
+              "f2_w": (120, 84), "f3_w": (84, classes)}
+    params = {}
+    for k, shape in shapes.items():
+        params[k] = _glorot(rng, shape)
+        params[k.replace("_w", "_b")] = np.full((shape[-1],), bias, np.float32)
+    return params
+
+
+@functools.lru_cache(maxsize=None)
+def small_arrays(seed=0):
+    """numpy (data arrays, LeNet params) of the SMALL covariate-shift task.
+
+    Built with numpy alone, the way ``repro.data.synthetic`` builds its
+    scenario 2 (class prototypes + noise, Dirichlet labels, 90°·group
+    rotations) and ``repro.models.lenet.init`` its weights, so neither
+    package's generator is under test here.
+    """
+    rng = np.random.default_rng(seed)
+    m, nn, nt, c, (h, w) = (SMALL[k] for k in ("m", "n", "n_test", "num_classes", "hw"))
+    low = rng.normal(size=(c, h // 4, w // 4, 1))
+    proto = np.repeat(np.repeat(low, 4, axis=1), 4, axis=2)
+    proto /= proto.std(axis=(1, 2, 3), keepdims=True)
+
+    def labels(count):
+        props = rng.dirichlet(8.0 * np.ones(c), size=m)
+        return np.stack([rng.choice(c, size=count, p=p) for p in props]).astype(np.int32)
+
+    group = (np.arange(m) % 4).astype(np.int32)
+
+    def render(y):
+        x = proto[y] + 0.8 * rng.normal(size=y.shape + proto.shape[1:])
+        return np.stack([np.rot90(xc, g, axes=(1, 2)) for xc, g in zip(x, group)]
+                        ).astype(np.float32)
+
+    y, y_test = labels(nn), labels(nt)
+    arrays = (render(y), y, render(y_test), y_test, group, np.full((m,), nn, np.int32))
+    params = lenet_params(rng, (h, w), c)
+    return arrays, params
+
+
+def small_task(seed=0):
+    """(reference FederatedData, port FederatedData, reference params0,
+    port params0) of the SMALL task, from the same numpy arrays."""
+    arrays, params = small_arrays(seed)
+    data = ref_synthetic.FederatedData(*(jnp.asarray(a) for a in arrays))
+    tdata = interop.data_from_numpy(*arrays, device=CPU)
+    return (data, tdata, {k: jnp.asarray(v) for k, v in params.items()},
+            interop.params_from_numpy(params, device=CPU))
+
+
+def ref_client_permutations(client_keys, epochs, n, batch_size):
+    """The batch orders the reference's ``make_local_sgd`` draws from each
+    client key: split(key, epochs) per epoch, then
+    permutation(., n)[:steps·B] (``loader.py:18``).
+    Returns (len(client_keys), epochs, steps·B) int64 numpy."""
+    steps = n // batch_size
+    out = np.empty((len(client_keys), epochs, steps * batch_size), np.int64)
+    for i, ck in enumerate(client_keys):
+        for e, ek in enumerate(jax.random.split(ck, epochs)):
+            out[i, e] = np.asarray(jax.random.permutation(ek, n))[: steps * batch_size]
+    return out
+
+
+def ref_permutations(key, m, epochs, n, batch_size):
+    """The batch orders of the reference's federated local SGD under round
+    key ``key``: one client key each from split(key, m) (``client.py:160``)."""
+    return ref_client_permutations(jax.random.split(key, m), epochs, n, batch_size)
+
+
+def t(a, dtype=None):
+    """numpy (or jax) array -> CPU tensor."""
+    return torch.as_tensor(np.array(a, dtype))
+
+
+def n(x):
+    """tensor or jax array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def f32(a):
+    return jnp.asarray(np.asarray(a, np.float32))
