@@ -142,7 +142,9 @@ def kernel_phase(dev):
         ms=time_ms(lambda: ops.gram(g, impl="cuda"), dev),
         plain_ms=time_ms(lambda: ref.gram(g), dev),
         library_ms=time_ms(lambda: g @ g.T, dev),
-        bytes=4 * (m * d + m * m), flops=2 * m * m * d)
+        # G·Gᵀ is symmetric: the function needs m(m+1)/2 dot products of
+        # length d (a SYRK's count), whatever the kernel computes
+        bytes=4 * (m * d + m * m), flops=m * (m + 1) * d)
 
     # mix_aggregate: full ucfl (k = 100) and ucfl_k4 (k = 4) over the slab
     theta = 0.05 * torch.randn(m, d_al, generator=gen, device=dev)
@@ -235,10 +237,24 @@ def agree_phase(dev):
     phase("agree", t0, "card kernels match the plain CPU path (W atol 1e-4, slab atol 1e-4)")
 
 
+def union_length(intervals):
+    """Length of the union of (start, end) intervals: overlapping spans
+    (kernels on several streams) count once."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def profile(fn, dev, top=8):
     """Run ``fn`` once under torch.profiler; returns the host wall time, the
-    device time summed over kernels (one stream, so their sum is the busy
-    time), the device's idle share of the wall time, and the top kernels."""
+    device's busy time (the union of its kernel, copy and set intervals),
+    the device's idle share of the wall time, and the top kernels by time.
+
+    Annotation ranges that the profiler mirrors onto the device span other
+    kernels and the gaps between them, so they are left out."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -248,14 +264,23 @@ def profile(fn, dev, top=8):
         fn()
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
-               for e in prof.key_averages()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(k[1] for k in kernels)
-    kernels.sort(key=lambda k: -k[1])
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    if not spans:
+        raise AssertionError("profile: no device activity was traced")
+    busy_ms = union_length([(s, e) for _, s, e in spans]) / 1e3
+    if not busy_ms <= wall_ms:
+        raise AssertionError(f"profile: device busy {busy_ms:.3f} ms exceeds the wall "
+                             f"time {wall_ms:.3f} ms")
+    by_name = {}
+    for name, s, e in spans:
+        ms, calls = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (e - s) / 1e3, calls + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "top": [{"kernel": k[:90], "ms": ms, "calls": c} for k, ms, c in kernels[:top]]}
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "top": [{"kernel": k[:90], "ms": ms, "calls": c} for k, (ms, c) in ranked[:top]]}
 
 
 def main_phase(dev):

@@ -20,11 +20,11 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 
-def _mix_tree(w, stacked, *, impl=None):
+def _mix_tree(w, stacked):
     """Apply mixing matrix w (k, m) to a slab or to each leaf of a dict."""
 
     def leaf(x):
-        out = ops.mix_aggregate(w, x.reshape(x.shape[0], -1), impl=impl)
+        out = ops.mix_aggregate(w, x.reshape(x.shape[0], -1))
         return out.reshape((w.shape[0],) + tuple(x.shape[1:]))
 
     if isinstance(stacked, torch.Tensor):
@@ -38,17 +38,17 @@ def _map(fn, stacked):
     return {k: fn(v) for k, v in stacked.items()}
 
 
-def fedavg(stacked, n, *, impl=None):
+def fedavg(stacked, n):
     """Eq. 1 with w_i = n_i / Σ n_j, result broadcast back to all clients."""
     m = n.shape[0]
     w = (n / torch.sum(n)).float()[None, :]  # (1, m)
-    mixed = _mix_tree(w, stacked, impl=impl)
+    mixed = _mix_tree(w, stacked)
     return _map(lambda x: x.expand((m,) + tuple(x.shape[1:])).clone(), mixed)
 
 
-def user_centric(stacked, w, *, impl=None):
+def user_centric(stacked, w):
     """Eq. 8 — full per-client personalization; w is the (m, m) matrix."""
-    return _mix_tree(w, stacked, impl=impl)
+    return _mix_tree(w, stacked)
 
 
 def centroid_rules(w, labels, num_clusters):
@@ -58,14 +58,14 @@ def centroid_rules(w, labels, num_clusters):
     return (onehot.T @ w) / counts[:, None]
 
 
-def clustered(stacked, w, labels, num_clusters, *, impl=None):
+def clustered(stacked, w, labels, num_clusters):
     """§IV-B — m_t centroid aggregation rules, group-cast to members.
 
     stacked: slab or dict of locally optimized models; w (m, m); labels
     (m,) cluster assignment from K-means over rows of w; num_clusters m_t.
     Client i receives the mix of its cluster's centroid rule.
     """
-    mixed = _mix_tree(centroid_rules(w, labels, num_clusters), stacked, impl=impl)
+    mixed = _mix_tree(centroid_rules(w, labels, num_clusters), stacked)
     idx = labels.long()
     return _map(lambda x: x[idx], mixed)
 

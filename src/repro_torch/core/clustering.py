@@ -40,7 +40,7 @@ def _plusplus_init(gen, points, k):
     return centroids
 
 
-def kmeans(gen, points, k: int, *, iters: int = 50, impl=None,
+def kmeans(gen, points, k: int, *, iters: int = 50,
            init_centroids=None) -> KMeansResult:
     """Lloyd's algorithm on (m, f) points with K-means++ init.
 
@@ -53,14 +53,14 @@ def kmeans(gen, points, k: int, *, iters: int = 50, impl=None,
     else:
         centroids = init_centroids.to(points).clone()
     for _ in range(iters):
-        labels, _ = ops.kmeans_assign(points, centroids, impl=impl)
+        labels, _ = ops.kmeans_assign(points, centroids)
         onehot = F.one_hot(labels.long(), k).float()  # (m, k)
         counts = onehot.sum(dim=0)
         sums = onehot.T @ points
         new = sums / torch.clamp_min(counts, 1.0)[:, None]
         # empty clusters keep their centroid
         centroids = torch.where(counts[:, None] > 0, new, centroids)
-    labels, sqd = ops.kmeans_assign(points, centroids, impl=impl)
+    labels, sqd = ops.kmeans_assign(points, centroids)
     # the paper's Eq. 11 sums (non-squared) distances
     inertia = torch.sum(torch.sqrt(torch.clamp_min(sqd, 0.0)))
     return KMeansResult(centroids, labels, inertia)
@@ -108,7 +108,7 @@ def default_tradeoff(k: int, s: float, *, comm_penalty: float = 0.02) -> float:
 
 def choose_num_streams(gen, w_vectors, *, k_max: int | None = None,
                        tradeoff: Callable[[int, float], float] = default_tradeoff,
-                       iters: int = 50, impl=None):
+                       iters: int = 50):
     """Algorithm 2 — silhouette-based selection of m_t.
 
     Sweeps k = 2..k_max, scores the silhouette of each K-means clustering
@@ -120,7 +120,7 @@ def choose_num_streams(gen, w_vectors, *, k_max: int | None = None,
     results = {}
     best_k, best_score = 1, float("-inf")
     for k in range(2, k_max + 1):
-        res = kmeans(gen, w_vectors, k, iters=iters, impl=impl)
+        res = kmeans(gen, w_vectors, k, iters=iters)
         s = float(silhouette_score(w_vectors, res.labels))
         score = tradeoff(k, s)
         results[k] = (s, score, res)

@@ -28,9 +28,9 @@ def sigma_sq(minibatch_grads, full_grad):
     return torch.mean(torch.sum(diff * diff, dim=-1), dim=-1)
 
 
-def pairwise_delta(grads, *, impl=None):
+def pairwise_delta(grads):
     """Δ_{i,j} = ||g_i − g_j||² over stacked (m, d) client gradients."""
-    return ops.pairwise_delta(grads, impl=impl)
+    return ops.pairwise_delta(grads)
 
 
 def mixing_weights(delta, sigma_sq_vec, n, *, eps=1e-12):

@@ -31,7 +31,7 @@ from repro_torch.federated import client as fedclient
 
 
 def compute_collaboration(apply_stacked, params0, data, *, var_batch_size=100,
-                          impl=None, chunk_size=None, layout=None):
+                          chunk_size=None, layout=None):
     """Run the special pre-training round; returns the dict of §IV-A.
 
     Every (client, minibatch) pair of the fixed partition is one unit of
@@ -62,15 +62,14 @@ def compute_collaboration(apply_stacked, params0, data, *, var_batch_size=100,
         sigs.append(similarity.sigma_sq(g, full))
     full = torch.cat(fulls).contiguous()
     sig = torch.cat(sigs)
-    delta = similarity.pairwise_delta(full, impl=impl)
+    delta = similarity.pairwise_delta(full)
     w = similarity.mixing_weights(delta, sig, data.n.float())
     return {"full_grads": full, "sigma_sq": sig, "delta": delta, "W": w}
 
 
 @register("ucfl")
 def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
-              num_streams=None, var_batch_size=100, silhouette_gen=None,
-              kernel_impl=None, device=None):
+              num_streams=None, var_batch_size=100, device=None):
     """The proposed strategy.
 
     num_streams: None -> full personalization (m streams, Eq. 8);
@@ -79,7 +78,9 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
 
     ``apply_stacked`` maps (U-stacked params, (U, B, H, W, C) inputs) to
     (U, B, K) logits, as :func:`repro_torch.models.lenet.apply_stacked`.
-    ``params0`` moves to ``device`` (CUDA unless told otherwise).
+    ``params0`` moves to ``device`` (CUDA unless told otherwise). The
+    kernel ops pick their route from the tensors' device alone: the CUDA
+    kernels on the card, their plain versions on the CPU.
     """
     if not (num_streams is None or num_streams == "auto"
             or (isinstance(num_streams, int) and num_streams >= 1)):
@@ -98,16 +99,14 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         m = data.num_clients
         collab = compute_collaboration(
             apply_stacked, params0, data, var_batch_size=var_batch_size,
-            impl=kernel_impl, chunk_size=cfg.chunk_size, layout=layout)
+            chunk_size=cfg.chunk_size, layout=layout)
         w = collab["W"]
         labels = None
         k = num_streams
         if k == "auto":
-            sgen = silhouette_gen if silhouette_gen is not None else gen
-            k, _ = clustering.choose_num_streams(sgen, w, impl=kernel_impl)
+            k, _ = clustering.choose_num_streams(gen, w)
         if k is not None:
-            labels = clustering.kmeans(gen, w, int(k), impl=kernel_impl,
-                                       init_centroids=kmeans_init).labels
+            labels = clustering.kmeans(gen, w, int(k), init_centroids=kmeans_init).labels
         return {"params": layout.slab(params0, m), "W": w, "labels": labels,
                 "streams": k, "collab": collab}
 
@@ -115,10 +114,9 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         updated = local(state["params"], data.x, data.y, gen=gen, perms=perms)
         streams = state["streams"]
         if streams is None:
-            mixed = aggregation.user_centric(updated, state["W"], impl=kernel_impl)
+            mixed = aggregation.user_centric(updated, state["W"])
         else:
-            mixed = aggregation.clustered(updated, state["W"], state["labels"],
-                                          streams, impl=kernel_impl)
+            mixed = aggregation.clustered(updated, state["W"], state["labels"], streams)
         return dict(state, params=mixed), {"streams": streams or data.num_clients}
 
     def round(state, data, gen=None, cohort=None, *, perms=None):

@@ -3,8 +3,8 @@
 ``make_local_sgd`` builds the paper's ClientUpdate: E epochs of minibatch
 SGD (η=0.1, β=0.9 heavy-ball momentum, a fresh optimizer each round) on
 the (U, dim_aligned) slab rows of U clients together. The model's
-``apply_stacked`` runs one model per client in one pass (grouped
-convolutions, batched products), and autograd over the sum of the
+``apply_stacked`` runs one model per client in one pass (unfolded
+patches times batched products), and autograd over the sum of the
 per-client mean losses gives every client its own gradient, because no
 client's loss reads another client's row.
 

@@ -91,8 +91,7 @@ def _check_finite_state(strategy, state, rnd):
         bad = np.nonzero(~finite)[0].tolist()
         raise RuntimeError(
             f"non-finite model state after round {rnd} (strategy "
-            f"{strategy.name!r}, client rows {bad}); pass check_finite=False "
-            "to simulation.run to opt out")
+            f"{strategy.name!r}, client rows {bad})")
 
 
 def _sync(device):
@@ -111,17 +110,15 @@ def _generators(seed, device):
 
 
 def run(strategy, apply_stacked, data, seed: int, *, rounds: int,
-        eval_every: int = 1, verbose: bool = False, warmup: bool = True,
-        eval_chunk: int | None = None, check_finite: bool = True,
         device=None) -> History:
-    """Run ``rounds`` full-participation rounds with per-round evaluation.
+    """Run ``rounds`` full-participation rounds, each followed by a finite
+    check of the clients' models and an evaluation.
 
     ``data`` must already live on ``device`` (CUDA unless told otherwise).
     """
     dev = resolve_device(device)
     if data.x.device.type != dev.type:
         raise ValueError(f"data lives on {data.x.device}, run on {dev}")
-    m = data.num_clients
     init_gen, warm_gen, round_gen = _generators(seed, dev)
     hist = History(strategy.name, [], [], [], [])
 
@@ -131,34 +128,28 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int,
     _sync(dev)
     hist.init_s = time.perf_counter() - t
 
-    if warmup:  # first-call costs stay outside the timed region
-        wstate, _ = strategy.round(clone_state(state), data, warm_gen)
-        _sync(dev)
-        del wstate
+    # first-call costs stay outside the timed region
+    wstate, _ = strategy.round(clone_state(state), data, warm_gen)
+    _sync(dev)
+    del wstate
 
     t0 = time.perf_counter()
 
     def do_eval(rnd, metrics):
         _sync(dev)  # the round's queued work belongs to the round time
         te = time.perf_counter()
-        if check_finite:
-            _check_finite_state(strategy, state, rnd)
+        _check_finite_state(strategy, state, rnd)
         accs = evaluate(apply_stacked, strategy.eval_params(state), data.x_test,
-                        data.y_test, batch=eval_chunk).cpu().numpy()
+                        data.y_test).cpu().numpy()
         hist.eval_s += time.perf_counter() - te
         hist.rounds.append(rnd)
         hist.avg_acc.append(float(accs.mean()))
         hist.worst_acc.append(float(accs.min()))
         hist.metrics.append(metrics)
-        if verbose:
-            print(f"[{strategy.name}] round {rnd:4d} avg={accs.mean():.4f} "
-                  f"worst={accs.min():.4f} cohort={metrics.get('cohort_size', m)}")
 
-    metrics: Dict[str, Any] = {}
     for rnd in range(1, rounds + 1):
         state, metrics = strategy.round(state, data, round_gen)
-        if rnd % eval_every == 0 or rnd == rounds:
-            do_eval(rnd, metrics)
+        do_eval(rnd, metrics)
     _sync(dev)
     hist.wall_s = time.perf_counter() - t0 - hist.eval_s
     hist.state = state

@@ -5,9 +5,10 @@
 // from one sequential grid step to the next.
 //
 // What bounds it on an H100: at the main path's shape (m = 100,
-// d = 47,571) the product is 0.95 GFLOP over 19 MB. On the f32 CUDA cores
-// (no TF32: the reference sums in full f32) that is about 14 us of
-// arithmetic against about 6 us of memory traffic, so the work is
+// d = 47,571) the product is symmetric, so the function needs m(m+1)/2
+// dot products of length d: 0.48 GFLOP over 19 MB. On the f32 CUDA cores
+// (no TF32: the reference sums in full f32) that is about 7.2 us of
+// arithmetic against about 5.7 us of memory traffic, so the work is
 // arithmetic-bound, and an (m, m) output of one or a few tiles is far too
 // little parallelism for 132 SMs.
 //
@@ -26,8 +27,10 @@
 //   * on a diagonal tile (all of it when m <= 128) both operands are the
 //     same slice of G, which is loaded once;
 //   * rows >= m and the ragged tail of d (47,571 is odd) are masked to 0.
-// At m = 100 a 128-wide tile computes 1.6x the useful products; tensor
-// cores (wgmma on TF32 splits) are later work.
+// The tile computes the whole square, mirror half included: at m = 100 a
+// 128-wide tile does 3.2x the products the symmetric result needs.
+// Skipping the mirrored half, and tensor cores (wgmma on TF32 splits), are
+// later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

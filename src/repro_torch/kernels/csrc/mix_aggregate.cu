@@ -12,8 +12,9 @@
 // 14 us), so it sits near the ridge.
 //
 // Design:
-//   * one thread per output column and KC output rows in registers; a
-//     block is 256 consecutive columns and one chunk of KC rows. The grid
+//   * one thread per output column and KC output rows in registers (KC = 4
+//     for k <= 4, else 16); a block is 256 consecutive columns and one
+//     chunk of KC rows. The grid
 //     is 1-D with the row chunk fastest, so the blocks that re-read a column
 //     tile of θ run next to each other and find it in L2;
 //   * θ is read coalesced: a warp reads 32 neighbouring floats of one row,
@@ -106,7 +107,8 @@ extern "C" int mix_aggregate_f32(const float* w, const float* theta,
                                  float* out, int k, int m, long long d,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // two instances: k <= 4 (the clustered variant's few centroid rules)
+  // and 16 rows per block for anything wider (full personalisation)
   if (k <= 4) return launch<4>(w, theta, out, k, m, d, st);
-  if (k <= 8) return launch<8>(w, theta, out, k, m, d, st);
   return launch<16>(w, theta, out, k, m, d, st);
 }
