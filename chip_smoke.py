@@ -4,18 +4,23 @@
 
 Phases, each printed as it ends:
   1. device  — asserts CUDA and prints ``nvidia-smi``'s name and power limit;
-  2. build   — compiles the three hand-written kernels from
+  2. build   — compiles the five hand-written kernels from
                ``src/repro_torch/kernels/csrc/`` with nvcc (all at once);
   3. kernels — holds each kernel against its plain torch version on the card
-               at the main path's shapes, and times kernel, plain version and
-               one PyTorch library call with CUDA events;
+               at the main path's shapes (the cohort kernels also with pad
+               slots, an all-pad cohort and an odd width), and times kernel,
+               plain version and one PyTorch library call with CUDA events;
   4. agree   — Algorithm 1 at a small size on the card (kernels) against the
                port's plain path on the CPU, from the same data, weights and
-               batch orders;
+               batch orders: two dense rounds, then two cohort rounds;
   5. main    — ``ucfl`` and ``ucfl_k4`` through ``simulation.run`` on
                scenario 2 at its defaults (100 clients, 1000 samples each,
                28x28x1, 47 classes) with LeNet-5 at its published widths,
-               counting each kernel's launches.
+               counting each kernel's launches;
+  6. cohort  — the same at partial participation: ``ucfl`` and ``ucfl_k4``
+               with half the clients a round, and ``ucfl`` with 50-slot
+               cohorts drawn from a diurnal availability trace (rounds with
+               pad slots), counting launches again.
 Then one ``{"kernels": [...]}`` JSON line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits non-zero and prints no result.
 Imports nothing of jax or of the reference package.
@@ -34,11 +39,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core import FedConfig, clustering, ucfl  # noqa: E402
+from repro_torch.core import FedConfig, ParticipationConfig, clustering, ucfl  # noqa: E402
 from repro_torch.data import loader, synthetic  # noqa: E402
-from repro_torch.federated import client, simulation  # noqa: E402
+from repro_torch.federated import client, participation, simulation  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.cohort_gather import GATHER  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ASSIGN  # noqa: E402
+from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER  # noqa: E402
 from repro_torch.kernels.mix_aggregate import MIX  # noqa: E402
 from repro_torch.kernels.pairwise_delta import GRAM  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
@@ -48,7 +55,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 ROUNDS = 5
 SEED = 0
-COUNTERS = {"gram": GRAM, "mix_aggregate": MIX, "kmeans_assign": ASSIGN}
+COUNTERS = {"gram": GRAM, "mix_aggregate": MIX, "kmeans_assign": ASSIGN,
+            "cohort_gather": GATHER, "masked_mix_scatter": MIX_SCATTER}
 
 
 def phase(name, t0, msg):
@@ -190,12 +198,90 @@ def kernel_phase(dev):
         library_ms=time_ms(lambda: torch.cdist(pts, cents).argmin(dim=1), dev),
         bytes=4 * (m * f + k * f + 2 * m), flops=2 * m * k * f + 2 * (m + k) * f)
 
+    rows.update(cohort_kernel_rows(gen, dev, m, d_al))
+
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"))
         print(f"  {name}: max_abs_err {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    phase("kernels", t0, "3 kernels agree with their plain versions")
+    phase("kernels", t0, "5 kernels agree with their plain versions")
+    return rows
+
+
+def padded_cohort(gen, dev, m, slots, real):
+    """(idx int32, mask bool) on the card: ``real`` sorted members, then
+    pad slots with the sentinel m."""
+    members = torch.sort(torch.randperm(m, generator=gen, device=dev)[:real]).values
+    idx = torch.full((slots,), m, dtype=torch.int32, device=dev)
+    idx[:real] = members.to(torch.int32)
+    mask = torch.arange(slots, device=dev) < real
+    return idx, mask
+
+
+def cohort_kernel_rows(gen, dev, m, d_al, c=50, real=42):
+    """cohort_gather and masked_mix_scatter at the cohort phase's shapes: a
+    50-slot cohort of the (100, 47,616) slab with 42 members and 8 pads."""
+    rows = {}
+    full = torch.randn(m, d_al, generator=gen, device=dev)
+    idx, mask = padded_cohort(gen, dev, m, c, real)
+    outside = torch.ones(m, dtype=torch.bool, device=dev)
+    outside[idx[:real].long()] = False
+
+    # cohort_gather: a copy, so it must equal the plain version exactly
+    for width in (d_al, 97):
+        f = full[:, :width].contiguous()
+        for index in (idx, torch.full_like(idx, m)):  # the padded and an all-pad cohort
+            if not torch.equal(ops.cohort_gather(f, index, impl="cuda"),
+                               ref.cohort_gather(f, index)):
+                raise AssertionError(f"cohort_gather d={width}: differs from the plain version")
+    safe = idx.long().clamp(max=m - 1)
+    rows["cohort_gather"] = dict(
+        source="src/repro_torch/kernels/csrc/cohort_gather.cu",
+        replaces="src/repro/kernels/masked_gather_mix_scatter.py:93", max_abs_err=0.0,
+        ms=time_ms(lambda: ops.cohort_gather(full, idx, impl="cuda"), dev),
+        plain_ms=time_ms(lambda: ref.cohort_gather(full, idx), dev),
+        library_ms=time_ms(lambda: full.index_select(0, safe), dev),
+        bytes=2 * 4 * c * d_al + 4 * c, flops=0)
+
+    # masked_mix_scatter: rules over the real columns only (pad columns 0)
+    w = torch.zeros(c, c, device=dev)
+    w[:, :real] = torch.softmax(torch.randn(c, real, generator=gen, device=dev), dim=1)
+    theta = 0.05 * torch.randn(c, d_al, generator=gen, device=dev)
+    err = 0.0
+    for width in (d_al, 97):
+        f, th = full[:, :width].contiguous(), theta[:, :width].contiguous()
+        want = ref.masked_mix_scatter(w, th, idx, mask, f)
+        got = ops.masked_mix_scatter(w, th, idx, mask, f.clone(), impl="cuda")
+        e = check(f"masked_mix_scatter d={width}", got, want, 1e-5 * float(want.abs().max()))
+        if not torch.equal(got[outside], f[outside]):
+            raise AssertionError(f"masked_mix_scatter d={width}: a row outside the cohort moved")
+        unpadded = ops.masked_mix_scatter(w[:real, :real].contiguous(), th[:real].contiguous(),
+                                          idx[:real], mask[:real], f.clone(), impl="cuda")
+        if not torch.equal(unpadded, got):
+            raise AssertionError(f"masked_mix_scatter d={width}: the padded cohort's rows are "
+                                 "not bit-for-bit the unpadded cohort's")
+        if width == d_al:
+            err = e
+    kept = full.clone()
+    ops.masked_mix_scatter(w, theta, torch.full_like(idx, m), torch.zeros_like(mask), kept,
+                           impl="cuda")
+    torch.cuda.synchronize()
+    if not torch.equal(kept, full):
+        raise AssertionError("masked_mix_scatter: an all-pad cohort changed the state")
+    scratch = full.clone()
+    live = idx[:real].long()
+    w_live = w[:real].contiguous()
+    rows["masked_mix_scatter"] = dict(
+        source="src/repro_torch/kernels/csrc/masked_mix_scatter.cu",
+        replaces="src/repro/kernels/masked_mix_scatter.py:132, "
+                 "src/repro/kernels/masked_gather_mix_scatter.py:167", max_abs_err=err,
+        ms=time_ms(lambda: ops.masked_mix_scatter(w, theta, idx, mask, scratch, impl="cuda"),
+                   dev),
+        plain_ms=time_ms(lambda: ref.masked_mix_scatter(w, theta, idx, mask, full), dev),
+        # two library calls: the product of the live rules, then index_copy_
+        library_ms=time_ms(lambda: scratch.index_copy_(0, live, w_live @ theta), dev),
+        bytes=4 * (c * c + c * d_al + real * d_al), flops=2 * c * c * d_al)
     return rows
 
 
@@ -233,8 +319,28 @@ def agree_phase(dev):
         p_err = float((cs["params"].cpu() - hs["params"]).abs().max())
         if not p_err <= 1e-4:
             raise AssertionError(f"agree ns={ns}: params differ by {p_err:.3e}")
-        print(f"  ns={ns}: W max_abs_err {w_err:.3e}, params after 2 rounds {p_err:.3e}")
-    phase("agree", t0, "card kernels match the plain CPU path (W atol 1e-4, slab atol 1e-4)")
+        # two cohort rounds: three members and two pad slots, then a uniform 4 of 8
+        cohorts = [participation.pad_slots(participation.as_cohort([1, 3, 6], 8), 5, 8),
+                   participation.sample_cohort(ParticipationConfig(cohort_size=4), 1, 8)]
+        for r, cohort in enumerate(cohorts):
+            perms = loader.draw_permutations(torch.Generator().manual_seed(20 + r), 8, 1, 80,
+                                             device="cpu")
+            before = cs["params"].clone()
+            hs, hm = host.round(hs, cpu_data, None, cohort, perms=perms)
+            cs, cm = card.round(cs, gpu_data, None, cohort, perms=perms.to(dev))
+            if hm != cm:
+                raise AssertionError(f"agree ns={ns}: cohort metrics {cm} != {hm}")
+            outside = [i for i in range(8) if i not in set(cohort.members.tolist())]
+            if not torch.equal(cs["params"][outside], before[outside]):
+                raise AssertionError(f"agree ns={ns}: a row outside the cohort moved")
+        c_err = float((cs["params"].cpu() - hs["params"]).abs().max())
+        if not c_err <= 1e-4:
+            raise AssertionError(f"agree ns={ns}: params after the cohort rounds differ by "
+                                 f"{c_err:.3e}")
+        print(f"  ns={ns}: W max_abs_err {w_err:.3e}, params after 2 dense rounds {p_err:.3e}, "
+              f"after 2 more cohort rounds {c_err:.3e}")
+    phase("agree", t0, "card kernels match the plain CPU path (W atol 1e-4, slab atol 1e-4, "
+          "dense and cohort rounds)")
 
 
 def union_length(intervals):
@@ -283,8 +389,9 @@ def profile(fn, dev, top=8):
             "top": [{"kernel": k[:90], "ms": ms, "calls": c} for k, (ms, c) in ranked[:top]]}
 
 
-def main_phase(dev):
-    """ucfl and ucfl_k4 on scenario 2 at full width; counts kernel launches."""
+def full_size_task(dev):
+    """Scenario 2 at its defaults, LeNet-5 weights from the seed, and the
+    untrained model's average accuracy."""
     t0 = time.perf_counter()
     data = synthetic.covariate_label_shift(SEED, device=dev)  # m=100, n=1000, 47 classes
     torch.cuda.synchronize()
@@ -294,6 +401,20 @@ def main_phase(dev):
                                       {k: v.expand((data.num_clients,) + tuple(v.shape))
                                        for k, v in params0.items()},
                                       data.x_test, data.y_test).mean())
+    return data, params0, untrained
+
+
+def print_profiles(name, prof):
+    for what, p in prof.items():
+        print(f"  {name} {what}: wall {p['wall_ms']:.2f} ms, device busy "
+              f"{p['device_busy_ms']:.2f} ms, idle share {p['idle_share']:.3f}")
+        for k in p["top"]:
+            print(f"    {k['ms']:9.3f} ms {k['calls']:5d}x  {k['kernel']}")
+
+
+def main_phase(dev, data, params0, untrained):
+    """ucfl and ucfl_k4 on scenario 2 at full width; counts kernel launches."""
+    t0 = time.perf_counter()
     launches = {}
     results = {}
     for ns in (None, 4):
@@ -329,11 +450,7 @@ def main_phase(dev):
                                  dev)}
         if ns is None:
             prof["special_round"] = profile(lambda: strat.init(pgen, data), dev)
-        for what, p in prof.items():
-            print(f"  {strat.name} {what}: wall {p['wall_ms']:.2f} ms, device busy "
-                  f"{p['device_busy_ms']:.2f} ms, idle share {p['idle_share']:.3f}")
-            for k in p["top"]:
-                print(f"    {k['ms']:9.3f} ms {k['calls']:5d}x  {k['kernel']}")
+        print_profiles(strat.name, prof)
         avg, worst = hist.paired_best
         results[strat.name] = dict(
             special_round_s=hist.init_s, round_s=hist.wall_s / ROUNDS, eval_s=hist.eval_s / ROUNDS,
@@ -349,15 +466,90 @@ def main_phase(dev):
     return launches
 
 
+def cohort_phase(dev, data, params0, untrained):
+    """ucfl and ucfl_k4 at partial participation on the main task; counts
+    the cohort kernels' launches."""
+    t0 = time.perf_counter()
+    m = data.num_clients
+    runs = [("ucfl", None, ParticipationConfig(fraction=0.5)),
+            ("ucfl_k4", 4, ParticipationConfig(fraction=0.5)),
+            ("ucfl_availability", None,
+             ParticipationConfig(cohort_size=50, sampler="availability",
+                                 availability=participation.diurnal_trace(m)))]
+    launches, results = {}, {}
+    for name, ns, pcfg in runs:
+        strat = ucfl.make_ucfl(lenet.apply_stacked, params0, FedConfig(), num_streams=ns,
+                               var_batch_size=100, device=dev)
+        for c in COUNTERS.values():
+            c.launches = 0
+        t1 = time.perf_counter()
+        hist = simulation.run(strat, lenet.apply_stacked, data, SEED, rounds=ROUNDS,
+                              participation=pcfg, device=dev)
+        total_s = time.perf_counter() - t1
+        launches[name] = {k: c.launches for k, c in COUNTERS.items()}
+        state = hist.state
+        ran = sum(not mt.get("skipped", False) for mt in hist.metrics)
+        sizes = [mt["cohort_size"] for mt in hist.metrics]
+        if not bool(torch.isfinite(state["params"]).all()):
+            raise AssertionError(f"{name}: non-finite params")
+        if not hist.avg_acc[-1] > untrained + 0.1:
+            raise AssertionError(f"{name}: avg accuracy {hist.avg_acc[-1]:.4f} does not beat "
+                                 f"the untrained model's {untrained:.4f}")
+        got = launches[name]
+        # one gather and one mix-scatter per round that ran, plus the warm-up
+        if not (got["cohort_gather"] == got["masked_mix_scatter"] == ran + 1
+                and got["mix_aggregate"] == 0 and got["gram"] > 0
+                and (ns is None or got["kmeans_assign"] > 0)):
+            raise AssertionError(f"{name}: launches {got} over {ran} cohort rounds")
+        if pcfg.sampler == "availability" and not any(0 < z < 50 for z in sizes):
+            raise AssertionError(f"{name}: no round carried pad slots (cohort sizes {sizes})")
+        # one more cohort round on a copy, under the profiler: it must leave
+        # every row outside its cohort as it was (these launches do not count)
+        cohort = next(c for c in participation.cohort_schedule(pcfg, ROUNDS + 24, m)[ROUNDS:]
+                      if len(c))
+        before = state["params"].clone()
+        pgen = torch.Generator(device=dev)
+        pgen.manual_seed(SEED + 1)
+        out = {}
+        prof = {"cohort_round": profile(
+            lambda: out.update(state=strat.round(simulation.clone_state(state), data, pgen,
+                                                 cohort)[0]), dev)}
+        outside = torch.ones(m, dtype=torch.bool, device=dev)
+        outside[torch.as_tensor(cohort.members, device=dev).long()] = False
+        if not (torch.equal(out["state"]["params"][outside], before[outside])
+                and torch.equal(state["params"], before)):
+            raise AssertionError(f"{name}: the profiled cohort round moved a row outside "
+                                 "its cohort")
+        print_profiles(name, prof)
+        avg, worst = hist.paired_best
+        results[name] = dict(
+            special_round_s=hist.init_s, round_s=hist.wall_s / ROUNDS,
+            eval_s=hist.eval_s / ROUNDS, total_s=total_s, avg_acc=hist.avg_acc[-1],
+            worst_acc=hist.worst_acc[-1], paired_best=(avg, worst), cohort_sizes=sizes,
+            streams=[mt["streams"] for mt in hist.metrics], launches=got, profile=prof)
+        print(f"  {name}: special round {hist.init_s:.3f} s, steady round "
+              f"{hist.wall_s / ROUNDS:.4f} s, eval {hist.eval_s / ROUNDS:.4f} s/round, "
+              f"avg {hist.avg_acc[-1]:.4f} worst {hist.worst_acc[-1]:.4f} "
+              f"(untrained {untrained:.4f}), cohort sizes {sizes}, launches {got}", flush=True)
+    phase("cohort", t0, f"{ROUNDS} cohort rounds each of ucfl (fraction 0.5), ucfl_k4 "
+          "(fraction 0.5) and ucfl (50-slot availability cohorts) at m=100")
+    print("cohort_path " + json.dumps({"runs": results, "untrained_avg_acc": untrained}))
+    return launches
+
+
 def main():
     dev = device_phase()
     build_phase()
     rows = kernel_phase(dev)
     agree_phase(dev)
-    launches = main_phase(dev)
+    task = full_size_task(dev)
+    launches = main_phase(dev, *task)
+    cohort = cohort_phase(dev, *task)
     full, k4 = launches["ucfl"], launches["ucfl_k4"]
     counts = {"gram": full["gram"] + k4["gram"], "mix_aggregate_k100": full["mix_aggregate"],
-              "mix_aggregate_k4": k4["mix_aggregate"], "kmeans_assign": k4["kmeans_assign"]}
+              "mix_aggregate_k4": k4["mix_aggregate"], "kmeans_assign": k4["kmeans_assign"],
+              "cohort_gather": sum(r["cohort_gather"] for r in cohort.values()),
+              "masked_mix_scatter": sum(r["masked_mix_scatter"] for r in cohort.values())}
     kernels = [{"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
                 "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -9,8 +9,16 @@ or one (m, d) slab, and returns the same kind:
 
 The mix is a (rules, m) × (m, d) product in the ``mix_aggregate`` kernel.
 The rules are column-independent, so a slab is mixed in ONE launch over all
-its columns, where the reference launches once per leaf. The masked cohort
-rules come with a later slice (ROADMAP A10).
+its columns, where the reference launches once per leaf.
+
+Partial participation: the fixed-shape ``masked_*`` rules below express
+every cohort rule as per-slot (c, c) rows over a padded cohort (pad slots
+carry the sentinel index m and mask False, and get zero column weight
+before the row renormalization), and the round-end PS step is ONE
+``masked_mix_scatter`` kernel pass over the (c, d) upload slab
+(:func:`mix_scatter_flat`); the round starts with ONE ``cohort_gather``
+(:func:`cohort_gather`). ``cohort_mixing_matrix`` and ``clustered_cohort``
+are the unpadded rules that the padded ones must reproduce.
 """
 from __future__ import annotations
 
@@ -73,3 +81,127 @@ def clustered(stacked, w, labels, num_clusters):
 def renormalize_rows(w, eps: float = 1e-12):
     """Rescale rows to sum to 1; all-zero rows stay zero (0/eps)."""
     return w / torch.clamp_min(torch.sum(w, dim=1, keepdim=True), eps)
+
+
+def cohort_mixing_matrix(w, cohort):
+    """W sliced to the cohort's rows and columns, rows renormalized.
+
+    (c, c), row-stochastic up to float error; a row with no mass on the
+    cohort falls back to the identity row (that client keeps its own
+    locally updated model).
+    """
+    cohort = cohort.long()
+    wc = w[cohort][:, cohort]
+    s = torch.sum(wc, dim=1, keepdim=True)
+    eye = torch.eye(wc.shape[0], dtype=wc.dtype, device=wc.device)
+    return torch.where(s > 1e-12, wc / torch.clamp_min(s, 1e-12), eye)
+
+
+def clustered_cohort(theta_c, w, labels, num_clusters, cohort):
+    """§IV-B with centroid rules rebuilt from the cohort (unpadded), on
+    the (c, d) cohort slab.
+
+    Each centroid rule sums the W rows of its participating members over
+    the cohort columns and is renormalized; a participant whose rule has
+    no mass on the cohort keeps its own locally updated model.
+    """
+    cohort = cohort.long()
+    lc = labels.long()[cohort]
+    onehot = F.one_hot(lc, num_clusters).to(w.dtype)  # (c, mt)
+    raw = onehot.T @ w[cohort][:, cohort]  # (mt, c)
+    mixed = ops.mix_aggregate(renormalize_rows(raw), theta_c)
+    alive = (torch.sum(raw, dim=1) > 1e-12)[lc]  # (c,)
+    return torch.where(alive[:, None], mixed[lc], theta_c)
+
+
+def safe_gather_index(idx, m):
+    """Clamp the pad sentinel for gathers (pad slots read row m-1)."""
+    return torch.clamp_max(idx, m - 1)
+
+
+def masked_cohort_matrix(w, idx, mask):
+    """Fixed-shape :func:`cohort_mixing_matrix`: (c, c) with zeroed pad
+    columns, rows renormalized; degenerate rows fall back to identity."""
+    safe = safe_gather_index(idx, w.shape[0]).long()
+    wc = w[safe][:, safe] * mask.to(w.dtype)[None, :]
+    s = torch.sum(wc, dim=1, keepdim=True)
+    eye = torch.eye(wc.shape[0], dtype=wc.dtype, device=wc.device)
+    return torch.where(s > 1e-12, wc / torch.clamp_min(s, 1e-12), eye)
+
+
+def masked_clustered_rows(w, labels, num_clusters, idx, mask):
+    """Fixed-shape :func:`clustered_cohort` as per-slot (c, c) rows.
+
+    Slot i's row is its cluster's centroid rule rebuilt from the real
+    members (renormalized over real columns); a slot whose rule has no
+    mass on the cohort gets the identity row; pad rows are don't-care.
+    """
+    fmask = mask.to(w.dtype)
+    safe = safe_gather_index(idx, w.shape[0]).long()
+    lc = labels.long()[safe]
+    onehot = F.one_hot(lc, num_clusters).to(w.dtype) * fmask[:, None]
+    raw = onehot.T @ (w[safe][:, safe] * fmask[None, :])  # (mt, c)
+    rules = renormalize_rows(raw)
+    alive = (torch.sum(raw, dim=1) > 1e-12)[lc]  # (c,)
+    eye = torch.eye(safe.shape[0], dtype=w.dtype, device=w.device)
+    return torch.where(alive[:, None], rules[lc], eye)
+
+
+def masked_group_rows(assignment_c, n_c, mask):
+    """Fixed-shape per-group FedAvg rows (the CFL/Oracle cohort rule):
+    slot i averages the real slots of its group, weighted by n."""
+    fmask = mask.to(torch.float32)
+    same = (assignment_c[:, None] == assignment_c[None, :]).to(torch.float32)
+    w = same * n_c.to(torch.float32)[None, :] * fmask[None, :]
+    s = torch.sum(w, dim=1, keepdim=True)
+    eye = torch.eye(w.shape[0], dtype=w.dtype, device=w.device)
+    return torch.where(s > 1e-12, w / torch.clamp_min(s, 1e-12), eye)
+
+
+def masked_fedavg_weights(n_c, mask):
+    """Fixed-shape Eq. 1 weights over the cohort: (1, c), pad slots 0; an
+    all-masked cohort gives all-zero weights (0/eps), not NaN."""
+    wn = n_c.to(torch.float32) * mask.to(torch.float32)
+    return (wn / torch.clamp_min(torch.sum(wn), 1e-12))[None, :]
+
+
+def masked_column_mixing(w, idx, mask):
+    """W's columns sliced to the real cohort slots, rows renormalized:
+    (m, c), plus the (m,) bool marking rows with any mass on the cohort."""
+    safe = safe_gather_index(idx, w.shape[0]).long()
+    cols = w[:, safe] * mask.to(w.dtype)[None, :]
+    s = torch.sum(cols, dim=1, keepdim=True)
+    return cols / torch.clamp_min(s, 1e-12), s[:, 0] > 1e-12
+
+
+def _slab(full, what):
+    if not isinstance(full, torch.Tensor):
+        raise ValueError(
+            f"{what}: the stacked state must be one (m, dim_aligned) slab "
+            "(repro_torch.core.flat.LayoutTable); a dict of leaves is not "
+            "supported on the cohort path")
+    return full
+
+
+def cohort_gather(full, safe):
+    """Round-start gather ``full[safe]`` of the slab in ONE
+    ``cohort_gather`` launch; ``safe`` is pre-clamped
+    (:func:`safe_gather_index`)."""
+    return ops.cohort_gather(_slab(full, "cohort_gather"), safe)
+
+
+def mix_scatter_flat(full, flat_c, rows, idx, mask):
+    """Apply the per-slot (c, c) ``rows`` to the (c, d) uploads and
+    scatter the real slots into the (m, d) slab, in ONE
+    ``masked_mix_scatter`` launch.
+
+    ``flat_c`` wider than the slab is sliced back (its tail columns are
+    zero padding). On the card the slab is written in place: the caller
+    uses the return value and does not reuse ``full``. Pad slots rely on
+    the sentinel contract: ``mask`` is False wherever ``idx`` is m.
+    """
+    full = _slab(full, "mix_scatter")
+    d = full.shape[1]
+    if flat_c.shape[1] > d:
+        flat_c = flat_c[:, :d].contiguous()
+    return ops.masked_mix_scatter(rows, flat_c, idx, mask, full)

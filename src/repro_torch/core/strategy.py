@@ -1,16 +1,22 @@
 """Strategy protocol and the paper's hyperparameters.
 
-A strategy owns three callables:
+A strategy owns these callables:
 
   * ``init(gen, data) -> state`` — the initial state, including the
     paper's collaboration round;
   * ``round(state, data, gen, cohort=None, *, perms=None) -> (state,
     metrics)`` — one communication round (local training + PS mix).
-    ``perms`` injects the (m, epochs, ≥ steps·B) batch orders instead of
-    drawing them from ``gen``. Only full participation (``cohort=None``)
-    is ported; a cohort raises (ROADMAP A10);
+    ``cohort`` is None (full participation, the dense path), a
+    :class:`~repro_torch.federated.participation.Cohort` or a plain index
+    array (the masked cohort path, which writes the cohort rows of the
+    params slab in place on the card). ``perms`` injects the (m, epochs,
+    ≥ steps·B) batch orders of all m clients instead of drawing them from
+    ``gen``; a cohort round takes its slots' rows itself;
   * ``eval_params(state) -> stacked params`` — the per-client models to
-    evaluate.
+    evaluate;
+  * ``skip_round(state) -> state`` (optional) — what a round that nobody
+    attends (an all-offline availability cohort) does to the state; the
+    simulation loop calls it instead of ``round``.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ class Strategy:
     init: Callable[..., Any]
     round: Callable[..., Any]
     eval_params: Callable[[Any], Any]
+    skip_round: Callable[[Any], Any] | None = None
 
 
 def register(name):

@@ -13,18 +13,33 @@ Algorithm 1 end-to-end, at full participation:
 State: ``params`` is the (m, dim_aligned) f32 slab
 (:class:`repro_torch.core.flat.LayoutTable`); ``W`` the (m, m) mixing
 matrix; ``labels``/``streams`` the clustered variant's assignment and
-stream count; ``collab`` the special round's statistics. The round mixes
-the whole slab in ONE ``mix_aggregate`` launch (the rule is
-column-independent), where the reference launches once per leaf.
+stream count, with ``cluster_onehot`` its (m, m_t) membership and
+``labels_host`` a host copy of ``labels``; ``collab`` the special round's
+statistics. The dense round mixes the whole slab in ONE ``mix_aggregate``
+launch (the rule is column-independent), where the reference launches
+once per leaf.
 
-Cohort rounds (the masked engine), ``ucfl_parallel`` and the engine knobs
-come with later slices (ROADMAP A10–A12).
+Partial participation, ``round(state, data, gen, cohort)``: the masked
+cohort round of :mod:`repro_torch.core.baselines.common` gathers the
+cohort rows of the slab (one ``cohort_gather`` launch), trains them, turns
+W into per-slot (c, c) rules (``masked_cohort_matrix``, or
+``masked_clustered_rows`` for the clustered variant) and mixes and
+scatters the real slots back in ONE ``masked_mix_scatter`` launch, in
+place on the card; rows outside the cohort are not touched. The round's
+``streams`` is counted on the host from the cohort: its real members
+(full personalization) or the clusters they belong to.
+
+``ucfl_parallel`` and the engine knobs come with later slices (ROADMAP
+A11–A12).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import aggregation, clustering, flat, similarity
+from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
 from repro_torch.device import resolve_device
 from repro_torch.federated import client as fedclient
@@ -101,13 +116,18 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             apply_stacked, params0, data, var_batch_size=var_batch_size,
             chunk_size=cfg.chunk_size, layout=layout)
         w = collab["W"]
-        labels = None
+        labels = onehot = labels_host = None
         k = num_streams
         if k == "auto":
             k, _ = clustering.choose_num_streams(gen, w)
         if k is not None:
             labels = clustering.kmeans(gen, w, int(k), init_centroids=kmeans_init).labels
+            onehot = F.one_hot(labels.long(), int(k)).float()
+            # the cohort round counts its streams from this copy, not
+            # with a device sync every round
+            labels_host = labels.cpu().numpy()
         return {"params": layout.slab(params0, m), "W": w, "labels": labels,
+                "cluster_onehot": onehot, "labels_host": labels_host,
                 "streams": k, "collab": collab}
 
     def dense(state, data, gen, perms):
@@ -119,16 +139,35 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             mixed = aggregation.clustered(updated, state["W"], state["labels"], streams)
         return dict(state, params=mixed), {"streams": streams or data.num_clients}
 
-    def round(state, data, gen=None, cohort=None, *, perms=None):
-        if cohort is not None:
-            raise NotImplementedError(
-                "ucfl: cohort rounds (the masked cohort engine) are not "
-                "ported yet (ROADMAP A10); pass cohort=None")
-        state, metrics = dense(state, data, gen, perms)
-        return state, {**metrics, "cohort_size": data.num_clients}
+    sops = common.StateOps()
+
+    def train(pc, xc, yc, perms_c, *args):
+        return local(pc, xc, yc, perms=perms_c)
+
+    def serve(params, post, idx, mask, w, labels, streams):
+        if streams is None:
+            rows = aggregation.masked_cohort_matrix(w, idx, mask)
+        else:
+            rows = aggregation.masked_clustered_rows(w, labels, streams, idx, mask)
+        return sops.mix_scatter_flat(params, post, rows, idx, mask)
+
+    masked_body = common.make_masked_round(train, serve, epochs=cfg.epochs, sops=sops)
+
+    def masked(state, data, gen, idx, mask, perms):
+        dev = state["params"].device
+        params = masked_body(
+            state["params"], torch.as_tensor(idx, device=dev),
+            torch.as_tensor(mask, device=dev), data.x, data.y, gen,
+            state["W"], state["labels"], state["streams"], perms=perms)
+        members = idx[mask]
+        if state["streams"] is None:
+            n_streams = int(members.size)
+        else:  # only the clusters present in the cohort put a model on the downlink
+            n_streams = int(np.unique(state["labels_host"][members]).size)
+        return dict(state, params=params), {"streams": n_streams}
 
     return Strategy(
         name="ucfl" if num_streams is None else f"ucfl_k{num_streams}",
-        init=init, round=round,
+        init=init, round=common.cohort_round(dense, masked),
         eval_params=lambda s: layout.unravel(s["params"]),
     )

@@ -90,9 +90,14 @@ def make_federated_local_sgd(apply_stacked, layout, *, chunk_size=None,
                              mesh=None, **kw):
     """Local SGD over the client axis, in chunks of ``chunk_size`` clients.
 
-    Returns fed(slab, x, y, *, gen=None, perms=None) -> trained slab. One of
-    ``gen`` (a ``torch.Generator`` on the slab's device) or ``perms``
-    ((m, epochs, ≥ steps·B) batch orders) must be given.
+    Returns fed(slab, x, y, *, gen=None, perms=None) -> trained slab. The
+    rows are any U clients: the whole (m, dim_aligned) slab with all of
+    the data, or a cohort's gathered (c, dim_aligned) rows with ``x[safe]``,
+    ``y[safe]`` and their (c, epochs, ≥ steps·B) ``perms``, which the
+    cohort round takes from the orders of all m clients
+    (:func:`repro_torch.core.baselines.common.cohort_keys`). One of ``gen``
+    (a ``torch.Generator`` on the slab's device, drawing U orders) or
+    ``perms`` must be given.
     """
     if mesh is not None:
         raise NotImplementedError(

@@ -1,7 +1,17 @@
 """Federated simulation engine: rounds loop + per-round evaluation.
 
-Full participation only in this slice (the cohort samplers come with
-ROADMAP A9–A10).
+Partial participation: ``run(..., participation=ParticipationConfig(...))``
+draws a fixed-shape padded cohort per round
+(:func:`repro_torch.federated.participation.sample_cohort`, its own numpy
+seed stream) and passes it to ``strategy.round(state, data, gen,
+cohort)``. A round whose cohort is all-offline is skipped: the strategy's
+``skip_round`` hook runs when it has one, and the round's metrics are
+``{"streams": 0, "cohort_size": 0, "skipped": True}``.
+
+In place: on the card the cohort round writes the cohort rows of the
+params slab in place, the port's analogue of the reference's buffer
+donation; :func:`clone_state` is the counterpart of the reference's
+``donation_safe_copy``, and the warm-up runs on such a copy.
 
 Randomness: ``run`` takes an integer seed and spawns three independent
 ``torch.Generator`` streams on the device from it (``numpy``'s
@@ -11,7 +21,9 @@ never shifts the rounds' batch orders.
 
 Timing: the special round (``strategy.init``) is timed into
 ``History.init_s``. ``strategy.round`` is then warmed up once on a clone
-of the state (result discarded) before the round timer starts, so
+of the state (result discarded; under partial participation with round
+1's cohort, or with a synthetic one-member cohort of the same slot count
+when round 1 is all-offline) before the round timer starts, so
 ``History.wall_s`` measures steady-state rounds, not first-call costs such
 as the kernel build and cuDNN's algorithm search. The evaluation passes
 are timed separately into ``History.eval_s`` and excluded from
@@ -27,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.federated import participation as part
 from repro_torch.federated.client import evaluate
 
 
@@ -72,7 +85,9 @@ class History:
 
 
 def clone_state(state):
-    """Copy every tensor of a state dict (the warm-up trains on a copy)."""
+    """Copy every tensor of a state dict. The cohort round writes the
+    params slab in place, so a caller that keeps the pre-round state (the
+    warm-up, an A/B comparison) runs the round on this copy."""
     return {k: v.clone() if isinstance(v, torch.Tensor) else v
             for k, v in state.items()}
 
@@ -109,16 +124,36 @@ def _generators(seed, device):
     return gens
 
 
-def run(strategy, apply_stacked, data, seed: int, *, rounds: int,
-        device=None) -> History:
-    """Run ``rounds`` full-participation rounds, each followed by a finite
-    check of the clients' models and an evaluation.
+def _warmup_cohort(participation, m, n):
+    """Round 1's cohort; when round 1 is all-offline, a synthetic
+    one-member cohort of the same slot count, so the warm-up still runs
+    the cohort round."""
+    cohort = part.sample_cohort(participation, 1, m, n)
+    if cohort is not None and len(cohort) == 0:
+        idx = np.full(cohort.num_slots, m, np.int32)
+        idx[0] = 0
+        mask = np.zeros(cohort.num_slots, bool)
+        mask[0] = True
+        cohort = part.Cohort(indices=idx, mask=mask)
+    return cohort
 
-    ``data`` must already live on ``device`` (CUDA unless told otherwise).
+
+def run(strategy, apply_stacked, data, seed: int, *, rounds: int,
+        participation: part.ParticipationConfig | None = None,
+        device=None) -> History:
+    """Run ``rounds`` rounds, each followed by a finite check of the
+    clients' models and an evaluation.
+
+    ``participation`` None (or a full policy) runs the dense
+    full-participation round; otherwise each round's cohort is
+    ``sample_cohort(participation, rnd, m, n)``. ``data`` must already
+    live on ``device`` (CUDA unless told otherwise).
     """
     dev = resolve_device(device)
     if data.x.device.type != dev.type:
         raise ValueError(f"data lives on {data.x.device}, run on {dev}")
+    m = data.num_clients
+    n_host = data.n.cpu().numpy()  # for the weighted sampler, copied once
     init_gen, warm_gen, round_gen = _generators(seed, dev)
     hist = History(strategy.name, [], [], [], [])
 
@@ -129,7 +164,8 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int,
     hist.init_s = time.perf_counter() - t
 
     # first-call costs stay outside the timed region
-    wstate, _ = strategy.round(clone_state(state), data, warm_gen)
+    wstate, _ = strategy.round(clone_state(state), data, warm_gen,
+                               _warmup_cohort(participation, m, n_host))
     _sync(dev)
     del wstate
 
@@ -148,7 +184,14 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int,
         hist.metrics.append(metrics)
 
     for rnd in range(1, rounds + 1):
-        state, metrics = strategy.round(state, data, round_gen)
+        cohort = part.sample_cohort(participation, rnd, m, n_host)
+        if cohort is not None and len(cohort) == 0:
+            # nobody is online: no training and no mix this round
+            if strategy.skip_round is not None:
+                state = strategy.skip_round(state)
+            metrics = {"streams": 0, "cohort_size": 0, "skipped": True}
+        else:
+            state, metrics = strategy.round(state, data, round_gen, cohort)
         do_eval(rnd, metrics)
     _sync(dev)
     hist.wall_s = time.perf_counter() - t0 - hist.eval_s

@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gram.cu", "mix_aggregate.cu", "kmeans_assign.cu")
+SOURCES = ("gram.cu", "mix_aggregate.cu", "kmeans_assign.cu", "cohort_gather.cu",
+           "masked_mix_scatter.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,9 +49,12 @@ def _nvcc() -> str:
 
 
 def target(source: str) -> Path:
-    """The library path for ``source``: its stem plus a hash of its text
-    and of the compiler flags."""
+    """The library path for ``source``: its stem plus a hash of its text,
+    of every shared header in ``csrc/`` (a header edit must rebuild the
+    sources that include it) and of the compiler flags."""
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

@@ -11,34 +11,26 @@
 // 19 MB each, about 11 us, with 0.95 GFLOP on the f32 CUDA cores (about
 // 14 us), so it sits near the ridge.
 //
-// Design:
-//   * one thread per output column and KC output rows in registers (KC = 4
-//     for k <= 4, else 16); a block is 256 consecutive columns and one
-//     chunk of KC rows. The grid
-//     is 1-D with the row chunk fastest, so the blocks that re-read a column
-//     tile of θ run next to each other and find it in L2;
-//   * θ is read coalesced: a warp reads 32 neighbouring floats of one row,
-//     and each thread starts 16 such loads (16 clients) before it uses
-//     them, so enough bytes are in flight to approach HBM rate with only
-//     one thread per column;
-//   * W's KC rows are staged in shared memory, transposed so that the KC
-//     weights of one client are contiguous and read as broadcasts. Clients
-//     are staged 512 at a time, so any m fits in 32 KB;
-//   * each output is summed over clients in order 0..m-1 with FMAs.
+// Design: the column-per-thread sum of mix_rows.cuh (θ read coalesced with
+// 16 loads in flight per thread, W's rows transposed in shared memory,
+// sums in order 0..m-1 with FMAs), KC output rows per block in registers
+// (KC = 4 for k <= 4, else 16); a block is 256 consecutive columns and one
+// chunk of KC rows. The grid is 1-D with the row chunk fastest, so the
+// blocks that re-read a column tile of θ run next to each other and find
+// it in L2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mix_rows.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kClientsPerStage = 512;
-constexpr int kBatch = 16;  // θ loads in flight together (memory-level parallelism)
+using mix_rows::kThreads;
 
 template <int KC>
 __global__ void __launch_bounds__(kThreads)
 mix_kernel(const float* __restrict__ w, const float* __restrict__ theta,
            float* __restrict__ out, int k, int m, int64_t d, int row_chunks) {
-  __shared__ __align__(16) float ws[kClientsPerStage][KC];
   const int chunk = blockIdx.x % row_chunks;
   const int64_t col_tile = blockIdx.x / row_chunks;
   const int r0 = chunk * KC;
@@ -46,38 +38,7 @@ mix_kernel(const float* __restrict__ w, const float* __restrict__ theta,
   const bool live = c < d;
 
   float acc[KC];
-#pragma unroll
-  for (int i = 0; i < KC; ++i) acc[i] = 0.f;
-
-  for (int j0 = 0; j0 < m; j0 += kClientsPerStage) {
-    const int jn = m - j0 < kClientsPerStage ? m - j0 : kClientsPerStage;
-    __syncthreads();  // the previous stage's readers are done
-    for (int t = threadIdx.x; t < jn * KC; t += kThreads) {
-      const int j = t / KC;
-      const int i = t % KC;
-      ws[j][i] = r0 + i < k ? w[static_cast<int64_t>(r0 + i) * m + j0 + j] : 0.f;
-    }
-    __syncthreads();
-    if (live) {
-      const float* col = theta + static_cast<int64_t>(j0) * d + c;
-      int j = 0;
-      // kBatch independent loads in flight per thread before their FMAs
-      for (; j + kBatch <= jn; j += kBatch) {
-        float t[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) t[u] = col[static_cast<int64_t>(j + u) * d];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u)
-#pragma unroll
-          for (int i = 0; i < KC; ++i) acc[i] = fmaf(ws[j + u][i], t[u], acc[i]);
-      }
-      for (; j < jn; ++j) {
-        const float t = col[static_cast<int64_t>(j) * d];
-#pragma unroll
-        for (int i = 0; i < KC; ++i) acc[i] = fmaf(ws[j][i], t, acc[i]);
-      }
-    }
-  }
+  mix_rows::accumulate<KC>(w, theta, r0, k, m, d, c, live, acc);
   if (!live) return;
 #pragma unroll
   for (int i = 0; i < KC; ++i)

@@ -8,14 +8,18 @@ Every op picks an implementation:
   * ``impl=None``   — the kernel for CUDA tensors, ``ref`` for CPU tensors.
 
 There is no environment override and no fallback: a CUDA tensor under
-``impl=None`` runs the kernel or raises.
+``impl=None`` runs the kernel or raises. The cohort ops have no ``_slab``
+/ ``_hbm`` variants either: on Hopper one kernel touches only the cohort
+rows, which covers both TPU variants.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.cohort_gather import cohort_gather_cuda
 from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda
+from repro_torch.kernels.masked_mix_scatter import masked_mix_scatter_cuda
 from repro_torch.kernels.mix_aggregate import mix_aggregate_cuda
 from repro_torch.kernels.pairwise_delta import gram_cuda
 
@@ -43,6 +47,49 @@ def mix_aggregate(w, theta, *, impl=None):
     if _impl(impl, theta) == "ref":
         return ref.mix_aggregate(w, theta)
     return mix_aggregate_cuda(w, theta)
+
+
+def masked_mix_scatter(w, theta, idx, mask, full, *, impl=None):
+    """Fused cohort mix + scatter: ``full[idx[i]] = (w @ theta)[i]`` where
+    ``mask[i]``; pad slots (sentinel index, mask 0) are dropped.
+
+    w (c, c); theta (c, d); idx/mask (c,); full (m, d) -> (m, d). The CUDA
+    kernel writes ``full`` in place and returns it; the plain version
+    returns a new tensor. Either way callers use the return value and do
+    not reuse ``full`` afterwards.
+    """
+    if full.dim() != 2 or theta.dim() != 2:
+        raise ValueError(f"full and theta must be 2-D, got {tuple(full.shape)} and "
+                         f"{tuple(theta.shape)}")
+    d = full.shape[1]
+    if theta.shape[1] != d:
+        raise ValueError(
+            f"masked_mix_scatter: upload width {theta.shape[1]} != state "
+            f"width {d} — the layout table and the slab "
+            "disagree (state rebuilt from a different params template?)")
+    c = w.shape[0]
+    if w.dim() != 2 or tuple(w.shape) != (c, c):
+        raise ValueError(f"w must be square (c, c), got {tuple(w.shape)}")
+    if tuple(theta.shape) != (c, d):
+        raise ValueError(f"theta must be {(c, d)} to match w {tuple(w.shape)} and full "
+                         f"{tuple(full.shape)}, got {tuple(theta.shape)}")
+    if tuple(idx.shape) != (c,) or tuple(mask.shape) != (c,):
+        raise ValueError(f"idx/mask must be ({c},), got {tuple(idx.shape)}/{tuple(mask.shape)}")
+    if _impl(impl, full) == "ref":
+        return ref.masked_mix_scatter(w, theta, idx, mask, full)
+    return masked_mix_scatter_cuda(w, theta, idx, mask, full)
+
+
+def cohort_gather(full, idx, *, impl=None):
+    """Round-start cohort gather ``out[i] = full[min(idx[i], m-1)]``;
+    full (m, d), idx (c,) -> (c, d)."""
+    if full.dim() != 2:
+        raise ValueError(f"full must be (m, d), got {tuple(full.shape)}")
+    if idx.dim() != 1:
+        raise ValueError(f"idx must be (c,), got {tuple(idx.shape)}")
+    if _impl(impl, full) == "ref":
+        return ref.cohort_gather(full, idx)
+    return cohort_gather_cuda(full, idx)
 
 
 def gram(g, *, impl=None):

@@ -19,6 +19,36 @@ def mix_aggregate(w, theta):
     return out.to(theta.dtype)
 
 
+def cohort_gather(full, idx):
+    """Cohort rows ``out[i] = full[min(idx[i], m - 1)]``.
+
+    full (m, d), idx (c,) int -> (c, d) in ``full.dtype``. Pad slots (the
+    sentinel m) read row m-1. Indices below 0, outside the slot contract,
+    read row 0, as the kernel does.
+    """
+    safe = idx.long().clamp(0, full.shape[0] - 1)
+    return full[safe]
+
+
+def masked_mix_scatter(w, theta, idx, mask, full):
+    """Masked cohort mix + scatter, as a new tensor (``full`` is not written).
+
+    ``out = full`` with ``out[idx[i]] = (w @ theta)[i]`` for every slot
+    with ``mask[i]`` set. Slots whose index lies outside [0, m) are
+    dropped; a masked slot with an in-bounds index writes its row's
+    previous value back. w (c, c) with zero pad columns, theta (c, d), idx
+    and mask (c,), full (m, d) -> (m, d) in ``full.dtype``.
+    """
+    m = full.shape[0]
+    mixed = (w.to(torch.float32) @ theta.to(torch.float32)).to(full.dtype)
+    idx = idx.long()
+    upd = torch.where(mask.bool()[:, None], mixed, cohort_gather(full, idx))
+    keep = (idx >= 0) & (idx < m)
+    out = full.clone()
+    out[idx[keep]] = upd[keep]
+    return out
+
+
 def gram(g):
     """Gram matrix ``G G^T`` of (m, d) stacked gradients, f32 accumulate."""
     g32 = g.to(torch.float32)

@@ -62,3 +62,125 @@ def test_cuda_kmeans_assign_matches_plain(m, f, k):
     torch.cuda.synchronize()
     assert torch.equal(gl, wl)
     assert float((gd - wd).abs().max()) <= 1e-5 * float(wd.abs().max())
+
+
+def _cohort(m, c, real, gen, dev):
+    """idx (c,) int32 with ``real`` sorted members then the sentinel m, and
+    the matching mask, on ``dev``."""
+    members = torch.sort(torch.randperm(m, generator=gen)[:real]).values
+    idx = torch.full((c,), m, dtype=torch.int32)
+    idx[:real] = members.to(torch.int32)
+    mask = torch.zeros(c, dtype=torch.bool)
+    mask[:real] = True
+    return idx.to(dev), mask.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,c,real,misalign", [
+    (100, 47616, 50, 42, False),  # the main path's slab and a padded cohort
+    (13, 97, 6, 4, False),        # odd width: the scalar path
+    (7, 300, 7, 7, True),         # d % 4 == 0 but a misaligned base: the scalar path
+    (100, 47616, 50, 0, False),   # all pads: every slot reads row m-1
+])
+def test_cuda_cohort_gather_matches_plain(m, d, c, real, misalign):
+    dev = cuda_device()
+    gen = torch.Generator().manual_seed(m + c)
+    base = torch.randn(m * d + 1, generator=gen).to(dev)
+    full = (base[1:] if misalign else base[:-1]).view(m, d)  # [1:] is 4 bytes off
+    idx, _ = _cohort(m, c, real, gen, dev)
+    for index in (idx, idx.long()):
+        got = ops.cohort_gather(full, index, impl="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.cohort_gather(full, index))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,d,real", [(100, 50, 47616, 42), (13, 5, 97, 3), (100, 50, 47616, 0),
+                                        (600, 40, 513, 40)])
+def test_cuda_masked_mix_scatter_matches_plain(m, c, d, real):
+    dev = cuda_device()
+    gen = torch.Generator().manual_seed(m + c + d)
+    idx, mask = _cohort(m, c, real, gen, dev)
+    w = torch.zeros(c, c)
+    w[:, :real] = torch.softmax(torch.randn(c, real, generator=gen), dim=1) if real else 0.0
+    w = w.to(dev)
+    theta = torch.randn(c, d, generator=gen).to(dev)
+    full = torch.randn(m, d, generator=gen).to(dev)
+    before = full.clone()
+    want = ref.masked_mix_scatter(w, theta, idx, mask, full)
+    got = ops.masked_mix_scatter(w, theta, idx, mask, full, impl="cuda")
+    torch.cuda.synchronize()
+    assert got.data_ptr() == full.data_ptr()  # written in place
+    assert float((got - want).abs().max()) <= 1e-5 * max(float(want.abs().max()), 1.0)
+    outside = torch.ones(m, dtype=torch.bool, device=dev)
+    outside[idx[mask].long()] = False
+    assert torch.equal(got[outside], before[outside])
+    if real:  # the unpadded cohort writes exactly the same bits
+        unpadded = before.clone()
+        ops.masked_mix_scatter(w[:real, :real].contiguous(), theta[:real].contiguous(),
+                               idx[:real], mask[:real], unpadded, impl="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(unpadded, got)
+
+
+@pytest.mark.cuda
+def test_cuda_masked_mix_scatter_masked_in_bounds_slot_keeps_its_row():
+    dev = cuda_device()
+    full = torch.randn(8, 256, generator=torch.Generator().manual_seed(0)).to(dev)
+    before = full.clone()
+    idx = torch.tensor([0, 2, 5, 7], dtype=torch.int32, device=dev)
+    mask = torch.tensor([True, True, False, True], device=dev)
+    w = torch.eye(4, device=dev)
+    theta = torch.ones(4, 256, device=dev)
+    ops.masked_mix_scatter(w, theta, idx, mask, full, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(full[5], before[5]) and torch.equal(full[[0, 2, 7]], theta[:3])
+
+
+@pytest.mark.cuda
+def test_cuda_masked_mix_scatter_rejects_overlap():
+    dev = cuda_device()
+    full = torch.randn(10, 128, device=dev)
+    idx = torch.arange(3, dtype=torch.int32, device=dev)
+    mask = torch.ones(3, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="overlaps"):
+        ops.masked_mix_scatter(torch.eye(3, device=dev), full[4:7], idx, mask, full, impl="cuda")
+    with pytest.raises(ValueError, match="overlaps"):
+        ops.masked_mix_scatter(full[0, :9].view(3, 3), torch.ones(3, 128, device=dev), idx, mask,
+                               full, impl="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_streams", [None, 2])
+def test_cuda_cohort_round_matches_cpu(num_streams):
+    from repro_torch.core import FedConfig, clustering, ucfl
+    from repro_torch.data import loader, synthetic
+    from repro_torch.federated import participation
+    from repro_torch.models import lenet
+
+    dev = cuda_device()
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(m=8, n=80, n_test=20, num_classes=6, hw=(16, 16))
+    cpu_data = synthetic.covariate_label_shift(0, device="cpu", **kw)
+    gpu_data = synthetic.FederatedData(*(a.to(dev) for a in cpu_data))
+    p0 = lenet.init(torch.Generator().manual_seed(0), input_hw=(16, 16), num_classes=6,
+                    device="cpu")
+    cfg = FedConfig(batch_size=20)
+    host = ucfl.make_ucfl(lenet.apply_stacked, p0, cfg, num_streams=num_streams,
+                          var_batch_size=20, device="cpu")
+    card = ucfl.make_ucfl(lenet.apply_stacked, p0, cfg, num_streams=num_streams,
+                          var_batch_size=20, device=dev)
+    seeds = None  # both sides start K-means from the same seeds
+    if num_streams is not None:
+        w_host = ucfl.compute_collaboration(lenet.apply_stacked, p0, cpu_data,
+                                            var_batch_size=20)["W"]
+        seeds = clustering._plusplus_init(torch.Generator().manual_seed(2), w_host, num_streams)
+    hs = host.init(None, cpu_data, kmeans_init=seeds)
+    cs = card.init(None, gpu_data, kmeans_init=None if seeds is None else seeds.to(dev))
+    cohort = participation.pad_slots(participation.as_cohort([1, 3, 6], 8), 5, 8)
+    perms = loader.draw_permutations(torch.Generator().manual_seed(2), 8, 1, 80, device="cpu")
+    hs, hm = host.round(hs, cpu_data, None, cohort, perms=perms)
+    cs, cm = card.round(cs, gpu_data, None, cohort, perms=perms.to(dev))
+    torch.cuda.synchronize()
+    assert hm == cm
+    assert float((cs["params"].cpu() - hs["params"]).abs().max()) <= 1e-4

@@ -70,8 +70,14 @@ def test_cohort_round_and_unported_knobs_raise():
     s = REGISTRY["ucfl"](lenet.apply_stacked, tparams, FedConfig(batch_size=BATCH),
                          var_batch_size=VAR_BATCH, device="cpu")
     state = s.init(torch.Generator().manual_seed(0), tdata)
-    with pytest.raises(NotImplementedError, match="A10"):
-        s.round(state, tdata, torch.Generator(), cohort=np.arange(3))
+    before = state["params"].clone()
+    # a plain index array is an unpadded cohort: the masked round runs on it
+    new, metrics = s.round(simulation.clone_state(state), tdata,
+                           torch.Generator().manual_seed(1), cohort=np.arange(3))
+    assert metrics == {"streams": 3, "cohort_size": 3}
+    assert torch.equal(new["params"][3:], before[3:])
+    assert not torch.equal(new["params"][:3], before[:3])
+    assert torch.equal(state["params"], before)
     with pytest.raises(TypeError):
         FedConfig(w_refresh=object())
     with pytest.raises(ValueError, match="num_streams"):
