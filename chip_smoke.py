@@ -20,7 +20,9 @@ Phases, each printed as it ends:
   6. cohort  — the same at partial participation: ``ucfl`` and ``ucfl_k4``
                with half the clients a round, and ``ucfl`` with 50-slot
                cohorts drawn from a diurnal availability trace (rounds with
-               pad slots), counting launches again.
+               pad slots), counting launches again; one more cohort round
+               must make no synchronizing CUDA call
+               (``torch.cuda.set_sync_debug_mode``).
 Then one ``{"kernels": [...]}`` JSON line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits non-zero and prints no result.
 Imports nothing of jax or of the reference package.
@@ -32,6 +34,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -520,6 +523,20 @@ def cohort_phase(dev, data, params0, untrained):
                 and torch.equal(state["params"], before)):
             raise AssertionError(f"{name}: the profiled cohort round moved a row outside "
                                  "its cohort")
+        # and one more, unprofiled: queueing it must not wait for the card
+        copy = simulation.clone_state(state)
+        torch.cuda.synchronize(dev)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                strat.round(copy, data, pgen, cohort)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sorted({str(w.message).splitlines()[0] for w in caught
+                        if "called a synchronizing" in str(w.message)})
+        if syncs:
+            raise AssertionError(f"{name}: the cohort round synchronized with the card: {syncs}")
         print_profiles(name, prof)
         avg, worst = hist.paired_best
         results[name] = dict(

@@ -17,9 +17,9 @@ donation. A caller that keeps the pre-round state alive (a warm-up, an
 A/B comparison from one start state) runs the round on
 :func:`repro_torch.federated.simulation.clone_state` of it.
 
-Not ported yet: the mesh and ``shard_state`` (ROADMAP A14), the async
-buffer, upload stage, transport and topology branches (A12), and the
-baselines themselves (A11).
+Not ported yet: the mesh, ``shard_state`` and the reference's
+``StateOps`` layout object (ROADMAP A14), the async buffer, upload stage,
+transport and topology branches (A12), and the baselines themselves (A11).
 """
 from __future__ import annotations
 
@@ -28,30 +28,6 @@ import torch
 from repro_torch.core import aggregation
 from repro_torch.data.loader import draw_permutations
 from repro_torch.federated import participation
-
-
-class StateOps:
-    """Primitives over the (m, dim_aligned) stacked server state, one
-    dispatch point for every gather and mix against it. Only the
-    replicated layout is ported: a mesh or ``shard_state`` raises."""
-
-    def __init__(self, mesh=None, shard_state: bool = False):
-        if mesh is not None or shard_state:
-            raise NotImplementedError(
-                "StateOps: the mesh and shard_state layouts are not ported "
-                "yet (ROADMAP A14)")
-
-    def gather(self, slab, safe):
-        """Cohort rows ``slab[safe]`` (``safe`` pre-clamped)."""
-        return aggregation.cohort_gather(slab, safe)
-
-    def mix_scatter_flat(self, full, flat_c, rows, idx, mask):
-        """:func:`repro_torch.core.aggregation.mix_scatter_flat`."""
-        return aggregation.mix_scatter_flat(full, flat_c, rows, idx, mask)
-
-    def fedavg_mix(self, params, updated, idx, mask, n):
-        """:func:`fedavg_masked_mix`."""
-        return fedavg_masked_mix(params, updated, idx, mask, n)
 
 
 def cohort_round(dense_fn, masked_fn):
@@ -100,7 +76,7 @@ def cohort_keys(gen, m, safe, *, epochs, n, perms=None):
     return perms[safe]
 
 
-def make_masked_round(train, mix, *, epochs, sops=None):
+def make_masked_round(train, mix, *, epochs):
     """The standard masked round body on the slab.
 
     ``train(pc, xc, yc, perms_c, *args) -> (c, dim_aligned)`` trains the
@@ -109,14 +85,12 @@ def make_masked_round(train, mix, *, epochs, sops=None):
     gen, *args, perms=None)`` with ``idx`` (c,) int32 and ``mask`` (c,)
     bool on the slab's device. ``args`` (W, labels, n, ...) go to both.
     """
-    sops = sops or StateOps()
-
     def body(params, idx, mask, x, y, gen, *args, perms=None):
         m, n = y.shape
         safe32 = aggregation.safe_gather_index(idx, m)
         safe = safe32.long()
         perms_c = cohort_keys(gen, m, safe, epochs=epochs, n=n, perms=perms)
-        pc = sops.gather(params, safe32)
+        pc = aggregation.cohort_gather(params, safe32)
         post = train(pc, x[safe], y[safe], perms_c, *args)
         return mix(params, post, idx, mask, *args)
 

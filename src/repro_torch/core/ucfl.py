@@ -13,11 +13,10 @@ Algorithm 1 end-to-end, at full participation:
 State: ``params`` is the (m, dim_aligned) f32 slab
 (:class:`repro_torch.core.flat.LayoutTable`); ``W`` the (m, m) mixing
 matrix; ``labels``/``streams`` the clustered variant's assignment and
-stream count, with ``cluster_onehot`` its (m, m_t) membership and
-``labels_host`` a host copy of ``labels``; ``collab`` the special round's
-statistics. The dense round mixes the whole slab in ONE ``mix_aggregate``
-launch (the rule is column-independent), where the reference launches
-once per leaf.
+stream count, with ``labels_host`` a host copy of ``labels``; ``collab``
+the special round's statistics. The dense round mixes the whole slab in
+ONE ``mix_aggregate`` launch (the rule is column-independent), where the
+reference launches once per leaf.
 
 Partial participation, ``round(state, data, gen, cohort)``: the masked
 cohort round of :mod:`repro_torch.core.baselines.common` gathers the
@@ -27,7 +26,10 @@ W into per-slot (c, c) rules (``masked_cohort_matrix``, or
 scatters the real slots back in ONE ``masked_mix_scatter`` launch, in
 place on the card; rows outside the cohort are not touched. The round's
 ``streams`` is counted on the host from the cohort: its real members
-(full personalization) or the clusters they belong to.
+(full personalization) or the clusters they belong to. The cohort's
+slots reach the card in one asynchronous copy from pinned memory, so
+the host does not wait for the stream to drain before it queues the
+round.
 
 ``ucfl_parallel`` and the engine knobs come with later slices (ROADMAP
 A11–A12).
@@ -36,7 +38,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import aggregation, clustering, flat, similarity
 from repro_torch.core.baselines import common
@@ -116,19 +117,17 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             apply_stacked, params0, data, var_batch_size=var_batch_size,
             chunk_size=cfg.chunk_size, layout=layout)
         w = collab["W"]
-        labels = onehot = labels_host = None
+        labels = labels_host = None
         k = num_streams
         if k == "auto":
             k, _ = clustering.choose_num_streams(gen, w)
         if k is not None:
             labels = clustering.kmeans(gen, w, int(k), init_centroids=kmeans_init).labels
-            onehot = F.one_hot(labels.long(), int(k)).float()
             # the cohort round counts its streams from this copy, not
             # with a device sync every round
             labels_host = labels.cpu().numpy()
         return {"params": layout.slab(params0, m), "W": w, "labels": labels,
-                "cluster_onehot": onehot, "labels_host": labels_host,
-                "streams": k, "collab": collab}
+                "labels_host": labels_host, "streams": k, "collab": collab}
 
     def dense(state, data, gen, perms):
         updated = local(state["params"], data.x, data.y, gen=gen, perms=perms)
@@ -139,8 +138,6 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             mixed = aggregation.clustered(updated, state["W"], state["labels"], streams)
         return dict(state, params=mixed), {"streams": streams or data.num_clients}
 
-    sops = common.StateOps()
-
     def train(pc, xc, yc, perms_c, *args):
         return local(pc, xc, yc, perms=perms_c)
 
@@ -149,15 +146,20 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             rows = aggregation.masked_cohort_matrix(w, idx, mask)
         else:
             rows = aggregation.masked_clustered_rows(w, labels, streams, idx, mask)
-        return sops.mix_scatter_flat(params, post, rows, idx, mask)
+        return aggregation.mix_scatter_flat(params, post, rows, idx, mask)
 
-    masked_body = common.make_masked_round(train, serve, epochs=cfg.epochs, sops=sops)
+    masked_body = common.make_masked_round(train, serve, epochs=cfg.epochs)
 
     def masked(state, data, gen, idx, mask, perms):
         dev = state["params"].device
+        c = len(idx)
+        # one copy of (idx, mask) a round; from pinned memory it does not
+        # block the host as a copy from pageable memory would
+        slots = torch.from_numpy(np.concatenate([idx, mask]).astype(np.int32))
+        if dev.type == "cuda":
+            slots = slots.pin_memory().to(dev, non_blocking=True)
         params = masked_body(
-            state["params"], torch.as_tensor(idx, device=dev),
-            torch.as_tensor(mask, device=dev), data.x, data.y, gen,
+            state["params"], slots[:c], slots[c:].bool(), data.x, data.y, gen,
             state["W"], state["labels"], state["streams"], perms=perms)
         members = idx[mask]
         if state["streams"] is None:

@@ -192,16 +192,12 @@ def test_fedavg_masked_mix_matches_reference():
     for mask in (np.asarray([1, 1, 0, 0], bool), np.zeros(4, bool)):
         want = ref_common.fedavg_masked_mix(jnp.asarray(params), jnp.asarray(upd),
                                             jnp.asarray(idx), jnp.asarray(mask), jnp.asarray(sizes))
-        got = common.StateOps().fedavg_mix(t(params), t(upd), t(idx), t(mask), t(sizes))
+        got = common.fedavg_masked_mix(t(params), t(upd), t(idx), t(mask), t(sizes))
         np.testing.assert_allclose(n(got), n(want), atol=1e-6)
     np.testing.assert_array_equal(n(got), params)  # all-masked: the previous model
 
 
-def test_state_ops_replicated_only_and_cohort_keys():
-    with pytest.raises(NotImplementedError, match="A14"):
-        common.StateOps(shard_state=True)
-    with pytest.raises(NotImplementedError, match="A14"):
-        common.StateOps(mesh=2)
+def test_cohort_keys_are_client_indexed():
     perms = torch.arange(5 * 2 * 4).reshape(5, 2, 4)
     safe = torch.tensor([1, 4, 4])
     assert torch.equal(common.cohort_keys(None, 5, safe, epochs=2, n=4, perms=perms), perms[safe])
@@ -239,7 +235,8 @@ def test_ucfl_cohort_rounds_match_reference(num_streams):
             ikey, rstate["W"].astype(jnp.float32), num_streams))
     pstate = port.init(None, tdata, kmeans_init=seeds)
     if num_streams is not None:
-        np.testing.assert_array_equal(n(pstate["cluster_onehot"]), n(rstate["cluster_onehot"]))
+        np.testing.assert_array_equal(n(pstate["labels"]), n(rstate["labels"]))
+        np.testing.assert_array_equal(pstate["labels_host"], n(rstate["labels"]))
     for cohort in _cohorts(m):
         key, rkey = jax.random.split(key)
         rcohort = ref_part.Cohort(indices=cohort.indices, mask=cohort.mask)
