@@ -4,12 +4,15 @@
 
 Phases, each printed as it ends:
   1. device  — asserts CUDA and prints ``nvidia-smi``'s name and power limit;
-  2. build   — compiles the five hand-written kernels from
+  2. build   — compiles the six hand-written kernels from
                ``src/repro_torch/kernels/csrc/`` with nvcc (all at once);
   3. kernels — holds each kernel against its plain torch version on the card
                at the main path's shapes (the cohort kernels also with pad
-               slots, an all-pad cohort and an odd width), and times kernel,
-               plain version and one PyTorch library call with CUDA events;
+               slots, an all-pad cohort and an odd width; flash_attention in
+               bf16 and f32 over head dims 32-256, GQA, window, softcap,
+               ragged and one-query shapes, from strided views), and times
+               kernel, plain version and one PyTorch library call with CUDA
+               events;
   4. agree   — Algorithm 1 at a small size on the card (kernels) against the
                port's plain path on the CPU, from the same data, weights and
                batch orders: two dense rounds, then two cohort rounds;
@@ -22,7 +25,17 @@ Phases, each printed as it ends:
                cohorts drawn from a diurnal availability trace (rounds with
                pad slots), counting launches again; one more cohort round
                must make no synchronizing CUDA call
-               (``torch.cuda.set_sync_debug_mode``).
+               (``torch.cuda.set_sync_debug_mode``);
+  7. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
+               federated prefill step and teacher-forced decode steps
+               (gemma2 past its window-64 wrap) on the card against the
+               plain path on the CPU;
+  8. serve   — personalized serving of qwen2-7b at full width and depth
+               (28 layers, bf16) for 2 clients x 2 requests: the federated
+               prefill step over 1024 tokens, a profile of decode steps,
+               then ``serve()`` (a 128-token teacher-forced prompt and 32
+               greedy tokens), counting the attention kernel's launches
+               (28 per prefill and per decode step).
 Then one ``{"kernels": [...]}`` JSON line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits non-zero and prints no result.
 Imports nothing of jax or of the reference package.
@@ -42,33 +55,57 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import FedConfig, ParticipationConfig, clustering, ucfl  # noqa: E402
 from repro_torch.data import loader, synthetic  # noqa: E402
 from repro_torch.federated import client, participation, simulation  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.cohort_gather import GATHER  # noqa: E402
+from repro_torch.kernels.flash_attention import FLASH  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ASSIGN  # noqa: E402
 from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER  # noqa: E402
 from repro_torch.kernels.mix_aggregate import MIX  # noqa: E402
 from repro_torch.kernels.pairwise_delta import GRAM  # noqa: E402
-from repro_torch.models import lenet  # noqa: E402
+from repro_torch.launch import serve as serve_lib  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import lenet, transformer  # noqa: E402
 
-# H100 SXM data sheet: HBM3 rate and f32 CUDA-core peak (no tensor cores)
+# H100 SXM data sheet: HBM3 rate, f32 CUDA-core peak (no tensor cores) and
+# the dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 ROUNDS = 5
 SEED = 0
 COUNTERS = {"gram": GRAM, "mix_aggregate": MIX, "kmeans_assign": ASSIGN,
-            "cohort_gather": GATHER, "masked_mix_scatter": MIX_SCATTER}
+            "cohort_gather": GATHER, "masked_mix_scatter": MIX_SCATTER,
+            "flash_attention": FLASH}
+# the serve phase: qwen2-7b at full width and depth, 2 clients x 2 requests
+SERVE_ARCH = "qwen2-7b"
+SERVE_CLIENTS, SERVE_BATCH = 2, 2
+PREFILL_LEN, PREFILL_REPS = 1024, 3
+PROMPT_LEN, DECODE_TOKENS = 128, 32
+# (B, Hq, Hkv, Sq, Sk, Dh, causal, window, softcap) of the flash check
+FLASH_CASES = [
+    (4, 28, 4, 1024, 1024, 128, True, None, None),  # qwen2-7b's prefill (2 clients x 2)
+    (4, 28, 4, 1, 160, 128, False, None, None),     # qwen2-7b's last decode step
+    (2, 32, 32, 200, 200, 64, True, None, None),    # stablelm's heads, ragged
+    (2, 4, 2, 100, 100, 80, False, None, None),     # Dh 80, bidirectional, ragged
+    (2, 16, 8, 300, 300, 256, True, 128, 50.0),     # gemma2's heads, window, softcap
+    (4, 14, 2, 1, 97, 256, False, None, 50.0),      # decode, group 7, Dh 256
+    (1, 4, 2, 100, 260, 64, True, None, None),      # Sq < Sk: top-left causal
+    (1, 2, 1, 40, 10, 32, True, 4, None),           # rows past Sk + window - 1: uniform
+    (3, 4, 2, 65, 129, 32, True, 64, 30.0),         # reduced gemma2, one past the tiles
+]
 
 
 def phase(name, t0, msg):
     print(f"[{name}] {msg} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def bound_ms(bytes_moved, flops):
+def bound_ms(bytes_moved, flops, flop_rate=F32_FLOP_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -202,13 +239,15 @@ def kernel_phase(dev):
         bytes=4 * (m * f + k * f + 2 * m), flops=2 * m * k * f + 2 * (m + k) * f)
 
     rows.update(cohort_kernel_rows(gen, dev, m, d_al))
+    rows.update(flash_rows(dev))
 
     for name, r in rows.items():
-        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"))
+        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"),
+                                                r.pop("flop_rate", F32_FLOP_PER_S))
         print(f"  {name}: max_abs_err {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    phase("kernels", t0, "5 kernels agree with their plain versions")
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    phase("kernels", t0, "6 kernels agree with their plain versions")
     return rows
 
 
@@ -285,6 +324,65 @@ def cohort_kernel_rows(gen, dev, m, d_al, c=50, real=42):
         # two library calls: the product of the live rules, then index_copy_
         library_ms=time_ms(lambda: scratch.index_copy_(0, live, w_live @ theta), dev),
         bytes=4 * (c * c + c * d_al + real * d_al), flops=2 * c * c * d_al)
+    return rows
+
+
+def flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev, seed=0):
+    """q, k, v as the model passes them: ``.transpose(1, 2)`` views of
+    (B, S, H, Dh) tensors, k and v a prefix of a longer cache."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(s, h):
+        return torch.randn(b, s, h, dh, generator=gen, device=dev).to(dtype)
+
+    q = draw(sq, hq).transpose(1, 2)
+    k = draw(sk + 7, hkv)[:, :sk].transpose(1, 2)
+    v = draw(sk + 7, hkv)[:, :sk].transpose(1, 2)
+    return q, k, v
+
+
+def flash_rows(dev):
+    """flash_attention against its plain version on every FLASH_CASES
+    shape, f32 and bf16, then timed at qwen2-7b's prefill and decode shapes
+    in bf16. Tolerance: f32 atol 2e-5 (averages of unit-scale v, sums in
+    another order); bf16 two bf16 steps of the largest output (2^-6 of
+    it): both sides compute in f32 from the same inputs and round once."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_CASES:
+            b, hq, hkv, sq, sk, dh, causal, window, cap = case
+            q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev, seed=sq + sk + dh)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            want = ref.flash_attention(q, k, v, **kw)
+            got = ops.flash_attention(q, k, v, impl="cuda", **kw)
+            tol = 2e-5 if dtype == torch.float32 else float(want.float().abs().max()) * 2.0 ** -6
+            errs[case, dtype] = check(f"flash_attention {case} {dtype}", got, want, tol)
+            flat = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                       impl="cuda", **kw)
+            if not torch.equal(flat, got):
+                raise AssertionError(f"flash_attention {case} {dtype}: strided views and "
+                                     "contiguous inputs differ")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, case in (("flash_attention_prefill", FLASH_CASES[0]),
+                       ("flash_attention_decode", FLASH_CASES[1])):
+        b, hq, hkv, sq, sk, dh, causal, _, _ = case
+        q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, torch.bfloat16, dev)
+        # the (row, col) pairs the mask keeps: top-left causal keeps col <= row
+        pairs = sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
+        rows[name] = dict(
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:88",
+            max_abs_err=errs[case, torch.bfloat16],
+            ms=time_ms(lambda q=q, k=k, v=v, c=causal: ops.flash_attention(
+                q, k, v, causal=c, impl="cuda"), dev),
+            plain_ms=time_ms(lambda q=q, k=k, v=v, c=causal: ref.flash_attention(
+                q, k, v, causal=c), dev),
+            library_ms=time_ms(lambda q=q, k=k, v=v, c=causal: sdpa(
+                q, k, v, is_causal=c, enable_gqa=True), dev),
+            bytes=2 * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh),
+            flops=4 * b * hq * pairs * dh, flop_rate=BF16_FLOP_PER_S)
     return rows
 
 
@@ -554,6 +652,161 @@ def cohort_phase(dev, data, params0, untrained):
     return launches
 
 
+def serve_agree_phase(dev):
+    """Reduced qwen2-7b and gemma2-9b in f32, 2 clients x 2 requests: the
+    federated prefill step and 72 teacher-forced decode steps (gemma2's
+    window-64 cache wraps) on the card, through the kernel, against the
+    plain path on the CPU from the same weights. Logits atol 1e-4 (values
+    up to ~5; f32 sums in another order)."""
+    t0 = time.perf_counter()
+    for arch in ("qwen2-7b", "gemma2-9b"):
+        cfg = configs.get(arch).reduced()
+        host = serve_lib.personalized_params(cfg, 2, SEED, "cpu")
+        card = transformer.tree_map(lambda x: x.to(dev), host)
+        tok = torch.randint(0, cfg.vocab_size, (2, 2, 72),
+                            generator=torch.Generator().manual_seed(SEED + 1))
+        prefill = steps.build_prefill_step(cfg, federated=True)
+        hl, hc = prefill(host, {"tokens": tok[:, :, :40]})
+        cl, cc = prefill(card, {"tokens": tok[:, :, :40].to(dev)})
+        errs = [check(f"serve-agree {arch} prefill", cl, hl.to(dev), 1e-4)]
+        check(f"serve-agree {arch} prefill k cache", cc["blocks"]["l0"]["k"],
+              hc["blocks"]["l0"]["k"].to(dev), 1e-4)
+        step = steps.build_serve_step(cfg, federated=True)
+        hcache = transformer.init_cache(cfg, 2, 2, 80, "cpu")
+        ccache = transformer.init_cache(cfg, 2, 2, 80, dev)
+        for pos in range(72):
+            hl, hcache = step(host, hcache, tok[:, :, pos:pos + 1], pos)
+            cl, ccache = step(card, ccache, tok[:, :, pos:pos + 1].to(dev), pos)
+            errs.append(check(f"serve-agree {arch} decode step {pos}", cl, hl.to(dev), 1e-4))
+        print(f"  {cfg.name}: prefill logits max_abs_err {errs[0]:.3e}, decode steps "
+              f"{max(errs[1:]):.3e} (largest |logit| {float(hl.abs().max()):.2f})")
+    phase("serve-agree", t0, "reduced qwen2-7b and gemma2-9b serve on the card as on the CPU "
+          "(f32, logits atol 1e-4, 72 decode steps)")
+
+
+def zero_counters():
+    for c in COUNTERS.values():
+        c.launches = 0
+
+
+def read_counters(name, expect_flash):
+    """The launches since zero_counters(); only flash_attention may have
+    launched, exactly ``expect_flash`` times."""
+    got = {k: c.launches for k, c in COUNTERS.items()}
+    if got["flash_attention"] != expect_flash or sum(got.values()) != expect_flash:
+        raise AssertionError(f"{name}: launches {got}, expected {expect_flash} of "
+                             "flash_attention and no other kernel")
+    return got
+
+
+def check_logits(name, logits, cfg):
+    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError(f"{name}: non-finite logits")
+    diff = float((logits[0] - logits[1]).abs().max())
+    if not diff > 0:
+        raise AssertionError(f"{name}: the two clients' logits are identical")
+    return diff
+
+
+def serve_prefill(dev, cfg):
+    """Personalized params, then the federated prefill step over
+    PREFILL_LEN tokens (one warm-up call and PREFILL_REPS timed ones) and a
+    profile of decode steps at the serve run's positions."""
+    m, b = SERVE_CLIENTS, SERVE_BATCH
+    t0 = time.perf_counter()
+    params = serve_lib.personalized_params(cfg, m, SEED, dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    per_client = sum(x[0].numel() for x in leaves(params))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg.vocab_size, (m, b, PREFILL_LEN), generator=gen, device=dev)
+    prefill = steps.build_prefill_step(cfg, federated=True)
+    zero_counters()
+    times = []
+    for _ in range(1 + PREFILL_REPS):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t)
+    launches = read_counters("prefill", cfg.num_layers * (1 + PREFILL_REPS))
+    if tuple(logits.shape) != (m, b, 1, cfg.padded_vocab):
+        raise AssertionError(f"prefill: logits {tuple(logits.shape)}")
+    k = caches["blocks"]["l0"]["k"]
+    if tuple(k.shape) != (m, cfg.num_groups, b, PREFILL_LEN, cfg.num_kv_heads,
+                          cfg.resolved_head_dim):
+        raise AssertionError(f"prefill: k cache {tuple(k.shape)}")
+    diff = check_logits("prefill", logits, cfg)
+    del logits, caches, k
+    prefill_s = statistics.median(times[1:])
+
+    # decode steps at positions PROMPT_LEN.. of a serve-sized cache
+    step = steps.build_serve_step(cfg, federated=True)
+    cache = transformer.init_cache(cfg, m, b, PROMPT_LEN + DECODE_TOKENS, dev)
+    cur = tokens[:, :, :1]
+    step(params, cache, cur, 0)
+    prof = profile(lambda: [step(params, cache, cur, pos)
+                            for pos in range(PROMPT_LEN, PROMPT_LEN + 4)], dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    return dict(params_per_client=per_client, init_s=init_s, prefill_times_s=times,
+                prefill_s=prefill_s, prefill_tok_s=m * b * PREFILL_LEN / prefill_s,
+                prefill_launches=launches, client_logit_diff=diff, decode_profile_4_steps=prof,
+                peak_gb=peak / 1e9)
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    return [tree]
+
+
+def serve_phase(dev):
+    """qwen2-7b at full width and depth, bf16, 2 personalized clients x 2
+    requests: the prefill step, a decode profile, then ``serve()``."""
+    t0 = time.perf_counter()
+    cfg = configs.get(SERVE_ARCH)
+    m, b = SERVE_CLIENTS, SERVE_BATCH
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = serve_prefill(dev, cfg)
+    torch.cuda.empty_cache()
+    print(f"  {cfg.name}: {out['params_per_client'] / 1e9:.3f} B parameters per client, "
+          f"{cfg.num_layers} layers, {cfg.param_dtype}; init + personalize {out['init_s']:.2f} s; "
+          f"peak memory {out['peak_gb']:.2f} GB")
+    print(f"  prefill: {m} clients x {b} requests x {PREFILL_LEN} tokens in "
+          f"{out['prefill_s'] * 1e3:.1f} ms (median of {PREFILL_REPS}; first call "
+          f"{out['prefill_times_s'][0] * 1e3:.1f} ms), {out['prefill_tok_s']:.0f} tokens/s; "
+          f"flash launches {out['prefill_launches']['flash_attention']} over "
+          f"{1 + PREFILL_REPS} calls")
+    print_profiles(cfg.name, {"4 decode steps": out["decode_profile_4_steps"]})
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    res = serve_lib.serve(cfg, clients=m, batch=b, prompt_len=PROMPT_LEN,
+                          decode_tokens=DECODE_TOKENS, seed=SEED, device=dev)
+    launches = read_counters("serve", cfg.num_layers * (PROMPT_LEN + DECODE_TOKENS))
+    if tuple(res.tokens.shape) != (m, b, DECODE_TOKENS) or not bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"serve: tokens {tuple(res.tokens.shape)} out of range")
+    diff = check_logits("serve", res.logits, cfg)
+    out.update(serve_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               prompt_s=res.prefill_s, prompt_tok_s=m * b * PROMPT_LEN / res.prefill_s,
+               decode_s=res.decode_s, decode_tok_s=m * b * DECODE_TOKENS / res.decode_s,
+               decode_step_ms=res.decode_s / DECODE_TOKENS * 1e3, serve_launches=launches,
+               serve_client_logit_diff=diff, sample=res.tokens[0, 0].tolist())
+    print(f"  serve(): {PROMPT_LEN}-token teacher-forced prompt in {res.prefill_s:.3f} s "
+          f"({out['prompt_tok_s']:.1f} tokens/s), {DECODE_TOKENS} greedy tokens in "
+          f"{res.decode_s:.3f} s ({out['decode_tok_s']:.1f} tokens/s, "
+          f"{out['decode_step_ms']:.2f} ms a step); flash launches "
+          f"{launches['flash_attention']} over {PROMPT_LEN + DECODE_TOKENS} steps; peak memory "
+          f"{out['serve_peak_gb']:.2f} GB; clients' last logits differ by up to {diff:.3f}")
+    del res
+    torch.cuda.empty_cache()
+    phase("serve", t0, f"{cfg.name} at full width and depth served {m} clients x {b} requests")
+    print("serve_path " + json.dumps(out))
+    return out
+
+
 def main():
     dev = device_phase()
     build_phase()
@@ -562,11 +815,16 @@ def main():
     task = full_size_task(dev)
     launches = main_phase(dev, *task)
     cohort = cohort_phase(dev, *task)
+    del task
+    serve_agree_phase(dev)
+    served = serve_phase(dev)
     full, k4 = launches["ucfl"], launches["ucfl_k4"]
     counts = {"gram": full["gram"] + k4["gram"], "mix_aggregate_k100": full["mix_aggregate"],
               "mix_aggregate_k4": k4["mix_aggregate"], "kmeans_assign": k4["kmeans_assign"],
               "cohort_gather": sum(r["cohort_gather"] for r in cohort.values()),
-              "masked_mix_scatter": sum(r["masked_mix_scatter"] for r in cohort.values())}
+              "masked_mix_scatter": sum(r["masked_mix_scatter"] for r in cohort.values()),
+              "flash_attention_prefill": served["prefill_launches"]["flash_attention"],
+              "flash_attention_decode": served["serve_launches"]["flash_attention"]}
     kernels = [{"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
                 "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -7,5 +7,7 @@ Entry points run on ``torch.device("cuda")`` unless the caller passes
 
 Ported so far: Algorithm 1 (``ucfl``, ``ucfl_k4``, ``"auto"``) at full
 participation and, through ``repro_torch.core.ParticipationConfig`` and
-``Cohort``, at partial participation (the masked cohort round).
+``Cohort``, at partial participation (the masked cohort round); and
+personalized serving of the dense transformer family
+(``repro_torch.launch.serve``: prefill and decode, one model per client).
 """

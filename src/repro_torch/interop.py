@@ -1,6 +1,6 @@
 """Carry arrays over from the reference package, as numpy only.
 
-Both converters take numpy arrays (``np.asarray`` of the reference's jax
+The converters take numpy arrays (``np.asarray`` of the reference's jax
 arrays), so the parity tests can run the two packages on the same weights
 and data without this package importing ``jax``.
 """
@@ -35,3 +35,31 @@ def data_from_numpy(x, y, x_test, y_test, group, n, *, device=None) -> Federated
         return torch.as_tensor(np.array(a, np.int64), device=dev)
 
     return FederatedData(f32(x), i64(y), f32(x_test), i64(y_test), i64(group), i64(n))
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits over
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.as_tensor(np.array(a), device=dev)
+
+
+def transformer_params_from_numpy(tree: dict, *, device=None) -> dict:
+    """A nested dict of numpy arrays (a reference transformer's params:
+    stacked blocks, and a leading client axis where there is one) -> the
+    same nested dict of tensors, dtypes kept (bfloat16 included)."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _tensor(node, dev)
+
+    return conv(tree)
+
+
+def cache_from_numpy(tree: dict, *, device=None) -> dict:
+    """A reference KV-cache tree (``{"blocks": {"l0": {"k", "v", "pos"}}}``)
+    of numpy arrays -> tensors, for decode parity."""
+    return transformer_params_from_numpy(tree, device=device)

@@ -18,6 +18,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.cohort_gather import cohort_gather_cuda
+from repro_torch.kernels.flash_attention import check_args as check_flash_args
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda
 from repro_torch.kernels.masked_mix_scatter import masked_mix_scatter_cuda
 from repro_torch.kernels.mix_aggregate import mix_aggregate_cuda
@@ -113,3 +115,21 @@ def kmeans_assign(points, centroids, *, impl=None):
     if _impl(impl, points) == "ref":
         return ref.kmeans_assign(points, centroids)
     return kmeans_assign_cuda(points, centroids)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, impl=None):
+    """Block-wise fused attention over (B, H, S, Dh), see
+    :func:`repro_torch.kernels.ref.flash_attention` for the function.
+
+    q (B, Hq, Sq, Dh), k and v (B, Hkv, Sk, Dh) with Hq % Hkv == 0 and
+    Sk >= 1; the result is (B, Hq, Sq, Dh) in q's dtype, accumulated in
+    f32. ``window`` and ``softcap`` apply when they are not None (the
+    reference's kernel's test, not its ops path's truthiness). The CUDA
+    kernel takes any batch, head and sequence strides (the last dim
+    contiguous), so (B, S, H, Dh) projections pass as ``.transpose(1, 2)``
+    views, and returns a view over (B, Sq, Hq, Dh) memory.
+    """
+    check_flash_args(q, k, v, window, softcap)
+    if _impl(impl, q) == "ref":
+        return ref.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)

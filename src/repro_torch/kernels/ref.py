@@ -1,4 +1,4 @@
-"""Plain torch versions of the PS-side kernels.
+"""Plain torch versions of the hand-written kernels.
 
 These are the semantic ground truth of :mod:`repro_torch.kernels`: the CPU
 path of :mod:`repro_torch.kernels.ops` dispatches here, the CPU parity
@@ -83,3 +83,36 @@ def kmeans_assign(points, centroids):
     d = torch.clamp_min(d, 0.0)
     labels = torch.argmin(d, dim=1)
     return labels.to(torch.int32), d.gather(1, labels[:, None])[:, 0]
+
+
+NEG_INF = -1e30  # the mask value of the reference's attention kernels
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
+    """Attention over (B, H, S, Dh), materialising the (Sq, Sk) logits.
+
+    q (B, Hq, Sq, Dh), k and v (B, Hkv, Sk, Dh), Hq % Hkv == 0: q head h
+    reads kv head ``h // (Hq // Hkv)``. Step by step the reference's plain
+    path (``repro/kernels/ops.py:150``): f32 logits scaled by Dh^-0.5, the
+    tanh softcap, the mask (``col <= row`` counted from 0 for both, i.e.
+    top-left causal alignment; ``col > row - window``) filled with -1e30,
+    softmax, then the f32 product with v, cast to q's dtype. ``window`` and
+    ``softcap`` apply when they are not None. A row whose every column is
+    masked gets the uniform softmax, the mean of v.
+    """
+    g = q.shape[1] // k.shape[1]
+    kx = torch.repeat_interleave(k, g, dim=1).to(torch.float32)
+    vx = torch.repeat_interleave(v, g, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kx) * q.shape[-1] ** -0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    rows = torch.arange(q.shape[2], device=q.device)[:, None]
+    cols = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols > rows - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)

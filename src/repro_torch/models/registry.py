@@ -1,0 +1,47 @@
+"""Build the functional model bundle for a ModelConfig (``repro.models.registry``).
+
+The bundle serves one model: its functions take the reference's
+single-model params (no client axis) and add and drop the client axis of
+:mod:`repro_torch.models.transformer` around each call. ``loss`` comes
+with the training slice (ROADMAP A15).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable[..., Any]  # (generator, device=None) -> params
+    forward: Callable[..., Any]  # (params, batch) -> logits (B, S, V)
+    init_cache: Callable[..., Any]  # (batch, max_len, device=None) -> caches
+    decode_step: Callable[..., Any]  # (params, caches, tokens, pos) -> (logits, caches)
+
+
+def one(tree):
+    """A single model's tree as m = 1 clients (views, no copy)."""
+    return transformer.tree_map(lambda x: x[None], tree)
+
+
+def unone(tree):
+    return transformer.tree_map(lambda x: x[0], tree)
+
+
+def build(cfg: ModelConfig) -> Model:
+    def decode_step(params, caches, tokens, pos):
+        logits, new = transformer.decode_step(one(params), one(caches), tokens[None], pos, cfg)
+        return logits[0], unone(new)
+
+    return Model(
+        cfg=cfg,
+        init=lambda gen, device=None: transformer.init(gen, cfg, device),
+        forward=lambda p, b: transformer.forward(one(p), one(b), cfg)[0],
+        init_cache=lambda batch, max_len, device=None: unone(
+            transformer.init_cache(cfg, 1, batch, max_len, device)),
+        decode_step=decode_step,
+    )

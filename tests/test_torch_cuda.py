@@ -7,7 +7,11 @@ only torch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 sums in another order, so 1e-5 of the largest output; the
-k-means labels (ties included) are exact.
+k-means labels (ties included) are exact. flash_attention: in f32 atol
+2e-5 (outputs are averages of unit-scale v; the kernel's online softmax
+sums in another order than the plain version's whole row); in bfloat16
+both compute in f32 from the same inputs and round once, so they differ
+by at most two bf16 steps of the largest output (2^-6 of it).
 """
 import pytest
 import torch
@@ -184,3 +188,98 @@ def test_cuda_cohort_round_matches_cpu(num_streams):
     torch.cuda.synchronize()
     assert hm == cm
     assert float((cs["params"].cpu() - hs["params"]).abs().max()) <= 1e-4
+
+
+# (B, Hq, Hkv, Sq, Sk, Dh, causal, window, softcap)
+FLASH_CASES = [
+    (4, 28, 4, 1024, 1024, 128, True, None, None),  # qwen2-7b's prefill (2 clients x 2)
+    (4, 28, 4, 1, 160, 128, False, None, None),     # qwen2-7b's decode over a 160 prefix
+    (2, 32, 32, 200, 200, 64, True, None, None),    # stablelm's heads, ragged
+    (2, 4, 2, 100, 100, 80, False, None, None),     # Dh 80, bidirectional, ragged
+    (2, 16, 8, 300, 300, 256, True, 128, 50.0),     # gemma2's heads, window, softcap
+    (4, 14, 2, 1, 97, 256, False, None, 50.0),      # decode, group 7, Dh 256
+    (1, 4, 2, 100, 260, 64, True, None, None),      # Sq < Sk: top-left causal
+    (1, 2, 1, 40, 10, 32, True, 4, None),           # rows past Sk + window - 1: uniform
+    (3, 4, 2, 65, 129, 32, True, 64, 30.0),         # reduced gemma2, one past the tiles
+]
+
+
+def flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev, seed=0):
+    """q, k, v as the model passes them: ``.transpose(1, 2)`` views of
+    (B, S, H, Dh) tensors (k and v a prefix of a longer cache)."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, sq, hq, dh, generator=gen).to(dev, dtype).transpose(1, 2)
+    k = torch.randn(b, sk + 7, hkv, dh, generator=gen).to(dev, dtype)[:, :sk].transpose(1, 2)
+    v = torch.randn(b, sk + 7, hkv, dh, generator=gen).to(dev, dtype)[:, :sk].transpose(1, 2)
+    return q, k, v
+
+
+def flash_tol(want, dtype):
+    if dtype == torch.float32:
+        return 2e-5
+    return float(want.float().abs().max()) * 2.0 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh,causal,window,cap", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(b, hq, hkv, sq, sk, dh, causal, window, cap, dtype):
+    dev = cuda_device()
+    q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev, seed=sq + sk + dh)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap, impl="cuda")
+    want = ref.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == (b, hq, sq, dh)
+    assert float((got.float() - want.float()).abs().max()) <= flash_tol(want, dtype)
+    # contiguous inputs give the same bits as the strided views
+    again = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                                window=window, softcap=cap, impl="cuda")
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_it_cannot_take():
+    dev = cuda_device()
+    x = torch.zeros(1, 2, 4, 8, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 2, 4, 264, device=dev)
+        ops.flash_attention(big, big, big, impl="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(x.transpose(2, 3), x.transpose(2, 3), x.transpose(2, 3), impl="cuda")
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        ops.flash_attention(x.half(), x.half(), x.half(), impl="cuda")
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        ops.flash_attention(x, x.bfloat16(), x, impl="cuda")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.flash_attention(x, x.cpu(), x, impl="cuda")
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        ops.flash_attention(torch.zeros(1, 3, 4, 8, device=dev), x, x, impl="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-9b"])
+def test_cuda_serve_matches_cpu(arch):
+    """A reduced f32 model for 2 clients: the federated prefill step and
+    teacher-forced decode steps (gemma2 past its window-64 wrap) on the
+    card, through the kernel, against the plain path on the CPU. Logits
+    atol 1e-4 (values up to ~5; f32 sums in another order)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer
+
+    dev = cuda_device()
+    cfg = configs.get(arch).reduced()
+    host = serve.personalized_params(cfg, 2, 0, "cpu")
+    card = transformer.tree_map(lambda x: x.to(dev), host)
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, 72), generator=torch.Generator().manual_seed(1))
+    prefill = steps.build_prefill_step(cfg, federated=True)
+    hl, hc = prefill(host, {"tokens": tok[:, :, :40]})
+    cl, cc = prefill(card, {"tokens": tok[:, :, :40].to(dev)})
+    assert float((cl.cpu() - hl).abs().max()) <= 1e-4
+    step = steps.build_serve_step(cfg, federated=True)
+    hcache = transformer.init_cache(cfg, 2, 2, 80, "cpu")
+    ccache = transformer.init_cache(cfg, 2, 2, 80, dev)
+    for s in range(72):
+        hl, hcache = step(host, hcache, tok[:, :, s:s + 1], s)
+        cl, ccache = step(card, ccache, tok[:, :, s:s + 1].to(dev), s)
+        assert float((cl.cpu() - hl).abs().max()) <= 1e-4, s

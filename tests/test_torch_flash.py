@@ -1,0 +1,114 @@
+"""The port's plain ``flash_attention`` against the reference's Pallas
+kernel in interpret mode, on the CPU.
+
+Tolerance rtol 2e-3, atol 2e-4, as ``tests/test_flash_attention.py``
+holds the kernel against its plain einsum: both sides compute in f32, the
+kernel with an online softmax over 128-wide blocks, the plain version over
+the whole row, so sums and exponentials run in another order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as ref_flash
+from repro_torch.kernels import ops, ref
+from test_flash_attention import CASES
+from torch_parity import f32, n, t
+
+TOL = dict(rtol=2e-3, atol=2e-4)
+
+# (hq, hkv, sq, sk, dh, causal, window, cap): beyond the reference's four
+EXTRA = [
+    (4, 2, 1, 37, 64, False, None, None),     # decode: one query over a 37-slot prefix
+    (14, 2, 1, 160, 128, False, None, 50.0),  # decode, GQA group 7, softcap
+    (4, 2, 100, 200, 64, True, None, None),   # Sq < Sk causal: top-left alignment
+    (4, 4, 70, 150, 32, True, 48, 30.0),      # Sq < Sk, window and softcap
+    (4, 2, 130, 130, 256, True, None, 50.0),  # Dh = 256 (gemma2), ragged
+    (14, 2, 96, 96, 32, True, 64, None),      # GQA group 7, window
+]
+
+
+def _inputs(seed, b, hq, hkv, sq, sk, dh):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, hq, sq, dh)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, sk, dh)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, sk, dh)).astype(np.float32)
+    return q, k, v
+
+
+def _check(hq, hkv, sq, sk, dh, causal, window, cap, seed):
+    q, k, v = _inputs(seed, 2, hq, hkv, sq, sk, dh)
+    want = ref_flash(f32(q), f32(k), f32(v), causal=causal, window=window, softcap=cap,
+                     interpret=True)
+    got = ops.flash_attention(t(q), t(k), t(v), causal=causal, window=window, softcap=cap)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, hq, sq, dh)
+    np.testing.assert_allclose(n(got), n(want), **TOL)
+
+
+@pytest.mark.parametrize("hq,hkv,sq,dh,causal,window,cap", CASES)
+def test_plain_flash_matches_reference_cases(hq, hkv, sq, dh, causal, window, cap):
+    _check(hq, hkv, sq, sq, dh, causal, window, cap, seed=hq * 1000 + sq)
+
+
+@pytest.mark.parametrize("hq,hkv,sq,sk,dh,causal,window,cap", EXTRA)
+def test_plain_flash_matches_reference_extra(hq, hkv, sq, sk, dh, causal, window, cap):
+    _check(hq, hkv, sq, sk, dh, causal, window, cap, seed=sq * 7 + sk)
+
+
+def test_causal_is_top_left_aligned():
+    """With Sq < Sk, query row r sees keys 0..r (rows and cols both from 0),
+    not the bottom-right alignment that would let it see r + Sk − Sq."""
+    q, k, v = _inputs(3, 1, 2, 2, 4, 9, 16)
+    got = ops.flash_attention(t(q), t(k), t(v), causal=True)
+    first = ops.flash_attention(t(q[:, :, :1]), t(k[:, :, :1]), t(v[:, :, :1]), causal=False)
+    np.testing.assert_allclose(n(got[:, :, :1]), n(first), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(n(first[:, :, 0]), v[:, :, 0], rtol=1e-6, atol=1e-7)
+
+
+def test_plain_flash_takes_strided_views():
+    """(B, S, H, Dh) projections passed as ``.transpose(1, 2)`` views give
+    what contiguous (B, H, S, Dh) inputs give."""
+    q, k, v = _inputs(5, 2, 4, 2, 33, 33, 32)
+    tq, tk, tv = (t(a).transpose(1, 2).contiguous().transpose(1, 2) for a in (q, k, v))
+    assert tq.stride(3) == 1 and not tq.is_contiguous()
+    got = ops.flash_attention(tq, tk, tv, window=8, softcap=20.0)
+    want = ops.flash_attention(t(q), t(k), t(v), window=8, softcap=20.0)
+    np.testing.assert_array_equal(n(got), n(want))
+
+
+def test_fully_masked_rows_take_the_uniform_softmax():
+    """Rows past Sk + window − 1 reach no key: the plain version, as the
+    reference's plain path, gives them the mean of v."""
+    q, k, v = _inputs(9, 1, 2, 1, 12, 4, 8)
+    got = ops.flash_attention(t(q), t(k), t(v), causal=True, window=3)
+    mean = v.mean(axis=2)  # (1, 1, Dh)
+    for r in range(4 + 3 - 1, 12):
+        np.testing.assert_allclose(n(got[:, :, r]), np.repeat(mean, 2, axis=1), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_plain_flash_keeps_bfloat16():
+    q, k, v = _inputs(11, 1, 2, 1, 20, 20, 64)
+    got = ops.flash_attention(*(t(a).to(torch.bfloat16) for a in (q, k, v)))
+    want = ref.flash_attention(t(q), t(k), t(v))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(n(got.float()), n(want), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("shapes,kw,msg", [
+    (((1, 3, 4, 8), (1, 2, 4, 8), (1, 2, 4, 8)), {}, "multiple of Hkv"),
+    (((1, 2, 4, 8), (1, 2, 4, 8), (1, 2, 5, 8)), {}, "must be"),
+    (((1, 2, 4, 8), (1, 2, 0, 8), (1, 2, 0, 8)), {}, "Sk"),
+    (((1, 2, 4, 8), (1, 2, 4, 8), (1, 2, 4, 8)), {"window": 0}, "window"),
+    (((1, 2, 4, 8), (1, 2, 4, 8), (1, 2, 4, 8)), {"softcap": 0.0}, "softcap"),
+    (((2, 4, 8), (2, 4, 8), (2, 4, 8)), {}, "4-D"),
+])
+def test_flash_rejects_bad_arguments(shapes, kw, msg):
+    with pytest.raises(ValueError, match=msg):
+        ops.flash_attention(*(torch.zeros(s) for s in shapes), **kw)
+
+
+def test_impl_cuda_needs_cuda_tensors():
+    x = torch.zeros(1, 2, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(x, x, x, impl="cuda")

@@ -122,3 +122,44 @@ def n(x):
 
 def f32(a):
     return jnp.asarray(np.asarray(a, np.float32))
+
+
+def np_tree(tree):
+    """A nested dict of jax arrays -> the same of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: np_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def jax_tree(tree):
+    if isinstance(tree, dict):
+        return {k: jax_tree(v) for k, v in tree.items()}
+    return jnp.asarray(tree)
+
+
+def perturbed(tree, rng, scale=0.05):
+    """Every leaf plus ``scale · N(0, 1)`` from ``rng``, so zero-initialised
+    norms and biases carry values too (f32 leaves only; int leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: perturbed(tree[k], rng, scale) for k in sorted(tree)}
+    if tree.dtype != np.float32:
+        return tree
+    return (tree + scale * rng.normal(size=tree.shape)).astype(np.float32)
+
+
+def stack_clients(trees):
+    """Stack same-shaped numpy trees on a new leading client axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_clients([t_[k] for t_ in trees]) for k in first}
+    return np.stack(trees)
+
+
+def assert_tree_close(got, want, **tol):
+    """Every leaf of a torch tree against the same leaf of a numpy/jax tree."""
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    for k in got:
+        if isinstance(got[k], dict):
+            assert_tree_close(got[k], want[k], **tol)
+        else:
+            np.testing.assert_allclose(n(got[k]), np.asarray(want[k]), err_msg=k, **tol)
