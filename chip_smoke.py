@@ -10,9 +10,10 @@ Phases, each printed as it ends:
                at the main path's shapes (the cohort kernels also with pad
                slots, an all-pad cohort and an odd width; flash_attention in
                bf16 and f32 over head dims 32-256, GQA, window, softcap,
-               ragged and one-query shapes, from strided views), and times
-               kernel, plain version and one PyTorch library call with CUDA
-               events;
+               ragged and one-query shapes, from strided views, printing
+               which of its two kernels each case took: the bf16
+               tensor-core tile or the FMA kernel), and times kernel, plain
+               version and one PyTorch library call with CUDA events;
   4. agree   — Algorithm 1 at a small size on the card (kernels) against the
                port's plain path on the CPU, from the same data, weights and
                batch orders: two dense rounds, then two cohort rounds;
@@ -29,19 +30,24 @@ Phases, each printed as it ends:
   7. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
                federated prefill step and teacher-forced decode steps
                (gemma2 past its window-64 wrap) on the card against the
-               plain path on the CPU;
+               plain path on the CPU; then both in bf16, the prefill step
+               through the tensor-core tile against the same step with the
+               plain attention on the card;
   8. serve   — personalized serving of qwen2-7b at full width and depth
                (28 layers, bf16) for 2 clients x 2 requests: the federated
                prefill step over 1024 tokens, a profile of decode steps,
-               then ``serve()`` (a 128-token teacher-forced prompt and 32
-               greedy tokens), counting the attention kernel's launches
-               (28 per prefill and per decode step).
+               a profile of one prefill step, then ``serve()`` (a 128-token
+               teacher-forced prompt and 32 greedy tokens), counting the attention kernels' launches
+               (28 of the tensor-core tile per prefill, 28 of the FMA
+               kernel per decode step).
 Then one ``{"kernels": [...]}`` JSON line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits non-zero and prints no result.
 Imports nothing of jax or of the reference package.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -61,7 +67,7 @@ from repro_torch.data import loader, synthetic  # noqa: E402
 from repro_torch.federated import client, participation, simulation  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.cohort_gather import GATHER  # noqa: E402
-from repro_torch.kernels.flash_attention import FLASH  # noqa: E402
+from repro_torch.kernels.flash_attention import FLASH_FMA, FLASH_TC, flash_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ASSIGN  # noqa: E402
 from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER  # noqa: E402
 from repro_torch.kernels.mix_aggregate import MIX  # noqa: E402
@@ -79,7 +85,8 @@ ROUNDS = 5
 SEED = 0
 COUNTERS = {"gram": GRAM, "mix_aggregate": MIX, "kmeans_assign": ASSIGN,
             "cohort_gather": GATHER, "masked_mix_scatter": MIX_SCATTER,
-            "flash_attention": FLASH}
+            "flash_attention_prefill": FLASH_TC, "flash_attention_decode": FLASH_FMA}
+FLASH_ROUTES = {"tc": FLASH_TC, "fma": FLASH_FMA}
 # the serve phase: qwen2-7b at full width and depth, 2 clients x 2 requests
 SERVE_ARCH = "qwen2-7b"
 SERVE_CLIENTS, SERVE_BATCH = 2, 2
@@ -96,6 +103,13 @@ FLASH_CASES = [
     (1, 4, 2, 100, 260, 64, True, None, None),      # Sq < Sk: top-left causal
     (1, 2, 1, 40, 10, 32, True, 4, None),           # rows past Sk + window - 1: uniform
     (3, 4, 2, 65, 129, 32, True, 64, 30.0),         # reduced gemma2, one past the tiles
+    # around the tensor-core tile (bf16, Sq >= 16, Dh % 8 == 0, aligned)
+    (2, 8, 2, 15, 15, 64, True, None, None),        # Sq 15: the FMA kernel
+    (2, 8, 2, 16, 16, 64, True, None, None),        # Sq 16: the tile's smallest q
+    (2, 8, 4, 64, 200, 256, False, 48, 20.0),       # Dh 256, window + softcap, not causal
+    (2, 4, 2, 70, 70, 36, True, None, None),        # Dh 36: the FMA kernel
+    (1, 4, 2, 16, 300, 128, True, None, None),      # Sq < Sk at the tile's smallest q
+    (1, 2, 1, 80, 20, 64, True, 8, 10.0),           # rows past Sk + window - 1, two q tiles
 ]
 
 
@@ -246,8 +260,9 @@ def kernel_phase(dev):
                                                 r.pop("flop_rate", F32_FLOP_PER_S))
         print(f"  {name}: max_abs_err {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
-              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
-    phase("kernels", t0, "6 kernels agree with their plain versions")
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})  "
+              f"kernel/library {r['ms'] / r['library_ms']:.2f}")
+    phase("kernels", t0, "7 kernels agree with their plain versions")
     return rows
 
 
@@ -342,12 +357,54 @@ def flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev, seed=0):
     return q, k, v
 
 
+def flash_call(q, k, v, **kw):
+    """ops.flash_attention on the card; returns (out, the route whose
+    counter rose): each call launches exactly one of the two kernels."""
+    before = {r: c.launches for r, c in FLASH_ROUTES.items()}
+    out = ops.flash_attention(q, k, v, impl="cuda", **kw)
+    rose = {r: c.launches - before[r] for r, c in FLASH_ROUTES.items()}
+    took = [r for r, n in rose.items() if n]
+    if len(took) != 1 or rose[took[0]] != 1 or took[0] != flash_route(q, k, v):
+        raise AssertionError(f"flash_attention: launches {rose}, flash_route says "
+                             f"{flash_route(q, k, v)}")
+    return out, took[0]
+
+
+def check_each(name, got, want):
+    """bf16, element by element: |got - want| <= 2^-7 |want| + 2^-7 of the
+    median |want|. Both sides compute in f32 and round once, so an element
+    may land one bf16 step away (at most 2^-7 of its magnitude); the
+    floor covers outputs near 0, where f32 sums in another order can
+    exceed a step of the value. Returns the largest |got - want| over its
+    allowance (at most 1)."""
+    g, w = got.float(), want.float()
+    allowed = 2.0 ** -7 * (w.abs() + float(w.abs().median()))
+    worst = float(((g - w).abs() / allowed).max())
+    if not worst <= 1.0:
+        raise AssertionError(f"{name}: an element is {worst:.2f}x its allowance of one bf16 "
+                             "step of itself plus 2^-7 of the median output")
+    return worst
+
+
+def mean_err(got, want):
+    return float((got.float() - want.float()).abs().mean())
+
+
 def flash_rows(dev):
     """flash_attention against its plain version on every FLASH_CASES
-    shape, f32 and bf16, then timed at qwen2-7b's prefill and decode shapes
-    in bf16. Tolerance: f32 atol 2e-5 (averages of unit-scale v, sums in
-    another order); bf16 two bf16 steps of the largest output (2^-6 of
-    it): both sides compute in f32 from the same inputs and round once."""
+    shape, f32 and bf16, each case printing the kernel it took, then timed
+    at qwen2-7b's prefill (the tensor-core tile) and decode (the FMA
+    kernel) shapes in bf16. Tolerance: f32 atol 2e-5 (averages of
+    unit-scale v, sums in another order); bf16 two bf16 steps of the
+    largest output (2^-6 of it), and element by element one step of
+    each output (``check_each``): both sides compute in f32 from the same
+    inputs and round once. At the prefill case the tile must also keep
+    within one bf16 step of the largest output (2^-7 of it). On the tile's
+    cases the control is the plain version with P rounded to bf16 before
+    P·V (a tile without the lo half of the split): the tile's mean error
+    must stay at most half the control's, since with P at 16 bits it
+    differs from the plain version only where an output's rounding
+    flips."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for case in FLASH_CASES:
@@ -355,14 +412,44 @@ def flash_rows(dev):
             q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev, seed=sq + sk + dh)
             kw = dict(causal=causal, window=window, softcap=cap)
             want = ref.flash_attention(q, k, v, **kw)
-            got = ops.flash_attention(q, k, v, impl="cuda", **kw)
-            tol = 2e-5 if dtype == torch.float32 else float(want.float().abs().max()) * 2.0 ** -6
-            errs[case, dtype] = check(f"flash_attention {case} {dtype}", got, want, tol)
-            flat = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                       impl="cuda", **kw)
-            if not torch.equal(flat, got):
+            got, route = flash_call(q, k, v, **kw)
+            largest = float(want.float().abs().max())
+            tol = 2e-5 if dtype == torch.float32 else largest * 2.0 ** -6
+            errs[case, dtype] = err = check(f"flash_attention {case} {dtype}", got, want, tol)
+            flat, flat_route = flash_call(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+            if flat_route != route or not torch.equal(flat, got):
                 raise AssertionError(f"flash_attention {case} {dtype}: strided views and "
                                      "contiguous inputs differ")
+            extra = ""
+            if dtype == torch.bfloat16:
+                worst = check_each(f"flash_attention {case} bf16", got, want)
+                extra = f", element/allowance {worst:.2f}"
+                if route == "tc":
+                    control = ref.flash_attention(q, k, v, probs_dtype=torch.bfloat16, **kw)
+                    mine, theirs = mean_err(got, want), mean_err(control, want)
+                    if not mine <= 0.5 * theirs:
+                        raise AssertionError(f"flash_attention {case} bf16: mean error {mine:.3e} "
+                                             f"is over half the bf16-P control's {theirs:.3e}")
+                    extra += f", mean err {mine:.3e} (bf16-P control {theirs:.3e})"
+            print(f"  flash {case} {str(dtype)[6:]}: {route}, max_abs_err {err:.3e} "
+                  f"(largest |out| {largest:.3f}){extra}")
+            if case == FLASH_CASES[0] and dtype == torch.bfloat16:
+                if route != "tc" or not err <= largest * 2.0 ** -7:
+                    raise AssertionError(f"flash prefill: {route} error {err:.3e} is more than "
+                                         f"one bf16 step (2^-7 of {largest:.3f})")
+    # a q that starts one element into its buffer is not 16-byte aligned
+    q, k, v = flash_inputs(2, 4, 2, 64, 64, 64, torch.bfloat16, dev, seed=5)
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(2, 64, 4, 64)
+    odd.copy_(q.transpose(1, 2))
+    got, route = flash_call(odd.transpose(1, 2), k, v)
+    want = ref.flash_attention(q, k, v)
+    err = check("flash_attention odd offset", got, want,
+                float(want.float().abs().max()) * 2.0 ** -6)
+    check_each("flash_attention odd offset", got, want)
+    if route != "fma":
+        raise AssertionError(f"flash_attention odd offset took {route}")
+    print(f"  flash odd-offset q (2, 4, 64, 64) bfloat16: {route}, max_abs_err {err:.3e}")
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for name, case in (("flash_attention_prefill", FLASH_CASES[0]),
@@ -373,7 +460,7 @@ def flash_rows(dev):
         pairs = sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
         rows[name] = dict(
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention.py:88",
+            replaces="src/repro/kernels/flash_attention.py:88", tile=flash_route(q, k, v),
             max_abs_err=errs[case, torch.bfloat16],
             ms=time_ms(lambda q=q, k=k, v=v, c=causal: ops.flash_attention(
                 q, k, v, causal=c, impl="cuda"), dev),
@@ -383,6 +470,9 @@ def flash_rows(dev):
                 q, k, v, is_causal=c, enable_gqa=True), dev),
             bytes=2 * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh),
             flops=4 * b * hq * pairs * dh, flop_rate=BF16_FLOP_PER_S)
+    if (rows["flash_attention_prefill"]["tile"], rows["flash_attention_decode"]["tile"]) != (
+            "tc", "fma"):
+        raise AssertionError("flash: qwen2-7b's prefill must take the tile, decode the FMA kernel")
     return rows
 
 
@@ -652,12 +742,27 @@ def cohort_phase(dev, data, params0, untrained):
     return launches
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention calls (``ops.flash_attention``) take the
+    plain version, on whatever device their tensors are."""
+    kernel = ops.flash_attention
+    ops.flash_attention = functools.partial(kernel, impl="ref")
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
 def serve_agree_phase(dev):
     """Reduced qwen2-7b and gemma2-9b in f32, 2 clients x 2 requests: the
     federated prefill step and 72 teacher-forced decode steps (gemma2's
     window-64 cache wraps) on the card, through the kernel, against the
     plain path on the CPU from the same weights. Logits atol 1e-4 (values
-    up to ~5; f32 sums in another order)."""
+    up to ~5; f32 sums in another order). Then bf16 (which the f32 run
+    never routes to the tensor-core tile): the prefill step over 96 tokens
+    through the tile, against the same step with the plain attention, on
+    the card (``bf16_prefill_agree``)."""
     t0 = time.perf_counter()
     for arch in ("qwen2-7b", "gemma2-9b"):
         cfg = configs.get(arch).reduced()
@@ -680,8 +785,42 @@ def serve_agree_phase(dev):
             errs.append(check(f"serve-agree {arch} decode step {pos}", cl, hl.to(dev), 1e-4))
         print(f"  {cfg.name}: prefill logits max_abs_err {errs[0]:.3e}, decode steps "
               f"{max(errs[1:]):.3e} (largest |logit| {float(hl.abs().max()):.2f})")
+    for arch in ("qwen2-7b", "gemma2-9b"):
+        bf16_prefill_agree(dev, configs.get(arch).reduced(param_dtype="bfloat16",
+                                                          act_dtype="bfloat16"))
     phase("serve-agree", t0, "reduced qwen2-7b and gemma2-9b serve on the card as on the CPU "
-          "(f32, logits atol 1e-4, 72 decode steps)")
+          "(f32, logits atol 1e-4, 72 decode steps); in bf16 the tile's prefill step "
+          "matches the plain attention's")
+
+
+def bf16_prefill_agree(dev, cfg, seq=96):
+    """A bf16 model's federated prefill step (2 clients x 2 requests x
+    ``seq`` tokens, past gemma2's window 64) through the tensor-core tile,
+    as ``attention.forward`` calls it (fused-projection views, GQA, window,
+    softcap), against the same step with the plain attention on the card.
+    The two runs share every other kernel and all weights, so they differ
+    only where an attention output rounds to the neighbouring bf16 value
+    (phase 3 holds each to one step), carried through the later layers'
+    bf16 products and norms: logits and every cache leaf within 4 bf16
+    steps of their largest magnitude (2^-5 of it)."""
+    params = serve_lib.personalized_params(cfg, 2, SEED, dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, seq),
+                        generator=torch.Generator().manual_seed(SEED + 2)).to(dev)
+    prefill = steps.build_prefill_step(cfg, federated=True)
+    zero_counters()
+    got, got_cache = prefill(params, {"tokens": tok})
+    read_counters(f"serve-agree {cfg.name} bf16", {"flash_attention_prefill": cfg.num_layers})
+    with plain_attention():
+        want, want_cache = prefill(params, {"tokens": tok})
+    read_counters(f"serve-agree {cfg.name} bf16 plain", {"flash_attention_prefill": cfg.num_layers})
+    largest = float(want.float().abs().max())
+    err = check(f"serve-agree {cfg.name} bf16 prefill logits", got, want, 2.0 ** -5 * largest)
+    cache_errs = [check(f"serve-agree {cfg.name} bf16 prefill cache", g, w,
+                        2.0 ** -5 * float(w.float().abs().max()))
+                  for g, w in zip(leaves(got_cache), leaves(want_cache))]
+    print(f"  {cfg.name} bf16: prefill over {seq} tokens on the tile, {cfg.num_layers} launches; "
+          f"logits max_abs_err {err:.3e} against the plain attention (largest |logit| "
+          f"{largest:.3f}), cache leaves {max(cache_errs):.3e}")
 
 
 def zero_counters():
@@ -689,13 +828,12 @@ def zero_counters():
         c.launches = 0
 
 
-def read_counters(name, expect_flash):
-    """The launches since zero_counters(); only flash_attention may have
-    launched, exactly ``expect_flash`` times."""
+def read_counters(name, expect):
+    """The launches since zero_counters(): exactly ``expect`` ({counter:
+    launches}) and nothing of any other kernel."""
     got = {k: c.launches for k, c in COUNTERS.items()}
-    if got["flash_attention"] != expect_flash or sum(got.values()) != expect_flash:
-        raise AssertionError(f"{name}: launches {got}, expected {expect_flash} of "
-                             "flash_attention and no other kernel")
+    if got != {k: expect.get(k, 0) for k in COUNTERS}:
+        raise AssertionError(f"{name}: launches {got}, expected {expect} and no other kernel")
     return got
 
 
@@ -730,7 +868,8 @@ def serve_prefill(dev, cfg):
         logits, caches = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t)
-    launches = read_counters("prefill", cfg.num_layers * (1 + PREFILL_REPS))
+    launches = read_counters("prefill",
+                             {"flash_attention_prefill": cfg.num_layers * (1 + PREFILL_REPS)})
     if tuple(logits.shape) != (m, b, 1, cfg.padded_vocab):
         raise AssertionError(f"prefill: logits {tuple(logits.shape)}")
     k = caches["blocks"]["l0"]["k"]
@@ -739,6 +878,7 @@ def serve_prefill(dev, cfg):
         raise AssertionError(f"prefill: k cache {tuple(k.shape)}")
     diff = check_logits("prefill", logits, cfg)
     del logits, caches, k
+    prefill_prof = profile(lambda: prefill(params, {"tokens": tokens}), dev, top=12)
     prefill_s = statistics.median(times[1:])
 
     # decode steps at positions PROMPT_LEN.. of a serve-sized cache
@@ -751,7 +891,8 @@ def serve_prefill(dev, cfg):
     peak = torch.cuda.max_memory_allocated(dev)
     return dict(params_per_client=per_client, init_s=init_s, prefill_times_s=times,
                 prefill_s=prefill_s, prefill_tok_s=m * b * PREFILL_LEN / prefill_s,
-                prefill_launches=launches, client_logit_diff=diff, decode_profile_4_steps=prof,
+                prefill_launches=launches, client_logit_diff=diff, prefill_profile=prefill_prof,
+                decode_profile_4_steps=prof,
                 peak_gb=peak / 1e9)
 
 
@@ -776,15 +917,17 @@ def serve_phase(dev):
     print(f"  prefill: {m} clients x {b} requests x {PREFILL_LEN} tokens in "
           f"{out['prefill_s'] * 1e3:.1f} ms (median of {PREFILL_REPS}; first call "
           f"{out['prefill_times_s'][0] * 1e3:.1f} ms), {out['prefill_tok_s']:.0f} tokens/s; "
-          f"flash launches {out['prefill_launches']['flash_attention']} over "
+          f"tensor-core tile launches {out['prefill_launches']['flash_attention_prefill']} over "
           f"{1 + PREFILL_REPS} calls")
-    print_profiles(cfg.name, {"4 decode steps": out["decode_profile_4_steps"]})
+    print_profiles(cfg.name, {"prefill step": out["prefill_profile"],
+                              "4 decode steps": out["decode_profile_4_steps"]})
 
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counters()
     res = serve_lib.serve(cfg, clients=m, batch=b, prompt_len=PROMPT_LEN,
                           decode_tokens=DECODE_TOKENS, seed=SEED, device=dev)
-    launches = read_counters("serve", cfg.num_layers * (PROMPT_LEN + DECODE_TOKENS))
+    steps_run = PROMPT_LEN + DECODE_TOKENS
+    launches = read_counters("serve", {"flash_attention_decode": cfg.num_layers * steps_run})
     if tuple(res.tokens.shape) != (m, b, DECODE_TOKENS) or not bool(
             ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"serve: tokens {tuple(res.tokens.shape)} out of range")
@@ -797,8 +940,8 @@ def serve_phase(dev):
     print(f"  serve(): {PROMPT_LEN}-token teacher-forced prompt in {res.prefill_s:.3f} s "
           f"({out['prompt_tok_s']:.1f} tokens/s), {DECODE_TOKENS} greedy tokens in "
           f"{res.decode_s:.3f} s ({out['decode_tok_s']:.1f} tokens/s, "
-          f"{out['decode_step_ms']:.2f} ms a step); flash launches "
-          f"{launches['flash_attention']} over {PROMPT_LEN + DECODE_TOKENS} steps; peak memory "
+          f"{out['decode_step_ms']:.2f} ms a step); FMA kernel launches "
+          f"{launches['flash_attention_decode']} over {steps_run} steps; peak memory "
           f"{out['serve_peak_gb']:.2f} GB; clients' last logits differ by up to {diff:.3f}")
     del res
     torch.cuda.empty_cache()
@@ -823,8 +966,8 @@ def main():
               "mix_aggregate_k4": k4["mix_aggregate"], "kmeans_assign": k4["kmeans_assign"],
               "cohort_gather": sum(r["cohort_gather"] for r in cohort.values()),
               "masked_mix_scatter": sum(r["masked_mix_scatter"] for r in cohort.values()),
-              "flash_attention_prefill": served["prefill_launches"]["flash_attention"],
-              "flash_attention_decode": served["serve_launches"]["flash_attention"]}
+              "flash_attention_prefill": served["prefill_launches"]["flash_attention_prefill"],
+              "flash_attention_decode": served["serve_launches"]["flash_attention_decode"]}
     kernels = [{"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
                 "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -28,6 +28,13 @@ when round 1 is all-offline) before the round timer starts, so
 as the kernel build and cuDNN's algorithm search. The evaluation passes
 are timed separately into ``History.eval_s`` and excluded from
 ``wall_s``. Every interval ends in a device synchronize.
+
+Evaluation schedule: as the reference's ``run``, the finite check and the
+evaluation run after round ``rnd`` only when ``rnd % eval_every == 0`` or
+``rnd == rounds``; ``History.rounds`` lists the rounds evaluated, and
+``History.paired_best`` takes its argmax over those alone. The
+reference's Tables 1/2 pass ``eval_every = max(rounds // 4, 1)`` to
+``run_trials``.
 """
 from __future__ import annotations
 
@@ -138,17 +145,20 @@ def _warmup_cohort(participation, m, n):
     return cohort
 
 
-def run(strategy, apply_stacked, data, seed: int, *, rounds: int,
+def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: int = 1,
         participation: part.ParticipationConfig | None = None,
         device=None) -> History:
-    """Run ``rounds`` rounds, each followed by a finite check of the
-    clients' models and an evaluation.
+    """Run ``rounds`` rounds; after round ``rnd`` a finite check of the
+    clients' models and an evaluation run when ``rnd % eval_every == 0``
+    or ``rnd == rounds`` (the reference's rule).
 
     ``participation`` None (or a full policy) runs the dense
     full-participation round; otherwise each round's cohort is
     ``sample_cohort(participation, rnd, m, n)``. ``data`` must already
     live on ``device`` (CUDA unless told otherwise).
     """
+    if eval_every < 1:
+        raise ValueError(f"eval_every must be at least 1, got {eval_every}")
     dev = resolve_device(device)
     if data.x.device.type != dev.type:
         raise ValueError(f"data lives on {data.x.device}, run on {dev}")
@@ -192,8 +202,44 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int,
             metrics = {"streams": 0, "cohort_size": 0, "skipped": True}
         else:
             state, metrics = strategy.round(state, data, round_gen, cohort)
-        do_eval(rnd, metrics)
+        if rnd % eval_every == 0 or rnd == rounds:
+            do_eval(rnd, metrics)
     _sync(dev)
     hist.wall_s = time.perf_counter() - t0 - hist.eval_s
     hist.state = state
     return hist
+
+
+def run_trials(make_strategy, apply_stacked, data_fn, *, trials: int, rounds: int,
+               seed: int = 0, eval_every: int = 1, participation=None, selection=None,
+               device=None):
+    """Average over independent trials (the paper reports 5-trial means).
+
+    Trial ``t`` draws its data with ``data_fn(s)`` and runs
+    ``make_strategy(t)`` with ``run(..., seed=s)``, where ``s = seed +
+    1000 * t`` (the reference's per-trial key); ``data_fn`` returns data on
+    ``device``. ``run`` spawns its generators from ``s`` through a
+    ``SeedSequence``, so they are independent of a synthesizer that seeds
+    a numpy generator with ``s`` itself. The reported (avg, worst) pair of
+    a trial is its ``History.paired_best``: one model, the argmax-average
+    evaluated round, as Tables 1/2 pair them.
+    """
+    if selection is not None:
+        raise NotImplementedError("run_trials: selection (Pareto-biased cohorts) is not "
+                                  "ported yet (ROADMAP A4)")
+    avgs, worsts, hists = [], [], []
+    for trial in range(trials):
+        s = seed + 1000 * trial
+        h = run(make_strategy(trial), apply_stacked, data_fn(s), s, rounds=rounds,
+                eval_every=eval_every, participation=participation, device=device)
+        avg, worst = h.paired_best
+        avgs.append(avg)
+        worsts.append(worst)
+        hists.append(h)
+    return {
+        "avg_mean": float(np.mean(avgs)),
+        "avg_std": float(np.std(avgs)),
+        "worst_mean": float(np.mean(worsts)),
+        "worst_std": float(np.std(worsts)),
+        "histories": hists,
+    }

@@ -1,4 +1,6 @@
-// Forward attention with an online softmax, f32 or bf16 in, f32 inside.
+// Forward attention with an online softmax: a bf16 tensor-core tile for
+// prefill and an f32 FMA kernel for everything else (decode, f32 inputs,
+// unaligned views).
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention
 // (_flash_kernel), which streams (block_k, Dh) tiles of K and V past a
@@ -6,39 +8,80 @@
 // the running max, sum and accumulator in VMEM scratch across the
 // sequential kv grid axis.
 //
-// What it computes, per q head h (kv head h / (Hq / Hkv), no expanded copy
-// of K and V): s = (q . k) * Dh^-0.5, then softcap * tanh(s / softcap) when a
-// softcap is set; columns outside the mask (col >= Sk; with causal,
-// col > row, rows and cols both counted from 0, i.e. top-left alignment;
-// with a window, col <= row - window) take -1e30; out = softmax(s) . v,
-// accumulated in f32 and divided by max(l, 1e-30), stored in the input's
-// type. A row whose every column is masked takes the uniform softmax over
-// the Sk columns, as the plain version (kernels/ref.py) does.
+// What both kernels compute, per q head h (kv head h / (Hq / Hkv), no
+// expanded copy of K and V): s = (q . k) * scale (the caller's Dh^-0.5),
+// then softcap * tanh(s / softcap) in f32 when a softcap is set; columns
+// outside the mask (with causal, col > row, rows and cols both counted from
+// 0, i.e. top-left alignment; with a window, col <= row - window) take
+// -1e30, columns at or past Sk take nothing (a weight of exactly 0);
+// out = softmax(s) . v, accumulated in f32 and divided by max(l, 1e-30),
+// stored in the input's type to the (B, Sq, Hq, Dh) memory behind the
+// caller's view. A row whose every column is masked takes the uniform
+// softmax over the Sk columns, as the plain version (kernels/ref.py) does.
+// kernels/flash_attention.py::flash_route picks the kernel by a stated rule.
 //
-// What bounds it on an H100: at the prefill shape (4, 28, 1024, 128),
-// causal, the function needs 4*B*Hq*Sq*Sk*Dh/2 = 30 GFLOP against 59 MB of
-// q, k, v and out, so the tensor cores (989 TFLOP/s bf16) bound it at
-// 0.03 ms; the decode shape (Sq = 1, Sk = 160) moves 2.6 MB and is a
-// memory and latency problem.
+// flash_attention_tc (flash_tc): bf16, Sq >= 16, Dh % 8 == 0, 16-byte
+// aligned pointers and strides. What bounds it on an H100: at qwen2-7b's
+// prefill shape (4, 28, 1024, 128), causal, the function needs
+// 4*B*Hq*Dh FLOP per kept (row, col) pair, 30 GFLOP against 59 MB of q, k,
+// v and out, so the tensor cores bound it (0.03 ms at 989 TFLOP/s bf16;
+// the bytes take 0.018 ms). Design: one block of 4 warps per (q head,
+// batch, 64-row q tile), each warp owning 16 rows; the heaviest q tiles
+// (the last ones, under a causal mask) launch first. K and V come in
+// 64-key tiles (32 at Dh 256) by 16-byte cp.async (zero-filled past Sk and
+// past Dh) into a two-stage ring; shared rows are padded by 16 bytes, so
+// the 8 rows an ldmatrix reads fall in 8 distinct bank groups. Both
+// products are mma.sync m16n8k16 (bf16 in, f32 accumulate): Q's A
+// fragments come from ldmatrix once and stay in registers at Dh 128; at
+// Dh 256 they and the 16x256 f32 accumulator would need more than 255
+// registers, and at Dh 64 the register copy ran slower on the card, so
+// there they are re-read from shared memory at every k-step. K's B
+// fragments come from ldmatrix and V's from ldmatrix.trans. The tile
+// sizes were chosen on the card: 8 warps and 128 rows, or Q from shared
+// memory at Dh 128, ran no faster at qwen2-7b's prefill shape, and 64-key
+// tiles at Dh 256 spilled registers and ran slower. The scores stay in
+// the m16n8 accumulators: scale, softcap, mask and the online softmax run there
+// (row max and sum are quad shuffles), and P goes from that layout
+// straight into A fragments, never through shared memory. Precision of
+// P: the TPU kernel keeps P in f32 for the P . v product; a bf16 P would
+// keep 8 significant bits of f32's 24. So each probability is split into
+// two bf16 terms, hi = bf16(p) and lo = bf16(p - hi), and both go through the
+// tensor cores into the same f32 accumulator: hi + lo carries p to a
+// relative 2^-16 (16 significant bits), V is exact in bf16 and the
+// products are exact in f32. It costs one more mma per P . v step, 1.5x
+// the tensor work of a bf16-P tile. Head dims are templated on a padded
+// width in {64, 128, 256} (Dh 32 runs on 64, Dh 80 on 128, zero-filled).
+// Causal work: the kv loop stops at the block's last reachable tile, a
+// warp skips a tile its mask hides from all its rows (those columns would
+// add weights of exactly 0), and only tiles that cross the diagonal, a
+// window's edge or Sk evaluate the mask (a template flag, as the softcap
+// is, so unmasked tiles take the exponent as one FFMA and one ex2).
 //
-// Design (a first, simple kernel: right before fast): one block of 256
-// threads per (64-row q tile, q head, batch). Q's tile, K's tile
-// (transposed) and V's tile live in shared memory as f32, so one code path
-// serves both input types; both products are f32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), 4x4 scores and 4 x (16 NJ) outputs per thread. Each
-// row's 16 threads are 16 lanes of one warp, so the row max and row sum
-// are shuffles. The kv loop visits only the tiles the causal and window
-// masks leave reachable from the block's rows. At Dh = 128 a block holds
-// 123 KB of shared memory, one block per SM. Measured on the card, the FMA
-// loops bound it (about 10 TFLOP/s at the prefill shape; unrolling the tile
-// loads changed nothing), and a one-query decode tile spends 63 of its 64
-// rows on padding. Tensor-core products (mma / wgmma), packing a GQA
-// group's heads into the rows of a decode tile, TMA and a pipeline of K/V
-// tiles are the next steps.
+// flash_attention_fwd (flash_fwd): f32 or bf16, any head dim 1..256, any
+// strides with a contiguous last dim. Decode (Sq = 1), f32 inputs (the
+// reduced models' agreement checks) and unaligned views run here. What
+// bounds it: at qwen2-7b's decode shape (4, 28, 1, 128) over 160 keys it
+// moves 0.7 MB (0.0002 ms at 3.35 TB/s), so latency, not bytes, sets its
+// time. Design (the first, simple kernel): one block of 256 threads per
+// (64-row q tile, q head, batch); Q's, K's (transposed) and V's tiles live
+// in shared memory as f32, so one code path serves both input types; both
+// products are f32 FMAs on the CUDA cores (67 TFLOP/s peak), 4x4 scores
+// and 4 x (16 NJ) outputs per thread; each row's 16 threads are 16 lanes
+// of one warp, so the row max and row sum are shuffles. Measured on the
+// card, the FMA loops bound it at prefill shapes (about 10 TFLOP/s, hence
+// the tile above), and a one-query decode tile spends 63 of its 64 rows on
+// padding: packing a GQA group's heads into the rows of a decode tile is
+// the next step.
+//
+// Both kernels' dynamic shared memory limit is set once per template
+// instance and device (allow_smem), not before every launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -218,12 +261,355 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
   }
 }
 
+// ------------------------------------------------------------ tensor-core tile
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_ROWS = 64;      // q rows per block: 4 warps x 16
+constexpr int TC_THREADS = 128;
+constexpr int TC_PAD = 8;        // bf16 padding per shared row (16 bytes)
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+__host__ __device__ constexpr int tc_stride() { return DH + TC_PAD; }
+// keys per K/V tile: 32 at Dh 256, where 64-key scores beside the 16x256
+// f32 accumulator spill registers
+template <int DH>
+__host__ __device__ constexpr int tc_bk() { return DH > 128 ? 32 : 64; }
+// Q's fragments stay in registers at Dh 128 only: at Dh 256 they do not
+// fit beside the accumulator, and at Dh 64 re-reading them from shared
+// memory ran faster on the card
+template <int DH>
+__host__ __device__ constexpr bool tc_qreg() { return DH == 128; }
+// Q's tile, then the K and V rings of two tiles each
+template <int DH>
+constexpr int tc_smem_bytes() { return (TC_ROWS + 4 * tc_bk<DH>()) * tc_stride<DH>() * 2; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (x0, x1) as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi); the
+// low half of each register holds x0, the element of the lower column
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(const bf16* dst, const bf16* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ROWS rows of DH columns from src (row stride `stride` elements) into
+// shared memory, zero past row nvalid and past column dh
+template <int DH, int ROWS>
+__device__ __forceinline__ void tc_load(bf16* dst, const bf16* src, long long stride, int nvalid,
+                                        int dh) {
+  constexpr int CH = DH / 8;  // 16-byte chunks a row
+  static_assert(ROWS * CH % TC_THREADS == 0, "every thread copies as many chunks");
+#pragma unroll
+  for (int n = 0; n < ROWS * CH / TC_THREADS; ++n) {
+    const int i = threadIdx.x + n * TC_THREADS;
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool in = r < nvalid && c < dh;
+    cp_async16(dst + r * tc_stride<DH>() + c, in ? src + r * stride + c : src, in ? 16 : 0);
+  }
+}
+
+// A warp's 16 rows: this thread holds rows g and g + 8 (g = lane / 4),
+// and of each 8-wide column block the columns 2t, 2t + 1 (t = lane % 4);
+// l is the thread's partial row sum, summed over the quad at the end.
+template <int DH>
+struct TcRows {
+  float m[2], l[2];
+  float acc[DH / 8][4];
+};
+
+// One warp's 16 rows against the tc_bk<DH>() keys at Kt and Vt (k0 the first
+// key's index): s = q . k on the tensor cores, scale, softcap (SOFTCAP),
+// mask (MASK), the online softmax in the accumulators, then acc += P . v
+// with P split into hi and lo bf16 A fragments. Q's fragments come from
+// qf (QREG) or from the warp's shared rows at Qw.
+template <int DH, bool QREG, bool SOFTCAP, bool MASK>
+__device__ __forceinline__ void tc_tile(const Args& a, TcRows<DH>& st,
+                                        const uint32_t (&qf)[QREG ? DH / 16 : 1][4],
+                                        const bf16* Qw, const bf16* Kt, const bf16* Vt, int k0,
+                                        const int (&row)[2], const bool (&empty)[2]) {
+  constexpr int RS = tc_stride<DH>();
+  constexpr int NT = tc_bk<DH>() / 8;  // 8-key column blocks
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    uint32_t af[4];
+    if constexpr (QREG) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) af[e] = qf[kk][e];
+    } else {
+      ldsm_x4(af, Qw + (lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];  // keys 8j.. and 8(j+1).., dims 16kk.. and 16kk + 8..
+      ldsm_x4(b, Kt + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * RS + kk * 16 +
+                     ((lane >> 3) & 1) * 8);
+      mma_bf16(s[j], af, b[0], b[1]);
+      mma_bf16(s[j + 1], af, b[2], b[3]);
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {  // rows g (elements 0, 1) and g + 8 (2, 3)
+    float mx = kNegInf;
+    if constexpr (MASK || SOFTCAP) {
+      // a row that reaches no key takes x = 0 on every column below Sk
+      const bool none = MASK && empty[hr];
+      const float fs = none ? 0.f : a.scale;
+      const int hi = (MASK && a.causal && !none) ? row[hr] : INT_MAX;
+      const int lo = (MASK && a.has_window && !none) ? row[hr] - a.window : INT_MIN;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[j][2 * hr + e] * fs;
+          if constexpr (SOFTCAP) x = a.softcap * tanhf(x / a.softcap);
+          if constexpr (MASK) {
+            const int col = k0 + j * 8 + 2 * t + e;
+            x = (col <= hi && col > lo) ? x : kNegInf;
+            x = col < a.sk ? x : -INFINITY;
+          }
+          s[j][2 * hr + e] = x;
+          mx = fmaxf(mx, x);
+        }
+    } else {  // the scale is positive: max(s) * scale is the scaled row's max
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      mx *= a.scale;
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(st.m[hr], mx);
+    const float alpha = exp2_ftz((st.m[hr] - m_new) * kLog2e);
+    const float sl = a.scale * kLog2e, ml = m_new * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[j][2 * hr + e];
+        // unmasked, x = s * scale and m_new is a real score: one FFMA
+        x = (MASK || SOFTCAP) ? exp2_ftz((x - m_new) * kLog2e) : exp2_ftz(fmaf(x, sl, -ml));
+        sum += x;
+      }
+    st.l[hr] = alpha * st.l[hr] + sum;
+    st.m[hr] = m_new;
+    // alpha is exactly 1 where no row max of the warp moved
+    if (__any_sync(0xffffffffu, alpha != 1.f)) {
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) {
+        st.acc[d][2 * hr] *= alpha;
+        st.acc[d][2 * hr + 1] *= alpha;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {  // 16 keys a k-step
+    uint32_t ph[4], pl[4];
+    split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+    split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+    split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+    split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+    const bf16* vrow = Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 8;
+#pragma unroll
+    for (int d = 0; d < DH / 8; d += 2) {
+      uint32_t b[4];  // keys 16kk.., 16kk + 8.. of dims 8d.. and 8(d+1)..
+      ldsm_x4_trans(b, vrow + d * 8);
+      mma_bf16(st.acc[d], ph, b[0], b[1]);
+      mma_bf16(st.acc[d + 1], ph, b[2], b[3]);
+      mma_bf16(st.acc[d], pl, b[0], b[1]);
+      mma_bf16(st.acc[d + 1], pl, b[2], b[3]);
+    }
+  }
+}
+
+template <int DH, bool SOFTCAP>
+__global__ void __launch_bounds__(TC_THREADS) flash_tc(Args a) {
+  constexpr int RS = tc_stride<DH>();
+  constexpr int BK = tc_bk<DH>();
+  constexpr int TS = BK * RS;
+  constexpr bool QREG = tc_qreg<DH>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [TC_ROWS][RS]
+  bf16* Ks = Qs + TC_ROWS * RS;                  // [2][BK][RS]
+  bf16* Vs = Ks + 2 * TS;                        // [2][BK][RS]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TC_ROWS;  // the last q tiles first
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / a.group;
+  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.qs[0] + h * a.qs[1];
+  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.ks[0] + kvh * a.ks[1];
+  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.vs[0] + kvh * a.vs[1];
+  bf16* og = static_cast<bf16*>(a.o) + b * a.os[0] + h * a.os[1];
+
+  // the kv tiles this block needs, as flash_fwd finds them
+  const int last = min(q0 + TC_ROWS, a.sq) - 1;
+  const bool any_empty = col_lo(a, last) > col_hi(a, last);
+  const int t_lo = (any_empty ? 0 : col_lo(a, q0)) / BK;
+  const int t_hi = (any_empty ? a.sk - 1 : col_hi(a, last)) / BK;
+  auto load_kv = [&](int tile, int buf) {
+    const int k0 = tile * BK;
+    tc_load<DH, BK>(Ks + buf * TS, kg + k0 * a.ks[2], a.ks[2], a.sk - k0, a.dh);
+    tc_load<DH, BK>(Vs + buf * TS, vg + k0 * a.vs[2], a.vs[2], a.sk - k0, a.dh);
+  };
+  tc_load<DH, TC_ROWS>(Qs, qg + q0 * a.qs[2], a.qs[2], a.sq - q0, a.dh);
+  load_kv(t_lo, 0);
+  cp_async_commit();
+
+  // the warp's rows w_lo..w_hi (valid ones); rows that reach no key form
+  // a suffix, so the warp's last valid row tells whether it has any
+  const int w_lo = q0 + warp * 16;
+  const bool live = w_lo < a.sq;
+  const int w_hi = min(w_lo + 15, a.sq - 1);
+  const bool warp_empty = live && col_lo(a, w_hi) > col_hi(a, w_hi);
+  int row[2];
+  bool empty[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    row[hr] = w_lo + lane / 4 + 8 * hr;
+    empty[hr] = col_lo(a, row[hr]) > col_hi(a, row[hr]);
+  }
+  const bf16* Qw = Qs + warp * 16 * RS;
+  TcRows<DH> st;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    st.m[hr] = kNegInf;
+    st.l[hr] = 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.acc[d][e] = 0.f;
+  uint32_t qf[QREG ? DH / 16 : 1][4];
+
+  for (int it = t_lo; it <= t_hi; ++it) {
+    const int buf = (it - t_lo) & 1;
+    if (it < t_hi) {
+      load_kv(it + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (QREG) {
+      if (it == t_lo) {  // Q arrived with the first K/V tile
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          ldsm_x4(qf[kk], Qw + (lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+      }
+    }
+    const int k0 = it * BK;
+    // a tile the masks hide from all the warp's rows: weights of exactly 0
+    const bool hidden = !live || (!warp_empty && ((a.causal && k0 > w_hi) ||
+                                                  (a.has_window &&
+                                                   k0 + BK - 1 <= w_lo - a.window)));
+    const bool need_mask = warp_empty || k0 + BK > a.sk ||
+                           (a.causal && k0 + BK - 1 > w_lo) ||
+                           (a.has_window && k0 <= w_hi - a.window);
+    const bf16* Kt = Ks + buf * TS;
+    const bf16* Vt = Vs + buf * TS;
+    if (!hidden && need_mask)
+      tc_tile<DH, QREG, SOFTCAP, true>(a, st, qf, Qw, Kt, Vt, k0, row, empty);
+    else if (!hidden)
+      tc_tile<DH, QREG, SOFTCAP, false>(a, st, qf, Qw, Kt, Vt, k0, row, empty);
+    __syncthreads();  // the slot is free for the load two tiles on
+  }
+
+  const int t = lane % 4;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = st.l[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    if (row[hr] >= a.sq) continue;
+    bf16* orow = og + row[hr] * a.os[2];
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+      const int c = d * 8 + 2 * t;  // dh % 8 == 0: c and c + 1 are both in or both out
+      if (c < a.dh)
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+            __floats2bfloat162_rn(st.acc[d][2 * hr] * inv, st.acc[d][2 * hr + 1] * inv);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launches
+// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) for `kernel` once per
+// device; `done` is the kernel instance's own set of devices
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
 template <typename T, int NJ>
 cudaError_t launch(const Args& a, int b, cudaStream_t st) {
+  static std::atomic<unsigned long long> done{0};
   const size_t smem = sizeof(float) * smem_floats<NJ>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = allow_smem(flash_fwd<T, NJ>, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + BQ - 1) / BQ, a.hq, b);
   flash_fwd<T, NJ><<<grid, kThreads, smem, st>>>(a);
@@ -238,25 +624,30 @@ cudaError_t dispatch(const Args& a, int b, cudaStream_t st) {
   return launch<T, 16>(a, b, st);
 }
 
-}  // namespace
-
-extern "C" const char* cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+template <int DH, bool SOFTCAP>
+cudaError_t launch_tc(const Args& a, int b, cudaStream_t st) {
+  static std::atomic<unsigned long long> done{0};
+  constexpr size_t smem = tc_smem_bytes<DH>();
+  static_assert(smem <= 232448, "a block's shared memory on sm_90");
+  cudaError_t err = allow_smem(flash_tc<DH, SOFTCAP>, smem, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.hq, b, (a.sq + TC_ROWS - 1) / TC_ROWS);
+  flash_tc<DH, SOFTCAP><<<grid, TC_THREADS, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
-// q (B, Hq, Sq, Dh), k and v (B, Hkv, Sk, Dh), out (B, Hq, Sq, Dh), each
-// given by its batch, head and sequence strides in elements (last dim
-// contiguous). dtype 0 = float32, 1 = bfloat16. 1 <= Dh <= 256, Sk >= 1,
-// Sq >= 1, B >= 1, Hq = group * Hkv; window 0 means none, softcap 0 means
-// none; scale is Dh^-0.5 as the caller rounds it. Returns
-// cudaGetLastError() after the launch.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   const long long* strides, int dtype, int b, int hq,
-                                   int hkv, int sq, int sk, int dh, int causal,
-                                   int window, float softcap, float scale, void* stream) {
-  if (dh < 1 || dh > 256 || b < 1 || hq < 1 || hkv < 1 || hq % hkv || sq < 1 || sk < 1 ||
-      b > 65535 || hq > 65535 || window < 0 || softcap < 0.f)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <bool SOFTCAP>
+cudaError_t dispatch_tc(const Args& a, int b, cudaStream_t st) {
+  if (a.dh <= 64) return launch_tc<64, SOFTCAP>(a, b, st);
+  if (a.dh <= 128) return launch_tc<128, SOFTCAP>(a, b, st);
+  return launch_tc<256, SOFTCAP>(a, b, st);
+}
+
+// the Args of q (B, Hq, Sq, Dh), k and v (B, Hkv, Sk, Dh) and out, each
+// given by its batch, head and sequence strides in elements
+Args make_args(const void* q, const void* k, const void* v, void* out,
+               const long long* strides, int hq, int hkv, int sq, int sk, int dh, int causal,
+               int window, float softcap, float scale) {
   Args a;
   a.q = q;
   a.k = k;
@@ -279,8 +670,55 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   a.has_softcap = softcap > 0.f;
   a.softcap = softcap;
   a.scale = scale;
+  return a;
+}
+
+}  // namespace
+
+extern "C" const char* cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The FMA kernel. q (B, Hq, Sq, Dh), k and v (B, Hkv, Sk, Dh), out
+// (B, Hq, Sq, Dh), each given by its batch, head and sequence strides in
+// elements (last dim contiguous): strides[0..2] q's, [3..5] k's, [6..8]
+// v's, [9..11] out's. dtype 0 = float32, 1 = bfloat16. 1 <= Dh <= 256,
+// Sk >= 1, Sq >= 1, B >= 1, Hq = group * Hkv; window 0 means none, softcap
+// 0 means none; scale is Dh^-0.5 as the caller rounds it. Returns
+// cudaGetLastError() after the launch.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
+                                   const long long* strides, int dtype, int b, int hq,
+                                   int hkv, int sq, int sk, int dh, int causal,
+                                   int window, float softcap, float scale, void* stream) {
+  if (dh < 1 || dh > 256 || b < 1 || hq < 1 || hkv < 1 || hq % hkv || sq < 1 || sk < 1 ||
+      b > 65535 || hq > 65535 || window < 0 || softcap < 0.f)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(q, k, v, out, strides, hq, hkv, sq, sk, dh, causal, window, softcap,
+                           scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(dispatch<float>(a, b, st));
   if (dtype == 1) return static_cast<int>(dispatch<__nv_bfloat16>(a, b, st));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core tile, bf16 only, with the FMA kernel's arguments (no
+// dtype). It also needs Sq >= 16, Dh % 8 == 0 and every pointer and
+// stride a multiple of 16 bytes (16-byte cp.async and bf16-pair stores);
+// it refuses anything else with cudaErrorInvalidValue.
+extern "C" int flash_attention_tc(const void* q, const void* k, const void* v, void* out,
+                                  const long long* strides, int b, int hq, int hkv, int sq,
+                                  int sk, int dh, int causal, int window, float softcap,
+                                  float scale, void* stream) {
+  bool ok = dh >= 8 && dh <= 256 && dh % 8 == 0 && b >= 1 && b <= 65535 && hq >= 1 &&
+            hkv >= 1 && hq % hkv == 0 && sq >= 16 && sk >= 1 &&
+            (sq + TC_ROWS - 1) / TC_ROWS <= 65535 && window >= 0 && softcap >= 0.f;
+  const void* ptrs[4] = {q, k, v, out};
+  for (const void* p : ptrs) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (int i = 0; i < 12; ++i) ok = ok && (strides[i] * 2) % 16 == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(q, k, v, out, strides, hq, hkv, sq, sk, dh, causal, window, softcap,
+                           scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(a.has_softcap ? dispatch_tc<true>(a, b, st)
+                                        : dispatch_tc<false>(a, b, st));
 }

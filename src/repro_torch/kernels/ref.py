@@ -88,7 +88,7 @@ def kmeans_assign(points, centroids):
 NEG_INF = -1e30  # the mask value of the reference's attention kernels
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, probs_dtype=None):
     """Attention over (B, H, S, Dh), materialising the (Sq, Sk) logits.
 
     q (B, Hq, Sq, Dh), k and v (B, Hkv, Sk, Dh), Hq % Hkv == 0: q head h
@@ -99,6 +99,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
     softmax, then the f32 product with v, cast to q's dtype. ``window`` and
     ``softcap`` apply when they are not None. A row whose every column is
     masked gets the uniform softmax, the mean of v.
+
+    ``probs_dtype`` (default None: f32 throughout) rounds the normalized
+    probabilities to that dtype before the product with v, as the reference
+    model's ``_attend`` does; the kernel checks use it with bfloat16 as the
+    control that a tile keeping P to 16 bits must beat.
     """
     g = q.shape[1] // k.shape[1]
     kx = torch.repeat_interleave(k, g, dim=1).to(torch.float32)
@@ -115,4 +120,6 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
         mask &= cols > rows - window
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if probs_dtype is not None:
+        p = p.to(probs_dtype).to(torch.float32)
     return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)

@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import fan_in_init, matmul, rope
 
@@ -110,7 +111,9 @@ def _expand_heads(w, of_slot, axis):
 
 def init(gen, cfg: AttnConfig, dtype=torch.float32, device=None):
     """One model's attention weights (no client axis), in the reference's
-    shapes; matches the reference in distribution only."""
+    shapes, on ``device`` (CUDA when None); matches the reference in
+    distribution only."""
+    device = resolve_device(device)
     hq, hkv, q_of, kv_of = cfg.plan
     wq = fan_in_init(gen, (cfg.d_model, cfg.num_heads, cfg.head_dim), dtype, device)
     wk = fan_in_init(gen, (cfg.d_model, cfg.num_kv_heads, cfg.head_dim), dtype, device)
@@ -169,6 +172,9 @@ def forward(p, x, positions, cfg: AttnConfig, *, window: int | None = None):
 
 
 def init_cache(clients, batch, length, cfg: AttnConfig, dtype=torch.bfloat16, device=None):
+    """An empty cache of ``clients`` models on ``device`` (CUDA when None):
+    k and v (clients, B, L, Hkv, Dh) zeros, pos (clients, L) of -1."""
+    device = resolve_device(device)
     return {
         "k": torch.zeros((clients, batch, length, cfg.hkv_eff, cfg.head_dim), dtype=dtype,
                          device=device),

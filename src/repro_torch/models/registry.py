@@ -17,9 +17,9 @@ from repro_torch.models import transformer
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init: Callable[..., Any]  # (generator, device=None) -> params
+    init: Callable[..., Any]  # (generator, device=None: CUDA) -> params
     forward: Callable[..., Any]  # (params, batch) -> logits (B, S, V)
-    init_cache: Callable[..., Any]  # (batch, max_len, device=None) -> caches
+    init_cache: Callable[..., Any]  # (batch, max_len, device=None: CUDA) -> caches
     decode_step: Callable[..., Any]  # (params, caches, tokens, pos) -> (logits, caches)
 
 

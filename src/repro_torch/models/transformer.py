@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import attention
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.layers import (
@@ -98,10 +99,15 @@ def _stack(trees):
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, device=None):
-    """One model's params in ``cfg.param_dtype`` on ``device``, drawn from
-    ``gen`` (a generator on that device). Matches the reference in
-    distribution only."""
+    """One model's params in ``cfg.param_dtype`` on ``device`` (CUDA when
+    None), drawn from ``gen``, a generator on that device (``ValueError``
+    otherwise). Matches the reference in distribution only."""
     _check(cfg)
+    device = resolve_device(device)
+    if gen.device.type != device.type or (device.index is not None
+                                          and gen.device.index != device.index):
+        raise ValueError(f"transformer.init: the generator lives on {gen.device}, "
+                         f"the params on {device}")
     dtype = cfg.param_tdtype
     ninit, _ = make_norm(cfg.norm)
     params = {
@@ -210,8 +216,10 @@ def forward(params, batch, cfg: ModelConfig, *, return_cache: bool = False,
 def init_cache(cfg: ModelConfig, clients: int, batch: int, max_len: int, device=None):
     """Empty caches of m = ``clients`` models, leaves (m, G, ...): k and v
     (m, G, B, L, Hkv, Dh) in ``cfg.act_dtype``, pos (m, G, L) int32; L is
-    max_len, or min(window, max_len) for a window layer."""
+    max_len, or min(window, max_len) for a window layer; on ``device``,
+    CUDA when None."""
     _check(cfg)
+    device = resolve_device(device)
     acfg = attn_config(cfg)
     out = {}
     for i, slot in enumerate(_group_slots(cfg)):

@@ -11,12 +11,22 @@ k-means labels (ties included) are exact. flash_attention: in f32 atol
 2e-5 (outputs are averages of unit-scale v; the kernel's online softmax
 sums in another order than the plain version's whole row); in bfloat16
 both compute in f32 from the same inputs and round once, so they differ
-by at most two bf16 steps of the largest output (2^-6 of it).
+by at most two bf16 steps of the largest output (2^-6 of it), and each
+element by at most one bf16 step of itself plus 2^-7 of the median output
+(``assert_each_within_a_step``). bf16 prefill shapes take the tensor-core
+tile (``flash_route``), whose probabilities keep 16 bits through a hi/lo
+bf16 split: at qwen2-7b's prefill shape it stays within one bf16 step
+(2^-7 of the largest output), and its mean error is at most half that of
+the plain version with P rounded to bf16 (what a tile without the lo half
+would give).
 """
+import functools
+
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import FLASH_FMA, FLASH_TC, flash_route
 
 
 def cuda_device():
@@ -201,6 +211,13 @@ FLASH_CASES = [
     (1, 4, 2, 100, 260, 64, True, None, None),      # Sq < Sk: top-left causal
     (1, 2, 1, 40, 10, 32, True, 4, None),           # rows past Sk + window - 1: uniform
     (3, 4, 2, 65, 129, 32, True, 64, 30.0),         # reduced gemma2, one past the tiles
+    # around the tensor-core tile (bf16, Sq >= 16, Dh % 8 == 0, aligned)
+    (2, 8, 2, 15, 15, 64, True, None, None),        # Sq 15: the FMA kernel
+    (2, 8, 2, 16, 16, 64, True, None, None),        # Sq 16: the tile's smallest q
+    (2, 8, 4, 64, 200, 256, False, 48, 20.0),       # Dh 256, window + softcap, not causal
+    (2, 4, 2, 70, 70, 36, True, None, None),        # Dh 36: the FMA kernel
+    (1, 4, 2, 16, 300, 128, True, None, None),      # Sq < Sk at the tile's smallest q
+    (1, 2, 1, 80, 20, 64, True, 8, 10.0),           # rows past Sk + window - 1, two q tiles
 ]
 
 
@@ -220,6 +237,15 @@ def flash_tol(want, dtype):
     return float(want.float().abs().max()) * 2.0 ** -6
 
 
+def assert_each_within_a_step(got, want):
+    """bf16: both sides round an f32 value once, so each element may land
+    one bf16 step away (2^-7 of its magnitude); the floor, 2^-7 of the
+    median |want|, covers outputs near 0."""
+    g, w = got.float(), want.float()
+    allowed = 2.0 ** -7 * (w.abs() + float(w.abs().median()))
+    assert bool(((g - w).abs() <= allowed).all()), float(((g - w).abs() / allowed).max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,dh,causal,window,cap", FLASH_CASES)
@@ -231,10 +257,83 @@ def test_cuda_flash_attention_matches_plain(b, hq, hkv, sq, sk, dh, causal, wind
     torch.cuda.synchronize()
     assert got.dtype == dtype and tuple(got.shape) == (b, hq, sq, dh)
     assert float((got.float() - want.float()).abs().max()) <= flash_tol(want, dtype)
+    if dtype == torch.bfloat16:
+        assert_each_within_a_step(got, want)
     # contiguous inputs give the same bits as the strided views
     again = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
                                 window=window, softcap=cap, impl="cuda")
     assert torch.equal(again, got)
+
+
+def flash_launches():
+    return {"tc": FLASH_TC.launches, "fma": FLASH_FMA.launches}
+
+
+def flash_route_taken(fn):
+    """(result of fn(), the route whose counter rose by one)."""
+    before = flash_launches()
+    out = fn()
+    rose = [r for r, n in flash_launches().items() if n != before[r]]
+    assert len(rose) == 1 and flash_launches()[rose[0]] == before[rose[0]] + 1, rose
+    return out, rose[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,sq,dh,offset,route", [
+    (torch.bfloat16, 64, 128, 0, "tc"), (torch.bfloat16, 16, 64, 0, "tc"),
+    (torch.bfloat16, 15, 64, 0, "fma"), (torch.bfloat16, 1, 128, 0, "fma"),
+    (torch.bfloat16, 64, 36, 0, "fma"), (torch.bfloat16, 64, 128, 1, "fma"),
+    (torch.float32, 64, 128, 0, "fma")])
+def test_cuda_flash_counters_show_the_route(dtype, sq, dh, offset, route):
+    """Each call launches the kernel ``flash_route`` names, once, and
+    agrees with the plain version; ``offset`` 1 slices q one element into
+    its buffer (not 16-byte aligned)."""
+    dev = cuda_device()
+    gen = torch.Generator().manual_seed(sq + dh)
+    buf = torch.randn(2 * sq * 4 * dh + offset, generator=gen).to(dev, dtype)
+    q = buf[offset:].view(2, sq, 4, dh).transpose(1, 2)
+    _, k, v = flash_inputs(2, 4, 2, sq, 90, dh, dtype, dev, seed=dh)
+    assert flash_route(q, k, v) == route
+    got, took = flash_route_taken(lambda: ops.flash_attention(q, k, v, impl="cuda"))
+    assert took == route
+    want = ref.flash_attention(q, k, v)
+    assert float((got.float() - want.float()).abs().max()) <= flash_tol(want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES if c[3] >= 16 and c[5] % 8 == 0],
+                         ids=str)
+def test_cuda_flash_tile_strided_equals_contiguous(case):
+    """On the tensor-core tile, strided views and contiguous copies of the
+    same bf16 inputs give the same bits."""
+    b, hq, hkv, sq, sk, dh, causal, window, cap = case
+    dev = cuda_device()
+    q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, torch.bfloat16, dev, seed=sq + sk + dh)
+    kw = dict(causal=causal, window=window, softcap=cap, impl="cuda")
+    got, took = flash_route_taken(lambda: ops.flash_attention(q, k, v, **kw))
+    flat, took_flat = flash_route_taken(lambda: ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), **kw))
+    assert took == took_flat == "tc"
+    assert torch.equal(flat, got)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_tile_keeps_one_bf16_step_at_prefill():
+    """qwen2-7b's prefill shape in bf16: the tile's error against the
+    plain version is at most 2^-7 of the largest output, one bf16 step of
+    each element, and at most half the mean error of the plain version with
+    P rounded to bf16 before P·V."""
+    dev = cuda_device()
+    q, k, v = flash_inputs(*FLASH_CASES[0][:6], torch.bfloat16, dev, seed=2)
+    got, took = flash_route_taken(lambda: ops.flash_attention(q, k, v, impl="cuda"))
+    want = ref.flash_attention(q, k, v)
+    assert took == "tc"
+    assert float((got.float() - want.float()).abs().max()) <= (
+        float(want.float().abs().max()) * 2.0 ** -7)
+    assert_each_within_a_step(got, want)
+    control = ref.flash_attention(q, k, v, probs_dtype=torch.bfloat16)
+    mean = float((got.float() - want.float()).abs().mean())
+    assert mean <= 0.5 * float((control.float() - want.float()).abs().mean())
 
 
 @pytest.mark.cuda
@@ -283,3 +382,38 @@ def test_cuda_serve_matches_cpu(arch):
         hl, hcache = step(host, hcache, tok[:, :, s:s + 1], s)
         cl, ccache = step(card, ccache, tok[:, :, s:s + 1].to(dev), s)
         assert float((cl.cpu() - hl).abs().max()) <= 1e-4, s
+
+
+def _leaves(tree):
+    return [x for v in tree.values() for x in _leaves(v)] if isinstance(tree, dict) else [tree]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-9b"])
+def test_cuda_bf16_prefill_tile_matches_plain_attention(arch, monkeypatch):
+    """A reduced bf16 model's prefill step over 96 tokens (past gemma2's
+    window 64) launches the tensor-core tile once a layer, and matches the
+    same step with the plain attention on the card: both share every other
+    kernel, so they differ only where an attention output rounds one bf16
+    step away, carried through later layers; logits and cache leaves within
+    4 bf16 steps of their largest magnitude (2^-5 of it)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve, steps
+
+    dev = cuda_device()
+    cfg = configs.get(arch).reduced(param_dtype="bfloat16", act_dtype="bfloat16")
+    params = serve.personalized_params(cfg, 2, 0, dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, 96),
+                        generator=torch.Generator().manual_seed(2)).to(dev)
+    prefill = steps.build_prefill_step(cfg, federated=True)
+    before = flash_launches()
+    got, got_cache = prefill(params, {"tokens": tok})
+    assert flash_launches() == {"tc": before["tc"] + cfg.num_layers, "fma": before["fma"]}
+    monkeypatch.setattr(ops, "flash_attention", functools.partial(ops.flash_attention,
+                                                                  impl="ref"))
+    after = flash_launches()
+    want, want_cache = prefill(params, {"tokens": tok})
+    assert flash_launches() == after
+    for g, w in zip([got] + _leaves(got_cache), [want] + _leaves(want_cache)):
+        assert float((g.float() - w.float()).abs().max()) <= 2.0 ** -5 * float(
+            w.float().abs().max())

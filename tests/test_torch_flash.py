@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention as ref_flash
+from repro_torch import configs
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import FLASH_FMA, FLASH_TC, flash_route
+from repro_torch.models import attention
 from test_flash_attention import CASES
 from torch_parity import f32, n, t
 
@@ -95,6 +98,21 @@ def test_plain_flash_keeps_bfloat16():
     np.testing.assert_allclose(n(got.float()), n(want), rtol=3e-2, atol=3e-2)
 
 
+def test_bf16_probs_control_rounds_only_the_probabilities():
+    """``probs_dtype`` (the control of the tile's precision checks on the
+    card) rounds each probability to bf16 before P·V: the output moves, by
+    at most a bf16 rounding (2^-8) of each p, so by 2^-8 of sum p·|v|."""
+    q, k, v = _inputs(13, 2, 4, 2, 40, 40, 32)
+    kw = dict(causal=True, window=24, softcap=20.0)
+    want = ref.flash_attention(t(q), t(k), t(v), **kw)
+    control = ref.flash_attention(t(q), t(k), t(v), probs_dtype=torch.bfloat16, **kw)
+    weight = ref.flash_attention(t(q), t(k), t(np.abs(v)), **kw)  # sum p·|v|
+    assert bool(((control - want).abs() <= 2.0 ** -8 * weight + 1e-6).all())
+    assert float((control - want).abs().max()) > 0
+    same = ref.flash_attention(t(q), t(k), t(v), probs_dtype=torch.float32, **kw)
+    assert torch.equal(same, want)
+
+
 @pytest.mark.parametrize("shapes,kw,msg", [
     (((1, 3, 4, 8), (1, 2, 4, 8), (1, 2, 4, 8)), {}, "multiple of Hkv"),
     (((1, 2, 4, 8), (1, 2, 4, 8), (1, 2, 5, 8)), {}, "must be"),
@@ -112,3 +130,64 @@ def test_impl_cuda_needs_cuda_tensors():
     x = torch.zeros(1, 2, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(x, x, x, impl="cuda")
+
+
+# ------------------------------------------------------------- routing
+def _model_qkv(arch, sq, sk, dtype=torch.bfloat16, m=2, b=1):
+    """q over sq positions and k, v over a sk-slot cache prefix, as
+    ``attention.forward`` (sq == sk) and ``attention.decode`` pass them:
+    ``_fold`` views of (m, B, S, H, Dh) tensors, the cache one slot longer
+    than the prefix."""
+    cfg = configs.get(arch)
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = torch.zeros(m, b, sq, hq, dh, dtype=dtype)
+    cache = torch.zeros(m, b, sk + 1, hkv, dh, dtype=dtype)
+    return attention._fold(q), attention._fold(cache[:, :, :sk]), attention._fold(cache[:, :, :sk])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-9b", "stablelm-1.6b"])
+@pytest.mark.parametrize("phase,sq,sk,route", [("prefill", 64, 64, "tc"),
+                                               ("prefill", 1024, 1024, "tc"),
+                                               ("decode", 1, 160, "fma"),
+                                               ("decode", 1, 1, "fma")])
+def test_flash_route_at_model_shapes(arch, phase, sq, sk, route):
+    """bf16 prefill takes the tensor-core tile, decode (Sq = 1) the FMA
+    kernel, and f32 always the FMA kernel."""
+    q, k, v = _model_qkv(arch, sq, sk)
+    assert flash_route(q, k, v) == route
+    assert flash_route(*(x.float() for x in (q, k, v))) == "fma"
+
+
+@pytest.mark.parametrize("sq,dh,route", [(15, 64, "fma"), (16, 64, "tc"), (17, 64, "tc"),
+                                         (64, 36, "fma"), (64, 40, "tc"), (64, 32, "tc"),
+                                         (64, 80, "tc"), (64, 256, "tc")])
+def test_flash_route_threshold_and_head_dims(sq, dh, route):
+    q = torch.zeros(2, 4, sq, dh, dtype=torch.bfloat16)
+    k = torch.zeros(2, 2, 50, dh, dtype=torch.bfloat16)
+    assert flash_route(q, k, k) == route
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("fault", ["offset", "stride"])
+def test_flash_route_unaligned_view_takes_fma(which, fault):
+    """A view that starts one element into its buffer (2 bytes past a
+    16-byte boundary), or whose sequence stride is 65 elements (a head dim
+    plus one), leaves the tile's 16-byte copies unaligned: the FMA kernel."""
+    ts = {name: torch.zeros(2, 4, 64, 64, dtype=torch.bfloat16) for name in "qkv"}
+    assert flash_route(ts["q"], ts["k"], ts["v"]) == "tc"
+    if fault == "offset":
+        ts[which] = torch.zeros(2 * 4 * 64 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 4, 64, 64)
+        assert ts[which].data_ptr() % 16 == 2
+    else:
+        ts[which] = torch.zeros(2, 4, 64, 65, dtype=torch.bfloat16)[..., :64]
+        assert ts[which].stride(2) == 65
+    assert flash_route(ts["q"], ts["k"], ts["v"]) == "fma"
+
+
+def test_cpu_calls_launch_no_kernel():
+    """On the CPU the wrapper takes the plain version: neither kernel's
+    launch counter moves."""
+    before = (FLASH_TC.launches, FLASH_FMA.launches)
+    q, k, v = _inputs(13, 1, 4, 2, 32, 32, 64)
+    ops.flash_attention(*(t(a).to(torch.bfloat16) for a in (q, k, v)))
+    assert (FLASH_TC.launches, FLASH_FMA.launches) == before

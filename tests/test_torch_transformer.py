@@ -219,7 +219,7 @@ def test_head_padding_plan_and_init_match_reference(heads, kv, pad):
     pc = attention.AttnConfig(d_model=64, num_heads=heads, num_kv_heads=kv, head_dim=8,
                               qkv_bias=True, pad_to=pad)
     want = ref_attention.init(jax.random.PRNGKey(0), rc)
-    got = attention.init(torch.Generator().manual_seed(0), pc)
+    got = attention.init(torch.Generator().manual_seed(0), pc, device=CPU)
     assert {k: tuple(v.shape) for k, v in got.items()} == {k: v.shape for k, v in want.items()}
     q_of = pc.plan[2]
     wo = got["wo"].reshape(pc.hq_eff, 8, 64)
