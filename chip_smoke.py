@@ -10,10 +10,13 @@ Phases, each printed as it ends:
                at the main path's shapes (the cohort kernels also with pad
                slots, an all-pad cohort and an odd width; flash_attention in
                bf16 and f32 over head dims 32-256, GQA, window, softcap,
-               ragged and one-query shapes, from strided views, printing
-               which of its two kernels each case took: the bf16
-               tensor-core tile or the FMA kernel), and times kernel, plain
-               version and one PyTorch library call with CUDA events;
+               ragged and one-query shapes up to 4,096 keys, from strided
+               views, printing which of its three kernels each case took:
+               the bf16 tensor-core tile, the split-KV decode kernel or the
+               FMA kernel), and times kernel, plain version and one PyTorch
+               library call with CUDA events; then the decode route's host
+               cost against the FMA route's, its launches (one kernel a
+               call) and that 28 decode calls make no synchronizing call;
   4. agree   — Algorithm 1 at a small size on the card (kernels) against the
                port's plain path on the CPU, from the same data, weights and
                batch orders: two dense rounds, then two cohort rounds;
@@ -28,18 +31,20 @@ Phases, each printed as it ends:
                must make no synchronizing CUDA call
                (``torch.cuda.set_sync_debug_mode``);
   7. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
-               federated prefill step and teacher-forced decode steps
-               (gemma2 past its window-64 wrap) on the card against the
-               plain path on the CPU; then both in bf16, the prefill step
-               through the tensor-core tile against the same step with the
-               plain attention on the card;
+               federated prefill step (the FMA kernel) and teacher-forced
+               decode steps (the decode kernel; gemma2 past its window-64
+               wrap) on the card against the plain path on the CPU; then
+               both in bf16, the prefill step through the tensor-core tile
+               and 72 decode steps through the decode kernel, each against
+               the same steps with the plain attention on the card;
   8. serve   — personalized serving of qwen2-7b at full width and depth
                (28 layers, bf16) for 2 clients x 2 requests: the federated
                prefill step over 1024 tokens, a profile of decode steps,
                a profile of one prefill step, then ``serve()`` (a 128-token
-               teacher-forced prompt and 32 greedy tokens), counting the attention kernels' launches
-               (28 of the tensor-core tile per prefill, 28 of the FMA
-               kernel per decode step).
+               teacher-forced prompt and 32 greedy tokens), counting the
+               attention kernels' launches (28 of the tensor-core tile per
+               prefill, 28 of the decode kernel per decode step, none of the
+               FMA kernel).
 Then one ``{"kernels": [...]}`` JSON line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits non-zero and prints no result.
 Imports nothing of jax or of the reference package.
@@ -47,6 +52,7 @@ Imports nothing of jax or of the reference package.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import json
 import statistics
@@ -67,7 +73,9 @@ from repro_torch.data import loader, synthetic  # noqa: E402
 from repro_torch.federated import client, participation, simulation  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.cohort_gather import GATHER  # noqa: E402
-from repro_torch.kernels.flash_attention import FLASH_FMA, FLASH_TC, flash_route  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.kernels.flash_attention import FLASH_DEC, FLASH_FMA, FLASH_TC  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ASSIGN  # noqa: E402
 from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER  # noqa: E402
 from repro_torch.kernels.mix_aggregate import MIX  # noqa: E402
@@ -85,8 +93,9 @@ ROUNDS = 5
 SEED = 0
 COUNTERS = {"gram": GRAM, "mix_aggregate": MIX, "kmeans_assign": ASSIGN,
             "cohort_gather": GATHER, "masked_mix_scatter": MIX_SCATTER,
-            "flash_attention_prefill": FLASH_TC, "flash_attention_decode": FLASH_FMA}
-FLASH_ROUTES = {"tc": FLASH_TC, "fma": FLASH_FMA}
+            "flash_attention_prefill": FLASH_TC, "flash_attention_decode": FLASH_DEC,
+            "flash_attention_fma": FLASH_FMA}
+FLASH_ROUTES = {"tc": FLASH_TC, "decode": FLASH_DEC, "fma": FLASH_FMA}
 # the serve phase: qwen2-7b at full width and depth, 2 clients x 2 requests
 SERVE_ARCH = "qwen2-7b"
 SERVE_CLIENTS, SERVE_BATCH = 2, 2
@@ -110,7 +119,22 @@ FLASH_CASES = [
     (2, 4, 2, 70, 70, 36, True, None, None),        # Dh 36: the FMA kernel
     (1, 4, 2, 16, 300, 128, True, None, None),      # Sq < Sk at the tile's smallest q
     (1, 2, 1, 80, 20, 64, True, 8, 10.0),           # rows past Sk + window - 1, two q tiles
+    # around the decode kernel (Sq = 1, f32 or bf16, Dh % 8 == 0, aligned)
+    (4, 28, 4, 1, 4096, 128, False, None, None),    # qwen2-7b's decode over 4,096 keys
+    (4, 16, 8, 1, 4096, 256, False, None, 50.0),    # gemma2-9b's decode over 4,096 keys
+    (4, 32, 32, 1, 300, 64, False, None, None),     # stablelm's MHA (group 1)
+    (4, 28, 4, 1, 600, 128, True, None, None),      # causal, several splits: out = v[:, :, 0]
+    (2, 8, 2, 1, 20, 64, False, None, None),        # under one split's minimum keys: one split
+    (2, 48, 2, 1, 333, 80, False, 7, 30.0),         # group 24: three row tiles a kv head, window
+    (2, 12, 4, 1, 77, 40, False, None, None),       # Dh 40 below its padded width
+    (2, 8, 2, 1, 50, 36, False, None, None),        # Dh 36: the FMA kernel
 ]
+# the FMA kernel's row: the reduced f32 prefill step of the serve-agree
+# phase (2 clients x 2 requests x 40 tokens, reduced qwen2-7b's heads)
+FMA_CASE = (4, 4, 2, 40, 40, 32, True, None, None)
+# the decode route may cost the host at most this much more a call than the
+# FMA route (the decode step is bound by the host's launches)
+HOST_GATE_US = 5.0
 
 
 def phase(name, t0, msg):
@@ -262,7 +286,9 @@ def kernel_phase(dev):
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})  "
               f"kernel/library {r['ms'] / r['library_ms']:.2f}")
-    phase("kernels", t0, "7 kernels agree with their plain versions")
+    decode = rows["flash_attention_decode"]
+    print("flash_decode " + json.dumps({"long": decode.pop("long"), "host": decode.pop("host")}))
+    phase("kernels", t0, "8 kernels agree with their plain versions (9 rows)")
     return rows
 
 
@@ -359,7 +385,7 @@ def flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev, seed=0):
 
 def flash_call(q, k, v, **kw):
     """ops.flash_attention on the card; returns (out, the route whose
-    counter rose): each call launches exactly one of the two kernels."""
+    counter rose): each call launches exactly one of the three kernels."""
     before = {r: c.launches for r, c in FLASH_ROUTES.items()}
     out = ops.flash_attention(q, k, v, impl="cuda", **kw)
     rose = {r: c.launches - before[r] for r, c in FLASH_ROUTES.items()}
@@ -368,6 +394,19 @@ def flash_call(q, k, v, **kw):
         raise AssertionError(f"flash_attention: launches {rose}, flash_route says "
                              f"{flash_route(q, k, v)}")
     return out, took[0]
+
+
+def fma_direct(q, k, v):
+    """The FMA kernel, unmasked, on inputs that flash_route sends elsewhere
+    (the decode kernel's comparison with the kernel decode took before)."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*(x for t in (q, k, v, out) for x in t.stride()[:3]))
+    FLASH_FMA(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              ctypes.cast(strides, ctypes.c_void_p), 0 if q.dtype == torch.float32 else 1,
+              b, hq, hkv, sq, sk, dh, 0, 0, 0.0, dh ** -0.5)
+    return out
 
 
 def check_each(name, got, want):
@@ -390,21 +429,38 @@ def mean_err(got, want):
     return float((got.float() - want.float()).abs().mean())
 
 
+def flash_bytes_flops(case, dtype):
+    """Bytes (q, k, v read once, out written once) and the FLOP of the
+    (row, col) pairs the mask keeps (top-left causal keeps col <= row)."""
+    b, hq, hkv, sq, sk, dh, causal, _, _ = case
+    pairs = sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
+    size = torch.tensor([], dtype=dtype).element_size()
+    return size * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh), 4 * b * hq * pairs * dh
+
+
+def decode_splits_of(case, dev):
+    b, hq, hkv, _, sk = case[:5]
+    return flash.decode_splits(flash.decode_blocks(b, hq, hkv), sk, flash._sm_count(dev.index))
+
+
 def flash_rows(dev):
     """flash_attention against its plain version on every FLASH_CASES
     shape, f32 and bf16, each case printing the kernel it took, then timed
-    at qwen2-7b's prefill (the tensor-core tile) and decode (the FMA
-    kernel) shapes in bf16. Tolerance: f32 atol 2e-5 (averages of
-    unit-scale v, sums in another order); bf16 two bf16 steps of the
-    largest output (2^-6 of it), and element by element one step of
-    each output (``check_each``): both sides compute in f32 from the same
-    inputs and round once. At the prefill case the tile must also keep
-    within one bf16 step of the largest output (2^-7 of it). On the tile's
-    cases the control is the plain version with P rounded to bf16 before
-    P·V (a tile without the lo half of the split): the tile's mean error
-    must stay at most half the control's, since with P at 16 bits it
-    differs from the plain version only where an output's rounding
-    flips."""
+    at qwen2-7b's prefill (the tensor-core tile) and decode (the decode
+    kernel) shapes in bf16 and at the reduced f32 prefill (the FMA kernel).
+    Tolerance: f32 atol 2e-5 (averages of unit-scale v, sums in another
+    order); bf16 two bf16 steps of the largest output (2^-6 of it), and
+    element by element one step of each output (``check_each``): both
+    sides compute in f32 from the same inputs and round once. At the
+    prefill case the tile must also keep within one bf16 step of the
+    largest output (2^-7 of it). On the tile's cases the control is the
+    plain version with P rounded to bf16 before P·V (a tile without the lo
+    half of the split): the tile's mean error must stay at most half the
+    control's, since with P at 16 bits it differs from the plain version
+    only where an output's rounding flips. Every decode (Sq = 1) with
+    Dh % 8 == 0 must take the decode kernel, and strided views must give
+    the bits of contiguous inputs on every kernel (the decode kernel's
+    splits merge in a fixed order)."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for case in FLASH_CASES:
@@ -413,6 +469,8 @@ def flash_rows(dev):
             kw = dict(causal=causal, window=window, softcap=cap)
             want = ref.flash_attention(q, k, v, **kw)
             got, route = flash_call(q, k, v, **kw)
+            if sq == 1 and (route == "decode") != (dh % 8 == 0):
+                raise AssertionError(f"flash_attention {case} {dtype}: a decode took {route}")
             largest = float(want.float().abs().max())
             tol = 2e-5 if dtype == torch.float32 else largest * 2.0 ** -6
             errs[case, dtype] = err = check(f"flash_attention {case} {dtype}", got, want, tol)
@@ -420,10 +478,10 @@ def flash_rows(dev):
             if flat_route != route or not torch.equal(flat, got):
                 raise AssertionError(f"flash_attention {case} {dtype}: strided views and "
                                      "contiguous inputs differ")
-            extra = ""
+            extra = f", {decode_splits_of(case, dev)} splits" if route == "decode" else ""
             if dtype == torch.bfloat16:
                 worst = check_each(f"flash_attention {case} bf16", got, want)
-                extra = f", element/allowance {worst:.2f}"
+                extra += f", element/allowance {worst:.2f}"
                 if route == "tc":
                     control = ref.flash_attention(q, k, v, probs_dtype=torch.bfloat16, **kw)
                     mine, theirs = mean_err(got, want), mean_err(control, want)
@@ -452,28 +510,122 @@ def flash_rows(dev):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for name, case in (("flash_attention_prefill", FLASH_CASES[0]),
-                       ("flash_attention_decode", FLASH_CASES[1])):
+    for name, case, dtype, route, rate in (
+            ("flash_attention_prefill", FLASH_CASES[0], torch.bfloat16, "tc", BF16_FLOP_PER_S),
+            ("flash_attention_decode", FLASH_CASES[1], torch.bfloat16, "decode", BF16_FLOP_PER_S),
+            ("flash_attention_fma", FMA_CASE, torch.float32, "fma", F32_FLOP_PER_S)):
         b, hq, hkv, sq, sk, dh, causal, _, _ = case
-        q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, torch.bfloat16, dev)
-        # the (row, col) pairs the mask keeps: top-left causal keeps col <= row
-        pairs = sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
+        q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev)
+        got, took = flash_call(q, k, v, causal=causal)
+        if took != route:
+            raise AssertionError(f"{name}: {case} {dtype} took {took}, not {route}")
+        err = errs.get((case, dtype))
+        if err is None:  # the FMA row's shape is not in the sweep
+            err = check(name, got, ref.flash_attention(q, k, v, causal=causal), 2e-5)
+        nbytes, flops = flash_bytes_flops(case, dtype)
         rows[name] = dict(
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention.py:88", tile=flash_route(q, k, v),
-            max_abs_err=errs[case, torch.bfloat16],
+            replaces="src/repro/kernels/flash_attention.py:88", max_abs_err=err,
             ms=time_ms(lambda q=q, k=k, v=v, c=causal: ops.flash_attention(
                 q, k, v, causal=c, impl="cuda"), dev),
             plain_ms=time_ms(lambda q=q, k=k, v=v, c=causal: ref.flash_attention(
                 q, k, v, causal=c), dev),
             library_ms=time_ms(lambda q=q, k=k, v=v, c=causal: sdpa(
                 q, k, v, is_causal=c, enable_gqa=True), dev),
-            bytes=2 * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh),
-            flops=4 * b * hq * pairs * dh, flop_rate=BF16_FLOP_PER_S)
-    if (rows["flash_attention_prefill"]["tile"], rows["flash_attention_decode"]["tile"]) != (
-            "tc", "fma"):
-        raise AssertionError("flash: qwen2-7b's prefill must take the tile, decode the FMA kernel")
+            bytes=nbytes, flops=flops, flop_rate=rate)
+    rows["flash_attention_decode"]["long"] = decode_long(dev, sdpa)
+    rows["flash_attention_decode"]["host"] = decode_host(dev)
     return rows
+
+
+def decode_long(dev, sdpa):
+    """qwen2-7b's decode over 4,096 keys in bf16: the decode kernel, the
+    FMA kernel (which took decode before it) and SDPA, beside the bound."""
+    case = (4, 28, 4, 1, 4096, 128, False, None, None)
+    q, k, v = flash_inputs(*case[:6], torch.bfloat16, dev)
+    dec = ops.flash_attention(q, k, v, causal=False, impl="cuda")
+    check_each("flash decode over 4,096 keys, the FMA kernel against the decode kernel",
+               fma_direct(q, k, v), dec)
+    nbytes, flops = flash_bytes_flops(case, torch.bfloat16)
+    out = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=False, impl="cuda"), dev),
+               fma_ms=time_ms(lambda: fma_direct(q, k, v), dev),
+               library_ms=time_ms(lambda: sdpa(q, k, v, enable_gqa=True), dev),
+               splits=decode_splits_of(case, dev))
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    print(f"  flash decode (4, 28, 1, 128) over 4,096 keys, bf16, {out['splits']} splits: decode "
+          f"kernel {out['ms']:.4f} ms, FMA kernel {out['fma_ms']:.4f} ms, SDPA "
+          f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms ({out['bound_by']}, "
+          f"{nbytes / 1e6:.1f} MB)")
+    return out
+
+
+def decode_host(dev, calls=200, turns=41):
+    """The host's cost per call of the decode route and of the FMA route at
+    qwen2-7b's decode shape (the FMA route by a q one element off 16-byte
+    alignment): ``calls`` enqueues with no sync inside one device sleep, in
+    ``turns`` turns of both routes (the host's speed drifts between turns),
+    each route first in every other turn; the median of each route and of
+    the turns' differences, which must be at most HOST_GATE_US. Then 28
+    decode calls (one step's layers) must make no synchronizing CUDA call,
+    raise the decode counter by 28 and no other, and a profile of them must
+    show exactly 28 kernels, all the decode kernel."""
+    q, k, v = flash_inputs(4, 28, 4, 1, 160, 128, torch.bfloat16, dev)
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(4, 1, 28, 128)
+    odd.copy_(q.transpose(1, 2))
+    routes = {"decode": q, "fma": odd.transpose(1, 2)}
+    per_call = {name: [] for name in routes}
+    for turn in range(turns):
+        for name in ("decode", "fma") if turn % 2 == 0 else ("fma", "decode"):
+            qq = routes[name]
+            if flash_call(qq, k, v, causal=False)[1] != name:
+                raise AssertionError(f"decode host cost: the {name} input took another route")
+            torch.cuda.synchronize(dev)
+            torch.cuda._sleep(100_000_000)  # ~0.05 s: the card waits while the host enqueues
+            t = time.perf_counter()
+            for _ in range(calls):
+                ops.flash_attention(qq, k, v, causal=False, impl="cuda")
+            per_call[name].append((time.perf_counter() - t) / calls * 1e6)
+            torch.cuda.synchronize(dev)
+    host = {f"{name}_us": statistics.median(ts) for name, ts in per_call.items()}
+    host["diff_us"] = statistics.median(d - f for d, f in zip(per_call["decode"], per_call["fma"]))
+    host["turns_us"] = per_call
+    print(f"  flash decode host cost per call (medians of {turns} turns of {calls}, "
+          f"order alternating): "
+          f"decode route {host['decode_us']:.2f} us, FMA route {host['fma_us']:.2f} us, "
+          f"difference {host['diff_us']:+.2f} us (turns {min(per_call['decode']):.1f}-"
+          f"{max(per_call['decode']):.1f} and {min(per_call['fma']):.1f}-"
+          f"{max(per_call['fma']):.1f} us)")
+    if host["diff_us"] > HOST_GATE_US:
+        raise AssertionError(f"decode route: {host['diff_us']:+.2f} us a call over the FMA route's "
+                             f"host cost, past the {HOST_GATE_US} us gate")
+
+    def step():
+        for _ in range(28):
+            ops.flash_attention(q, k, v, causal=False, impl="cuda")
+    torch.cuda.synchronize(dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sorted({str(w.message).splitlines()[0] for w in caught
+                    if "called a synchronizing" in str(w.message)})
+    if syncs:
+        raise AssertionError(f"decode route: 28 calls synchronized with the card: {syncs}")
+    # a process's first traced session started the tracer and missed one of
+    # the 28 kernels on the H100 once: trace a step untimed first
+    profile(step, dev)
+    before = {r: c.launches for r, c in FLASH_ROUTES.items()}
+    kernels = profile(step, dev)["top"]
+    rose = {r: c.launches - before[r] for r, c in FLASH_ROUTES.items()}
+    if rose != {"tc": 0, "decode": 28, "fma": 0}:
+        raise AssertionError(f"decode route: 28 calls moved the counters by {rose}")
+    if len(kernels) != 1 or kernels[0]["calls"] != 28 or "flash_decode" not in kernels[0]["kernel"]:
+        raise AssertionError(f"decode route: 28 calls ran {kernels}, not 28 decode kernels")
+    print("  flash decode step: 28 calls, no sync, 28 decode kernels traced")
+    return host
 
 
 def agree_phase(dev):
@@ -756,14 +908,18 @@ def plain_attention():
 
 def serve_agree_phase(dev):
     """Reduced qwen2-7b and gemma2-9b in f32, 2 clients x 2 requests: the
-    federated prefill step and 72 teacher-forced decode steps (gemma2's
-    window-64 cache wraps) on the card, through the kernel, against the
-    plain path on the CPU from the same weights. Logits atol 1e-4 (values
-    up to ~5; f32 sums in another order). Then bf16 (which the f32 run
-    never routes to the tensor-core tile): the prefill step over 96 tokens
-    through the tile, against the same step with the plain attention, on
-    the card (``bf16_prefill_agree``)."""
+    federated prefill step (one FMA kernel launch a layer) and 72
+    teacher-forced decode steps (one decode kernel launch a layer; gemma2's
+    window-64 cache wraps) on the card, against the plain path on the CPU
+    from the same weights. Logits atol 1e-4 (values up to ~5; f32 sums in
+    another order). Then bf16 (which the f32 run never routes to the
+    tensor-core tile): the prefill step over 96 tokens through the tile
+    (``bf16_prefill_agree``) and 72 decode steps through the decode kernel
+    (``bf16_decode_agree``), each against the same steps with the plain
+    attention on the card. Returns the FMA kernel's launches here, its
+    main path since decode left it."""
     t0 = time.perf_counter()
+    fma_launches = 0
     for arch in ("qwen2-7b", "gemma2-9b"):
         cfg = configs.get(arch).reduced()
         host = serve_lib.personalized_params(cfg, 2, SEED, "cpu")
@@ -772,25 +928,35 @@ def serve_agree_phase(dev):
                             generator=torch.Generator().manual_seed(SEED + 1))
         prefill = steps.build_prefill_step(cfg, federated=True)
         hl, hc = prefill(host, {"tokens": tok[:, :, :40]})
+        zero_counters()
         cl, cc = prefill(card, {"tokens": tok[:, :, :40].to(dev)})
+        got = read_counters(f"serve-agree {arch} f32 prefill",
+                            {"flash_attention_fma": cfg.num_layers})
+        fma_launches += got["flash_attention_fma"]
         errs = [check(f"serve-agree {arch} prefill", cl, hl.to(dev), 1e-4)]
         check(f"serve-agree {arch} prefill k cache", cc["blocks"]["l0"]["k"],
               hc["blocks"]["l0"]["k"].to(dev), 1e-4)
         step = steps.build_serve_step(cfg, federated=True)
         hcache = transformer.init_cache(cfg, 2, 2, 80, "cpu")
         ccache = transformer.init_cache(cfg, 2, 2, 80, dev)
+        zero_counters()
         for pos in range(72):
             hl, hcache = step(host, hcache, tok[:, :, pos:pos + 1], pos)
             cl, ccache = step(card, ccache, tok[:, :, pos:pos + 1].to(dev), pos)
             errs.append(check(f"serve-agree {arch} decode step {pos}", cl, hl.to(dev), 1e-4))
-        print(f"  {cfg.name}: prefill logits max_abs_err {errs[0]:.3e}, decode steps "
-              f"{max(errs[1:]):.3e} (largest |logit| {float(hl.abs().max()):.2f})")
+        read_counters(f"serve-agree {arch} f32 decode",
+                      {"flash_attention_decode": 72 * cfg.num_layers})
+        print(f"  {cfg.name}: prefill logits max_abs_err {errs[0]:.3e} (FMA kernel), decode "
+              f"steps {max(errs[1:]):.3e} (decode kernel, {72 * cfg.num_layers} launches; "
+              f"largest |logit| {float(hl.abs().max()):.2f})")
     for arch in ("qwen2-7b", "gemma2-9b"):
-        bf16_prefill_agree(dev, configs.get(arch).reduced(param_dtype="bfloat16",
-                                                          act_dtype="bfloat16"))
+        cfg = configs.get(arch).reduced(param_dtype="bfloat16", act_dtype="bfloat16")
+        bf16_prefill_agree(dev, cfg)
+        bf16_decode_agree(dev, cfg)
     phase("serve-agree", t0, "reduced qwen2-7b and gemma2-9b serve on the card as on the CPU "
-          "(f32, logits atol 1e-4, 72 decode steps); in bf16 the tile's prefill step "
-          "matches the plain attention's")
+          "(f32, logits atol 1e-4, 72 decode steps); in bf16 the tile's prefill step and the "
+          "decode kernel's 72 decode steps match the plain attention's")
+    return fma_launches
 
 
 def bf16_prefill_agree(dev, cfg, seq=96):
@@ -821,6 +987,45 @@ def bf16_prefill_agree(dev, cfg, seq=96):
     print(f"  {cfg.name} bf16: prefill over {seq} tokens on the tile, {cfg.num_layers} launches; "
           f"logits max_abs_err {err:.3e} against the plain attention (largest |logit| "
           f"{largest:.3f}), cache leaves {max(cache_errs):.3e}")
+
+
+def bf16_decode_agree(dev, cfg, steps_run=72):
+    """A bf16 model's teacher-forced decode steps (2 clients x 2 requests,
+    past gemma2's window 64) through the decode kernel, against the same
+    steps with the plain attention on the card, each run on its own cache.
+    As in ``bf16_prefill_agree`` the runs differ only where an attention
+    output rounds to the neighbouring bf16 value, carried through later
+    layers and into the caches: every step's logits within 4 bf16 steps of
+    that step's largest logit (2^-5 of it)."""
+    params = serve_lib.personalized_params(cfg, 2, SEED, dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, steps_run),
+                        generator=torch.Generator().manual_seed(SEED + 4)).to(dev)
+    step = steps.build_serve_step(cfg, federated=True)
+
+    def run():
+        cache = transformer.init_cache(cfg, 2, 2, steps_run + 8, dev)
+        logits = []
+        for pos in range(steps_run):
+            out, cache = step(params, cache, tok[:, :, pos:pos + 1], pos)
+            logits.append(out)
+        return logits
+
+    zero_counters()
+    got = run()
+    read_counters(f"serve-agree {cfg.name} bf16 decode",
+                  {"flash_attention_decode": steps_run * cfg.num_layers})
+    with plain_attention():
+        want = run()
+    read_counters(f"serve-agree {cfg.name} bf16 decode plain",
+                  {"flash_attention_decode": steps_run * cfg.num_layers})
+    worst = 0.0
+    for pos, (g, w) in enumerate(zip(got, want)):
+        largest = float(w.float().abs().max())
+        err = check(f"serve-agree {cfg.name} bf16 decode step {pos}", g, w, 2.0 ** -5 * largest)
+        worst = max(worst, err / largest)
+    print(f"  {cfg.name} bf16: {steps_run} decode steps on the decode kernel, "
+          f"{steps_run * cfg.num_layers} launches; logits within {worst:.3e} of each step's "
+          "largest |logit| against the plain attention (gate 2^-5)")
 
 
 def zero_counters():
@@ -927,6 +1132,7 @@ def serve_phase(dev):
     res = serve_lib.serve(cfg, clients=m, batch=b, prompt_len=PROMPT_LEN,
                           decode_tokens=DECODE_TOKENS, seed=SEED, device=dev)
     steps_run = PROMPT_LEN + DECODE_TOKENS
+    # every decode step on the decode kernel, none on the FMA kernel
     launches = read_counters("serve", {"flash_attention_decode": cfg.num_layers * steps_run})
     if tuple(res.tokens.shape) != (m, b, DECODE_TOKENS) or not bool(
             ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
@@ -940,7 +1146,7 @@ def serve_phase(dev):
     print(f"  serve(): {PROMPT_LEN}-token teacher-forced prompt in {res.prefill_s:.3f} s "
           f"({out['prompt_tok_s']:.1f} tokens/s), {DECODE_TOKENS} greedy tokens in "
           f"{res.decode_s:.3f} s ({out['decode_tok_s']:.1f} tokens/s, "
-          f"{out['decode_step_ms']:.2f} ms a step); FMA kernel launches "
+          f"{out['decode_step_ms']:.2f} ms a step); decode kernel launches "
           f"{launches['flash_attention_decode']} over {steps_run} steps; peak memory "
           f"{out['serve_peak_gb']:.2f} GB; clients' last logits differ by up to {diff:.3f}")
     del res
@@ -959,7 +1165,7 @@ def main():
     launches = main_phase(dev, *task)
     cohort = cohort_phase(dev, *task)
     del task
-    serve_agree_phase(dev)
+    fma_launches = serve_agree_phase(dev)
     served = serve_phase(dev)
     full, k4 = launches["ucfl"], launches["ucfl_k4"]
     counts = {"gram": full["gram"] + k4["gram"], "mix_aggregate_k100": full["mix_aggregate"],
@@ -967,7 +1173,8 @@ def main():
               "cohort_gather": sum(r["cohort_gather"] for r in cohort.values()),
               "masked_mix_scatter": sum(r["masked_mix_scatter"] for r in cohort.values()),
               "flash_attention_prefill": served["prefill_launches"]["flash_attention_prefill"],
-              "flash_attention_decode": served["serve_launches"]["flash_attention_decode"]}
+              "flash_attention_decode": served["serve_launches"]["flash_attention_decode"],
+              "flash_attention_fma": fma_launches}
     kernels = [{"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
                 "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -124,6 +124,12 @@ class Kernel:
         self._fn = None
 
     def __call__(self, device: torch.device, *args):
+        """Enqueue on the device's current stream."""
+        self.launch(device, stream(device), *args)
+
+    def launch(self, device: torch.device, stream_handle, *args):
+        """Enqueue on ``stream_handle`` (a ``cudaStream_t``: :func:`stream`
+        or an int)."""
         if self._fn is None:
             lib = library(self.source)
             fn = getattr(lib, self.symbol)
@@ -134,7 +140,7 @@ class Kernel:
             err_str.restype = ctypes.c_char_p
             self._fn, self._err_str = fn, err_str
         with torch.cuda.device(device):
-            err = self._fn(*args, stream(device))
+            err = self._fn(*args, stream_handle)
         if err != 0:
             msg = self._err_str(err).decode()
             raise RuntimeError(f"{self.symbol}: launch failed: CUDA error {err} ({msg})")

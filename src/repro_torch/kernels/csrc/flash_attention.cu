@@ -1,6 +1,7 @@
 // Forward attention with an online softmax: a bf16 tensor-core tile for
-// prefill and an f32 FMA kernel for everything else (decode, f32 inputs,
-// unaligned views).
+// prefill, a split-KV decode kernel for one query (Sq = 1), and an f32 FMA
+// kernel for everything else (f32 prefill, Sq 2-15, unaligned views, odd
+// head dims).
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention
 // (_flash_kernel), which streams (block_k, Dh) tiles of K and V past a
@@ -8,7 +9,7 @@
 // the running max, sum and accumulator in VMEM scratch across the
 // sequential kv grid axis.
 //
-// What both kernels compute, per q head h (kv head h / (Hq / Hkv), no
+// What all three kernels compute, per q head h (kv head h / (Hq / Hkv), no
 // expanded copy of K and V): s = (q . k) * scale (the caller's Dh^-0.5),
 // then softcap * tanh(s / softcap) in f32 when a softcap is set; columns
 // outside the mask (with causal, col > row, rows and cols both counted from
@@ -57,24 +58,56 @@
 // window's edge or Sk evaluate the mask (a template flag, as the softcap
 // is, so unmasked tiles take the exponent as one FFMA and one ex2).
 //
-// flash_attention_fwd (flash_fwd): f32 or bf16, any head dim 1..256, any
-// strides with a contiguous last dim. Decode (Sq = 1), f32 inputs (the
-// reduced models' agreement checks) and unaligned views run here. What
-// bounds it: at qwen2-7b's decode shape (4, 28, 1, 128) over 160 keys it
-// moves 0.7 MB (0.0002 ms at 3.35 TB/s), so latency, not bytes, sets its
-// time. Design (the first, simple kernel): one block of 256 threads per
-// (64-row q tile, q head, batch); Q's, K's (transposed) and V's tiles live
-// in shared memory as f32, so one code path serves both input types; both
-// products are f32 FMAs on the CUDA cores (67 TFLOP/s peak), 4x4 scores
-// and 4 x (16 NJ) outputs per thread; each row's 16 threads are 16 lanes
-// of one warp, so the row max and row sum are shuffles. Measured on the
-// card, the FMA loops bound it at prefill shapes (about 10 TFLOP/s, hence
-// the tile above), and a one-query decode tile spends 63 of its 64 rows on
-// padding: packing a GQA group's heads into the rows of a decode tile is
-// the next step.
+// flash_attention_decode (flash_decode): Sq = 1, f32 or bf16, Dh % 8 == 0
+// up to 256, 16-byte aligned pointers and strides. What bounds it on an
+// H100: at qwen2-7b's decode shape (4, 28, 1, 128) over 160 keys it moves
+// 1.4 MB (0.0004 ms at 3.35 TB/s), so latency sets its time; over 4,096
+// keys its 33.6 MB take 0.010 ms, and on the card each warp's chain of
+// dependent instructions, not the bytes, sets it (warm and cold L2 timed
+// alike). Design, for parallel blocks and K and V read once:
+// - GQA packing: one block per (split of the keys, kv head and row tile,
+//   batch); its rows are the query heads of the group that read that kv
+//   head (7 for qwen2, 2 for gemma2, 1 for MHA; tiles of 8 rows beyond 8),
+//   so each K and V row leaves HBM once per (batch, kv head).
+// - Inside a block: 8 warps in up to 4 row groups times key slices. The
+//   q rows stay in registers as f32; a key row is spread over 4-32 lanes
+//   with 16-byte loads, scores are lane dots summed by shuffles, and each
+//   group of lanes keeps its own online softmax with P in f32 for P . v on
+//   the CUDA cores (at 8 rows a tensor-core tile would be mostly padding).
+//   At 128 registers two blocks share an SM; on the card 4 warps a block
+//   at 255 registers, each warp owning all 8 rows, ran slower at both key
+//   counts.
+// - Flash-decoding: kernels/flash_attention.py::decode_splits cuts the
+//   keys into S balanced ranges so the grid fills one wave of the resident
+//   block slots. Each split writes (max, sum, accumulators) per row to a
+//   workspace, then raises its (batch, kv head, row tile) counter
+//   (__threadfence, then atomicAdd); the last block to arrive merges the S
+//   partials in split order 0..S-1, writes the output and resets the
+//   counter to 0. With one split the block writes the output directly.
+// - Merge order: lane groups by a fixed shuffle tree, key slices in order,
+//   splits in order, so the bits do not depend on which block runs when
+//   (strided views give the bits of contiguous inputs). A split whose
+//   columns are all masked (causal with Sq = 1 keeps column 0 only) has
+//   max -1e30 and merges with a weight of exactly 0.
 //
-// Both kernels' dynamic shared memory limit is set once per template
-// instance and device (allow_smem), not before every launch.
+// flash_attention_fwd (flash_fwd): f32 or bf16, any head dim 1..256, any
+// strides with a contiguous last dim. f32 prefill (the reduced models'
+// agreement checks), Sq 2-15, and unaligned or odd-Dh inputs run here. What
+// bounds it: at the reduced models' f32 prefill (4, 4, 40, 32) it moves
+// 0.25 MB, so latency sets its time. Design (the first, simple kernel):
+// one block of 256 threads per (64-row q tile, q head, batch); Q's, K's
+// (transposed) and V's tiles live in shared memory as f32, so one code path
+// serves both input types; both products are f32 FMAs on the CUDA cores
+// (67 TFLOP/s peak), 4x4 scores and 4 x (16 NJ) outputs per thread; each
+// row's 16 threads are 16 lanes of one warp, so the row max and row sum
+// are shuffles. Measured on the card, the FMA loops bound it at prefill
+// shapes (about 10 TFLOP/s, hence the tile above), and a one-query decode
+// tile spent 63 of its 64 rows on padding and re-read each kv head's K and
+// V once per query head (hence the decode kernel above).
+//
+// The tile's and the FMA kernel's dynamic shared memory limit is set once
+// per template instance and device (allow_smem), not before every launch;
+// the decode kernel's shared memory is static (under 48 KB).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -589,6 +622,282 @@ __global__ void __launch_bounds__(TC_THREADS) flash_tc(Args a) {
   }
 }
 
+// ------------------------------------------------------------- decode (Sq = 1)
+constexpr int DEC_WARPS = 8;
+constexpr int DEC_THREADS = 32 * DEC_WARPS;
+// q rows (heads of one GQA group) a block takes: at most 4 row groups of
+// 2 rows, so a lane's q slices and accumulators stay in 32 registers
+constexpr int DEC_ROWS = 8;
+// floats of one split's partial record: m and l per row, then the rows'
+// accumulators at the widest head dim
+constexpr int DEC_REC = DEC_ROWS * (2 + 256);
+// the most splits a launch takes (the planner's cap): the merging block
+// holds every split's row weights in shared memory
+constexpr int DEC_MAX_SPLITS = 64;
+
+// a 16-byte vector of T as f32: 4 floats, or 8 from bf16 pairs (exact)
+__device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float* f, __nv_bfloat16) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// One block of DEC_WARPS warps per (split of the keys, kv head and row
+// tile, batch). Its G padded rows are the query heads kvh * group +
+// tile * DEC_ROWS + r that read kv head kvh. The warps form WR row groups
+// of RPW rows times NK key slices: warp (rg, ks) takes rows rg * RPW.. and
+// every NK-th chunk of the split's keys from chunk ks on. A key row is read
+// by LK lanes, 16 bytes each (E dims a lane, NV loads); a warp takes KW keys
+// a step and C steps a chunk, the next chunk's K and V loads in flight
+// while it computes. Each group of LK lanes keeps its own online softmax;
+// groups merge by shuffles, key slices through shared memory and splits
+// through `partials`, each in a fixed order.
+template <typename T, int DP, int G>
+__global__ void __launch_bounds__(DEC_THREADS, 2) flash_decode(Args a, int splits, int* counters,
+                                                               float* partials) {
+  constexpr int VEC = 16 / sizeof(T);                 // elements of a 16-byte load
+  constexpr int LK = DP / VEC < 32 ? DP / VEC : 32;   // lanes across one key row
+  constexpr int E = DP / LK;                          // dims a lane holds
+  constexpr int NV = E / VEC;                         // 16-byte loads a lane and row
+  constexpr int KW = 32 / LK;                         // keys a warp takes a step
+  constexpr int C = NV == 1 ? 4 : 2;                  // steps a chunk: loads in flight
+  constexpr int WR = G < 4 ? G : 4;                   // row groups
+  constexpr int RPW = G / WR;                         // rows a warp
+  constexpr int NK = DEC_WARPS / WR;                  // key slices
+  __shared__ __align__(16) float s_acc[NK][G][DP];
+  __shared__ float s_m[NK][G], s_l[NK][G];
+  __shared__ float s_w[DEC_MAX_SPLITS * G], s_lw[DEC_MAX_SPLITS * G], s_sum[G];
+  __shared__ bool s_last;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = (warp % WR) * RPW, ks = warp / WR;
+  const int grp = lane / LK, d0 = (lane % LK) * E;
+  const int tiles = gridDim.y / (a.hq / a.group);
+  const int kvh = blockIdx.y / tiles, tile = blockIdx.y % tiles, b = blockIdx.z;
+  const int split = blockIdx.x;
+  const int h0 = kvh * a.group + tile * DEC_ROWS;
+  const int rows = min(G, a.group - tile * DEC_ROWS);
+  // balanced splits: each holds floor or ceil of sk / splits keys
+  const int k_begin = static_cast<int>(static_cast<long long>(split) * a.sk / splits);
+  const int k_end = static_cast<int>(static_cast<long long>(split + 1) * a.sk / splits);
+  const T* qg = static_cast<const T*>(a.q) + b * a.qs[0] + h0 * a.qs[1];
+  const T* kg = static_cast<const T*>(a.k) + b * a.ks[0] + kvh * a.ks[1];
+  const T* vg = static_cast<const T*>(a.v) + b * a.vs[0] + kvh * a.vs[1];
+
+  // the C steps of chunk ci of K or V rows into dst: zero past the split
+  // (which covers chunks past the last) and past Dh
+  uint4 kr[C][NV], vr[C][NV];
+  auto load_rows = [&](uint4(&dst)[C][NV], const T* src, long long stride, int ci) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int key = k_begin + (ci * C + c) * KW + grp;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int d = d0 + v * VEC;
+        dst[c][v] = key < k_end && d < a.dh
+                        ? __ldg(reinterpret_cast<const uint4*>(src + key * stride + d))
+                        : make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+  // the first chunk's loads go out before q's, so their latencies overlap
+  load_rows(kr, kg, a.ks[2], ks);
+  load_rows(vr, vg, a.vs[2], ks);
+  float q[RPW][E], acc[RPW][E], m[RPW], l[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int r = r0 + i;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int d = d0 + v * VEC;
+      const uint4 u = (r < rows && d < a.dh)
+                          ? __ldg(reinterpret_cast<const uint4*>(qg + r * a.qs[1] + d))
+                          : make_uint4(0, 0, 0, 0);
+      unpack(u, q[i] + v * VEC, T());
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+
+  const int nsteps = (k_end - k_begin + KW - 1) / KW;
+  const int nchunks = (nsteps + C - 1) / C;
+  for (int ci = ks; ci < nchunks; ci += NK) {
+    float s[C][RPW];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int key = k_begin + (ci * C + c) * KW + grp;
+      float kf[E];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) unpack(kr[c][v], kf + v * VEC, T());
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        float x = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) x = fmaf(q[i][e], kf[e], x);
+#pragma unroll
+        for (int off = LK / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+        x *= a.scale;
+        if (a.has_softcap) x = a.softcap * tanhf(x / a.softcap);
+        // row 0: causal keeps column 0 only; a window (>= 1) keeps every column
+        if (a.causal && key != 0) x = kNegInf;
+        if (key >= k_end) x = -INFINITY;  // outside the split: weight exactly 0
+        s[c][i] = x;
+      }
+    }
+    // this chunk's K is consumed: the next chunk's K loads overlap its P . V
+    load_rows(kr, kg, a.ks[2], ci + NK);
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int c = 0; c < C; ++c) mx = fmaxf(mx, s[c][i]);
+      const float alpha = exp2_ftz((m[i] - mx) * kLog2e);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        s[c][i] = exp2_ftz((s[c][i] - mx) * kLog2e);
+        sum += s[c][i];
+      }
+      l[i] = alpha * l[i] + sum;
+      m[i] = mx;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] *= alpha;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float vf[E];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) unpack(vr[c][v], vf + v * VEC, T());
+#pragma unroll
+      for (int i = 0; i < RPW; ++i)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(s[c][i], vf[e], acc[i][e]);
+    }
+    load_rows(vr, vg, a.vs[2], ci + NK);
+  }
+
+  // the warp's KW key groups into group 0, a fixed tree
+#pragma unroll
+  for (int off = LK; off < 32; off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const float mo = __shfl_down_sync(0xffffffffu, m[i], off);
+      const float lo = __shfl_down_sync(0xffffffffu, l[i], off);
+      const float mx = fmaxf(m[i], mo);
+      const float wa = exp2_ftz((m[i] - mx) * kLog2e), wb = exp2_ftz((mo - mx) * kLog2e);
+      l[i] = wa * l[i] + wb * lo;
+      m[i] = mx;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[i][e] = wa * acc[i][e] + wb * __shfl_down_sync(0xffffffffu, acc[i][e], off);
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+#pragma unroll
+      for (int e = 0; e < E; e += 4)
+        *reinterpret_cast<float4*>(&s_acc[ks][r0 + i][d0 + e]) =
+            make_float4(acc[i][e], acc[i][e + 1], acc[i][e + 2], acc[i][e + 3]);
+      if (lane == 0) {
+        s_m[ks][r0 + i] = m[i];
+        s_l[ks][r0 + i] = l[i];
+      }
+    }
+  }
+  __syncthreads();
+
+  T* og = static_cast<T*>(a.o) + b * a.os[0] + h0 * a.os[1];
+  // this (batch, kv head, row tile)'s counter and partial records
+  const int slot = blockIdx.z * gridDim.y + blockIdx.y;
+  float* recs = partials + static_cast<long long>(slot) * splits * DEC_REC;
+  // the key slices in order 0..NK-1; with one split, straight to the output
+  for (int i = threadIdx.x; i < G * DP; i += DEC_THREADS) {
+    const int r = i / DP, d = i % DP;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < NK; ++w) mx = fmaxf(mx, s_m[w][r]);
+    float sum = 0.f, val = 0.f;
+#pragma unroll
+    for (int w = 0; w < NK; ++w) {
+      const float wt = exp2_ftz((s_m[w][r] - mx) * kLog2e);
+      sum += wt * s_l[w][r];
+      val += wt * s_acc[w][r][d];
+    }
+    if (splits == 1) {
+      if (r < rows && d < a.dh) store_f(og + r * a.os[1] + d, val / fmaxf(sum, 1e-30f));
+    } else {
+      float* rec = recs + split * DEC_REC;
+      if (d == 0) {
+        rec[r] = mx;
+        rec[DEC_ROWS + r] = sum;
+      }
+      rec[2 * DEC_ROWS + i] = val;
+    }
+  }
+  if (splits == 1) return;
+
+  // the last split of this (batch, kv head, row tile) to arrive merges all
+  // of them in split order, so the bits do not depend on which block that is
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(counters + slot, 1) == splits - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < splits * G; i += DEC_THREADS) {
+    const float* rec = recs + (i / G) * DEC_REC;
+    s_w[i] = __ldcg(rec + i % G);
+    s_lw[i] = __ldcg(rec + DEC_ROWS + i % G);
+  }
+  __syncthreads();
+  if (threadIdx.x < G) {
+    const int r = threadIdx.x;
+    float mx = kNegInf;
+    for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, s_w[sp * G + r]);
+    float sum = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      // a split whose columns are all masked has max -1e30: a weight of 0
+      const float wt = exp2_ftz((s_w[sp * G + r] - mx) * kLog2e);
+      s_w[sp * G + r] = wt;
+      sum += wt * s_lw[sp * G + r];
+    }
+    s_sum[r] = sum;
+  }
+  __syncthreads();
+  constexpr int EPT = (G * DP + DEC_THREADS - 1) / DEC_THREADS;  // elements a thread
+  float val[EPT];
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) val[j] = 0.f;
+#pragma unroll 4
+  for (int sp = 0; sp < splits; ++sp) {
+    const float* acc_sp = recs + sp * DEC_REC + 2 * DEC_ROWS;
+#pragma unroll
+    for (int j = 0; j < EPT; ++j) {
+      const int i = threadIdx.x + j * DEC_THREADS;
+      if (i < G * DP) val[j] += s_w[sp * G + i / DP] * __ldcg(acc_sp + i);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) {
+    const int i = threadIdx.x + j * DEC_THREADS, r = i / DP, d = i % DP;
+    if (i < G * DP && r < rows && d < a.dh)
+      store_f(og + r * a.os[1] + d, val[j] / fmaxf(s_sum[r], 1e-30f));
+  }
+  if (threadIdx.x == 0) counters[slot] = 0;  // ready for the next launch on this stream
+}
+
 // ------------------------------------------------------------------ launches
 // cudaFuncSetAttribute(MaxDynamicSharedMemorySize) for `kernel` once per
 // device; `done` is the kernel instance's own set of devices
@@ -641,6 +950,35 @@ cudaError_t dispatch_tc(const Args& a, int b, cudaStream_t st) {
   if (a.dh <= 64) return launch_tc<64, SOFTCAP>(a, b, st);
   if (a.dh <= 128) return launch_tc<128, SOFTCAP>(a, b, st);
   return launch_tc<256, SOFTCAP>(a, b, st);
+}
+
+template <typename T, int DP, int G>
+cudaError_t launch_decode(const Args& a, int b, int splits, int* counters, float* partials,
+                          cudaStream_t st) {
+  const int tiles = (a.group + DEC_ROWS - 1) / DEC_ROWS;
+  const dim3 grid(splits, (a.hq / a.group) * tiles, b);
+  flash_decode<T, DP, G><<<grid, DEC_THREADS, 0, st>>>(a, splits, counters, partials);
+  return cudaGetLastError();
+}
+
+// the padded rows a block holds: the group (at most DEC_ROWS) rounded up
+// to a power of 2
+template <typename T, int DP>
+cudaError_t dispatch_decode_rows(const Args& a, int b, int splits, int* counters,
+                                 float* partials, cudaStream_t st) {
+  if (a.group == 1) return launch_decode<T, DP, 1>(a, b, splits, counters, partials, st);
+  if (a.group == 2) return launch_decode<T, DP, 2>(a, b, splits, counters, partials, st);
+  if (a.group <= 4) return launch_decode<T, DP, 4>(a, b, splits, counters, partials, st);
+  return launch_decode<T, DP, DEC_ROWS>(a, b, splits, counters, partials, st);
+}
+
+template <typename T>
+cudaError_t dispatch_decode(const Args& a, int b, int splits, int* counters, float* partials,
+                            cudaStream_t st) {
+  if (a.dh <= 32) return dispatch_decode_rows<T, 32>(a, b, splits, counters, partials, st);
+  if (a.dh <= 64) return dispatch_decode_rows<T, 64>(a, b, splits, counters, partials, st);
+  if (a.dh <= 128) return dispatch_decode_rows<T, 128>(a, b, splits, counters, partials, st);
+  return dispatch_decode_rows<T, 256>(a, b, splits, counters, partials, st);
 }
 
 // the Args of q (B, Hq, Sq, Dh), k and v (B, Hkv, Sk, Dh) and out, each
@@ -721,4 +1059,40 @@ extern "C" int flash_attention_tc(const void* q, const void* k, const void* v, v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(a.has_softcap ? dispatch_tc<true>(a, b, st)
                                         : dispatch_tc<false>(a, b, st));
+}
+
+// The decode kernel: Sq = 1, f32 (dtype 0) or bf16 (dtype 1), with the FMA
+// kernel's other arguments, then the split count, `n_counters` int
+// counters, one per (batch, kv head, row tile) and zero between launches
+// (the merging block of a launch resets its own), and `n_partials` floats
+// for one record of DEC_REC floats per (batch, kv head, row tile, split);
+// with one split neither buffer is read. Needs Dh % 8 == 0, Dh <= 256,
+// every pointer and stride a multiple of 16 bytes and 1 <= splits <=
+// min(Sk, DEC_MAX_SPLITS); refuses anything else with cudaErrorInvalidValue.
+extern "C" int flash_attention_decode(const void* q, const void* k, const void* v, void* out,
+                                      const long long* strides, int dtype, int b, int hq,
+                                      int hkv, int sq, int sk, int dh, int causal, int window,
+                                      float softcap, float scale, int splits, void* counters,
+                                      int n_counters, void* partials, long long n_partials,
+                                      void* stream) {
+  const int esize = dtype == 0 ? 4 : 2;
+  const long long tiles = hkv >= 1 && hq % hkv == 0 ? (hq / hkv + DEC_ROWS - 1) / DEC_ROWS : 0;
+  const long long slots = static_cast<long long>(b) * hkv * tiles;
+  bool ok = (dtype == 0 || dtype == 1) && dh >= 8 && dh <= 256 && dh % 8 == 0 && b >= 1 &&
+            b <= 65535 && hq >= 1 && hkv >= 1 && hq % hkv == 0 && hkv * tiles <= 65535 &&
+            sq == 1 && sk >= 1 && window >= 0 && softcap >= 0.f && splits >= 1 &&
+            splits <= sk && splits <= DEC_MAX_SPLITS &&
+            (splits == 1 || (counters != nullptr && partials != nullptr && n_counters >= slots &&
+                             n_partials >= slots * splits * DEC_REC));
+  const void* ptrs[4] = {q, k, v, out};
+  for (const void* p : ptrs) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (int i = 0; i < 12; ++i) ok = ok && (strides[i] * esize) % 16 == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(q, k, v, out, strides, hq, hkv, sq, sk, dh, causal, window, softcap,
+                           scale);
+  int* cnt = static_cast<int*>(counters);
+  float* part = static_cast<float*>(partials);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return static_cast<int>(dispatch_decode<float>(a, b, splits, cnt, part, st));
+  return static_cast<int>(dispatch_decode<__nv_bfloat16>(a, b, splits, cnt, part, st));
 }

@@ -88,6 +88,25 @@ def kmeans_assign(points, centroids):
 NEG_INF = -1e30  # the mask value of the reference's attention kernels
 
 
+def _masked_scores(q, k, v, causal, window, softcap):
+    """f32 logits (B, Hq, Sq, Sk) scaled by Dh^-0.5, softcapped and masked
+    with -1e30, and v expanded to the q heads in f32."""
+    g = q.shape[1] // k.shape[1]
+    kx = torch.repeat_interleave(k, g, dim=1).to(torch.float32)
+    vx = torch.repeat_interleave(v, g, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kx) * q.shape[-1] ** -0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    rows = torch.arange(q.shape[2], device=q.device)[:, None]
+    cols = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols > rows - window
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), vx
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, probs_dtype=None):
     """Attention over (B, H, S, Dh), materialising the (Sq, Sk) logits.
 
@@ -105,21 +124,38 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, probs_dt
     model's ``_attend`` does; the kernel checks use it with bfloat16 as the
     control that a tile keeping P to 16 bits must beat.
     """
-    g = q.shape[1] // k.shape[1]
-    kx = torch.repeat_interleave(k, g, dim=1).to(torch.float32)
-    vx = torch.repeat_interleave(v, g, dim=1).to(torch.float32)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kx) * q.shape[-1] ** -0.5
-    if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
-    rows = torch.arange(q.shape[2], device=q.device)[:, None]
-    cols = torch.arange(k.shape[2], device=q.device)[None, :]
-    mask = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= cols <= rows
-    if window is not None:
-        mask &= cols > rows - window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s, vx = _masked_scores(q, k, v, causal, window, softcap)
     p = torch.softmax(s, dim=-1)
     if probs_dtype is not None:
         p = p.to(probs_dtype).to(torch.float32)
     return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)
+
+
+def flash_decode_split(q, k, v, splits, *, causal=True, window=None, softcap=None):
+    """:func:`flash_attention` the way the split-KV decode kernel computes
+    it. The Sk keys fall into ``splits`` balanced ranges (split s holds
+    keys [s·Sk // S, (s+1)·Sk // S)); each split keeps its row max m, sum
+    l = Σ exp(x − m) and accumulator Σ exp(x − m)·v in f32, and the splits
+    merge in order 0..S−1: M = max m_s, w_s = exp(m_s − M), out =
+    Σ w_s·acc_s / max(Σ w_s·l_s, 1e-30), cast to q's dtype. A split whose
+    columns are all masked has m = -1e30, so beside a split that reaches a
+    key it merges with a weight of exactly 0. Scores and masks as
+    :func:`flash_attention` (any Sq; the kernel takes Sq = 1). Raises
+    ValueError unless 1 <= splits <= Sk (no split is empty)."""
+    sk = k.shape[2]
+    if not 1 <= splits <= sk:
+        raise ValueError(f"flash_decode_split: splits must be in 1..Sk = {sk}, got {splits}")
+    s, vx = _masked_scores(q, k, v, causal, window, softcap)
+    bounds = [i * sk // splits for i in range(splits + 1)]
+    parts = []
+    for lo, hi in zip(bounds, bounds[1:]):
+        m = s[..., lo:hi].amax(dim=-1, keepdim=True)
+        p = torch.exp(s[..., lo:hi] - m)
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      torch.einsum("bhqk,bhkd->bhqd", p, vx[:, :, lo:hi])))
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    total, acc = 0.0, 0.0
+    for m, l, a in parts:
+        w = torch.exp(m - top)
+        total, acc = total + w * l, acc + w * a
+    return (acc / torch.clamp_min(total, 1e-30)).to(q.dtype)

@@ -18,7 +18,10 @@ tile (``flash_route``), whose probabilities keep 16 bits through a hi/lo
 bf16 split: at qwen2-7b's prefill shape it stays within one bf16 step
 (2^-7 of the largest output), and its mean error is at most half that of
 the plain version with P rounded to bf16 (what a tile without the lo half
-would give).
+would give). Decode (Sq = 1) takes the split-KV decode kernel in f32 and
+bf16, whose splits merge in a fixed order: strided views give the bits of
+contiguous inputs, and a reduced bf16 model's decode steps match the
+plain attention's within 2^-5 of the largest logit, as its prefill does.
 """
 import functools
 
@@ -26,7 +29,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import FLASH_FMA, FLASH_TC, flash_route
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels.flash_attention import FLASH_DEC, FLASH_FMA, FLASH_TC, flash_route
 
 
 def cuda_device():
@@ -218,7 +223,17 @@ FLASH_CASES = [
     (2, 4, 2, 70, 70, 36, True, None, None),        # Dh 36: the FMA kernel
     (1, 4, 2, 16, 300, 128, True, None, None),      # Sq < Sk at the tile's smallest q
     (1, 2, 1, 80, 20, 64, True, 8, 10.0),           # rows past Sk + window - 1, two q tiles
+    # around the decode kernel (Sq = 1, f32 or bf16, Dh % 8 == 0, aligned)
+    (4, 28, 4, 1, 4096, 128, False, None, None),    # qwen2-7b's decode over 4,096 keys
+    (4, 16, 8, 1, 4096, 256, False, None, 50.0),    # gemma2-9b's decode over 4,096 keys
+    (4, 32, 32, 1, 300, 64, False, None, None),     # stablelm's MHA (group 1)
+    (4, 28, 4, 1, 600, 128, True, None, None),      # causal, several splits: out = v[:, :, 0]
+    (2, 8, 2, 1, 20, 64, False, None, None),        # under one split's minimum keys: one split
+    (2, 48, 2, 1, 333, 80, False, 7, 30.0),         # group 24: three row tiles a kv head, window
+    (2, 12, 4, 1, 77, 40, False, None, None),       # Dh 40 below its padded width
+    (2, 8, 2, 1, 50, 36, False, None, None),        # Dh 36: the FMA kernel
 ]
+DECODE_CASES = [c for c in FLASH_CASES if c[3] == 1 and c[5] % 8 == 0]
 
 
 def flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev, seed=0):
@@ -266,7 +281,7 @@ def test_cuda_flash_attention_matches_plain(b, hq, hkv, sq, sk, dh, causal, wind
 
 
 def flash_launches():
-    return {"tc": FLASH_TC.launches, "fma": FLASH_FMA.launches}
+    return {"tc": FLASH_TC.launches, "decode": FLASH_DEC.launches, "fma": FLASH_FMA.launches}
 
 
 def flash_route_taken(fn):
@@ -281,9 +296,10 @@ def flash_route_taken(fn):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,sq,dh,offset,route", [
     (torch.bfloat16, 64, 128, 0, "tc"), (torch.bfloat16, 16, 64, 0, "tc"),
-    (torch.bfloat16, 15, 64, 0, "fma"), (torch.bfloat16, 1, 128, 0, "fma"),
+    (torch.bfloat16, 15, 64, 0, "fma"), (torch.bfloat16, 1, 128, 0, "decode"),
     (torch.bfloat16, 64, 36, 0, "fma"), (torch.bfloat16, 64, 128, 1, "fma"),
-    (torch.float32, 64, 128, 0, "fma")])
+    (torch.float32, 64, 128, 0, "fma"), (torch.float32, 1, 128, 0, "decode"),
+    (torch.bfloat16, 1, 36, 0, "fma"), (torch.bfloat16, 1, 128, 1, "fma")])
 def test_cuda_flash_counters_show_the_route(dtype, sq, dh, offset, route):
     """Each call launches the kernel ``flash_route`` names, once, and
     agrees with the plain version; ``offset`` 1 slices q one element into
@@ -373,15 +389,19 @@ def test_cuda_serve_matches_cpu(arch):
     tok = torch.randint(0, cfg.vocab_size, (2, 2, 72), generator=torch.Generator().manual_seed(1))
     prefill = steps.build_prefill_step(cfg, federated=True)
     hl, hc = prefill(host, {"tokens": tok[:, :, :40]})
+    before = flash_launches()
     cl, cc = prefill(card, {"tokens": tok[:, :, :40].to(dev)})
+    assert flash_launches() == dict(before, fma=before["fma"] + cfg.num_layers)
     assert float((cl.cpu() - hl).abs().max()) <= 1e-4
     step = steps.build_serve_step(cfg, federated=True)
     hcache = transformer.init_cache(cfg, 2, 2, 80, "cpu")
     ccache = transformer.init_cache(cfg, 2, 2, 80, dev)
+    before = flash_launches()
     for s in range(72):
         hl, hcache = step(host, hcache, tok[:, :, s:s + 1], s)
         cl, ccache = step(card, ccache, tok[:, :, s:s + 1].to(dev), s)
         assert float((cl.cpu() - hl).abs().max()) <= 1e-4, s
+    assert flash_launches() == dict(before, decode=before["decode"] + 72 * cfg.num_layers)
 
 
 def _leaves(tree):
@@ -408,7 +428,7 @@ def test_cuda_bf16_prefill_tile_matches_plain_attention(arch, monkeypatch):
     prefill = steps.build_prefill_step(cfg, federated=True)
     before = flash_launches()
     got, got_cache = prefill(params, {"tokens": tok})
-    assert flash_launches() == {"tc": before["tc"] + cfg.num_layers, "fma": before["fma"]}
+    assert flash_launches() == dict(before, tc=before["tc"] + cfg.num_layers)
     monkeypatch.setattr(ops, "flash_attention", functools.partial(ops.flash_attention,
                                                                   impl="ref"))
     after = flash_launches()
@@ -417,3 +437,118 @@ def test_cuda_bf16_prefill_tile_matches_plain_attention(arch, monkeypatch):
     for g, w in zip([got] + _leaves(got_cache), [want] + _leaves(want_cache)):
         assert float((g.float() - w.float()).abs().max()) <= 2.0 ** -5 * float(
             w.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_cuda_flash_decode_strided_equals_contiguous(case, dtype):
+    """On the decode kernel, strided views and contiguous copies of the
+    same inputs give the same bits: the splits merge in split order
+    whichever block arrives last."""
+    b, hq, hkv, sq, sk, dh, causal, window, cap = case
+    dev = cuda_device()
+    q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev, seed=sq + sk + dh)
+    kw = dict(causal=causal, window=window, softcap=cap, impl="cuda")
+    got, took = flash_route_taken(lambda: ops.flash_attention(q, k, v, **kw))
+    flat, took_flat = flash_route_taken(lambda: ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), **kw))
+    assert took == took_flat == "decode"
+    assert torch.equal(flat, got)
+    again = ops.flash_attention(q, k, v, **kw)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_causal_takes_the_first_key():
+    """Causal with Sq = 1 over several splits: only key 0 survives, and
+    every other split merges with a weight of exactly 0."""
+    dev = cuda_device()
+    q, k, v = flash_inputs(4, 28, 4, 1, 600, 128, torch.bfloat16, dev, seed=7)
+    assert flash.decode_splits(flash.decode_blocks(4, 28, 4), 600, flash._sm_count(dev.index)) > 1
+    got = ops.flash_attention(q, k, v, causal=True, impl="cuda")
+    assert torch.equal(got, torch.repeat_interleave(v[:, :, :1], 7, dim=1))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_has_no_fallback(monkeypatch):
+    """A decode on the card raises when the decode kernel's symbol is
+    missing or its launch is refused; it takes neither the FMA kernel nor
+    the plain version. Its launch plans and workspace are its own: a plan
+    made before would skip the patched planner."""
+    dev = cuda_device()
+    q, k, v = flash_inputs(4, 28, 4, 1, 160, 128, torch.bfloat16, dev)
+    before = flash_launches()
+    monkeypatch.setattr(flash, "_DECODE_PLANS", {})
+    monkeypatch.setattr(flash, "_DECODE_WORKSPACE", {})
+    missing = _build.Kernel("flash_attention.cu", "flash_attention_decode_missing",
+                            FLASH_DEC.argtypes)
+    monkeypatch.setattr(flash, "FLASH_DEC", missing)
+    with pytest.raises(AttributeError, match="flash_attention_decode_missing"):
+        ops.flash_attention(q, k, v, causal=False, impl="cuda")
+    monkeypatch.setattr(flash, "FLASH_DEC", FLASH_DEC)
+    monkeypatch.setattr(flash, "_DECODE_PLANS", {})
+    monkeypatch.setattr(flash, "decode_splits", lambda *a: flash.DECODE_MAX_SPLITS + 1)
+    with pytest.raises(RuntimeError, match="flash_attention_decode: launch failed"):
+        ops.flash_attention(q, k, v, causal=False, impl="cuda")
+    assert flash_launches() == before
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_step_makes_no_sync():
+    """28 decode calls (one step's layers at qwen2-7b's shape) make no
+    synchronizing CUDA call and launch 28 decode kernels."""
+    import warnings
+
+    dev = cuda_device()
+    q, k, v = flash_inputs(4, 28, 4, 1, 160, 128, torch.bfloat16, dev)
+    ops.flash_attention(q, k, v, causal=False, impl="cuda")  # the workspace exists
+    torch.cuda.synchronize()
+    before = flash_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(28):
+                ops.flash_attention(q, k, v, causal=False, impl="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert not [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert flash_launches() == dict(before, decode=before["decode"] + 28)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-9b"])
+def test_cuda_bf16_decode_kernel_matches_plain_attention(arch, monkeypatch):
+    """A reduced bf16 model's 72 teacher-forced decode steps (past gemma2's
+    window 64) launch the decode kernel once a layer, and match the same
+    steps with the plain attention on the card: every step's logits within
+    4 bf16 steps of its largest (2^-5 of it), as at prefill."""
+    from repro_torch import configs
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer
+
+    dev = cuda_device()
+    cfg = configs.get(arch).reduced(param_dtype="bfloat16", act_dtype="bfloat16")
+    params = serve.personalized_params(cfg, 2, 0, dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, 72),
+                        generator=torch.Generator().manual_seed(4)).to(dev)
+    step = steps.build_serve_step(cfg, federated=True)
+
+    def run():
+        cache = transformer.init_cache(cfg, 2, 2, 80, dev)
+        out = []
+        for pos in range(72):
+            logits, cache = step(params, cache, tok[:, :, pos:pos + 1], pos)
+            out.append(logits)
+        return out
+
+    before = flash_launches()
+    got = run()
+    assert flash_launches() == dict(before, decode=before["decode"] + 72 * cfg.num_layers)
+    monkeypatch.setattr(ops, "flash_attention", functools.partial(ops.flash_attention,
+                                                                  impl="ref"))
+    want = run()
+    for pos, (g, w) in enumerate(zip(got, want)):
+        assert float((g.float() - w.float()).abs().max()) <= 2.0 ** -5 * float(
+            w.float().abs().max()), pos

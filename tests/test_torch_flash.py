@@ -13,7 +13,9 @@ import torch
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro_torch import configs
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import FLASH_FMA, FLASH_TC, flash_route
+from repro_torch.kernels.flash_attention import (DECODE_MAX_SPLITS, DECODE_MIN_KEYS, FLASH_DEC,
+                                                 FLASH_FMA, FLASH_TC, decode_blocks,
+                                                 decode_splits, flash_route)
 from repro_torch.models import attention
 from test_flash_attention import CASES
 from torch_parity import f32, n, t
@@ -148,19 +150,22 @@ def _model_qkv(arch, sq, sk, dtype=torch.bfloat16, m=2, b=1):
 @pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-9b", "stablelm-1.6b"])
 @pytest.mark.parametrize("phase,sq,sk,route", [("prefill", 64, 64, "tc"),
                                                ("prefill", 1024, 1024, "tc"),
-                                               ("decode", 1, 160, "fma"),
-                                               ("decode", 1, 1, "fma")])
+                                               ("decode", 1, 160, "decode"),
+                                               ("decode", 1, 1, "decode")])
 def test_flash_route_at_model_shapes(arch, phase, sq, sk, route):
-    """bf16 prefill takes the tensor-core tile, decode (Sq = 1) the FMA
-    kernel, and f32 always the FMA kernel."""
+    """bf16 prefill takes the tensor-core tile and decode (Sq = 1) the
+    decode kernel; in f32 decode takes the decode kernel too and prefill
+    the FMA kernel."""
     q, k, v = _model_qkv(arch, sq, sk)
     assert flash_route(q, k, v) == route
-    assert flash_route(*(x.float() for x in (q, k, v))) == "fma"
+    assert flash_route(*(x.float() for x in (q, k, v))) == ("decode" if sq == 1 else "fma")
 
 
 @pytest.mark.parametrize("sq,dh,route", [(15, 64, "fma"), (16, 64, "tc"), (17, 64, "tc"),
                                          (64, 36, "fma"), (64, 40, "tc"), (64, 32, "tc"),
-                                         (64, 80, "tc"), (64, 256, "tc")])
+                                         (64, 80, "tc"), (64, 256, "tc"),
+                                         (1, 64, "decode"), (1, 36, "fma"), (1, 40, "decode"),
+                                         (1, 8, "decode"), (1, 256, "decode"), (2, 64, "fma")])
 def test_flash_route_threshold_and_head_dims(sq, dh, route):
     q = torch.zeros(2, 4, sq, dh, dtype=torch.bfloat16)
     k = torch.zeros(2, 2, 50, dh, dtype=torch.bfloat16)
@@ -184,10 +189,167 @@ def test_flash_route_unaligned_view_takes_fma(which, fault):
     assert flash_route(ts["q"], ts["k"], ts["v"]) == "fma"
 
 
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("fault", ["offset", "stride"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_route_unaligned_decode_takes_fma(which, fault, dtype):
+    """A decode whose q, k or v view starts one element into its buffer,
+    or has a sequence stride of a head dim plus one, leaves the decode
+    kernel's 16-byte loads unaligned: the FMA kernel."""
+    shapes = {"q": (2, 4, 1, 64), "k": (2, 2, 30, 64), "v": (2, 2, 30, 64)}
+    ts = {name: torch.zeros(shape, dtype=dtype) for name, shape in shapes.items()}
+    assert flash_route(ts["q"], ts["k"], ts["v"]) == "decode"
+    b, h, s_, dh = shapes[which]
+    if fault == "offset":
+        ts[which] = torch.zeros(b * h * s_ * dh + 1, dtype=dtype)[1:].view(b, h, s_, dh)
+    else:
+        ts[which] = torch.zeros(b, h, s_, dh + 1, dtype=dtype)[..., :dh]
+    assert flash_route(ts["q"], ts["k"], ts["v"]) == "fma"
+
+
+def test_flash_route_mixed_dtypes_take_fma():
+    q = torch.zeros(2, 4, 1, 64, dtype=torch.bfloat16)
+    k = torch.zeros(2, 2, 30, 64)
+    assert flash_route(q, k, k) == "fma"
+    assert flash_route(q.half(), k.half(), k.half()) == "fma"
+
+
 def test_cpu_calls_launch_no_kernel():
-    """On the CPU the wrapper takes the plain version: neither kernel's
-    launch counter moves."""
-    before = (FLASH_TC.launches, FLASH_FMA.launches)
+    """On the CPU the wrapper takes the plain version: no kernel's launch
+    counter moves, at prefill or at decode."""
+    before = (FLASH_TC.launches, FLASH_DEC.launches, FLASH_FMA.launches)
     q, k, v = _inputs(13, 1, 4, 2, 32, 32, 64)
     ops.flash_attention(*(t(a).to(torch.bfloat16) for a in (q, k, v)))
-    assert (FLASH_TC.launches, FLASH_FMA.launches) == before
+    ops.flash_attention(*(t(a).to(torch.bfloat16) for a in (q[:, :, :1], k, v)), causal=False)
+    assert (FLASH_TC.launches, FLASH_DEC.launches, FLASH_FMA.launches) == before
+
+
+# ------------------------------------------------ the decode kernel's splits
+# (hq, hkv, sk, dh, causal, window, cap): one query over a prefix; no Sk is
+# a multiple of 2, 3 or 7
+DECODE = [
+    (2, 2, 37, 64, False, None, None),      # group 1 (MHA)
+    (4, 2, 55, 32, False, 16, 30.0),        # group 2, a window (row 0 keeps every column), softcap
+    (14, 2, 163, 128, False, None, 50.0),   # group 7 (qwen2's), softcap
+    (48, 2, 101, 80, False, 7, 30.0),       # group 24 (three of the kernel's row tiles), window
+    (12, 4, 43, 40, False, None, None),     # group 3, Dh 40 (below its padded width)
+]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, "sk"])
+@pytest.mark.parametrize("hq,hkv,sk,dh,causal,window,cap", DECODE)
+def test_decode_split_matches_plain_and_reference(hq, hkv, sk, dh, causal, window, cap, splits):
+    """``ref.flash_decode_split``, the decode kernel's arithmetic (per-split
+    max, sum and accumulator in f32, merged in split order), equals the
+    plain version to f32 rounding (atol 1e-6: unit-scale outputs, sums in
+    another order) and the reference's interpret-mode kernel within TOL."""
+    splits = sk if splits == "sk" else splits
+    q, k, v = _inputs(sk + dh, 2, hq, hkv, 1, sk, dh)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    got = ref.flash_decode_split(t(q), t(k), t(v), splits, **kw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, hq, 1, dh)
+    np.testing.assert_allclose(n(got), n(ref.flash_attention(t(q), t(k), t(v), **kw)),
+                               rtol=0, atol=1e-6)
+    want = ref_flash(f32(q), f32(k), f32(v), interpret=True, **kw)
+    np.testing.assert_allclose(n(got), n(want), **TOL)
+
+
+@pytest.mark.parametrize("splits", [2, 5])
+def test_decode_split_causal_weighs_masked_splits_zero(splits):
+    """Causal with Sq = 1 keeps column 0 only: every other split's columns
+    are all masked (its max is -1e30) and merges with a weight of exactly
+    0, so the output is v at key 0 of each head's kv head."""
+    q, k, v = _inputs(21, 2, 14, 2, 1, 40, 32)
+    got = ref.flash_decode_split(t(q), t(k), t(v), splits, causal=True)
+    np.testing.assert_array_equal(n(got)[:, :, 0], np.repeat(v[:, :, 0], 7, axis=1))
+
+
+def test_decode_split_keeps_bfloat16_and_rejects_empty_splits():
+    q, k, v = (t(a).to(torch.bfloat16) for a in _inputs(23, 1, 4, 2, 1, 9, 16))
+    got = ref.flash_decode_split(q, k, v, 3, causal=False)
+    assert got.dtype == torch.bfloat16
+    plain = ref.flash_attention(q, k, v, causal=False)
+    np.testing.assert_allclose(n(got.float()), n(plain.float()), rtol=0, atol=2.0 ** -7)
+    for bad in (0, 10):
+        with pytest.raises(ValueError, match="splits"):
+            ref.flash_decode_split(q, k, v, bad, causal=False)
+
+
+@pytest.mark.parametrize("blocks,sk", [(16, 160), (16, 4096), (16, 1), (16, 63), (16, 64),
+                                       (1, 100_000), (4, 20), (8, 97), (32, 4096),
+                                       (64, 300), (200, 4096), (1, 65)])
+def test_decode_splits_planner(blocks, sk):
+    """Never an empty split; every split at least DECODE_MIN_KEYS keys when
+    there are several (balanced splits hold floor or ceil of Sk / S); one
+    split when two would fall under that; at most DECODE_MAX_SPLITS; and
+    several splits only as far as one wave of the resident slots (two
+    blocks an SM) holds them, reaching the SMs when the keys allow."""
+    sms = 132
+    s = decode_splits(blocks, sk, sms)
+    bounds = [i * sk // s for i in range(s + 1)]
+    assert 1 <= s <= DECODE_MAX_SPLITS
+    assert all(hi > lo for lo, hi in zip(bounds, bounds[1:]))
+    if s > 1:
+        assert min(hi - lo for lo, hi in zip(bounds, bounds[1:])) >= DECODE_MIN_KEYS
+        assert blocks * s <= 2 * sms
+    if blocks <= sms and min(sk // DECODE_MIN_KEYS, DECODE_MAX_SPLITS) >= 2 * sms // blocks:
+        assert blocks * s >= sms
+    if sk < 2 * DECODE_MIN_KEYS:
+        assert s == 1
+
+
+def test_decode_splits_reach_the_sms_at_qwen2_long_decode():
+    """qwen2-7b's decode over 4,096 keys (2 clients x 2 requests, 4 kv
+    heads, one row tile of 7 query heads): 16 blocks a split, and the
+    splits make the grid reach the H100's 132 SMs in one wave of its 264
+    resident slots; over its 160-key serve prefix the 32-key minimum holds
+    it to 5 splits."""
+    blocks = decode_blocks(4, 28, 4)
+    assert blocks == 16 and decode_blocks(4, 16, 8) == 32 and decode_blocks(2, 48, 2) == 12
+    assert 132 <= blocks * decode_splits(blocks, 4096, 132) <= 264
+    assert decode_splits(blocks, 4096, 132) == 16
+    assert decode_splits(blocks, 160, 132) == 5
+
+
+@pytest.fixture
+def own_plans(monkeypatch):
+    """The decode launch plans and workspace of one test, on the CPU (the
+    logic of the cache does not touch a kernel), with 132 SMs."""
+    from repro_torch.kernels import flash_attention as flash
+
+    monkeypatch.setattr(flash, "_DECODE_PLANS", {})
+    monkeypatch.setattr(flash, "_DECODE_WORKSPACE", {})
+    monkeypatch.setattr(flash, "_sm_count", lambda index: 132)
+    return flash
+
+
+def test_decode_plan_is_kept_and_follows_the_workspace(own_plans, monkeypatch):
+    """A shape's plan is the planner's split count and the current
+    workspace's pointers, kept for the next call at that shape; one split
+    needs no workspace; a workspace that grows drops every kept plan, whose
+    pointers it freed."""
+    flash, cpu = own_plans, torch.device("cpu")
+    plan = flash._decode_plan(cpu, 0, 4, 28, 4, 160)
+    counters, partials = flash._DECODE_WORKSPACE[None, 0][4:]
+    assert plan == (5, counters.data_ptr(), counters.numel(), partials.data_ptr(),
+                    partials.numel())
+    assert counters.numel() >= 16 and partials.numel() >= 16 * 5 * flash.DECODE_RECORD_FLOATS
+    assert flash._DECODE_PLANS[None, 0, 4, 28, 4, 160] is plan
+    assert flash._decode_plan(cpu, 0, 4, 28, 4, 20) == (1, None, 0, None, 0)
+    assert len(flash._DECODE_PLANS) == 2
+    monkeypatch.setattr(flash, "_sm_count", lambda index: 1000)
+    grown = flash._decode_plan(cpu, 0, 4, 28, 4, 100_000)  # 64 splits of 16 blocks
+    assert grown[0] == DECODE_MAX_SPLITS and grown[3] != plan[3]
+    assert grown[4] >= 16 * DECODE_MAX_SPLITS * flash.DECODE_RECORD_FLOATS
+    assert list(flash._DECODE_PLANS) == [(None, 0, 4, 28, 4, 100_000)]
+
+
+def test_decode_plans_are_bounded(own_plans, monkeypatch):
+    """Sk rises by one a decode step, so the kept plans are emptied when
+    they reach DECODE_PLANS."""
+    flash, cpu = own_plans, torch.device("cpu")
+    monkeypatch.setattr(flash, "DECODE_PLANS", 3)
+    for sk in range(100, 107):
+        flash._decode_plan(cpu, 0, 4, 28, 4, sk)
+        assert 1 <= len(flash._DECODE_PLANS) <= 3
+    assert (None, 0, 4, 28, 4, 106) in flash._DECODE_PLANS
