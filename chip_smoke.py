@@ -7,14 +7,19 @@ Phases, each printed as it ends:
   2. build   — compiles the six hand-written kernels from
                ``src/repro_torch/kernels/csrc/`` with nvcc (all at once);
   3. kernels — holds each kernel against its plain torch version on the card
-               at the main path's shapes (the cohort kernels also with pad
+               at the main path's shapes (mix_aggregate also at leaf widths,
+               a second row tile, one rule and an offset view, with two calls
+               bit-equal and 28 zero columns of W bit-invisible;
+               kmeans_assign also at k = 99 with a tie across lanes, timed;
+               the cohort kernels also with pad
                slots, an all-pad cohort and an odd width; flash_attention in
                bf16 and f32 over head dims 32-256, GQA, window, softcap,
                ragged and one-query shapes up to 4,096 keys, from strided
                views, printing which of its three kernels each case took:
                the bf16 tensor-core tile, the split-KV decode kernel or the
                FMA kernel), and times kernel, plain version and one PyTorch
-               library call with CUDA events; then the decode route's host
+               library call with CUDA events, beside a one-element zero_()
+               (the launch floor); then the decode route's host
                cost against the FMA route's, its launches (one kernel a
                call) and that 28 decode calls make no synchronizing call;
   4. agree   — Algorithm 1 at a small size on the card (kernels) against the
@@ -247,12 +252,7 @@ def kernel_phase(dev):
             plain_ms=time_ms(lambda w=w: ref.mix_aggregate(w, theta), dev),
             library_ms=time_ms(lambda w=w: w @ theta, dev),
             bytes=4 * (k * m + m * d_al + k * d_al), flops=2 * k * m * d_al)
-    for k, width in ((100, 97), (4, 6), (100, 150)):  # odd, narrow leaf widths
-        w = torch.softmax(torch.randn(k, m, generator=gen, device=dev), dim=1)
-        th = torch.randn(m, width, generator=gen, device=dev)
-        want = ref.mix_aggregate(w, th)
-        check(f"mix k={k} d={width}", ops.mix_aggregate(w, th, impl="cuda"), want,
-              1e-5 * float(want.abs().max()))
+    mix_sweep(gen, dev)
 
     # kmeans_assign: W's 100 rows against 4 centroids, plus an exact tie
     pts = torch.softmax(4.0 * torch.randn(m, m, generator=gen, device=dev), dim=1)
@@ -275,6 +275,7 @@ def kernel_phase(dev):
         plain_ms=time_ms(lambda: ref.kmeans_assign(pts, cents), dev),
         library_ms=time_ms(lambda: torch.cdist(pts, cents).argmin(dim=1), dev),
         bytes=4 * (m * f + k * f + 2 * m), flops=2 * m * k * f + 2 * (m + k) * f)
+    rows["kmeans_assign"]["k99"] = kmeans_k99(gen, dev, pts)
 
     rows.update(cohort_kernel_rows(gen, dev, m, d_al))
     rows.update(flash_rows(dev))
@@ -288,8 +289,79 @@ def kernel_phase(dev):
               f"kernel/library {r['ms'] / r['library_ms']:.2f}")
     decode = rows["flash_attention_decode"]
     print("flash_decode " + json.dumps({"long": decode.pop("long"), "host": decode.pop("host")}))
+    print("kmeans_k99 " + json.dumps(rows["kmeans_assign"].pop("k99")))
+    floor = launch_floor(dev)
+    print("launch_floor " + json.dumps({"zero_1_ms": floor}))
+    print(f"  launch floor: a one-element zero_() times {floor:.4f} ms under time_ms")
     phase("kernels", t0, "8 kernels agree with their plain versions (9 rows)")
     return rows
+
+
+def mix_sweep(gen, dev):
+    """mix_aggregate beyond the main path's two shapes, each against the
+    plain version within 1e-5 of the largest output: odd and narrow leaf
+    widths (the scalar path), a second row tile over a 32-chunk ring, one
+    rule over three clients, and θ one float into its buffer (the scalar
+    path at d % 4 == 0). Then, at both main-path shapes and a two-row-tile
+    one, the ordered sums: two calls give the same bits, and W with 28 zero
+    columns appended (θ with 28 matching rows) gives the bits of the
+    unpadded product."""
+    m = 100
+    for k, mm, width in ((100, m, 97), (4, m, 6), (100, m, 150), (150, 512, 1000), (1, 3, 5)):
+        w = torch.softmax(torch.randn(k, mm, generator=gen, device=dev), dim=1)
+        th = torch.randn(mm, width, generator=gen, device=dev)
+        want = ref.mix_aggregate(w, th)
+        check(f"mix k={k} m={mm} d={width}", ops.mix_aggregate(w, th, impl="cuda"), want,
+              1e-5 * float(want.abs().max()))
+    w = torch.softmax(torch.randn(m, m, generator=gen, device=dev), dim=1)
+    view = torch.empty(m * 1000 + 1, device=dev)[1:].view(m, 1000)
+    view.copy_(torch.randn(m, 1000, generator=gen, device=dev))
+    want = ref.mix_aggregate(w, view)
+    check("mix offset view", ops.mix_aggregate(w, view, impl="cuda"), want,
+          1e-5 * float(want.abs().max()))
+    for k, mm, width in ((100, m, 47616), (4, m, 47616), (150, 512, 1000)):
+        w = torch.softmax(torch.randn(k, mm, generator=gen, device=dev), dim=1)
+        th = torch.randn(mm, width, generator=gen, device=dev)
+        first = ops.mix_aggregate(w, th, impl="cuda")
+        if not torch.equal(first, ops.mix_aggregate(w, th, impl="cuda")):
+            raise AssertionError(f"mix k={k} d={width}: two calls gave different bits")
+        w_pad = torch.cat([w, torch.zeros(k, 28, device=dev)], dim=1)
+        th_pad = torch.cat([th, torch.randn(28, width, generator=gen, device=dev)], dim=0)
+        if not torch.equal(first, ops.mix_aggregate(w_pad, th_pad, impl="cuda")):
+            raise AssertionError(f"mix k={k} d={width}: 28 zero columns changed the bits")
+    print("  mix: 6 more shapes within 1e-5 of the largest output; two calls equal and 28 "
+          "zero columns bit-invisible at 3 shapes")
+
+
+def kmeans_k99(gen, dev, pts):
+    """kmeans_assign at Algorithm 2's largest k for m = 100 (k = 99 of W's
+    rows), with identical centroids at 3 and 40 (lanes apart): the labels
+    equal the plain version's and none is 40; then the kernel, the plain
+    version and cdist + argmin timed beside the bound."""
+    m, f, k = pts.shape[0], pts.shape[1], 99
+    cents = pts[torch.randperm(m, generator=gen, device=dev)[:k]].clone()
+    cents[40] = cents[3]
+    gl, gd = ops.kmeans_assign(pts, cents, impl="cuda")
+    wl, wd = ref.kmeans_assign(pts, cents)
+    if not torch.equal(gl, wl) or bool((gl == 40).any()):
+        raise AssertionError("kmeans_assign k=99: labels differ from the plain version")
+    out = dict(max_abs_err=check("kmeans k=99 dist", gd, wd, 1e-5 * float(wd.abs().max()) + 1e-7),
+               ms=time_ms(lambda: ops.kmeans_assign(pts, cents, impl="cuda"), dev),
+               plain_ms=time_ms(lambda: ref.kmeans_assign(pts, cents), dev),
+               library_ms=time_ms(lambda: torch.cdist(pts, cents).argmin(dim=1), dev))
+    out["bound_ms"], out["bound_by"] = bound_ms(4 * (m * f + k * f + 2 * m),
+                                                2 * m * k * f + 2 * (m + k) * f)
+    print(f"  kmeans_assign k=99 (100 points of width 100): kernel {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, cdist + argmin {out['library_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.6f} ms ({out['bound_by']}); labels equal, tie at 3 and 40 to 3")
+    return out
+
+
+def launch_floor(dev):
+    """time_ms of a one-element zero_(): what a latency-bound row pays for
+    its launch and the events around it."""
+    one = torch.empty(1, device=dev)
+    return time_ms(lambda: one.zero_(), dev)
 
 
 def padded_cohort(gen, dev, m, slots, real):

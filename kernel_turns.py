@@ -1,0 +1,135 @@
+"""Time the mix and k-means kernels of two trees of the port on one GPU, in turns.
+
+    python3 kernel_turns.py OTHER_TREE [--out FILE]
+
+OTHER_TREE is another checkout of this repository (for example the parent
+commit, unpacked with ``git archive``). The kernels of OTHER_TREE and of
+this tree are timed in four turns, other, this, this, other, each turn a
+process of its own that imports that tree's ``repro_torch`` and builds its
+kernels into that tree's ``build/kernels``. A turn checks each kernel
+against the plain version (mix within 1e-5 of the largest output, k-means
+labels equal) and times with CUDA events, as ``chip_smoke.time_ms`` does:
+medians of 30 calls after an L2-evicting write and a spin hiding the
+enqueue; the mix and its ``w @ theta`` also after an L2-evicting read,
+which leaves no dirty lines for the timed call to write back. Shapes: mix
+W (k, 100) · θ (100, 47,616) at k = 100 and 4; kmeans_assign of 100
+points of width 100 (softmax rows, as W's) against 4 and 99 centroids
+drawn from them; and a one-element ``zero_()``, the launch floor. Prints
+one line a turn and, last, one JSON object with every turn; ``--out``
+also writes it to a file. Needs CUDA; imports nothing of jax or of the
+reference package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+
+
+def time_ms(fn, dev, reps=30, flush="write"):
+    """Median CUDA-event time of ``fn`` with a cold L2 (chip_smoke's). The
+    256 MB flush is chip_smoke's ``zero_()`` (``flush="write"``), which
+    leaves the L2 full of dirty lines for the timed call to write back, or
+    a ``sum()`` that reads it (``flush="read"``), which leaves clean ones."""
+    import torch
+    buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    times = []
+    for _ in range(reps):
+        if flush == "write":
+            buf.zero_()
+        else:
+            buf.sum()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def one_turn(tree: Path) -> dict:
+    """Check and time the kernels of the port in ``tree``."""
+    import torch
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import ops, ref
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_turns: torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    m, d = 100, 47616
+    theta = 0.05 * torch.randn(m, d, generator=gen, device=dev)
+    out = {"tree": str(tree)}
+    for k in (100, 4):
+        w = torch.softmax(torch.randn(k, m, generator=gen, device=dev), dim=1)
+        want = ref.mix_aggregate(w, theta)
+        err = float((ops.mix_aggregate(w, theta, impl="cuda") - want).abs().max())
+        if not err <= 1e-5 * float(want.abs().max()):
+            raise AssertionError(f"{tree}: mix k={k} max_abs_err {err:.3e}")
+        for flush, tag in (("write", ""), ("read", "_read_flush")):
+            out[f"mix_k{k}{tag}_ms"] = time_ms(
+                lambda w=w: ops.mix_aggregate(w, theta, impl="cuda"), dev, flush=flush)
+            out[f"mix_k{k}_library{tag}_ms"] = time_ms(lambda w=w: w @ theta, dev, flush=flush)
+    pts = torch.softmax(4.0 * torch.randn(m, m, generator=gen, device=dev), dim=1)
+    for k in (4, 99):
+        cents = pts[torch.randperm(m, generator=gen, device=dev)[:k]].clone()
+        if not torch.equal(ops.kmeans_assign(pts, cents, impl="cuda")[0],
+                           ref.kmeans_assign(pts, cents)[0]):
+            raise AssertionError(f"{tree}: kmeans k={k} labels differ from the plain version")
+        out[f"kmeans_k{k}_ms"] = time_ms(
+            lambda c=cents: ops.kmeans_assign(pts, c, impl="cuda"), dev)
+    one = torch.empty(1, device=dev)
+    out["zero_1_ms"] = time_ms(lambda: one.zero_(), dev)
+    out["device"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", type=Path, help="another checkout of the repository")
+    ap.add_argument("--out", type=Path, help="also write the JSON object here")
+    ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.turn:  # a child: one tree
+        print(json.dumps(one_turn(args.other.resolve())))
+        return
+    other = args.other.resolve()
+    if not (other / "src" / "repro_torch").is_dir():
+        raise SystemExit(f"kernel_turns: {other} holds no src/repro_torch")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    turns = []
+    for label, tree in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()), str(tree), "--turn"],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise SystemExit(f"kernel_turns: the {label} turn failed:\n{res.stdout}\n{res.stderr}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        got["turn"] = label
+        turns.append(got)
+        print(f"{label}: " + "  ".join(f"{k} {v:.4f}" for k, v in got.items()
+                                      if isinstance(v, float)), flush=True)
+    result = {"card": smi, "turns": turns}
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

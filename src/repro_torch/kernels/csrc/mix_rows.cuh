@@ -1,8 +1,9 @@
-// Column-per-thread weighted row sum, shared by mix_aggregate.cu and
-// masked_mix_scatter.cu: out_i(c) = sum_j W[r0 + i, j] * θ[j, c] for the
-// KC rules r0 .. r0 + KC - 1 of a (k, m) W over the (m, d) θ.
+// Column-per-thread weighted row sum of masked_mix_scatter.cu:
+// out_i(c) = sum_j W[r0 + i, j] * θ[j, c] for the KC rules r0 .. r0 + KC - 1
+// of a (k, m) W over the (m, d) θ. (mix_aggregate.cu has its own
+// register-tiled kernel and does not include this header.)
 //
-// Design (see mix_aggregate.cu for what bounds it):
+// Design (see masked_mix_scatter.cu for what bounds it):
 //   * each thread owns one column c of θ and keeps its KC sums in
 //     registers; a warp reads 32 neighbouring floats of one θ row, so θ is
 //     read coalesced, and each thread starts kBatch loads (kBatch rows)

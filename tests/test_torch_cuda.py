@@ -32,6 +32,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.flash_attention import FLASH_DEC, FLASH_FMA, FLASH_TC, flash_route
+from repro_torch.kernels.kmeans_assign import ASSIGN, kmeans_plan
+from repro_torch.kernels.mix_aggregate import MIX, mix_plan
 
 
 def cuda_device():
@@ -56,7 +58,10 @@ def test_cuda_gram_matches_plain(m, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,m,d", [(100, 100, 47616), (4, 100, 47616), (5, 7, 97), (3, 600, 513)])
+@pytest.mark.parametrize("k,m,d", [(100, 100, 47616), (4, 100, 47616), (5, 7, 97), (3, 600, 513),
+                                   (150, 512, 1000),  # a second row tile, a 32-chunk ring
+                                   (1, 3, 5),         # the scalar path, one tail chunk
+                                   (16, 100, 4096)])  # the 128-row tile, 7 warps past k
 def test_cuda_mix_aggregate_matches_plain(k, m, d):
     dev = cuda_device()
     gen = torch.Generator().manual_seed(k + m)
@@ -69,7 +74,11 @@ def test_cuda_mix_aggregate_matches_plain(k, m, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,f,k", [(100, 100, 4), (100, 100, 100), (37, 5, 3)])
+@pytest.mark.parametrize("m,f,k", [(100, 100, 4), (100, 100, 100), (37, 5, 3),
+                                   (100, 100, 99),    # Algorithm 2's largest k at m = 100
+                                   (300, 512, 40),    # wide rows, lanes take centroids
+                                   (512, 512, 511),   # centroids staged in 14 chunks
+                                   (5, 0, 3)])        # width 0: every distance 0, label 0
 def test_cuda_kmeans_assign_matches_plain(m, f, k):
     dev = cuda_device()
     gen = torch.Generator().manual_seed(m + k)
@@ -81,6 +90,87 @@ def test_cuda_kmeans_assign_matches_plain(m, f, k):
     torch.cuda.synchronize()
     assert torch.equal(gl, wl)
     assert float((gd - wd).abs().max()) <= 1e-5 * float(wd.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_mix_aggregate_offset_view_takes_the_scalar_path():
+    """θ one float into its buffer (d % 4 == 0, base not 16-byte aligned):
+    the plan takes the scalar path, and the result is the bits of the
+    aligned copy's."""
+    dev = cuda_device()
+    k, m, d = 100, 100, 1000
+    gen = torch.Generator().manual_seed(3)
+    w = torch.softmax(torch.randn(k, m, generator=gen), dim=1).to(dev)
+    view = torch.empty(m * d + 1, device=dev)[1:].view(m, d)
+    view.copy_(torch.randn(m, d, generator=gen))
+    assert not mix_plan(k, m, d, view.data_ptr(), 0).vec
+    got = ops.mix_aggregate(w, view, impl="cuda")
+    want = ref.mix_aggregate(w, view)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got, ops.mix_aggregate(w, view.clone(), impl="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m,d", [(100, 100, 47616), (4, 100, 47616), (150, 512, 1000),
+                                   (5, 7, 97)])
+def test_cuda_mix_aggregate_is_deterministic_and_ignores_zero_columns(k, m, d):
+    """Every output sums j = 0..m-1 in order with FMAs from 0: two calls
+    give the same bits, and W with 28 zero columns appended (θ with 28
+    matching rows) gives the bits of the unpadded product."""
+    dev = cuda_device()
+    gen = torch.Generator().manual_seed(k * m)
+    w = torch.softmax(torch.randn(k, m, generator=gen), dim=1).to(dev)
+    th = torch.randn(m, d, generator=gen).to(dev)
+    first = ops.mix_aggregate(w, th, impl="cuda")
+    assert torch.equal(first, ops.mix_aggregate(w, th, impl="cuda"))
+    w_pad = torch.cat([w, torch.zeros(k, 28, device=dev)], dim=1)
+    th_pad = torch.cat([th, torch.randn(28, d, generator=gen).to(dev)], dim=0)
+    assert torch.equal(first, ops.mix_aggregate(w_pad, th_pad, impl="cuda"))
+
+
+@pytest.mark.cuda
+def test_cuda_mix_and_kmeans_refuse_a_plan_they_do_not_take():
+    """A plan that disagrees with the kernel's own layout is refused by the
+    launch (cudaErrorInvalidConfiguration) and raises; no launch counts."""
+    dev = cuda_device()
+    w = torch.rand(4, 8, device=dev)
+    th = torch.rand(8, 256, device=dev)
+    out = torch.empty(4, 256, device=dev)
+    plan = mix_plan(4, 8, 256, th.data_ptr(), out.data_ptr())
+    before = MIX.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        MIX(dev, _build.ptr(w), _build.ptr(th), _build.ptr(out), 4, 8, 256, plan.tile,
+            int(plan.vec), plan.blocks, plan.smem_bytes + 4)
+    assert MIX.launches == before
+    p = torch.rand(10, 8, device=dev)
+    labels = torch.empty(10, dtype=torch.int32, device=dev)
+    dist = torch.empty(10, device=dev)
+    kp = kmeans_plan(10, 3, 8, p.data_ptr(), p.data_ptr())
+    before_assign = ASSIGN.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ASSIGN(dev, _build.ptr(p), _build.ptr(p), _build.ptr(labels), _build.ptr(dist), 10, 3, 8,
+               int(kp.vec), kp.stride, kp.groups, kp.chunk, kp.per_lane, kp.warps, kp.blocks + 1,
+               kp.smem_bytes)
+    assert ASSIGN.launches == before_assign
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [41, 64, 99])
+def test_cuda_kmeans_tie_across_lanes_goes_to_the_lower_index(k):
+    """Identical centroids at indices 3 and 40 lie in different lanes (every
+    lane its own centroids at k >= 32): points nearest to them take 3."""
+    dev = cuda_device()
+    gen = torch.Generator().manual_seed(k)
+    c = torch.randn(k, 100, generator=gen)
+    c[40] = c[3]
+    p = torch.randn(100, 100, generator=gen)
+    p[:20] = c[3] + 1e-3 * torch.randn(20, 100, generator=gen)
+    labels, _ = ops.kmeans_assign(p.to(dev), c.to(dev), impl="cuda")
+    want, _ = ref.kmeans_assign(p, c)
+    torch.cuda.synchronize()
+    assert torch.equal(labels.cpu(), want)
+    assert bool((labels[:20] == 3).all()) and not bool((labels == 40).any())
 
 
 def _cohort(m, c, real, gen, dev):

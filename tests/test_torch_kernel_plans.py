@@ -1,0 +1,155 @@
+"""The launch plans of the mix and k-means kernels, on the CPU.
+
+``mix_plan`` and ``kmeans_plan`` are functions of host ints that decide a
+launch: the register tile or lane groups, the 16-byte or scalar path, the
+grid and the dynamic shared memory. The kernels refuse a plan that
+disagrees with their own layout (checked on the card by
+``tests/test_torch_cuda.py``); here the plans are held to what the kernels
+need: every row, column and point covered once, rows 16-byte aligned on
+the 16-byte path only, shared memory within a block's 227 KB, and, on the
+main path, θ read once (one row tile at k <= 128) and the centroids staged
+in one round trip.
+"""
+import itertools
+
+import pytest
+
+from repro_torch.kernels.kmeans_assign import (MAX_SMEM_BYTES, SMEM_BYTES, WARPS, kmeans_plan,
+                                               row_stride)
+from repro_torch.kernels.mix_aggregate import BK, MIX_TILES, mix_plan
+
+ALIGNED = (0x7F0000000000, 0x7F0000100000)  # two 256-byte aligned base pointers
+BLOCK_SMEM = 232_448  # a block's most dynamic shared memory on an H100
+
+
+@pytest.mark.parametrize("k,m,d", list(itertools.product((1, 4, 100, 150, 511), (3, 100, 512),
+                                                         (5, 97, 47_616))))
+def test_mix_plan_covers_the_output(k, m, d):
+    plan = mix_plan(k, m, d, *ALIGNED)
+    tile = MIX_TILES[plan.tile]
+    assert plan.tile == (0 if k <= 4 else 1)
+    assert plan.row_tiles * tile.rows >= k > (plan.row_tiles - 1) * tile.rows
+    assert plan.col_tiles * tile.cols >= d > (plan.col_tiles - 1) * tile.cols
+    assert plan.blocks == plan.row_tiles * plan.col_tiles
+    assert plan.threads == tile.threads <= 256 and 32 % tile.tc == 0
+    assert plan.smem_bytes == tile.smem_bytes <= BLOCK_SMEM
+    assert plan.vec == (d % 4 == 0)
+    if k <= MIX_TILES[-1].rows:  # θ crosses HBM once
+        assert plan.row_tiles == 1
+
+
+def test_mix_plan_at_the_main_path():
+    """ucfl (k = 100) and ucfl_k4 (k = 4) over the (100, 47,616) slab: one
+    row tile, 372 column tiles of 128, the 16-byte path."""
+    for k, tile, threads in ((100, 1, 256), (4, 0, 32)):
+        plan = mix_plan(k, 100, 47_616, *ALIGNED)
+        assert (plan.tile, plan.vec, plan.row_tiles, plan.col_tiles, plan.blocks,
+                plan.threads) == (tile, True, 1, 372, 372, threads)
+
+
+@pytest.mark.parametrize("k,tile,row_tiles", [(1, 0, 1), (4, 0, 1), (5, 1, 1), (16, 1, 1),
+                                              (64, 1, 1), (128, 1, 1), (129, 1, 2), (150, 1, 2),
+                                              (511, 1, 4)])
+def test_mix_plan_tile_choice(k, tile, row_tiles):
+    plan = mix_plan(k, 100, 1000, *ALIGNED)
+    assert (plan.tile, plan.row_tiles) == (tile, row_tiles)
+
+
+def test_mix_tiles_shared_memory():
+    """The ring's bytes, as the source's Tile computes them: per stage a
+    (BK, BM) W^T tile (rows BM floats apart, or BM + 4 where BM / 4 is
+    even) and a (BK, BN) θ tile; only the 128-row tile passes 48 KB (and
+    so sets the attribute), and two of its blocks fit an SM's 227 KB."""
+    assert BK == 16
+    assert [t.smem_bytes for t in MIX_TILES] == [33_792, 49_920]
+    assert [(t.rows, t.cols, t.threads) for t in MIX_TILES] == [(4, 128, 32), (128, 128, 256)]
+    assert 2 * MIX_TILES[-1].smem_bytes <= BLOCK_SMEM
+
+
+@pytest.mark.parametrize("d,theta_off,out_off,vec", [
+    (47_616, 0, 0, True),
+    (47_616, 4, 0, False),   # θ one float into its buffer (an offset view)
+    (47_616, 0, 8, False),   # out not 16-byte aligned
+    (47_616, 16, 0, True),   # 16 bytes in is still aligned
+    (97, 0, 0, False),       # d % 4 != 0: rows after the first are misaligned
+    (6, 0, 0, False),
+    (150, 0, 0, False),
+    (5, 0, 0, False),
+    (4, 0, 0, True),
+])
+def test_mix_plan_path(d, theta_off, out_off, vec):
+    plan = mix_plan(3, 5, d, ALIGNED[0] + theta_off, ALIGNED[1] + out_off)
+    assert plan.vec == vec
+
+
+def test_mix_plan_rejects_empty_shapes():
+    for k, m, d in ((0, 3, 5), (3, 0, 5), (3, 5, 0)):
+        with pytest.raises(ValueError, match="positive"):
+            mix_plan(k, m, d, *ALIGNED)
+
+
+@pytest.mark.parametrize("f", [1, 3, 4, 5, 8, 32, 97, 100, 128, 512])
+def test_row_stride_hits_every_bank(f):
+    s = row_stride(f)
+    assert s >= f and s % 4 == 0 and s - f < 8 and (s // 4) % 2 == 1
+    # 8 lanes reading float4 q of rows 0..7 start on 8 distinct 4-bank groups
+    assert len({(r * s // 4) % 8 for r in range(8)}) == 8
+
+
+@pytest.mark.parametrize("m,k,f", list(itertools.product((3, 100, 512), (1, 2, 4, 40, 99, 511),
+                                                         (5, 100, 512))))
+def test_kmeans_plan_covers_points_and_centroids(m, k, f):
+    plan = kmeans_plan(m, k, f, *ALIGNED)
+    s = row_stride(f)
+    assert plan.stride == s
+    assert plan.warps == WARPS
+    assert plan.blocks * plan.warps >= m > (plan.blocks - 1) * plan.warps
+    assert 1 <= plan.chunk <= k
+    assert plan.smem_bytes == 4 * ((plan.warps + plan.chunk) * s + plan.chunk) <= SMEM_BYTES
+    # all k centroids in one round trip whenever they fit beside the points
+    if 4 * ((plan.warps + k) * s + k) <= SMEM_BYTES:
+        assert plan.chunk == k
+    else:
+        assert 4 * ((plan.warps + plan.chunk + 1) * s + plan.chunk + 1) > SMEM_BYTES
+    g = plan.groups
+    assert g & (g - 1) == 0 and min(k, 32) <= g < 2 * min(k, 32) and 32 % g == 0
+    assert plan.per_lane == (1 if plan.chunk <= g else 4)
+    assert plan.vec == (f % 4 == 0)
+
+
+def test_kmeans_plan_at_the_main_path():
+    """ucfl_k4's K-means (100 rows of W, 4 centroids): 13 blocks, groups of
+    8 lanes splitting the features, one centroid a group, one round trip;
+    Algorithm 2's k = 99: every lane its own 4 centroids, still one round
+    trip; m = 512, k = 511: 39 centroids a round trip."""
+    p4 = kmeans_plan(100, 4, 100, *ALIGNED)
+    assert (p4.blocks, p4.groups, p4.chunk, p4.per_lane, p4.vec) == (13, 4, 4, 1, True)
+    p99 = kmeans_plan(100, 99, 100, *ALIGNED)
+    assert (p99.groups, p99.chunk, p99.per_lane, p99.smem_bytes) == (32, 99, 4, 43_196)
+    big = kmeans_plan(512, 511, 512, *ALIGNED)
+    assert (big.stride, big.chunk, big.blocks) == (516, 39, 64)
+    assert -(-511 // big.chunk) == 14
+
+
+@pytest.mark.parametrize("p_off,c_off,f,vec", [(0, 0, 100, True), (4, 0, 100, False),
+                                               (0, 8, 100, False), (0, 0, 5, False),
+                                               (0, 0, 97, False), (32, 16, 512, True)])
+def test_kmeans_plan_path(p_off, c_off, f, vec):
+    plan = kmeans_plan(10, 3, f, ALIGNED[0] + p_off, ALIGNED[1] + c_off)
+    assert plan.vec == vec
+
+
+def test_kmeans_plan_wide_rows():
+    """A width that leaves no room at WARPS points a block takes fewer
+    points, then up to a block's most shared memory; past that it raises."""
+    wide = kmeans_plan(100, 4, 5000, *ALIGNED)
+    assert wide.warps < WARPS and wide.chunk >= 1 and wide.smem_bytes <= SMEM_BYTES
+    wider = kmeans_plan(100, 4, 20_000, *ALIGNED)
+    assert wider.warps == 1 and SMEM_BYTES < wider.smem_bytes <= MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="does not fit"):
+        kmeans_plan(100, 4, 40_000, *ALIGNED)
+    for m, k, f in ((0, 4, 5), (4, 0, 5), (4, 4, -1)):
+        with pytest.raises(ValueError, match="positive"):
+            kmeans_plan(m, k, f, *ALIGNED)
+    empty = kmeans_plan(10, 3, 0, *ALIGNED)  # width 0: rows of 4 zeros, every distance 0
+    assert (empty.stride, empty.chunk, empty.vec) == (4, 3, True)
