@@ -12,7 +12,9 @@ Phases, each printed as it ends:
                bit-equal and 28 zero columns of W bit-invisible;
                kmeans_assign also at k = 99 with a tie across lanes, timed;
                the cohort kernels also with pad
-               slots, an all-pad cohort and an odd width; flash_attention in
+               slots, an all-pad cohort and an odd width, the mix-scatter
+               also at 64 and 100 slots, its plan printed, both also timed
+               after a read flush (``read_ms``); flash_attention in
                bf16 and f32 over head dims 32-256, GQA, window, softcap,
                ragged and one-query shapes up to 4,096 keys, from strided
                views, printing which of its three kernels each case took:
@@ -83,7 +85,7 @@ from repro_torch.kernels.flash_attention import FLASH_DEC, FLASH_FMA, FLASH_TC  
 from repro_torch.kernels.flash_attention import flash_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ASSIGN  # noqa: E402
 from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER  # noqa: E402
-from repro_torch.kernels.mix_aggregate import MIX  # noqa: E402
+from repro_torch.kernels.mix_aggregate import MIX, MIX_TILES, mix_plan  # noqa: E402
 from repro_torch.kernels.pairwise_delta import GRAM  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -152,18 +154,24 @@ def bound_ms(bytes_moved, flops, flop_rate=F32_FLOP_PER_S):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_ms(fn, dev, reps=30):
+def time_ms(fn, dev, reps=30, flush="write"):
     """Median CUDA-event time of ``fn`` on the device, with a cold L2.
 
-    Before every sample a 256 MB write evicts the 50 MB L2, and a ~1 ms
-    device-side spin keeps the GPU busy while the host enqueues the timed
-    call, so the events bracket device work only, not host dispatch."""
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    Before every sample a 256 MB write (``flush="write"``) evicts the 50 MB
+    L2, and a ~1 ms device-side spin keeps the GPU busy while the host
+    enqueues the timed call, so the events bracket device work only, not
+    host dispatch. The write leaves the L2 full of dirty lines, which the
+    timed call writes back; ``flush="read"`` evicts with a 256 MB ``sum()``
+    instead, which leaves clean ones."""
+    buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     fn()
     torch.cuda.synchronize(dev)
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if flush == "write":
+            buf.zero_()
+        else:
+            buf.sum()
         torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -283,10 +291,12 @@ def kernel_phase(dev):
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"),
                                                 r.pop("flop_rate", F32_FLOP_PER_S))
+        extra = ((f"  read_ms {r['read_ms']:.4f} ms" if "read_ms" in r else "")
+                 + (f"  [{r['plan']}]" if "plan" in r else ""))
         print(f"  {name}: max_abs_err {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})  "
-              f"kernel/library {r['ms'] / r['library_ms']:.2f}")
+              f"kernel/library {r['ms'] / r['library_ms']:.2f}{extra}")
     decode = rows["flash_attention_decode"]
     print("flash_decode " + json.dumps({"long": decode.pop("long"), "host": decode.pop("host")}))
     print("kmeans_k99 " + json.dumps(rows["kmeans_assign"].pop("k99")))
@@ -380,8 +390,6 @@ def cohort_kernel_rows(gen, dev, m, d_al, c=50, real=42):
     rows = {}
     full = torch.randn(m, d_al, generator=gen, device=dev)
     idx, mask = padded_cohort(gen, dev, m, c, real)
-    outside = torch.ones(m, dtype=torch.bool, device=dev)
-    outside[idx[:real].long()] = False
 
     # cohort_gather: a copy, so it must equal the plain version exactly
     for width in (d_al, 97):
@@ -395,49 +403,77 @@ def cohort_kernel_rows(gen, dev, m, d_al, c=50, real=42):
         source="src/repro_torch/kernels/csrc/cohort_gather.cu",
         replaces="src/repro/kernels/masked_gather_mix_scatter.py:93", max_abs_err=0.0,
         ms=time_ms(lambda: ops.cohort_gather(full, idx, impl="cuda"), dev),
+        read_ms=time_ms(lambda: ops.cohort_gather(full, idx, impl="cuda"), dev, flush="read"),
         plain_ms=time_ms(lambda: ref.cohort_gather(full, idx), dev),
         library_ms=time_ms(lambda: full.index_select(0, safe), dev),
         bytes=2 * 4 * c * d_al + 4 * c, flops=0)
 
     # masked_mix_scatter: rules over the real columns only (pad columns 0)
-    w = torch.zeros(c, c, device=dev)
-    w[:, :real] = torch.softmax(torch.randn(c, real, generator=gen, device=dev), dim=1)
-    theta = 0.05 * torch.randn(c, d_al, generator=gen, device=dev)
-    err = 0.0
-    for width in (d_al, 97):
-        f, th = full[:, :width].contiguous(), theta[:, :width].contiguous()
-        want = ref.masked_mix_scatter(w, th, idx, mask, f)
-        got = ops.masked_mix_scatter(w, th, idx, mask, f.clone(), impl="cuda")
-        e = check(f"masked_mix_scatter d={width}", got, want, 1e-5 * float(want.abs().max()))
-        if not torch.equal(got[outside], f[outside]):
-            raise AssertionError(f"masked_mix_scatter d={width}: a row outside the cohort moved")
-        unpadded = ops.masked_mix_scatter(w[:real, :real].contiguous(), th[:real].contiguous(),
-                                          idx[:real], mask[:real], f.clone(), impl="cuda")
-        if not torch.equal(unpadded, got):
-            raise AssertionError(f"masked_mix_scatter d={width}: the padded cohort's rows are "
-                                 "not bit-for-bit the unpadded cohort's")
-        if width == d_al:
-            err = e
+    w, theta = scatter_rules(gen, dev, c, real, d_al)
+    err = check_scatter(f"masked_mix_scatter c={c}", w, theta, idx, mask, full, real)
+    check_scatter(f"masked_mix_scatter c={c} d=97", w, theta[:, :97].contiguous(), idx, mask,
+                  full[:, :97].contiguous(), real)
     kept = full.clone()
     ops.masked_mix_scatter(w, theta, torch.full_like(idx, m), torch.zeros_like(mask), kept,
                            impl="cuda")
     torch.cuda.synchronize()
     if not torch.equal(kept, full):
         raise AssertionError("masked_mix_scatter: an all-pad cohort changed the state")
+    # past the cohort's 50 slots: the 64-row tile's last c, and the 128-row tile
+    for cc, rr in ((64, 56), (100, 90)):
+        i2, m2 = padded_cohort(gen, dev, m, cc, rr)
+        w2, th2 = scatter_rules(gen, dev, cc, rr, d_al)
+        check_scatter(f"masked_mix_scatter c={cc}", w2, th2, i2, m2, full, rr)
+        plan = mix_plan(cc, cc, d_al, th2.data_ptr(), full.data_ptr())
+        print(f"  masked_mix_scatter c={cc} ({rr} members): within 1e-5, pads bit-invisible, "
+              f"tile {plan.tile} ({MIX_TILES[plan.tile].rows} rows), {plan.blocks} blocks")
     scratch = full.clone()
     live = idx[:real].long()
     w_live = w[:real].contiguous()
+    plan = mix_plan(c, c, d_al, theta.data_ptr(), scratch.data_ptr())
     rows["masked_mix_scatter"] = dict(
         source="src/repro_torch/kernels/csrc/masked_mix_scatter.cu",
         replaces="src/repro/kernels/masked_mix_scatter.py:132, "
                  "src/repro/kernels/masked_gather_mix_scatter.py:167", max_abs_err=err,
         ms=time_ms(lambda: ops.masked_mix_scatter(w, theta, idx, mask, scratch, impl="cuda"),
                    dev),
+        read_ms=time_ms(lambda: ops.masked_mix_scatter(w, theta, idx, mask, scratch,
+                                                       impl="cuda"), dev, flush="read"),
         plain_ms=time_ms(lambda: ref.masked_mix_scatter(w, theta, idx, mask, full), dev),
         # two library calls: the product of the live rules, then index_copy_
         library_ms=time_ms(lambda: scratch.index_copy_(0, live, w_live @ theta), dev),
+        plan=f"tile {plan.tile} ({MIX_TILES[plan.tile].rows} rows), {plan.blocks} blocks of "
+             f"{plan.threads} threads, {'16-byte' if plan.vec else 'scalar'} path",
         bytes=4 * (c * c + c * d_al + real * d_al), flops=2 * c * c * d_al)
     return rows
+
+
+def scatter_rules(gen, dev, c, real, d):
+    """A padded cohort's (c, c) rules, softmax over the ``real`` columns and
+    0 in the pad columns, and its (c, d) uploads."""
+    w = torch.zeros(c, c, device=dev)
+    w[:, :real] = torch.softmax(torch.randn(c, real, generator=gen, device=dev), dim=1)
+    return w, 0.05 * torch.randn(c, d, generator=gen, device=dev)
+
+
+def check_scatter(name, w, theta, idx, mask, full, real):
+    """masked_mix_scatter into a copy of ``full`` against the plain version:
+    within 1e-5 of the largest output, every row outside the cohort as it
+    was, and the bits of the unpadded cohort (the first ``real`` slots).
+    Returns the largest error."""
+    want = ref.masked_mix_scatter(w, theta, idx, mask, full)
+    got = ops.masked_mix_scatter(w, theta, idx, mask, full.clone(), impl="cuda")
+    err = check(name, got, want, 1e-5 * float(want.abs().max()))
+    outside = torch.ones(full.shape[0], dtype=torch.bool, device=full.device)
+    outside[idx[:real].long()] = False
+    if not torch.equal(got[outside], full[outside]):
+        raise AssertionError(f"{name}: a row outside the cohort moved")
+    unpadded = ops.masked_mix_scatter(w[:real, :real].contiguous(), theta[:real].contiguous(),
+                                      idx[:real], mask[:real], full.clone(), impl="cuda")
+    if not torch.equal(unpadded, got):
+        raise AssertionError(f"{name}: the padded cohort's rows are not bit-for-bit the "
+                             "unpadded cohort's")
+    return err
 
 
 def flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev, seed=0):
@@ -1247,10 +1283,12 @@ def main():
               "flash_attention_prefill": served["prefill_launches"]["flash_attention_prefill"],
               "flash_attention_decode": served["serve_launches"]["flash_attention_decode"],
               "flash_attention_fma": fma_launches}
+    # the cohort rows also carry read_ms, their time after a read flush
     kernels = [{"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
                 "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"]} for name, r in rows.items()]
+                "library_ms": r["library_ms"], **({"read_ms": r["read_ms"]} if "read_ms" in r
+                                                  else {})} for name, r in rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

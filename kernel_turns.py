@@ -1,4 +1,4 @@
-"""Time the mix and k-means kernels of two trees of the port on one GPU, in turns.
+"""Time the mix, cohort and k-means kernels of two trees of the port on one GPU, in turns.
 
     python3 kernel_turns.py OTHER_TREE [--out FILE]
 
@@ -7,21 +7,29 @@ commit, unpacked with ``git archive``). The kernels of OTHER_TREE and of
 this tree are timed in four turns, other, this, this, other, each turn a
 process of its own that imports that tree's ``repro_torch`` and builds its
 kernels into that tree's ``build/kernels``. A turn checks each kernel
-against the plain version (mix within 1e-5 of the largest output, k-means
-labels equal) and times with CUDA events, as ``chip_smoke.time_ms`` does:
-medians of 30 calls after an L2-evicting write and a spin hiding the
-enqueue; the mix and its ``w @ theta`` also after an L2-evicting read,
-which leaves no dirty lines for the timed call to write back. Shapes: mix
-W (k, 100) · θ (100, 47,616) at k = 100 and 4; kmeans_assign of 100
-points of width 100 (softmax rows, as W's) against 4 and 99 centroids
-drawn from them; and a one-element ``zero_()``, the launch floor. Prints
-one line a turn and, last, one JSON object with every turn; ``--out``
-also writes it to a file. Needs CUDA; imports nothing of jax or of the
-reference package.
+against the plain version (mix and mix-scatter within 1e-5 of the largest
+output, gather and k-means labels equal) and times with CUDA events, as
+``chip_smoke.time_ms`` does: medians of 30 calls after an L2-evicting
+write and a spin hiding the enqueue; the mix, the mix-scatter, the gather
+and their library calls also after an L2-evicting read, which leaves no
+dirty lines for the timed call to write back. Shapes: mix W (k, 100) ·
+θ (100, 47,616) at k = 100 and 4; chip_smoke's cohort, 50 slots (42
+members, 8 pads) of the (100, 47,616) slab, for masked_mix_scatter
+(library: ``w_live @ theta`` then ``index_copy_``) and cohort_gather
+(library: ``index_select``); kmeans_assign of 100 points of width 100
+(softmax rows, as W's) against 4 and 99 centroids drawn from them; and a
+one-element ``zero_()``, the launch floor. Each turn also hashes (sha256)
+the outputs of the mix, the mix-scatter and the gather on these fixed
+inputs, and keeps the ``ptxas`` lines of its mix and mix-scatter builds.
+Prints one line a turn and, last, one JSON object with every turn and
+whether each hash agrees across the trees; ``--out`` also writes it to a
+file. Exits non-zero if a hash differs. Needs CUDA; imports nothing of
+jax or of the reference package.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -58,11 +66,64 @@ def time_ms(fn, dev, reps=30, flush="write"):
     return statistics.median(times)
 
 
+def sha256(t) -> str:
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def ptxas_lines(build, source: str) -> list:
+    """The register, shared-memory and spill lines of ``source``'s build log."""
+    log = build.target(source).with_suffix(".log")
+    return [ln.split("ptxas info    : ")[-1] for ln in log.read_text().splitlines()
+            if "Used" in ln or "spill" in ln] if log.exists() else []
+
+
+def cohort_turn(out, dev, gen, m, d, c=50, real=42):
+    """masked_mix_scatter and cohort_gather at chip_smoke's cohort: 50
+    slots of the (m, d) slab, ``real`` sorted members, then pads (the
+    sentinel m, mask off, W's pad columns 0), into ``out``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    full = torch.randn(m, d, generator=gen, device=dev)
+    members = torch.sort(torch.randperm(m, generator=gen, device=dev)[:real]).values
+    idx = torch.full((c,), m, dtype=torch.int32, device=dev)
+    idx[:real] = members.to(torch.int32)
+    mask = torch.arange(c, device=dev) < real
+    w = torch.zeros(c, c, device=dev)
+    w[:, :real] = torch.softmax(torch.randn(c, real, generator=gen, device=dev), dim=1)
+    theta = 0.05 * torch.randn(c, d, generator=gen, device=dev)
+
+    got = ops.masked_mix_scatter(w, theta, idx, mask, full.clone(), impl="cuda")
+    want = ref.masked_mix_scatter(w, theta, idx, mask, full)
+    err = float((got - want).abs().max())
+    if not err <= 1e-5 * float(want.abs().max()):
+        raise AssertionError(f"masked_mix_scatter max_abs_err {err:.3e}")
+    out["mix_scatter_sha256"] = sha256(got)
+    gathered = ops.cohort_gather(full, idx, impl="cuda")
+    if not torch.equal(gathered, ref.cohort_gather(full, idx)):
+        raise AssertionError("cohort_gather differs from the plain version")
+    out["gather_sha256"] = sha256(gathered)
+
+    scratch = full.clone()
+    live = idx[:real].long()
+    w_live = w[:real].contiguous()
+    safe = idx.long().clamp(max=m - 1)
+    for flush, tag in (("write", ""), ("read", "_read_flush")):
+        out[f"mix_scatter{tag}_ms"] = time_ms(
+            lambda: ops.masked_mix_scatter(w, theta, idx, mask, scratch, impl="cuda"), dev,
+            flush=flush)
+        out[f"mix_scatter_library{tag}_ms"] = time_ms(
+            lambda: scratch.index_copy_(0, live, w_live @ theta), dev, flush=flush)
+        out[f"gather{tag}_ms"] = time_ms(
+            lambda: ops.cohort_gather(full, idx, impl="cuda"), dev, flush=flush)
+        out[f"gather_library{tag}_ms"] = time_ms(lambda: full.index_select(0, safe), dev,
+                                                 flush=flush)
+
+
 def one_turn(tree: Path) -> dict:
     """Check and time the kernels of the port in ``tree``."""
     import torch
     sys.path.insert(0, str(tree / "src"))
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ops, ref
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns: torch.cuda.is_available() is false")
@@ -79,10 +140,12 @@ def one_turn(tree: Path) -> dict:
         err = float((ops.mix_aggregate(w, theta, impl="cuda") - want).abs().max())
         if not err <= 1e-5 * float(want.abs().max()):
             raise AssertionError(f"{tree}: mix k={k} max_abs_err {err:.3e}")
+        out[f"mix_k{k}_sha256"] = sha256(ops.mix_aggregate(w, theta, impl="cuda"))
         for flush, tag in (("write", ""), ("read", "_read_flush")):
             out[f"mix_k{k}{tag}_ms"] = time_ms(
                 lambda w=w: ops.mix_aggregate(w, theta, impl="cuda"), dev, flush=flush)
             out[f"mix_k{k}_library{tag}_ms"] = time_ms(lambda w=w: w @ theta, dev, flush=flush)
+    cohort_turn(out, dev, gen, m, d)
     pts = torch.softmax(4.0 * torch.randn(m, m, generator=gen, device=dev), dim=1)
     for k in (4, 99):
         cents = pts[torch.randperm(m, generator=gen, device=dev)[:k]].clone()
@@ -94,6 +157,8 @@ def one_turn(tree: Path) -> dict:
     one = torch.empty(1, device=dev)
     out["zero_1_ms"] = time_ms(lambda: one.zero_(), dev)
     out["device"] = torch.cuda.get_device_name(0)
+    out["ptxas"] = {src: ptxas_lines(_build, src)
+                    for src in ("mix_aggregate.cu", "masked_mix_scatter.cu")}
     return out
 
 
@@ -124,11 +189,15 @@ def main():
         turns.append(got)
         print(f"{label}: " + "  ".join(f"{k} {v:.4f}" for k, v in got.items()
                                       if isinstance(v, float)), flush=True)
-    result = {"card": smi, "turns": turns}
+    hashes = sorted(k for k in turns[0] if k.endswith("_sha256"))
+    agree = {k: len({t.get(k) for t in turns}) == 1 for k in hashes}
+    result = {"card": smi, "turns": turns, "hashes_agree": agree}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
+    if not all(agree.values()):
+        raise SystemExit(f"kernel_turns: outputs differ between the trees: {agree}")
 
 
 if __name__ == "__main__":

@@ -3,7 +3,10 @@
 Replaces both ``repro.kernels.masked_mix_scatter.masked_mix_scatter_pallas``
 and ``repro.kernels.masked_gather_mix_scatter.masked_gather_mix_scatter_pallas``:
 ``full[idx[i]] = (W · θ)[i]`` for the live slots (``mask[i]`` and
-``0 <= idx[i] < m``), written in place, O(c·d) bytes at any m.
+``0 <= idx[i] < m``), written in place, O(c·d) bytes at any m. The kernel
+is mix_aggregate's register-tiled core with a scatter epilogue, launched
+on ``mix_plan(c, c, d, theta, full)`` (a 50-slot cohort takes the 64-row
+tile: θ read once, one wave of blocks).
 """
 from __future__ import annotations
 
@@ -12,10 +15,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.mix_aggregate import mix_plan
 
 MIX_SCATTER = _build.Kernel("masked_mix_scatter.cu", "masked_mix_scatter_f32", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong])
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int])
 
 
 def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -33,8 +38,9 @@ def masked_mix_scatter_cuda(w, theta, idx, mask, full):
     W is cast to float32 like the reference does; an int64 ``idx`` is cast
     to int32 once. The live indices must be distinct (a ``Cohort``'s
     members strictly increase); that is not checked, as it would need a
-    device sync. Raises when θ or W shares bytes with ``full``: the kernel
-    would read rows that it is writing.
+    device sync, and nothing else is read back from the card either (the
+    plan is a function of shapes and pointers). Raises when θ or W shares
+    bytes with ``full``: the kernel would read rows that it is writing.
     """
     tensors = (w, theta, idx, mask, full)
     if not all(x.is_cuda for x in tensors) or len({x.device for x in tensors}) != 1:
@@ -56,6 +62,8 @@ def masked_mix_scatter_cuda(w, theta, idx, mask, full):
     w = w.to(torch.float32).contiguous()
     idx = idx.to(torch.int32).contiguous()
     mask = (mask if mask.dtype == torch.bool else mask != 0).contiguous()
+    plan = mix_plan(c, c, d, theta.data_ptr(), full.data_ptr())
     MIX_SCATTER(full.device, _build.ptr(w), _build.ptr(theta), _build.ptr(idx),
-                _build.ptr(mask), _build.ptr(full), c, m, d)
+                _build.ptr(mask), _build.ptr(full), c, m, d, plan.tile, int(plan.vec),
+                plan.blocks, plan.smem_bytes)
     return full

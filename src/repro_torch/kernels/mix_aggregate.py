@@ -4,9 +4,11 @@ Replaces ``repro.kernels.mix_aggregate.mix_aggregate_pallas``:
 ``out(k, d) = W(k, m) · θ(m, d)``, f32 accumulate.
 
 :func:`mix_plan` is the launch plan, a function of host ints: which of the
-kernel's two register tiles (``MIX_TILES``, ``T0`` and ``T1`` of the source)
-takes the call, the 16-byte or the scalar path, the grid and the dynamic
-shared memory. The kernel refuses a plan that disagrees with its own tile.
+three register tiles (``MIX_TILES``, ``T0``, ``T1`` and ``T2`` of
+``csrc/mix_tile.cuh``) takes the call, the 16-byte or the scalar path, the
+grid and the dynamic shared memory. The masked mix-scatter
+(``masked_mix_scatter.py``) runs the same tiles and takes the same plan.
+Each kernel refuses a plan that disagrees with its own tile.
 """
 from __future__ import annotations
 
@@ -26,13 +28,15 @@ BK = 16  # rows of θ a chunk of the kernel's shared-memory ring
 
 class MixTile(NamedTuple):
     """A register tile of the kernel: each of tr x tc threads sums an
-    rm x rn block of the output; ``stages`` chunks in the ring."""
+    rm x rn block of the output; ``stages`` chunks in the ring; ``minb``
+    blocks an SM, the launch bound that caps the registers."""
 
     rm: int
     rn: int
     tr: int
     tc: int
     stages: int
+    minb: int
 
     @property
     def rows(self) -> int:  # BM: rules a block covers
@@ -55,12 +59,12 @@ class MixTile(NamedTuple):
         return 4 * self.stages * BK * (ws + self.cols)
 
 
-# the source's T0 and T1: the plan takes T0 when its rows cover k, else T1
-# over ceil(k / 128) row tiles. Each launch bounds its registers to 128 a
-# thread, so that 512 threads fit an SM.
+# the source's T0, T1 and T2, by index: the plan takes T0 when its 4 rows
+# cover k, T2 when its 64 rows do, else T1 over ceil(k / 128) row tiles.
 MIX_TILES = (
-    MixTile(rm=4, rn=4, tr=1, tc=32, stages=4),   # k <= 4 (ucfl_k4's centroid rules)
-    MixTile(rm=8, rn=8, tr=16, tc=16, stages=3),  # k > 4 (full ucfl), 128 rows a tile
+    MixTile(rm=4, rn=4, tr=1, tc=32, stages=4, minb=16),  # k <= 4 (ucfl_k4's centroid rules)
+    MixTile(rm=8, rn=8, tr=16, tc=16, stages=3, minb=2),  # k > 64 (full ucfl), 128 rows a tile
+    MixTile(rm=8, rn=4, tr=8, tc=32, stages=3, minb=3),   # 5 <= k <= 64 (a 50-slot cohort)
 )
 
 
@@ -76,14 +80,16 @@ class MixPlan(NamedTuple):
 
 def mix_plan(k: int, m: int, d: int, theta_ptr: int, out_ptr: int) -> MixPlan:
     """The launch of ``out(k, d) = W(k, m) · θ(m, d)`` (k, m, d > 0): the
-    4-row tile for k <= 4, else the 128-row tile over ceil(k / 128) row
-    tiles (a warp whose rows all lie past k skips its FMAs); the 16-byte path when d % 4 == 0 and θ and out
-    start on 16-byte boundaries (every row then does), else the scalar
-    path; one block per row tile and 128 columns. m only has to be
-    positive: the ring takes any m."""
+    4-row tile for k <= 4, the 64-row tile for k <= 64, else the 128-row
+    tile over ceil(k / 128) row tiles (a warp whose rows all lie past k
+    skips its FMAs); the 16-byte path when d % 4 == 0 and θ and out start
+    on 16-byte boundaries (every row then does), else the scalar path; one
+    block per row tile and 128 columns. m only has to be positive: the
+    ring takes any m. The masked mix-scatter plans with ``mix_plan(c, c,
+    d, theta_ptr, full_ptr)``."""
     if min(k, m, d) <= 0:
         raise ValueError(f"mix_plan: k, m, d must be positive, got {(k, m, d)}")
-    index = 0 if k <= MIX_TILES[0].rows else 1
+    index = 0 if k <= MIX_TILES[0].rows else 2 if k <= MIX_TILES[2].rows else 1
     t = MIX_TILES[index]
     row_tiles = -(-k // t.rows)
     col_tiles = -(-d // t.cols)

@@ -7,7 +7,11 @@ only torch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 sums in another order, so 1e-5 of the largest output; the
-k-means labels (ties included) are exact. flash_attention: in f32 atol
+k-means labels (ties included) are exact. The mix and the masked
+mix-scatter run one register-tiled core (``csrc/mix_tile.cuh``) whose sums
+run in order, so their bits are exact where the order is the same: two
+calls, W with zero pad columns against the unpadded W, and the identity
+scatter against mix_aggregate. flash_attention: in f32 atol
 2e-5 (outputs are averages of unit-scale v; the kernel's online softmax
 sums in another order than the plain version's whole row); in bfloat16
 both compute in f32 from the same inputs and round once, so they differ
@@ -33,6 +37,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.flash_attention import FLASH_DEC, FLASH_FMA, FLASH_TC, flash_route
 from repro_torch.kernels.kmeans_assign import ASSIGN, kmeans_plan
+from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER
 from repro_torch.kernels.mix_aggregate import MIX, mix_plan
 
 
@@ -61,7 +66,7 @@ def test_cuda_gram_matches_plain(m, d):
 @pytest.mark.parametrize("k,m,d", [(100, 100, 47616), (4, 100, 47616), (5, 7, 97), (3, 600, 513),
                                    (150, 512, 1000),  # a second row tile, a 32-chunk ring
                                    (1, 3, 5),         # the scalar path, one tail chunk
-                                   (16, 100, 4096)])  # the 128-row tile, 7 warps past k
+                                   (16, 100, 4096)])  # the 64-row tile, 6 warps past k
 def test_cuda_mix_aggregate_matches_plain(k, m, d):
     dev = cuda_device()
     gen = torch.Generator().manual_seed(k + m)
@@ -257,6 +262,133 @@ def test_cuda_masked_mix_scatter_rejects_overlap():
     with pytest.raises(ValueError, match="overlaps"):
         ops.masked_mix_scatter(full[0, :9].view(3, 3), torch.ones(3, 128, device=dev), idx, mask,
                                full, impl="cuda")
+
+
+def _scatter_inputs(m, c, real, d, seed, dev, full_offset=False):
+    """A padded cohort's (w, theta, idx, mask, full) on ``dev``: ``real``
+    members and c - real pad slots, W's pad columns 0. With
+    ``full_offset`` full is a view 4 bytes into its buffer (the scalar
+    path at d % 4 == 0)."""
+    gen = torch.Generator().manual_seed(seed)
+    idx, mask = _cohort(m, c, real, gen, dev)
+    w = torch.zeros(c, c)
+    w[:, :real] = torch.softmax(torch.randn(c, real, generator=gen), dim=1)
+    theta = torch.randn(c, d, generator=gen).to(dev)
+    base = torch.randn(m * d + 1, generator=gen).to(dev)
+    full = (base[1:] if full_offset else base[:-1]).view(m, d)
+    return w.to(dev), theta, idx, mask, full
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,d,full_offset,vec", [("vec", 1000, False, True),
+                                                    ("odd", 97, False, False),
+                                                    ("offset", 1000, True, False)])
+@pytest.mark.parametrize("c", [1, 4, 5, 50, 64, 65, 100, 130])
+def test_cuda_masked_mix_scatter_tiles_match_plain(c, path, d, full_offset, vec):
+    """Every tile of mix_plan (4 rows for c <= 4, 64 for c <= 64, else 128
+    over row tiles) on the 16-byte and the scalar path, with pad slots:
+    the live rows within 1e-5 of the largest output, every other row of
+    full unchanged, and the unpadded cohort's bits."""
+    dev = cuda_device()
+    m, real = 200, c - c // 8
+    w, theta, idx, mask, full = _scatter_inputs(m, c, real, d, c + d, dev, full_offset)
+    assert mix_plan(c, c, d, theta.data_ptr(), full.data_ptr()).vec == vec
+    before = full.clone()
+    want = ref.masked_mix_scatter(w, theta, idx, mask, full)
+    got = ops.masked_mix_scatter(w, theta, idx, mask, full, impl="cuda")
+    torch.cuda.synchronize()
+    assert got.data_ptr() == full.data_ptr()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    outside = torch.ones(m, dtype=torch.bool, device=dev)
+    outside[idx[mask].long()] = False
+    assert torch.equal(got[outside], before[outside])
+    unpadded = before.clone()
+    ops.masked_mix_scatter(w[:real, :real].contiguous(), theta[:real].contiguous(), idx[:real],
+                           mask[:real], unpadded, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(unpadded, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 50, 100])
+def test_cuda_masked_mix_scatter_repeats_its_bits(c):
+    """Two calls on the same inputs write the same bits (ordered sums)."""
+    dev = cuda_device()
+    w, theta, idx, mask, full = _scatter_inputs(100, c, c - c // 8, 47616, c, dev)
+    first = ops.masked_mix_scatter(w, theta, idx, mask, full.clone(), impl="cuda")
+    second = ops.masked_mix_scatter(w, theta, idx, mask, full.clone(), impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [5, 50, 130])
+def test_cuda_masked_mix_scatter_all_pad_cohort_is_a_no_op(c):
+    """A cohort of pad slots only (sentinel m, mask off) writes nothing."""
+    dev = cuda_device()
+    m = 200
+    w, theta, _, _, full = _scatter_inputs(m, c, 1, 1000, c, dev)
+    before = full.clone()
+    idx = torch.full((c,), m, dtype=torch.int32, device=dev)
+    ops.masked_mix_scatter(w, theta, idx, torch.zeros(c, dtype=torch.bool, device=dev), full,
+                           impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(full, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 50, 100])
+def test_cuda_identity_scatter_equals_mix_aggregate(c):
+    """idx = 0..c-1, every slot live, into a zero (c, d) full: the scatter
+    epilogue writes the bits of mix_aggregate's dense store, since both run
+    one core on the same plan."""
+    dev = cuda_device()
+    d = 47616
+    gen = torch.Generator().manual_seed(c)
+    w = torch.softmax(torch.randn(c, c, generator=gen), dim=1).to(dev)
+    theta = torch.randn(c, d, generator=gen).to(dev)
+    full = torch.zeros(c, d, device=dev)
+    idx = torch.arange(c, dtype=torch.int32, device=dev)
+    mask = torch.ones(c, dtype=torch.bool, device=dev)
+    got = ops.masked_mix_scatter(w, theta, idx, mask, full, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.mix_aggregate(w, theta, impl="cuda"))
+
+
+@pytest.mark.cuda
+def test_cuda_masked_mix_scatter_refuses_a_plan_it_does_not_take():
+    """A plan whose blocks or shared memory disagree with the tile is
+    refused by the launch and raises; no launch counts."""
+    dev = cuda_device()
+    w, theta, idx, mask, full = _scatter_inputs(100, 50, 42, 47616, 0, dev)
+    plan = mix_plan(50, 50, 47616, theta.data_ptr(), full.data_ptr())
+    before = MIX_SCATTER.launches
+    for blocks, smem in ((plan.blocks + 1, plan.smem_bytes), (plan.blocks, plan.smem_bytes + 4)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            MIX_SCATTER(dev, _build.ptr(w), _build.ptr(theta), _build.ptr(idx),
+                        _build.ptr(mask), _build.ptr(full), 50, 100, 47616, plan.tile,
+                        int(plan.vec), blocks, smem)
+    assert MIX_SCATTER.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_masked_mix_scatter_makes_no_sync():
+    """The wrapper reads nothing back from the card: 20 calls at the
+    cohort phase's shape make no synchronizing call."""
+    import warnings
+
+    dev = cuda_device()
+    w, theta, idx, mask, full = _scatter_inputs(100, 50, 42, 47616, 1, dev)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(20):
+                ops.masked_mix_scatter(w, theta, idx, mask, full, impl="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert not [x for x in caught if "called a synchronizing" in str(x.message)]
 
 
 @pytest.mark.cuda

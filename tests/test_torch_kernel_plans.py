@@ -1,14 +1,16 @@
-"""The launch plans of the mix and k-means kernels, on the CPU.
+"""The launch plans of the mix, mix-scatter and k-means kernels, on the CPU.
 
 ``mix_plan`` and ``kmeans_plan`` are functions of host ints that decide a
 launch: the register tile or lane groups, the 16-byte or scalar path, the
-grid and the dynamic shared memory. The kernels refuse a plan that
+grid and the dynamic shared memory. ``mix_plan`` serves both kernels of
+``csrc/mix_tile.cuh``: mix_aggregate, and the masked mix-scatter with
+``mix_plan(c, c, d, theta, full)``. The kernels refuse a plan that
 disagrees with their own layout (checked on the card by
 ``tests/test_torch_cuda.py``); here the plans are held to what the kernels
 need: every row, column and point covered once, rows 16-byte aligned on
 the 16-byte path only, shared memory within a block's 227 KB, and, on the
-main path, θ read once (one row tile at k <= 128) and the centroids staged
-in one round trip.
+main path, θ read once (one row tile at k <= 128), a 50-slot cohort in one
+wave of blocks, and the centroids staged in one round trip.
 """
 import itertools
 
@@ -20,6 +22,13 @@ from repro_torch.kernels.mix_aggregate import BK, MIX_TILES, mix_plan
 
 ALIGNED = (0x7F0000000000, 0x7F0000100000)  # two 256-byte aligned base pointers
 BLOCK_SMEM = 232_448  # a block's most dynamic shared memory on an H100
+SM_SMEM = 233_472     # an SM's shared memory for blocks (228 KB), 1 KB of it reserved a block
+SMS = 132             # an H100 SXM's SMs
+
+
+def tile_rule(k):
+    """The tile mix_plan must pick: T0 for k <= 4, T2 for k <= 64, else T1."""
+    return 0 if k <= 4 else 2 if k <= 64 else 1
 
 
 @pytest.mark.parametrize("k,m,d", list(itertools.product((1, 4, 100, 150, 511), (3, 100, 512),
@@ -27,14 +36,14 @@ BLOCK_SMEM = 232_448  # a block's most dynamic shared memory on an H100
 def test_mix_plan_covers_the_output(k, m, d):
     plan = mix_plan(k, m, d, *ALIGNED)
     tile = MIX_TILES[plan.tile]
-    assert plan.tile == (0 if k <= 4 else 1)
+    assert plan.tile == tile_rule(k)
     assert plan.row_tiles * tile.rows >= k > (plan.row_tiles - 1) * tile.rows
     assert plan.col_tiles * tile.cols >= d > (plan.col_tiles - 1) * tile.cols
     assert plan.blocks == plan.row_tiles * plan.col_tiles
     assert plan.threads == tile.threads <= 256 and 32 % tile.tc == 0
     assert plan.smem_bytes == tile.smem_bytes <= BLOCK_SMEM
     assert plan.vec == (d % 4 == 0)
-    if k <= MIX_TILES[-1].rows:  # θ crosses HBM once
+    if k <= max(t.rows for t in MIX_TILES):  # θ crosses HBM once
         assert plan.row_tiles == 1
 
 
@@ -47,23 +56,63 @@ def test_mix_plan_at_the_main_path():
                 plan.threads) == (tile, True, 1, 372, 372, threads)
 
 
-@pytest.mark.parametrize("k,tile,row_tiles", [(1, 0, 1), (4, 0, 1), (5, 1, 1), (16, 1, 1),
-                                              (64, 1, 1), (128, 1, 1), (129, 1, 2), (150, 1, 2),
-                                              (511, 1, 4)])
+@pytest.mark.parametrize("k,tile,row_tiles", [(1, 0, 1), (4, 0, 1), (5, 2, 1), (16, 2, 1),
+                                              (50, 2, 1), (64, 2, 1), (65, 1, 1), (128, 1, 1),
+                                              (129, 1, 2), (150, 1, 2), (511, 1, 4)])
 def test_mix_plan_tile_choice(k, tile, row_tiles):
     plan = mix_plan(k, 100, 1000, *ALIGNED)
-    assert (plan.tile, plan.row_tiles) == (tile, row_tiles)
+    assert (plan.tile, plan.row_tiles) == (tile, row_tiles) and tile == tile_rule(k)
 
 
 def test_mix_tiles_shared_memory():
     """The ring's bytes, as the source's Tile computes them: per stage a
     (BK, BM) W^T tile (rows BM floats apart, or BM + 4 where BM / 4 is
     even) and a (BK, BN) θ tile; only the 128-row tile passes 48 KB (and
-    so sets the attribute), and two of its blocks fit an SM's 227 KB."""
+    so sets the attribute). The launch bound (``minb`` blocks an SM)
+    leaves each thread at least 80 of the SM's 64 K registers, and the
+    128- and 64-row tiles' bounds fit the SM's shared memory too (the
+    4-row tile's 16 is a cap on registers; shared memory holds 6 of it).
+    The 64-row tile has 3,136 floats a stage."""
     assert BK == 16
-    assert [t.smem_bytes for t in MIX_TILES] == [33_792, 49_920]
-    assert [(t.rows, t.cols, t.threads) for t in MIX_TILES] == [(4, 128, 32), (128, 128, 256)]
-    assert 2 * MIX_TILES[-1].smem_bytes <= BLOCK_SMEM
+    assert [t.smem_bytes for t in MIX_TILES] == [33_792, 49_920, 37_632]
+    assert [(t.rows, t.cols, t.threads) for t in MIX_TILES] == [
+        (4, 128, 32), (128, 128, 256), (64, 128, 256)]
+    assert MIX_TILES[2].smem_bytes == 4 * 3 * (BK * (64 + 4) + BK * 128)
+
+    def resident(t):  # blocks an SM's shared memory holds: the ring, the
+        # scatter's target rows (4 bytes a row) and 1 KB reserved a block
+        return SM_SMEM // (t.smem_bytes + 4 * t.rows + 1024)
+
+    assert [resident(t) for t in MIX_TILES] == [6, 4, 6]
+    for t in MIX_TILES:
+        assert t.smem_bytes <= BLOCK_SMEM
+        assert 65_536 // (t.minb * t.threads) >= 80
+    assert all(resident(t) >= t.minb for t in MIX_TILES[1:])
+    assert [t.smem_bytes > 48 * 1024 for t in MIX_TILES] == [False, True, False]
+
+
+def test_mix_scatter_plan_at_the_main_path():
+    """The cohort phase's mix-scatter, mix_plan(c, c, d) at c = 50 slots of
+    the 47,616-wide slab: the 64-row tile, one row tile (θ crosses HBM
+    once), 372 blocks of 256 threads, the 16-byte path, and all 372 blocks
+    resident at once on 132 SMs at three blocks an SM (one wave)."""
+    plan = mix_plan(50, 50, 47_616, *ALIGNED)
+    assert (plan.tile, plan.vec, plan.row_tiles, plan.col_tiles, plan.blocks,
+            plan.threads) == (2, True, 1, 372, 372, 256)
+    assert plan.smem_bytes == MIX_TILES[2].smem_bytes == 37_632
+    assert plan.blocks <= SMS * MIX_TILES[plan.tile].minb
+    # the 128-row tile would leave 78 of its 128 rows idle here
+    assert MIX_TILES[1].rows - 50 > MIX_TILES[2].rows - 50 >= 0
+
+
+@pytest.mark.parametrize("full_off,vec", [(0, True), (4, False), (8, False), (12, False),
+                                          (16, True)])
+def test_mix_scatter_plan_needs_full_aligned(full_off, vec):
+    """The scatter stores whole float4s into full's rows, so the 16-byte
+    path needs full (not only θ) on a 16-byte boundary."""
+    plan = mix_plan(50, 50, 47_616, ALIGNED[0], ALIGNED[1] + full_off)
+    assert plan.vec == vec
+    assert mix_plan(50, 50, 97, *ALIGNED).vec is False  # d % 4 != 0
 
 
 @pytest.mark.parametrize("d,theta_off,out_off,vec", [
