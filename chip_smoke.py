@@ -7,7 +7,11 @@ Phases, each printed as it ends:
   2. build   — compiles the six hand-written kernels from
                ``src/repro_torch/kernels/csrc/`` with nvcc (all at once);
   3. kernels — holds each kernel against its plain torch version on the card
-               at the main path's shapes (mix_aggregate also at leaf widths,
+               at the main path's shapes (gram at the special round's
+               slab-wide (100, 47,616) rows and at 512 clients: exactly
+               symmetric, two calls bit-equal, one launch and no
+               synchronizing call a call, and Δ on clustered rows within
+               2x the error of ``g @ g.T`` in f32; mix_aggregate also at leaf widths,
                a second row tile, one rule and an offset view, with two calls
                bit-equal and 28 zero columns of W bit-invisible;
                kmeans_assign also at k = 99 with a tie across lanes, timed;
@@ -20,7 +24,9 @@ Phases, each printed as it ends:
                views, printing which of its three kernels each case took:
                the bf16 tensor-core tile, the split-KV decode kernel or the
                FMA kernel), and times kernel, plain version and one PyTorch
-               library call with CUDA events, beside a one-element zero_()
+               library call with CUDA events (gram also after a read flush,
+               beside its route's bound and the f32 CUDA cores' bound, with
+               its ptxas registers and spills), beside a one-element zero_()
                (the launch floor); then the decode route's host
                cost against the FMA route's, its launches (one kernel a
                call) and that 28 decode calls make no synchronizing call;
@@ -30,11 +36,14 @@ Phases, each printed as it ends:
   5. main    — ``ucfl`` and ``ucfl_k4`` through ``simulation.run`` on
                scenario 2 at its defaults (100 clients, 1000 samples each,
                28x28x1, 47 classes) with LeNet-5 at its published widths,
-               counting each kernel's launches;
+               counting each kernel's launches (the special round: one gram
+               launch on rows read where they lie, no padded copy, and
+               full_grads of (m, 47,571));
   6. cohort  — the same at partial participation: ``ucfl`` and ``ucfl_k4``
                with half the clients a round, and ``ucfl`` with 50-slot
                cohorts drawn from a diurnal availability trace (rounds with
-               pad slots), counting launches again; one more cohort round
+               pad slots), counting launches again (the special round as
+               in phase 5); one more cohort round
                must make no synchronizing CUDA call
                (``torch.cuda.set_sync_debug_mode``);
   7. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
@@ -62,6 +71,7 @@ import contextlib
 import ctypes
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -75,7 +85,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import FedConfig, ParticipationConfig, clustering, ucfl  # noqa: E402
+from repro_torch.core import FedConfig, ParticipationConfig, clustering, flat, ucfl  # noqa: E402
 from repro_torch.data import loader, synthetic  # noqa: E402
 from repro_torch.federated import client, participation, simulation  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -92,9 +102,10 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import lenet, transformer  # noqa: E402
 
 # H100 SXM data sheet: HBM3 rate, f32 CUDA-core peak (no tensor cores) and
-# the dense bf16 tensor-core peak
+# the dense TF32 and bf16 tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
 ROUNDS = 5
 SEED = 0
@@ -226,24 +237,7 @@ def kernel_phase(dev):
     m, d, d_al = 100, 47571, 47616
     rows = {}
 
-    # gram: the special round's (100, 47,571) full gradients
-    g = 1e-2 * torch.randn(m, d, generator=gen, device=dev)
-    want = ref.gram(g)
-    got = ops.gram(g, impl="cuda")
-    torch.cuda.synchronize()
-    if not torch.equal(got, got.T):
-        raise AssertionError("gram: kernel output is not exactly symmetric")
-    # f32 sums of 47,571 products in another order: relative 1e-5 of the largest entry
-    err = check("gram", got, want, 1e-5 * float(want.abs().max()))
-    rows["gram"] = dict(
-        source="src/repro_torch/kernels/csrc/gram.cu",
-        replaces="src/repro/kernels/pairwise_delta.py:41", max_abs_err=err,
-        ms=time_ms(lambda: ops.gram(g, impl="cuda"), dev),
-        plain_ms=time_ms(lambda: ref.gram(g), dev),
-        library_ms=time_ms(lambda: g @ g.T, dev),
-        # G·Gᵀ is symmetric: the function needs m(m+1)/2 dot products of
-        # length d (a SYRK's count), whatever the kernel computes
-        bytes=4 * (m * d + m * m), flops=m * (m + 1) * d)
+    rows.update(gram_rows(gen, dev, m, d, d_al))
 
     # mix_aggregate: full ucfl (k = 100) and ucfl_k4 (k = 4) over the slab
     theta = 0.05 * torch.randn(m, d_al, generator=gen, device=dev)
@@ -292,7 +286,12 @@ def kernel_phase(dev):
         r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"),
                                                 r.pop("flop_rate", F32_FLOP_PER_S))
         extra = ((f"  read_ms {r['read_ms']:.4f} ms" if "read_ms" in r else "")
-                 + (f"  [{r['plan']}]" if "plan" in r else ""))
+                 + (f"  library read {r['library_read_ms']:.4f} ms"
+                    if "library_read_ms" in r else "")
+                 + (f"  f32 CUDA-core bound {r['bound_f32_ms']:.5f} ms"
+                    if "bound_f32_ms" in r else "")
+                 + (f"  [{r['plan']}]" if "plan" in r else "")
+                 + (f"  [{r['route_detail']}]" if "route_detail" in r else ""))
         print(f"  {name}: max_abs_err {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})  "
@@ -300,11 +299,98 @@ def kernel_phase(dev):
     decode = rows["flash_attention_decode"]
     print("flash_decode " + json.dumps({"long": decode.pop("long"), "host": decode.pop("host")}))
     print("kmeans_k99 " + json.dumps(rows["kmeans_assign"].pop("k99")))
+    print("gram_delta " + json.dumps(rows["gram"].pop("delta")))
     floor = launch_floor(dev)
     print("launch_floor " + json.dumps({"zero_1_ms": floor}))
     print(f"  launch floor: a one-element zero_() times {floor:.4f} ms under time_ms")
-    phase("kernels", t0, "8 kernels agree with their plain versions (9 rows)")
+    phase("kernels", t0, "8 kernels agree with their plain versions (10 rows)")
     return rows
+
+
+def ptxas_info(source):
+    """(registers, spill store bytes) of ``source``'s kernel from its build log."""
+    text = _build.target(source).with_suffix(".log").read_text()
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+    return max(regs), max(spills)
+
+
+def gram_rows(gen, dev, m, d, d_al):
+    """gram at the special round's slab-wide rows (m, 47,616) with the 45
+    columns past d zero, and at 512 clients: exactly symmetric, within
+    1e-5 of the plain version's largest entry, two calls bit-equal, one
+    launch and no synchronizing call a call, no padded copy; Δ on
+    clustered rows (4 groups, each row its group's gradient plus noise at
+    1e-3 of its norm) against Δ from an f64 Gram, within 2x the error of
+    Δ from ``g @ g.T`` in full f32 and within 1e-5 of the largest
+    diagonal. Timed after a write and a read flush, beside the plain
+    version and ``g @ g.T``; bound_ms is the route's (bytes, or 3xTF32
+    tensor work: 3 x FLOP at 495 TFLOP/s), bound_f32_ms the f32 CUDA
+    cores' (FLOP at 67 TFLOP/s), FLOP counted as m(m+1)d."""
+    rows = {}
+    regs, spills = ptxas_info("gram.cu")
+    for name, mm in (("gram", m), ("gram_m512", 512)):
+        g = torch.zeros(mm, d_al, device=dev)
+        g[:, :d] = 1e-2 * torch.randn(mm, d, generator=gen, device=dev)
+        want = ref.gram(g)
+        launches, copies = GRAM.launches, GRAM.padded
+        got = ops.gram(g, impl="cuda")
+        if GRAM.launches - launches != 1 or GRAM.padded != copies:
+            raise AssertionError(f"{name}: {GRAM.launches - launches} launches, "
+                                 f"{GRAM.padded - copies} padded copies in one call")
+        torch.cuda.synchronize()
+        if not torch.equal(got, got.T):
+            raise AssertionError(f"{name}: kernel output is not exactly symmetric")
+        if not torch.equal(got, ops.gram(g, impl="cuda")):
+            raise AssertionError(f"{name}: two calls gave different bits")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ops.gram(g, impl="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        # f32 sums of 47,571 products in another order: 1e-5 of the largest entry
+        err = check(name, got, want, 1e-5 * float(want.abs().max()))
+        flops = mm * (mm + 1) * d
+        nbytes = 4 * (mm * d_al + mm * mm)
+        rows[name] = dict(
+            source="src/repro_torch/kernels/csrc/gram.cu",
+            replaces="src/repro/kernels/pairwise_delta.py:41", max_abs_err=err,
+            ms=time_ms(lambda g=g: ops.gram(g, impl="cuda"), dev),
+            read_ms=time_ms(lambda g=g: ops.gram(g, impl="cuda"), dev, flush="read"),
+            plain_ms=time_ms(lambda g=g: ref.gram(g), dev),
+            library_ms=time_ms(lambda g=g: g @ g.T, dev),
+            library_read_ms=time_ms(lambda g=g: g @ g.T, dev, flush="read"),
+            bound_f32_ms=bound_ms(nbytes, flops)[0],
+            route_detail=f"wgmma 3xTF32, TMA ring; {regs} registers, {spills} bytes spilled",
+            bytes=nbytes, flops=3 * flops, flop_rate=TF32_FLOP_PER_S)
+    rows["gram"]["delta"] = gram_delta_check(dev, m, d, d_al)
+    return rows
+
+
+def gram_delta_check(dev, m, d, d_al, groups=4, noise=1e-3):
+    """Δ from the kernel and from ``g @ g.T`` (full f32) against Δ from an
+    f64 Gram of the same f32 rows; returns both errors and the bound."""
+    gen64 = torch.Generator(device=dev)
+    gen64.manual_seed(SEED + 7)
+    common = torch.randn(groups, d, generator=gen64, device=dev, dtype=torch.float64)
+    jitter = torch.randn(m, d, generator=gen64, device=dev, dtype=torch.float64)
+    rows = common[torch.arange(m, device=dev) % groups]
+    rows = rows + noise * rows.norm(dim=1, keepdim=True) * jitter / jitter.norm(dim=1, keepdim=True)
+    g = torch.zeros(m, d_al, device=dev)
+    g[:, :d] = rows.float()
+    g64 = g.double()
+    gram64 = g64 @ g64.T
+    exact = ref.delta_from_gram(gram64)
+    err = float((ref.delta_from_gram(ops.gram(g, impl="cuda").double()) - exact).abs().max())
+    err_f32 = float((ref.delta_from_gram((g @ g.T).double()) - exact).abs().max())
+    diag = float(torch.diagonal(gram64).max())
+    if not (err <= 2 * err_f32 and err <= 1e-5 * diag):
+        raise AssertionError(f"gram: Δ on clustered rows off by {err:.3e}, g @ g.T in f32 by "
+                             f"{err_f32:.3e}, largest diagonal {diag:.3e}")
+    print(f"  gram Δ on clustered rows ({groups} groups, noise {noise} of the norm): kernel "
+          f"{err:.3e}, g @ g.T f32 {err_f32:.3e}, largest diagonal {diag:.3e}")
+    return {"kernel_err": err, "f32_err": err_f32, "largest_diagonal": diag}
 
 
 def mix_sweep(gen, dev):
@@ -871,8 +957,7 @@ def main_phase(dev, data, params0, untrained):
     for ns in (None, 4):
         strat = ucfl.make_ucfl(lenet.apply_stacked, params0, FedConfig(), num_streams=ns,
                                var_batch_size=100, device=dev)
-        for c in COUNTERS.values():
-            c.launches = 0
+        zero_counters()
         t1 = time.perf_counter()
         hist = simulation.run(strat, lenet.apply_stacked, data, SEED, rounds=ROUNDS,
                               device=dev)
@@ -892,6 +977,7 @@ def main_phase(dev, data, params0, untrained):
         idle = [k for k in needed if launches[strat.name][k] == 0]
         if idle:
             raise AssertionError(f"{strat.name}: kernels {idle} never launched on the main path")
+        check_special_round(strat.name, launches[strat.name], state, params0)
         # one more steady round (on a copy) and, for ucfl, the special round,
         # under the profiler; the counters are read above, so these launches
         # do not count
@@ -931,8 +1017,7 @@ def cohort_phase(dev, data, params0, untrained):
     for name, ns, pcfg in runs:
         strat = ucfl.make_ucfl(lenet.apply_stacked, params0, FedConfig(), num_streams=ns,
                                var_batch_size=100, device=dev)
-        for c in COUNTERS.values():
-            c.launches = 0
+        zero_counters()
         t1 = time.perf_counter()
         hist = simulation.run(strat, lenet.apply_stacked, data, SEED, rounds=ROUNDS,
                               participation=pcfg, device=dev)
@@ -949,9 +1034,10 @@ def cohort_phase(dev, data, params0, untrained):
         got = launches[name]
         # one gather and one mix-scatter per round that ran, plus the warm-up
         if not (got["cohort_gather"] == got["masked_mix_scatter"] == ran + 1
-                and got["mix_aggregate"] == 0 and got["gram"] > 0
+                and got["mix_aggregate"] == 0
                 and (ns is None or got["kmeans_assign"] > 0)):
             raise AssertionError(f"{name}: launches {got} over {ran} cohort rounds")
+        check_special_round(name, got, state, params0)
         if pcfg.sampler == "availability" and not any(0 < z < 50 for z in sizes):
             raise AssertionError(f"{name}: no round carried pad slots (cohort sizes {sizes})")
         # one more cohort round on a copy, under the profiler: it must leave
@@ -1139,6 +1225,18 @@ def bf16_decode_agree(dev, cfg, steps_run=72):
 def zero_counters():
     for c in COUNTERS.values():
         c.launches = 0
+    GRAM.padded = 0
+
+
+def check_special_round(name, launches, state, params0):
+    """The run's one special round launched gram once, on rows it read
+    where they lie (no padded copy), and kept full_grads at (m, dim)."""
+    want = (state["params"].shape[0], flat.LayoutTable.build(params0).dim)
+    shape = tuple(state["collab"]["full_grads"].shape)
+    if launches["gram"] != 1 or GRAM.padded != 0 or shape != want:
+        raise AssertionError(f"{name}: the special round made {launches['gram']} gram launches "
+                             f"and {GRAM.padded} padded copies (want 1 and 0), full_grads "
+                             f"{shape} (want {want})")
 
 
 def read_counters(name, expect):
@@ -1283,12 +1381,16 @@ def main():
               "flash_attention_prefill": served["prefill_launches"]["flash_attention_prefill"],
               "flash_attention_decode": served["serve_launches"]["flash_attention_decode"],
               "flash_attention_fma": fma_launches}
-    # the cohort rows also carry read_ms, their time after a read flush
+    # one kernel for both gram rows: the main path runs it at m = 100
+    counts["gram_m512"] = counts["gram"]
+    # the cohort and gram rows also carry read_ms, their time after a read
+    # flush; the gram rows library_read_ms and the f32 CUDA-core bound
+    extras = ("read_ms", "library_read_ms", "bound_f32_ms")
     kernels = [{"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
                 "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"], **({"read_ms": r["read_ms"]} if "read_ms" in r
-                                                  else {})} for name, r in rows.items()]
+                "library_ms": r["library_ms"], **{k: r[k] for k in extras if k in r}}
+               for name, r in rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

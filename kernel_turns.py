@@ -1,4 +1,4 @@
-"""Time the mix, cohort and k-means kernels of two trees of the port on one GPU, in turns.
+"""Time the Gram, mix, cohort and k-means kernels of two trees of the port on one GPU, in turns.
 
     python3 kernel_turns.py OTHER_TREE [--out FILE]
 
@@ -17,10 +17,16 @@ dirty lines for the timed call to write back. Shapes: mix W (k, 100) ·
 members, 8 pads) of the (100, 47,616) slab, for masked_mix_scatter
 (library: ``w_live @ theta`` then ``index_copy_``) and cohort_gather
 (library: ``index_select``); kmeans_assign of 100 points of width 100
-(softmax rows, as W's) against 4 and 99 centroids drawn from them; and a
-one-element ``zero_()``, the launch floor. Each turn also hashes (sha256)
-the outputs of the mix, the mix-scatter and the gather on these fixed
-inputs, and keeps the ``ptxas`` lines of its mix and mix-scatter builds.
+(softmax rows, as W's) against 4 and 99 centroids drawn from them; gram
+of the special round's slab-wide rows, (100, 47,616) with the 45 columns
+past 47,571 zero, and of (512, 47,616), beside ``g @ g.T`` in full f32,
+both after either flush; and a one-element ``zero_()``, the launch floor.
+Each turn also hashes (sha256) the outputs of the mix, the mix-scatter and
+the gather on these fixed inputs, and keeps the ``ptxas`` lines of its
+mix, mix-scatter and gram builds. Gram's bits may differ between trees (a
+new summation order changes them), so a turn holds its own gram to the
+plain version (within 1e-5 of the largest entry, exactly symmetric) and
+to itself (two calls bit-equal) instead of hashing it.
 Prints one line a turn and, last, one JSON object with every turn and
 whether each hash agrees across the trees; ``--out`` also writes it to a
 file. Exits non-zero if a hash differs. Needs CUDA; imports nothing of
@@ -119,6 +125,29 @@ def cohort_turn(out, dev, gen, m, d, c=50, real=42):
                                                  flush=flush)
 
 
+def gram_turn(out, dev, gen):
+    """gram at the special round's (100, 47,616) rows and at 512 clients:
+    checked against the plain version and against a second call, then
+    timed beside ``g @ g.T`` after either flush."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    for m in (100, 512):
+        g = 1e-2 * torch.randn(m, 47616, generator=gen, device=dev)
+        if m == 100:
+            g[:, 47571:] = 0.0  # the slab's pad columns
+        got = ops.gram(g, impl="cuda")
+        want = ref.gram(g)
+        err = float((got - want).abs().max())
+        if not (err <= 1e-5 * float(want.abs().max()) and torch.equal(got, got.T)):
+            raise AssertionError(f"gram m={m}: max_abs_err {err:.3e} or not symmetric")
+        if not torch.equal(got, ops.gram(g, impl="cuda")):
+            raise AssertionError(f"gram m={m}: two calls gave different bits")
+        for flush, tag in (("write", ""), ("read", "_read_flush")):
+            out[f"gram_m{m}{tag}_ms"] = time_ms(lambda g=g: ops.gram(g, impl="cuda"), dev,
+                                                flush=flush)
+            out[f"gram_m{m}_library{tag}_ms"] = time_ms(lambda g=g: g @ g.T, dev, flush=flush)
+
+
 def one_turn(tree: Path) -> dict:
     """Check and time the kernels of the port in ``tree``."""
     import torch
@@ -154,11 +183,12 @@ def one_turn(tree: Path) -> dict:
             raise AssertionError(f"{tree}: kmeans k={k} labels differ from the plain version")
         out[f"kmeans_k{k}_ms"] = time_ms(
             lambda c=cents: ops.kmeans_assign(pts, c, impl="cuda"), dev)
+    gram_turn(out, dev, gen)
     one = torch.empty(1, device=dev)
     out["zero_1_ms"] = time_ms(lambda: one.zero_(), dev)
     out["device"] = torch.cuda.get_device_name(0)
     out["ptxas"] = {src: ptxas_lines(_build, src)
-                    for src in ("mix_aggregate.cu", "masked_mix_scatter.cu")}
+                    for src in ("mix_aggregate.cu", "masked_mix_scatter.cu", "gram.cu")}
     return out
 
 

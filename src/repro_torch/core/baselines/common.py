@@ -18,8 +18,9 @@ A/B comparison from one start state) runs the round on
 :func:`repro_torch.federated.simulation.clone_state` of it.
 
 Not ported yet: the mesh, ``shard_state`` and the reference's
-``StateOps`` layout object (ROADMAP A14), the async buffer, upload stage,
-transport and topology branches (A12), and the baselines themselves (A11).
+``StateOps`` layout object (the mesh), the async buffer, upload stage,
+transport and topology branches (the engine knobs), and the baselines
+themselves: each is an item of ROADMAP queue A.
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ normalized-Gaussian-kernel mixing weights (Eq. 9):
 
 Rows are stochastic; homogeneous clients (Δ→0, equal n) give FedAvg;
 σ_i → 0 gives local training (w_{i,i} → 1). The streaming refresh of the
-reference comes with a later slice (ROADMAP A12).
+reference comes with a later slice (the engine knobs, ROADMAP queue A).
 """
 from __future__ import annotations
 

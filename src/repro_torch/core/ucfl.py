@@ -31,8 +31,8 @@ slots reach the card in one asynchronous copy from pinned memory, so
 the host does not wait for the stream to drain before it queues the
 round.
 
-``ucfl_parallel`` and the engine knobs come with later slices (ROADMAP
-A11–A12).
+``ucfl_parallel`` and the engine knobs come with later slices (the
+baselines and the engine knobs, ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -72,15 +72,18 @@ def compute_collaboration(apply_stacked, params0, data, *, var_batch_size=100,
         p = theta0.expand(c * steps, -1).clone().requires_grad_(True)
         loss = fedclient.stacked_loss(apply_stacked, layout.unravel(p), xb, yb)
         (g,) = torch.autograd.grad(loss, p)
-        g = g.view(c, steps, -1)[..., : layout.dim]
+        # the slab's pad columns never reach the loss: their gradient is 0
+        g = g.view(c, steps, -1)
         full = torch.mean(g, dim=1)
         fulls.append(full)
-        sigs.append(similarity.sigma_sq(g, full))
+        sigs.append(similarity.sigma_sq(g[..., : layout.dim], full[:, : layout.dim]))
+    # Δ from the slab-wide rows: 16-byte aligned, so the Gram kernel reads
+    # them where they lie, and the zero columns add nothing to any sum
     full = torch.cat(fulls).contiguous()
     sig = torch.cat(sigs)
     delta = similarity.pairwise_delta(full)
     w = similarity.mixing_weights(delta, sig, data.n.float())
-    return {"full_grads": full, "sigma_sq": sig, "delta": delta, "W": w}
+    return {"full_grads": full[:, : layout.dim], "sigma_sq": sig, "delta": delta, "W": w}
 
 
 @register("ucfl")

@@ -102,7 +102,7 @@ def make_federated_local_sgd(apply_stacked, layout, *, chunk_size=None,
     if mesh is not None:
         raise NotImplementedError(
             "make_federated_local_sgd: the mesh knob is not ported yet "
-            "(ROADMAP A14)")
+            "(the mesh over torch.distributed, ROADMAP queue A)")
     local = make_local_sgd(apply_stacked, layout, **kw)
     epochs = kw.get("epochs", 1)
 

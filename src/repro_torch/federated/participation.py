@@ -30,7 +30,7 @@ Samplers
 The numpy seed streams are the reference's
 (``repro.federated.participation``), so both packages draw the same
 cohorts index for index. The ``pareto`` sampler (``SelectionConfig``) is
-not ported yet (ROADMAP A12).
+not ported yet (the pareto selection sampler, ROADMAP queue A).
 
 Full participation (``fraction=1.0`` outside the availability sampler) is
 a ``None`` cohort, so the engine keeps the dense path.
@@ -149,7 +149,7 @@ class ParticipationConfig:
         if self.sampler == "pareto":
             raise NotImplementedError(
                 "the pareto sampler (SelectionConfig) is not ported yet "
-                "(ROADMAP A12)")
+                "(the pareto selection sampler, ROADMAP queue A)")
         if self.sampler not in SAMPLERS:
             raise ValueError(
                 f"unknown sampler {self.sampler!r}; expected one of {SAMPLERS}")

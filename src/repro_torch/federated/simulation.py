@@ -226,7 +226,7 @@ def run_trials(make_strategy, apply_stacked, data_fn, *, trials: int, rounds: in
     """
     if selection is not None:
         raise NotImplementedError("run_trials: selection (Pareto-biased cohorts) is not "
-                                  "ported yet (ROADMAP A4)")
+                                  "ported yet (the pareto selection sampler, ROADMAP queue A)")
     avgs, worsts, hists = [], [], []
     for trial in range(trials):
         s = seed + 1000 * trial

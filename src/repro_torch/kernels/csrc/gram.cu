@@ -4,120 +4,615 @@
 // which streams G once over d on the TPU while the (m, m) sum stays in VMEM
 // from one sequential grid step to the next.
 //
-// What bounds it on an H100: at the main path's shape (m = 100,
-// d = 47,571) the product is symmetric, so the function needs m(m+1)/2
-// dot products of length d: 0.48 GFLOP over 19 MB. On the f32 CUDA cores
-// (no TF32: the reference sums in full f32) that is about 7.2 us of
-// arithmetic against about 5.7 us of memory traffic, so the work is
-// arithmetic-bound, and an (m, m) output of one or a few tiles is far too
-// little parallelism for 132 SMs.
+// What bounds it on an H100 (the function's own work: G read once, the
+// (m, m) result written once, m(m+1)/2 dot products of length d):
+//   * m = 100, d = 47,616 (the special round's aligned rows): 19 MB, 0.48
+//     GFLOP. Bytes bound it: 5.7 us at 3.35 TB/s, against 2.9 us of
+//     3xTF32 tensor work (3 x FLOP / 495 TFLOP/s) and 7.2 us on the f32
+//     CUDA cores. But the triangle is small: 100 rows give one block tile,
+//     so the work must be cut along d into ~130 pieces whose partial
+//     triangles are then summed, and that sum is on the critical path.
+//   * m = 512: 98.5 MB, 12.5 GFLOP. The tensor work bounds it: 76 us in
+//     3xTF32 (29 us of bytes; 186 us on the CUDA cores).
 //
 // Design:
-//   * split-K over d: grid = (row tiles, column tiles, splits). Each block
-//     owns one 128 x 128 output tile and one contiguous range of d, and
-//     writes its partial tile to a (splits, m, m) workspace. A second
-//     kernel sums the partials in split order. Both passes are
-//     deterministic (no atomics), and every output is summed in the same
-//     order as its mirror, so the result is exactly symmetric;
-//   * a 128 x 32 slice of G is staged in shared memory per step, read with
-//     the lanes of a warp along d (coalesced) and stored transposed with a
-//     one-float pad, so neither the stores nor the compute reads conflict;
-//   * 256 threads, each owning an 8 x 8 register tile of outputs strided
-//     by 16, so one step does 64 FMAs per 16 shared-memory loads;
-//   * on a diagonal tile (all of it when m <= 128) both operands are the
-//     same slice of G, which is loaded once;
-//   * rows >= m and the ragged tail of d (47,571 is odd) are masked to 0.
-// The tile computes the whole square, mirror half included: at m = 100 a
-// 128-wide tile does 3.2x the products the symmetric result needs.
-// Skipping the mirrored half, and tensor cores (wgmma on TF32 splits), are
-// later work.
+//   * the upper triangle only. Rows are cut into 128-row tiles and only
+//     tiles (bi, bj) with bi <= bj are computed. A tile is up to four jobs
+//     of 64 x 64 outputs (row half h, column half c), and a diagonal tile
+//     drops the job below its diagonal (h = 1, c = 0): at m = 100, 3 jobs,
+//     12,288 sums for the 5,050 needed (the old 128 x 128 square: 16,384).
+//     The merge writes G_ij and G_ji from one sum, so the output is
+//     exactly symmetric by construction;
+//   * 3xTF32 on the tensor cores, by wgmma (A from registers, B from
+//     shared memory; m64n128k8 for a warpgroup's two adjacent jobs,
+//     m64n64k8 for one): each element x splits into big = tf32(x) and
+//     small = tf32(x - big) (both rounded to nearest, see split()), and
+//     every 8 columns of d add small·bigᵀ, then big·smallᵀ, then big·bigᵀ
+//     into the same f32 registers. The dropped small·smallᵀ term is ~2^-22
+//     of each product. A warpgroup's 64 rows are split in registers after
+//     ldmatrix; the column operand is split once a stage by the whole
+//     block into a big and a small copy in shared memory, in the layout
+//     TMA wrote (the split is elementwise), double-buffered. The tensor
+//     core's additions truncate, which over a split's whole chunk (1,284
+//     additions a sum at m = 512) biased G by -4.5e-5 of itself on the
+//     H100: so each stage's 12 products a job start from zero (scale-d 0)
+//     and the stage sums are added in f32, rounded to nearest, in the
+//     registers. mma.sync m16n8k8, which covers the triangle in finer
+//     16 x 8 units but splits both operands in registers for every
+//     product, was no faster at m = 100 and slower at m = 512 (PERF.md,
+//     the gram findings);
+//   * G read once, by TMA: thread 0 keeps a ring of `stages` 32-column
+//     slices in flight (128 bytes a row, the 128-byte swizzle, which is
+//     also the layout wgmma reads; rows past m and columns past d arrive
+//     as zeros), each signalled by an mbarrier, and refills a slot as soon
+//     as the block's barrier after a stage shows that every thread has
+//     read it. A diagonal tile loads each slice once for both operands; an
+//     off-diagonal tile loads its row and column slices. No producer warp:
+//     wgmma kernels get registers by the warpgroup, and a ninth warp would
+//     cap the two consumer warpgroups at 168 registers (they use ~200);
+//   * software-pipelined: stage i's products run while stage i + 1's slice
+//     is waited for, split and loaded; two warpgroups, one a row half;
+//   * split-K over d in one wave and one launch: the host plan
+//     (pairwise_delta.gram_plan) gives each tile a number of splits in
+//     proportion to its jobs, at most one block per SM; each block writes
+//     its partial tile (the part of the triangle it holds) to a workspace,
+//     the grid meets at a barrier (a cooperative launch guarantees that
+//     every block is resident), and then every block sums its share of the
+//     triangle's m(m+1)/2 elements over the splits in a fixed order
+//     (contiguous runs of splits in order, then the runs in order), so two
+//     calls give the same bits and no block merges alone. The barrier's two
+//     counters start at zero and the last block out puts them back to zero.
+// The plan is checked here against the tiles the kernel computes; a plan
+// it cannot take is refused with cudaErrorInvalidValue before any launch.
+//
+// Measured on the H100 (PERF.md, the gram findings): neither bound is
+// reached. At m = 100 the launch, the partials' merge and a per-stage
+// latency set the time, the latter mostly the column operand's split
+// through shared memory, whose traffic shares the bandwidth that wgmma's
+// operand reads need; at m = 512 that split and the products, and G's row
+// tiles are read by four tiles each.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 128;
-constexpr int kDepth = 32;
-constexpr int kThreads = 256;
-constexpr int kPer = kTile / 16;  // outputs per thread along each axis
+constexpr int kTile = 128;                   // rows (and columns) of a block tile
+constexpr int kHalf = 64;                    // rows and columns of a job
+constexpr int kDepth = 32;                   // columns of G a stage: 128 bytes a row
+constexpr int kSlice = kTile * kDepth * 4;   // bytes of one 128 x 32 slice
+constexpr int kThreads = 256;                // two warpgroups
+constexpr int kPartial = kTile * kTile;      // floats of one (tile, split) partial
+constexpr int kMaxTiles = 64;                // tiles of a plan: m <= 10 x 128
+constexpr int kMinStages = 2;
+constexpr int kMaxStages = 6;
+constexpr int kRuns = 8;                     // most runs of splits an element's merge takes
+constexpr int kPlanHead = 7;                 // m, d, tiles, blocks, stages, slices, smem
+constexpr int kPlanTile = 7;                 // bi, bj, jobs, splits, chunk, first, part
 
-__device__ __forceinline__ void load_slice(float (*s)[kTile + 1],
-                                           const float* __restrict__ g,
-                                           int row0, int m, int64_t d,
-                                           int64_t k0, int64_t kend) {
+struct Plan {
+  int m, row_tiles, tiles, stages, slices;
+  long long d;
+  int bi[kMaxTiles], bj[kMaxTiles], splits[kMaxTiles], chunk[kMaxTiles];
+  int first[kMaxTiles + 1];        // first block of each tile; first[tiles] = blocks
+  long long part[kMaxTiles + 1];   // float offset of each tile's (splits, 128, 128) partials
+};
+
+// 64-row halves of tile b that start below m (1 or 2).
+__host__ __device__ inline int halves(int m, int b) {
+  return m - b * kTile > kHalf ? 2 : 1;
+}
+
+// Jobs (h, c) of tile (bi, bj): every row half h and column half c below
+// m, but on a diagonal tile only c >= h.
+__host__ __device__ inline int tile_jobs(int m, int bi, int bj) {
+  const int nh = halves(m, bi), nc = halves(m, bj);
+  int n = 0;
+  for (int h = 0; h < nh; ++h) n += nc - (bi == bj ? h : 0);
+  return n;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// x = big + small + O(2^-22 x). big is x rounded to TF32 (11 significant
+// bits, to nearest, ties away: add half a TF32 step to the bits, clear the
+// 13 below it); small = x - big is exact in f32, and it goes to the tensor
+// core with half a step added, which reads a .tf32 operand's top 19 bits
+// only, so it too counts rounded to nearest. Three integer operations and
+// one f32 subtraction, where two cvt.rna.tf32.f32 would take the slower
+// conversion pipe, which made the kernel slower.
+__device__ __forceinline__ void split(uint32_t raw, uint32_t& big, uint32_t& small) {
+  big = (raw + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(__uint_as_float(raw) - __uint_as_float(big)) + 0x1000u;
+}
+
+// The shared-memory matrix descriptor of a K-major operand in the 128-byte
+// swizzle: 8-row atoms of 128-byte rows, 1,024 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// d (+)= a · b for a 64 x 64 x 8 TF32 step: a this warp's 16 x 8 rows in
+// registers (the m16n8k8 A layout), b 64 rows of 8 columns at `desc`;
+// scale_d 0 starts d from zero.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// The same for 64 x 128 (two adjacent jobs in one instruction): d holds
+// the first job's 32 values a thread, then the second's.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// Keep the compiler from moving reads or writes of `x` across the async
+// products' issue and wait.
+__device__ __forceinline__ void fence_operand(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+__device__ __forceinline__ void fence_operand(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release(int* p) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(p) : "memory");
+}
+
+// Sum of the partials at p, p + stride, ... over splits [s0, s1), in
+// order (32 loads in flight).
+__device__ __forceinline__ float sum_splits(const float* __restrict__ p, long long stride,
+                                            int s0, int s1) {
+  float acc = 0.f;
+  for (int s = s0; s < s1; s += 32) {
+    float v[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) v[j] = s + j < s1 ? __ldcg(p + (s + j) * stride) : 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (s + j < s1) acc += v[j];
+  }
+  return acc;
+}
+
+// Stage i's slice (one or two 128 x 32 boxes) into ring slot i % S, by one
+// thread; the slot's barrier completes when the bytes have landed.
+__device__ __forceinline__ void load_stage(int i, const CUtensorMap* map, uint32_t ring,
+                                           uint32_t stage_bytes, int S, bool diag, int bi, int bj,
+                                           long long k0, uint64_t* full_bar) {
+  const int s = i % S;
+  const uint32_t bar = smem_u32(&full_bar[s]);
+  const uint32_t dst = ring + s * stage_bytes;
+  const int col = static_cast<int>(k0 + static_cast<long long>(i) * kDepth);
+  mbar_expect_tx(bar, diag ? kSlice : 2 * kSlice);
+  tma_load(dst, map, bar, col, bi * kTile);
+  if (!diag) tma_load(dst + kSlice, map, bar, col, bj * kTile);
+}
+
+// Stage i's loads: wait for its slice, split its column operand (all 256
+// threads, 64 bytes each) into buffer i & 1, and load this warp's 16 rows
+// of A for its 4 k-steps (raw; split_a splits them).
+__device__ __forceinline__ void prepare_stage(int i, uint32_t ring, uint8_t* ring_p,
+                                              uint32_t stage_bytes, uint32_t split_off, int S,
+                                              bool diag, int jobs, int a_row, int a_hi, int sw,
+                                              uint64_t* full_bar, uint32_t (&raw)[4][4]) {
+  const int s = i % S;
+  mbar_wait(smem_u32(&full_bar[s]), (i / S) & 1);
+  __syncwarp();  // the lanes leave the wait together for ldmatrix
+  const uint32_t sb_off = s * stage_bytes + (diag ? 0 : kSlice);
+  const uint32_t big_off = split_off + (i & 1) * 2 * kSlice;
+#pragma unroll
+  for (int k = 0; k < kSlice / (16 * kThreads); ++k) {
+    const uint32_t off = (k * kThreads + threadIdx.x) * 16;
+    const uint4 x = *reinterpret_cast<const uint4*>(ring_p + sb_off + off);
+    uint4 b, sm;
+    split(x.x, b.x, sm.x);
+    split(x.y, b.y, sm.y);
+    split(x.z, b.z, sm.z);
+    split(x.w, b.w, sm.w);
+    *reinterpret_cast<uint4*>(ring_p + big_off + off) = b;
+    *reinterpret_cast<uint4*>(ring_p + big_off + kSlice + off) = sm;
+  }
+  if (jobs > 0) {
+    const uint32_t sa = ring + s * stage_bytes;
+#pragma unroll
+    for (int ks = 0; ks < kDepth / 8; ++ks)
+      ldsm_x4(raw[ks], sa + a_row * 128 + static_cast<uint32_t>(((2 * ks + a_hi) ^ sw) << 4));
+  }
+}
+
+__device__ __forceinline__ void split_a(const uint32_t (&raw)[4][4], uint32_t (&ab)[4][4],
+                                        uint32_t (&as)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < kDepth / 8; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split(raw[ks][r], ab[ks][r], as[ks][r]);
+}
+
+// Stage i's split copies are complete and its slice read by every thread:
+// make the copies visible to the tensor cores' (async) proxy, meet, and
+// refill the slot with stage i + S.
+__device__ __forceinline__ void publish_stage(int i, int steps, const CUtensorMap* map,
+                                              uint32_t ring, uint32_t stage_bytes, int S,
+                                              bool diag, int bi, int bj, long long k0,
+                                              uint64_t* full_bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0 && i + S < steps)
+    load_stage(i + S, map, ring, stage_bytes, S, diag, bi, bj, k0, full_bar);
+}
+
+// One 8-column step of a warpgroup's JOBS jobs (1: a 64 x 64 product; 2:
+// both in one 64 x 128 product, the jobs' columns being adjacent).
+template <int JOBS>
+__device__ __forceinline__ void mma_step(float (&acc)[JOBS == 2 ? 64 : 32], const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d) {
+  if constexpr (JOBS == 2)
+    wgmma_tf32_n128(acc, a, desc, scale_d);
+  else
+    wgmma_tf32(acc, a, desc, scale_d);
+}
+
+// The K loop of a warpgroup with JOBS jobs (0, 1 or 2: one template each,
+// so that the products and their wait lie on one straight path). Stage i's
+// products run while stage i + 1's column operand is split and its A rows
+// are loaded: a stage's split goes to buffer i & 1, and the barrier after
+// each stage's wait makes both buffers safe to reuse. sums[j] gathers job
+// j's stage sums in f32.
+template <int JOBS>
+__device__ __forceinline__ void stage_loop(int steps, const CUtensorMap* map, uint32_t ring,
+                                           uint8_t* ring_p, uint32_t stage_bytes,
+                                           uint32_t split_off, int S, bool diag, int bi, int bj,
+                                           long long k0, int c_lo, int a_row, int a_hi, int sw,
+                                           uint64_t* full_bar, float (&sums)[2][32]) {
+  constexpr int kAcc = JOBS == 2 ? 64 : 32;  // two jobs: one 64 x 128 product
+  float acc[kAcc];
+#pragma unroll
+  for (int r = 0; r < kAcc; ++r) acc[r] = 0.f;
+  uint32_t ab[4][4], as[4][4], raw[4][4];
+  if (steps > 0) {
+    prepare_stage(0, ring, ring_p, stage_bytes, split_off, S, diag, JOBS, a_row, a_hi, sw,
+                  full_bar, raw);
+    split_a(raw, ab, as);
+    publish_stage(0, steps, map, ring, stage_bytes, S, diag, bi, bj, k0, full_bar);
+  }
+  for (int i = 0; i < steps; ++i) {
+    if (JOBS > 0) {
+      const uint32_t big = ring + split_off + (i & 1) * 2 * kSlice, small = big + kSlice;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      const uint32_t rows = static_cast<uint32_t>(c_lo * kHalf * 128);
+#pragma unroll
+      for (int ks = 0; ks < kDepth / 8; ++ks) {
+        const uint32_t k_off = static_cast<uint32_t>(ks * 32);
+        mma_step<JOBS>(acc, as[ks], desc_sw128(big + rows + k_off), ks > 0);
+        mma_step<JOBS>(acc, ab[ks], desc_sw128(small + rows + k_off), 1);
+        mma_step<JOBS>(acc, ab[ks], desc_sw128(big + rows + k_off), 1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    }
+    if (i + 1 < steps)
+      prepare_stage(i + 1, ring, ring_p, stage_bytes, split_off, S, diag, JOBS, a_row, a_hi, sw,
+                    full_bar, raw);
+    if (JOBS > 0) {
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < kDepth / 8; ++ks)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          fence_operand(ab[ks][r]);
+          fence_operand(as[ks][r]);
+        }
+#pragma unroll
+      for (int r = 0; r < kAcc; ++r) {
+        fence_operand(acc[r]);
+        sums[r / 32][r % 32] += acc[r];
+      }
+    }
+    if (i + 1 < steps) {
+      split_a(raw, ab, as);
+      publish_stage(i + 1, steps, map, ring, stage_bytes, S, diag, bi, bj, k0, full_bar);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gram_kernel(const __grid_constant__ CUtensorMap map, const __grid_constant__ Plan plan,
+            float* __restrict__ partial, int* __restrict__ counters, float* __restrict__ out) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kMaxStages];
+  __shared__ float runs[kThreads];
+  // the swizzled slices need 1024-byte alignment
+  uint8_t* ring_p = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t ring = smem_u32(ring_p);
+  const int m = plan.m, S = plan.stages;
+  const uint32_t stage_bytes = static_cast<uint32_t>(plan.slices * kSlice);
+  // two buffers of the column operand's split, each a big and a small copy
+  const uint32_t split_off = static_cast<uint32_t>(S) * stage_bytes;
+
+  int t = 0;
+  while (t + 1 < plan.tiles && plan.first[t + 1] <= static_cast<int>(blockIdx.x)) ++t;
+  const int bi = plan.bi[t], bj = plan.bj[t];
+  const bool diag = bi == bj;
+  const int split_id = blockIdx.x - plan.first[t];
+  const long long k0 = static_cast<long long>(split_id) * plan.chunk[t];
+  const long long k1 = k0 + plan.chunk[t] < plan.d ? k0 + plan.chunk[t] : plan.d;
+  const int steps = k1 > k0 ? static_cast<int>((k1 - k0 + kDepth - 1) / kDepth) : 0;
+  // warp-uniform as far as the compiler can see (a shuffle from lane 0), so
+  // that the branches on the warp's role and jobs do not serialize wgmma
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t k = k0 + lane;
-#pragma unroll
-  for (int it = 0; it < kTile / (kThreads / 32); ++it) {
-    const int r = warp + (kThreads / 32) * it;
-    const int row = row0 + r;
-    float v = 0.f;
-    if (row < m && k < kend) v = g[static_cast<int64_t>(row) * d + k];
-    s[lane][r] = v;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(smem_u32(&full_bar[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < S && i < steps; ++i)
+      load_stage(i, &map, ring, stage_bytes, S, diag, bi, bj, k0, full_bar);
   }
-}
+  __syncthreads();
 
-__global__ void __launch_bounds__(kThreads)
-gram_partial_kernel(const float* __restrict__ g, float* __restrict__ partial,
-                    int m, int64_t d, int64_t chunk) {
-  __shared__ float sa[kDepth][kTile + 1];
-  __shared__ float sb[kDepth][kTile + 1];
-  const int i0 = blockIdx.x * kTile;
-  const int j0 = blockIdx.y * kTile;
-  const bool diag = blockIdx.x == blockIdx.y;
-  const int64_t kbeg = static_cast<int64_t>(blockIdx.z) * chunk;
-  const int64_t kend = kbeg + chunk < d ? kbeg + chunk : d;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float (*sbb)[kTile + 1] = diag ? sa : sb;
-
-  float acc[kPer][kPer];
+  {
+    // consumers: warpgroup h takes the jobs of row half h, column halves
+    // c_lo .. nc - 1 (at most 2); warp wl of it rows 16 wl .. 16 wl + 15
+    const int h = warp >> 2, wl = warp & 3;
+    const int c_lo = diag ? h : 0;
+    const int jobs = h < halves(m, bi) ? halves(m, bj) - c_lo : 0;  // uniform in the warpgroup
+    const int a_row = kHalf * h + 16 * wl + (lane & 7) + 8 * ((lane >> 3) & 1);
+    const int a_hi = lane >> 4, sw = lane & 7;
+    float sums[2][32];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) acc[i][j] = 0.f;
+      for (int r = 0; r < 32; ++r) sums[j][r] = 0.f;
 
-  for (int64_t k0 = kbeg; k0 < kend; k0 += kDepth) {
-    load_slice(sa, g, i0, m, d, k0, kend);
-    if (!diag) load_slice(sb, g, j0, m, d, k0, kend);
+    if (jobs == 2)
+      stage_loop<2>(steps, &map, ring, ring_p, stage_bytes, split_off, S, diag, bi, bj, k0, c_lo,
+                    a_row, a_hi, sw, full_bar, sums);
+    else if (jobs == 1)
+      stage_loop<1>(steps, &map, ring, ring_p, stage_bytes, split_off, S, diag, bi, bj, k0, c_lo,
+                    a_row, a_hi, sw, full_bar, sums);
+    else
+      stage_loop<0>(steps, &map, ring, ring_p, stage_bytes, split_off, S, diag, bi, bj, k0, c_lo,
+                    a_row, a_hi, sw, full_bar, sums);
+
+    // this split's partial tile, rows and columns of the tile, where they
+    // hold an element of the triangle: d[4i + 2hi + lo] is row g + 8 hi,
+    // column 8 i + 2 t + lo of the warp's 16 x 64 block
+    float* dst = partial + plan.part[t] + static_cast<long long>(split_id) * kPartial;
+    const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j >= jobs) continue;
+#pragma unroll
+      for (int r = 0; r < 32; r += 2) {
+        const int row = kHalf * h + 16 * wl + g + 8 * ((r >> 1) & 1);
+        const int col = kHalf * (c_lo + j) + 8 * (r >> 2) + 2 * tq;
+        const int grow = bi * kTile + row, gcol = bj * kTile + col;
+        if (grow < m && gcol < m && gcol + 1 >= grow)
+          *reinterpret_cast<float2*>(dst + row * kTile + col) =
+              make_float2(sums[j][r], sums[j][r + 1]);
+      }
+    }
+  }
+
+  // every block's partials are written: meet at the grid barrier (the
+  // block barrier orders this block's stores before thread 0's release)
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    red_release(&counters[0]);
+    while (ld_acquire(&counters[0]) < static_cast<int>(gridDim.x)) {
+    }
+  }
+  __syncwarp();
+  __syncthreads();
+
+  // the merge: this block's share of the triangle's elements (row-major,
+  // row <= col), each summed over its tile's splits in `nr` contiguous runs
+  // (a thread a run), the runs then added in order
+  const long long total = static_cast<long long>(m) * (m + 1) / 2;
+  const long long e_beg = total * blockIdx.x / gridDim.x;
+  const long long e_end = total * (blockIdx.x + 1) / gridDim.x;
+  const int n_e = static_cast<int>(e_end - e_beg);
+  int nr = n_e > 0 ? kThreads / n_e : 1;
+  nr = nr < 1 ? 1 : nr > kRuns ? kRuns : nr;
+  const int per_pass = kThreads / nr;
+  const int run = threadIdx.x / per_pass, slot = threadIdx.x % per_pass;
+  for (int base = 0; base < n_e; base += per_pass) {
+    const bool mine = run < nr && base + slot < n_e;
+    int row = 0, col = 0;
+    if (mine) {
+      // row r starts at element r m - r (r - 1) / 2
+      const long long e = e_beg + base + slot;
+      int lo = 0, hi = m - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) / 2;
+        if (static_cast<long long>(mid) * m - static_cast<long long>(mid) * (mid - 1) / 2 <= e)
+          lo = mid;
+        else
+          hi = mid - 1;
+      }
+      row = lo;
+      col = row + static_cast<int>(e - (static_cast<long long>(row) * m -
+                                       static_cast<long long>(row) * (row - 1) / 2));
+      const int ti = row / kTile, tj = col / kTile;
+      const int tt = ti * plan.row_tiles - ti * (ti - 1) / 2 + (tj - ti);
+      const int sp = plan.splits[tt];
+      runs[threadIdx.x] = sum_splits(
+          partial + plan.part[tt] + (row - ti * kTile) * kTile + (col - tj * kTile), kPartial,
+          sp * run / nr, sp * (run + 1) / nr);
+    }
     __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float a[kPer], b[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) a[i] = sa[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) b[j] = sbb[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    if (mine && run == 0) {
+      float sum = runs[slot];
+      for (int r = 1; r < nr; ++r) sum += runs[r * per_pass + slot];
+      out[static_cast<long long>(row) * m + col] = sum;
+      out[static_cast<long long>(col) * m + row] = sum;
     }
     __syncthreads();
   }
 
-  float* out = partial + static_cast<int64_t>(blockIdx.z) * m * m;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int row = i0 + ty + 16 * i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int col = j0 + tx + 16 * j;
-      if (col < m) out[static_cast<int64_t>(row) * m + col] = acc[i][j];
+  // the last block out leaves both counters at zero for the next launch
+  if (threadIdx.x == 0) {
+    if (atomicAdd(&counters[1], 1) == static_cast<int>(gridDim.x) - 1) {
+      counters[0] = 0;
+      counters[1] = 0;
+      __threadfence();
     }
   }
 }
 
-__global__ void gram_reduce_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ out, int64_t mm,
-                                   int splits) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= mm) return;
-  float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += partial[static_cast<int64_t>(p) * mm + idx];
-  out[idx] = s;
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Read the plan (kPlanHead values, then kPlanTile a tile) into `plan` and
+// check it against the tiles this kernel computes. Returns false if the
+// kernel cannot take it.
+bool read_plan(const long long* a, int len, int m, long long d, long long partial_len,
+               Plan* plan, int* blocks, int* smem) {
+  if (len < kPlanHead) return false;
+  const int tiles = static_cast<int>(a[2]);
+  if (a[0] != m || a[1] != d || m < 1 || d < 1 || tiles < 1 || tiles > kMaxTiles ||
+      len != kPlanHead + kPlanTile * tiles)
+    return false;
+  const int row_tiles = (m + kTile - 1) / kTile;
+  if (tiles != row_tiles * (row_tiles + 1) / 2) return false;
+  plan->m = m;
+  plan->d = d;
+  plan->row_tiles = row_tiles;
+  plan->tiles = tiles;
+  plan->stages = static_cast<int>(a[4]);
+  plan->slices = static_cast<int>(a[5]);
+  if (plan->stages < kMinStages || plan->stages > kMaxStages ||
+      plan->slices != (tiles > 1 ? 2 : 1))
+    return false;
+  int t = 0;
+  long long first = 0, part = 0;
+  for (int bi = 0; bi < row_tiles; ++bi) {
+    for (int bj = bi; bj < row_tiles; ++bj, ++t) {
+      const long long* r = a + kPlanHead + kPlanTile * t;
+      const long long splits = r[3], chunk = r[4];
+      if (r[0] != bi || r[1] != bj || r[2] != tile_jobs(m, bi, bj) || chunk < kDepth ||
+          chunk % kDepth != 0 || splits < 1 || splits * chunk < d ||
+          (splits - 1) * chunk >= d || r[5] != first || r[6] != part)
+        return false;
+      plan->bi[t] = bi;
+      plan->bj[t] = bj;
+      plan->splits[t] = static_cast<int>(splits);
+      plan->chunk[t] = static_cast<int>(chunk);
+      plan->first[t] = static_cast<int>(first);
+      plan->part[t] = part;
+      first += splits;
+      part += splits * kPartial;
+    }
+  }
+  plan->first[tiles] = static_cast<int>(first);
+  plan->part[tiles] = part;
+  *blocks = static_cast<int>(first);
+  // the ring, then the split copies (two buffers of a big and a small slice)
+  *smem = 1024 + (plan->stages * plan->slices + 4) * kSlice;
+  return a[3] == first && a[6] == *smem && part <= partial_len;
 }
 
 }  // namespace
@@ -126,19 +621,44 @@ extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// g (m, d) f32 row-major; partial (splits, m, m) f32 scratch; out (m, m) f32.
-// Block z covers d-columns [z * chunk, min((z + 1) * chunk, d)).
-extern "C" int gram_f32(const float* g, float* partial, float* out, int m,
-                        long long d, int splits, long long chunk,
-                        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (m + kTile - 1) / kTile;
-  gram_partial_kernel<<<dim3(tiles, tiles, splits), kThreads, 0, st>>>(
-      g, partial, m, d, chunk);
-  cudaError_t err = cudaGetLastError();
+// g: (m, d) f32 rows `row_stride` floats apart, g and the stride 16-byte
+// aligned; plan: gram_plan's values (see read_plan); partial: at least the
+// plan's partial floats; counters: two ints, zero on entry and on exit;
+// out: (m, m) f32. One cooperative launch on `stream`.
+extern "C" int gram_f32(const float* g, long long row_stride, int m, long long d,
+                        const long long* plan_values, int plan_len, float* partial,
+                        long long partial_len, int* counters, float* out, void* stream) {
+  Plan plan;  // copied into the launch's parameters
+  int blocks = 0, smem = 0;
+  if (!read_plan(plan_values, plan_len, m, d, partial_len, &plan, &blocks, &smem) ||
+      reinterpret_cast<uintptr_t>(g) % 16 != 0 || (row_stride * 4) % 16 != 0 ||
+      (m > 1 && row_stride < d))
+    return cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(m)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_stride) * 4};
+  const cuuint32_t box[2] = {kDepth, kTile};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(g), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  static int smem_set[64] = {};  // the attribute's value on each device
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const int64_t mm = static_cast<int64_t>(m) * m;
-  gram_reduce_kernel<<<static_cast<unsigned>((mm + 255) / 256), 256, 0, st>>>(
-      partial, out, mm, splits);
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (smem > smem_set[device]) {
+    err = cudaFuncSetAttribute(gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set[device] = smem;
+  }
+  void* args[] = {&map, &plan, &partial, &counters, &out};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gram_kernel), dim3(blocks),
+                                    dim3(kThreads), args, static_cast<size_t>(smem),
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -8,7 +8,7 @@ products over clients, clients folded into the attention kernel's batch).
 ``federated=False`` serves one model with the reference's shapes.
 
 ``build_train_step`` and the ``abstract_*``/``input_specs`` helpers come
-with the training slice (ROADMAP A15).
+with the transformer training slice (ROADMAP queue A).
 """
 from __future__ import annotations
 

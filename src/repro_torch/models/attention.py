@@ -1,6 +1,6 @@
 """Grouped-query attention with RoPE, sliding windows, softcap and KV caches
 (``repro.models.attention``: ``forward``, ``decode``; ``bidirectional``,
-``cross`` and ``encode_kv`` come with whisper, ROADMAP A15).
+``cross`` and ``encode_kv`` come with the whisper port, ROADMAP queue A).
 
 Parameters have the reference's names and shapes with a leading client
 axis: ``wq`` (m, D, Hq, Dh), ``wk``/``wv`` (m, D, Hkv, Dh), ``wo``

@@ -93,7 +93,7 @@ def mlp_init(gen, d_model, d_ff, kind, dtype=torch.float32, device=None):
             "w_down": fan_in_init(gen, (d_ff, d_model), dtype, device),
         }
     raise ValueError(f"mlp kind {kind!r}: the port has swiglu and geglu "
-                     "(gelu comes with whisper, ROADMAP A15)")
+                     "(gelu comes with the whisper port, ROADMAP queue A)")
 
 
 def matmul(x, w):

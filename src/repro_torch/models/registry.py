@@ -3,7 +3,7 @@
 The bundle serves one model: its functions take the reference's
 single-model params (no client axis) and add and drop the client axis of
 :mod:`repro_torch.models.transformer` around each call. ``loss`` comes
-with the training slice (ROADMAP A15).
+with the transformer training slice (ROADMAP queue A).
 """
 from __future__ import annotations
 

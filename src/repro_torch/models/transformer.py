@@ -15,7 +15,8 @@ it, and the inputs are (m, B, S). One model is m = 1
 (:mod:`repro_torch.models.registry` adds and drops that axis).
 
 Families moe, ssm, hybrid, vlm and audio, and ``first_dense > 0``, raise
-``NotImplementedError`` (ROADMAP A15). ``loss_fn`` comes with training.
+``NotImplementedError`` (the other model families, ROADMAP queue A).
+``loss_fn`` comes with training.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ def _check(cfg: ModelConfig):
     if cfg.family != "dense" or cfg.first_dense:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (first_dense={cfg.first_dense}) is not ported; "
-            "the port has the dense family (ROADMAP A15)")
+            "the port has the dense family; the other model families are in ROADMAP queue A")
 
 
 def tree_map(fn, tree):

@@ -7,6 +7,8 @@ difference of such entries), W atol 1e-4 (Δ's error scaled by 1/(2σσ));
 k-means from the reference's seeds gives the same labels exactly;
 ``user_centric``/``clustered`` rtol 1e-5.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,15 +20,21 @@ from repro.core import clustering as ref_clustering
 from repro.core import similarity as ref_sim
 from repro.core import ucfl as ref_ucfl
 from repro.models import lenet as ref_lenet
-from repro_torch.core import aggregation, clustering, similarity, ucfl
+from repro_torch.core import aggregation, clustering, flat, similarity, ucfl
 from repro_torch.models import lenet
 from torch_parity import VAR_BATCH, f32, n, small_task, t
 
 
+@functools.lru_cache(maxsize=None)
+def reference_collaboration():
+    data, _, params0, _ = small_task()
+    return jax.jit(lambda p, d: ref_ucfl.compute_collaboration(
+        ref_lenet.apply, p, d, var_batch_size=VAR_BATCH))(params0, data)
+
+
 def test_compute_collaboration_matches_reference():
     data, tdata, params0, tparams = small_task()
-    want = jax.jit(lambda p, d: ref_ucfl.compute_collaboration(
-        ref_lenet.apply, p, d, var_batch_size=VAR_BATCH))(params0, data)
+    want = reference_collaboration()
     got = ucfl.compute_collaboration(lenet.apply_stacked, tparams, tdata,
                                      var_batch_size=VAR_BATCH)
     chunked = ucfl.compute_collaboration(lenet.apply_stacked, tparams, tdata,
@@ -41,6 +49,30 @@ def test_compute_collaboration_matches_reference():
     np.testing.assert_allclose(n(got["W"]).sum(axis=1), 1.0, atol=1e-6)
     for k in got:
         torch.testing.assert_close(chunked[k], got[k], atol=1e-6, rtol=1e-6)
+
+
+def test_special_round_takes_delta_from_slab_wide_rows(monkeypatch):
+    """Δ is taken from the (m, dim_aligned) mean gradient, whose columns
+    past ``layout.dim`` are exact zeros (the slab's pad columns never
+    reach the loss), so the Gram kernel reads aligned rows where they lie;
+    ``full_grads`` keeps (m, dim), and Δ agrees with the reference's."""
+    _, tdata, _, tparams = small_task()
+    layout = flat.LayoutTable.build(tparams)
+    assert layout.dim_aligned > layout.dim  # the small task has pad columns
+    seen = []
+    delta_of = similarity.pairwise_delta
+    monkeypatch.setattr(similarity, "pairwise_delta", lambda g: seen.append(g) or delta_of(g))
+    got = ucfl.compute_collaboration(lenet.apply_stacked, tparams, tdata,
+                                     var_batch_size=VAR_BATCH)
+    (rows,) = seen
+    m = tdata.num_clients
+    assert tuple(rows.shape) == (m, layout.dim_aligned) and rows.is_contiguous()
+    assert torch.equal(rows[:, layout.dim:], torch.zeros(m, layout.dim_aligned - layout.dim))
+    assert tuple(got["full_grads"].shape) == (m, layout.dim)
+    assert torch.equal(got["full_grads"], rows[:, :layout.dim])
+    want = reference_collaboration()
+    gram_diag = float(np.max(np.sum(n(want["full_grads"]) ** 2, axis=1)))
+    np.testing.assert_allclose(n(got["delta"]), n(want["delta"]), atol=1e-5 * gram_diag)
 
 
 @pytest.mark.parametrize("m,seed", [(5, 0), (16, 3)])

@@ -7,7 +7,11 @@ only torch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 sums in another order, so 1e-5 of the largest output; the
-k-means labels (ties included) are exact. The mix and the masked
+k-means labels (ties included) are exact. gram (3xTF32 on the tensor
+cores) is also exactly symmetric, two calls give the same bits, each call
+is one launch with no synchronizing call, it copies only rows TMA cannot
+read, and on clustered rows its Δ is within 2x the error of ``g @ g.T``
+in full f32 against an f64 Gram; a plan it cannot take is refused. The mix and the masked
 mix-scatter run one register-tiled core (``csrc/mix_tile.cuh``) whose sums
 run in order, so their bits are exact where the order is the same: two
 calls, W with zero pad columns against the unpadded W, and the identity
@@ -27,6 +31,7 @@ bf16, whose splits merge in a fixed order: strided views give the bits of
 contiguous inputs, and a reduced bf16 model's decode steps match the
 plain attention's within 2^-5 of the largest logit, as its prefill does.
 """
+import ctypes
 import functools
 
 import pytest
@@ -39,6 +44,8 @@ from repro_torch.kernels.flash_attention import FLASH_DEC, FLASH_FMA, FLASH_TC, 
 from repro_torch.kernels.kmeans_assign import ASSIGN, kmeans_plan
 from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER
 from repro_torch.kernels.mix_aggregate import MIX, mix_plan
+from repro_torch.kernels import pairwise_delta
+from repro_torch.kernels.pairwise_delta import GRAM
 
 
 def cuda_device():
@@ -49,17 +56,108 @@ def cuda_device():
     return torch.device("cuda")
 
 
+GRAM_CASES = [  # (m, d, row stride or None for contiguous, padded copy)
+    (100, 47571, None, True),    # the special round's width, contiguous: unaligned rows
+    (100, 47616, None, False),   # the slab-wide rows the special round hands the kernel
+    (512, 47616, None, False),   # 512 clients: ten tiles, two slices a stage
+    (1, 33, None, True),
+    (7, 300, None, False),
+    (130, 1000, None, False),    # a second row tile of 2 rows
+    (100, 1000, 1040, False),    # a row-strided view: read where it lies
+    (100, 1000, 1001, True),     # a row stride TMA cannot take
+]
+
+
+def gram_input(m, d, stride, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed + m)
+    g = torch.randn(m, d, generator=gen, dtype=torch.float32)
+    if stride is None:
+        return g.to(dev)
+    buf = torch.zeros(m, stride, dtype=torch.float32, device=dev)
+    buf[:, :d] = g.to(dev)
+    return buf[:, :d]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,d", [(100, 47571), (7, 300), (130, 1000), (1, 33)])
-def test_cuda_gram_matches_plain(m, d):
+@pytest.mark.parametrize("m,d,stride,padded", GRAM_CASES)
+def test_cuda_gram_matches_plain(m, d, stride, padded):
+    """Exactly symmetric, within 1e-5 of the largest entry of the plain
+    version, one launch a call, a padded copy only where TMA cannot read
+    the rows, and two calls bit-equal."""
     dev = cuda_device()
-    g = torch.randn(m, d, generator=torch.Generator().manual_seed(m), dtype=torch.float32).to(dev)
+    g = gram_input(m, d, stride, dev)
+    launches, copies = GRAM.launches, GRAM.padded
     got = ops.gram(g, impl="cuda")
+    assert GRAM.launches - launches == 1 and GRAM.padded - copies == int(padded)
     want = ref.gram(g)
     torch.cuda.synchronize()
     assert torch.equal(got, got.T)
     tol = 1e-5 * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, ops.gram(g, impl="cuda"))
+
+
+def clustered_rows(m, d, groups, noise, dev, seed=0):
+    """m rows in ``groups`` clusters: each the group's common gradient plus
+    noise at ``noise`` of its norm."""
+    gen = torch.Generator().manual_seed(seed)
+    common = torch.randn(groups, d, generator=gen, dtype=torch.float64)
+    jitter = torch.randn(m, d, generator=gen, dtype=torch.float64)
+    rows = common[torch.arange(m) % groups]
+    rows = rows + noise * rows.norm(dim=1, keepdim=True) * jitter / jitter.norm(dim=1, keepdim=True)
+    return rows.to(dev)
+
+
+@pytest.mark.cuda
+def test_cuda_gram_delta_on_clustered_rows():
+    """Δ where clients nearly agree (4 groups, noise 1e-3 of the norm) at
+    the special round's shape: against Δ from an f64 Gram, the kernel's
+    largest error is within 2x that of Δ from g @ g.T in full f32 (TF32
+    off) and within 1e-5 of the largest diagonal."""
+    dev = cuda_device()
+    g64 = clustered_rows(100, 47571, 4, 1e-3, dev)
+    g = g64.float()
+    exact = ref.delta_from_gram(g.double() @ g.double().T)
+    kernel = ref.delta_from_gram(ops.gram(g, impl="cuda").double())
+    plain = ref.delta_from_gram((g @ g.T).double())
+    err, err_plain = float((kernel - exact).abs().max()), float((plain - exact).abs().max())
+    diag = float(torch.diagonal(g.double() @ g.double().T).max())
+    assert err <= 2 * err_plain and err <= 1e-5 * diag, (err, err_plain, diag)
+
+
+@pytest.mark.cuda
+def test_cuda_gram_makes_no_synchronizing_call():
+    dev = cuda_device()
+    g = gram_input(100, 47616, None, dev)
+    ops.gram(g, impl="cuda")  # the stream's workspace exists from here on
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.gram(g, impl="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_gram_refuses_a_plan_it_cannot_take():
+    """A plan whose chunk is not a whole number of ring stages, or whose
+    tile list is short, is refused before any launch; the counters stay
+    at zero, so the next call runs."""
+    dev = cuda_device()
+    g = gram_input(100, 1000, None, dev)
+    plan = pairwise_delta.gram_plan(100, 1000, 132)
+    for bad in (plan.values()[:-1], plan.values()[:11] + [plan.values()[11] + 1]
+                + plan.values()[12:]):
+        vals = (ctypes.c_longlong * len(bad))(*bad)
+        counters = torch.zeros(2, dtype=torch.int32, device=dev)
+        partial = torch.empty(plan.partial_floats, device=dev)
+        out = torch.empty(100, 100, device=dev)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            GRAM(dev, g.data_ptr(), 1000, 100, 1000, ctypes.cast(vals, ctypes.c_void_p),
+                 len(bad), partial.data_ptr(), partial.numel(), counters.data_ptr(),
+                 out.data_ptr())
+    assert torch.equal(ops.gram(g, impl="cuda"), ops.gram(g, impl="cuda"))
 
 
 @pytest.mark.cuda

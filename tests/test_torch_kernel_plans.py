@@ -1,4 +1,4 @@
-"""The launch plans of the mix, mix-scatter and k-means kernels, on the CPU.
+"""The launch plans of the Gram, mix, mix-scatter and k-means kernels, on the CPU.
 
 ``mix_plan`` and ``kmeans_plan`` are functions of host ints that decide a
 launch: the register tile or lane groups, the 16-byte or scalar path, the
@@ -10,7 +10,12 @@ disagrees with their own layout (checked on the card by
 need: every row, column and point covered once, rows 16-byte aligned on
 the 16-byte path only, shared memory within a block's 227 KB, and, on the
 main path, θ read once (one row tile at k <= 128), a 50-slot cohort in one
-wave of blocks, and the centroids staged in one round trip.
+wave of blocks, and the centroids staged in one round trip. ``gram_plan``
+is held to the triangle: its tiles' 64 x 64 jobs cover every element
+with row <= col < m once and no job lies wholly below the diagonal, each
+tile's splits cover d in chunks of whole ring stages, and the grid is one
+wave of one block an SM; ``gram_aligned`` picks the path that TMA can
+read (16-byte base and row stride) or the padded copy.
 """
 import itertools
 
@@ -19,6 +24,8 @@ import pytest
 from repro_torch.kernels.kmeans_assign import (MAX_SMEM_BYTES, SMEM_BYTES, WARPS, kmeans_plan,
                                                row_stride)
 from repro_torch.kernels.mix_aggregate import BK, MIX_TILES, mix_plan
+from repro_torch.kernels.pairwise_delta import (DEPTH, HALF, TILE, gram_aligned, gram_plan,
+                                                tile_jobs)
 
 ALIGNED = (0x7F0000000000, 0x7F0000100000)  # two 256-byte aligned base pointers
 BLOCK_SMEM = 232_448  # a block's most dynamic shared memory on an H100
@@ -202,3 +209,109 @@ def test_kmeans_plan_wide_rows():
             kmeans_plan(m, k, f, *ALIGNED)
     empty = kmeans_plan(10, 3, 0, *ALIGNED)  # width 0: rows of 4 zeros, every distance 0
     assert (empty.stride, empty.chunk, empty.vec) == (4, 3, True)
+
+
+GRAM_SHAPES = list(itertools.product((1, 7, 16, 64, 65, 100, 128, 129, 130, 300, 512),
+                                      (1, 33, 1000, 47_616)))
+
+
+@pytest.mark.parametrize("m,d", GRAM_SHAPES)
+def test_gram_plan_tiles_cover_the_upper_triangle_once(m, d):
+    """Every (row, col) with row <= col < m lies in exactly one 64 x 64 job
+    of one tile, and every job holds at least one such element (a diagonal
+    tile has no job below its diagonal)."""
+    plan = gram_plan(m, d, SMS)
+    row_tiles = -(-m // TILE)
+    assert [(t.bi, t.bj) for t in plan.tiles] == [
+        (bi, bj) for bi in range(row_tiles) for bj in range(bi, row_tiles)]
+    seen = {}
+    for t in plan.tiles:
+        jobs = tile_jobs(m, t.bi, t.bj)
+        assert t.jobs == len(jobs) and 1 <= len(jobs) <= 4
+        for h, c in jobs:
+            r0, c0 = t.bi * TILE + HALF * h, t.bj * TILE + HALF * c
+            upper = [(r, cc) for r in range(r0, min(r0 + HALF, m))
+                     for cc in range(c0, min(c0 + HALF, m)) if r <= cc]
+            assert upper, f"job {(h, c)} of tile {(t.bi, t.bj)} holds no upper element"
+            for rc in upper:
+                seen[rc] = seen.get(rc, 0) + 1
+    assert len(seen) == m * (m + 1) // 2 and set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("m,d", GRAM_SHAPES)
+def test_gram_plan_splits_cover_d(m, d):
+    plan = gram_plan(m, d, SMS)
+    for t in plan.tiles:
+        assert t.chunk % DEPTH == 0 and t.chunk >= DEPTH
+        assert t.splits * t.chunk >= d > (t.splits - 1) * t.chunk
+
+
+@pytest.mark.parametrize("m,d", GRAM_SHAPES)
+def test_gram_plan_is_one_wave(m, d):
+    """One block an SM at most, the offsets consecutive, and the ring plus
+    the split copies within a block's most shared memory."""
+    plan = gram_plan(m, d, SMS)
+    first = part = 0
+    for t in plan.tiles:
+        assert (t.first_block, t.part_offset) == (first, part)
+        first += t.splits
+        part += t.splits * TILE * TILE
+    assert plan.blocks == first <= SMS and plan.partial_floats == part
+    assert plan.slices == (2 if len(plan.tiles) > 1 else 1)
+    assert plan.smem_bytes == 1024 + (plan.stages * plan.slices + 4) * TILE * DEPTH * 4
+    assert plan.smem_bytes <= BLOCK_SMEM
+    assert len(plan.values()) == 7 + 7 * len(plan.tiles)
+
+
+def test_gram_plan_at_the_main_path():
+    """The special round (m = 100 over the 47,616-wide slab): one diagonal
+    tile of 3 jobs (rows 0-63 x columns 0-63 and 64-127, rows 64-127 x
+    columns 64-127), 124 splits of 384 columns (12 ring stages each), a
+    4-stage ring of one slice."""
+    plan = gram_plan(100, 47_616, SMS)
+    (t,) = plan.tiles
+    assert (t.bi, t.bj, t.jobs, t.splits, t.chunk) == (0, 0, 3, 124, 384)
+    assert tile_jobs(100, 0, 0) == [(0, 0), (0, 1), (1, 1)]
+    assert (plan.blocks, plan.stages, plan.slices, plan.smem_bytes) == (124, 4, 1, 132_096)
+    assert plan.partial_floats == 124 * TILE * TILE
+
+
+def test_gram_plan_at_512_clients():
+    """512 clients: 4 diagonal tiles of 3 jobs with 11 splits of 4,352
+    columns, 6 off-diagonal tiles of 4 jobs with 14 splits of 3,424, so a
+    block's jobs x stages are even (408 and 428); 128 blocks, two slices
+    a stage."""
+    plan = gram_plan(512, 47_616, SMS)
+    diag = [t for t in plan.tiles if t.bi == t.bj]
+    off = [t for t in plan.tiles if t.bi != t.bj]
+    assert len(diag) == 4 and len(off) == 6
+    assert {(t.jobs, t.splits, t.chunk) for t in diag} == {(3, 11, 4352)}
+    assert {(t.jobs, t.splits, t.chunk) for t in off} == {(4, 14, 3424)}
+    assert (plan.blocks, plan.slices, plan.smem_bytes) == (128, 2, 197_632)
+
+
+def test_gram_plan_rejects():
+    for m, d, sms in ((0, 5, SMS), (5, 0, SMS), (5, 5, 0)):
+        with pytest.raises(ValueError, match="positive"):
+            gram_plan(m, d, sms)
+    with pytest.raises(ValueError, match="tiles"):
+        gram_plan(11 * TILE, 100, SMS)  # 66 tiles
+    with pytest.raises(ValueError, match="tiles"):
+        gram_plan(512, 100, 8)  # 10 tiles on 8 SMs
+
+
+@pytest.mark.parametrize("off,stride,d,col,aligned", [
+    (0, 47_616, 47_616, 1, True),    # the special round's slab-wide rows
+    (0, 47_571, 47_571, 1, False),   # the unaligned width, contiguous: the padded copy
+    (0, 47_616, 47_571, 1, True),    # a view of the slab's first 47,571 columns
+    (4, 47_616, 47_616, 1, False),   # one float into the buffer
+    (16, 1000, 1000, 1, True),
+    (0, 300, 300, 1, True),
+    (0, 33, 33, 1, False),
+    (0, 4, 8, 1, False),             # overlapping rows
+    (0, 1000, 1000, 2, False),       # a column stride
+    (8, 1024, 1000, 1, False),
+])
+def test_gram_path(off, stride, d, col, aligned):
+    assert gram_aligned(ALIGNED[0] + off, stride, d, col) == aligned
+

@@ -77,10 +77,3 @@ def test_dispatch_rules():
 def test_mix_aggregate_zero_width():
     out = ops.mix_aggregate(torch.ones(3, 4), torch.ones(4, 0))
     assert out.shape == (3, 0)
-
-
-def test_gram_split_plan_covers_d():
-    from repro_torch.kernels.pairwise_delta import DEPTH, split_plan
-    for m, d, sms in [(100, 47571, 132), (6, 1, 132), (300, 10_000, 132), (1, 31, 1)]:
-        splits, chunk = split_plan(m, d, sms)
-        assert chunk % DEPTH == 0 and splits * chunk >= d > (splits - 1) * chunk

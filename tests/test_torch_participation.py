@@ -118,7 +118,7 @@ def test_config_errors(kw):
 
 
 def test_pareto_sampler_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="pareto selection sampler"):
         part.ParticipationConfig(fraction=0.5, sampler="pareto")
 
 

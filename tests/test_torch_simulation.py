@@ -130,7 +130,7 @@ def test_run_trials_matches_reference():
 
 
 def test_run_trials_selection_raises():
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match="pareto selection sampler"):
         simulation.run_trials(None, None, None, trials=1, rounds=1, selection=object())
 
 
