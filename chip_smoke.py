@@ -14,6 +14,7 @@ Phases, each printed as it ends:
                2x the error of ``g @ g.T`` in f32; mix_aggregate also at leaf widths,
                a second row tile, one rule and an offset view, with two calls
                bit-equal and 28 zero columns of W bit-invisible;
+               mix_aggregate also at k = 1 (the FedAvg family's mean);
                kmeans_assign also at k = 99 with a tie across lanes, timed;
                the cohort kernels also with pad
                slots, an all-pad cohort and an odd width, the mix-scatter
@@ -46,14 +47,26 @@ Phases, each printed as it ends:
                in phase 5); one more cohort round
                must make no synchronizing CUDA call
                (``torch.cuda.set_sync_debug_mode``);
-  7. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
+  7. baselines — the nine baselines (fedavg, fedprox, local, oracle,
+               scaffold, ditto, pfedme, fedfomo, cfl) at their reference
+               defaults on the same task, dense and at fraction 0.5, 2 timed
+               rounds each (cfl 4, its fourth running the split check): each
+               beats the untrained model and launches exactly its kernels
+               (k = 1 mixes for the FedAvg family, the group rule's mix or
+               mix-scatter, fedfomo's gram and mix, one cohort_gather a
+               gathered slab a cohort round, no padded gram copy); one
+               dense round of each profiled; then gram on fedfomo's trained
+               slab (its Δ within the f32 product's error of an f64 Δ),
+               timed as the row ``gram_trained``; cfl's copy of its update
+               deltas to the host read from its profiled split round;
+  8. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
                federated prefill step (the FMA kernel) and teacher-forced
                decode steps (the decode kernel; gemma2 past its window-64
                wrap) on the card against the plain path on the CPU; then
                both in bf16, the prefill step through the tensor-core tile
                and 72 decode steps through the decode kernel, each against
                the same steps with the plain attention on the card;
-  8. serve   — personalized serving of qwen2-7b at full width and depth
+  9. serve   — personalized serving of qwen2-7b at full width and depth
                (28 layers, bf16) for 2 clients x 2 requests: the federated
                prefill step over 1024 tokens, a profile of decode steps,
                a profile of one prefill step, then ``serve()`` (a 128-token
@@ -79,13 +92,14 @@ import time
 import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import FedConfig, ParticipationConfig, clustering, flat, ucfl  # noqa: E402
+from repro_torch.core import REGISTRY, FedConfig, ParticipationConfig, clustering, flat, ucfl  # noqa: E402
 from repro_torch.data import loader, synthetic  # noqa: E402
 from repro_torch.federated import client, participation, simulation  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -109,6 +123,14 @@ TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
 ROUNDS = 5
 SEED = 0
+# the baselines phase: the nine in Table 1's order, 2 timed rounds each
+# (CFL 4, so that its fourth round runs the split check after its 3
+# warm-up rounds); the cohort_gather launches of a cohort round, one for
+# each slab it gathers
+BASELINES = ["fedavg", "fedprox", "local", "oracle", "scaffold", "ditto", "pfedme", "fedfomo",
+             "cfl"]
+BASELINE_ROUNDS = {"cfl": 4}
+GATHERS = {"scaffold": 3, "ditto": 2}
 COUNTERS = {"gram": GRAM, "mix_aggregate": MIX, "kmeans_assign": ASSIGN,
             "cohort_gather": GATHER, "masked_mix_scatter": MIX_SCATTER,
             "flash_attention_prefill": FLASH_TC, "flash_attention_decode": FLASH_DEC,
@@ -239,21 +261,26 @@ def kernel_phase(dev):
 
     rows.update(gram_rows(gen, dev, m, d, d_al))
 
-    # mix_aggregate: full ucfl (k = 100) and ucfl_k4 (k = 4) over the slab
+    # mix_aggregate over the slab: full ucfl (k = 100), ucfl_k4 (k = 4) and
+    # the FedAvg family's mean (k = 1); over a 50-slot cohort's uploads,
+    # FedFomo's mix (k = 50) and the FedAvg family's mean (k = 1)
     theta = 0.05 * torch.randn(m, d_al, generator=gen, device=dev)
     theta[:, d:] = 0.0
-    for k in (100, 4):
-        w = torch.softmax(torch.randn(k, m, generator=gen, device=dev), dim=1)
-        want = ref.mix_aggregate(w, theta)
-        err = check(f"mix k={k}", ops.mix_aggregate(w, theta, impl="cuda"), want,
+    for name, k, mm in (("mix_aggregate_k100", 100, m), ("mix_aggregate_k4", 4, m),
+                        ("mix_aggregate_k1", 1, m), ("mix_aggregate_k50", 50, 50),
+                        ("mix_aggregate_k1_m50", 1, 50)):
+        w = torch.softmax(torch.randn(k, mm, generator=gen, device=dev), dim=1)
+        th = theta[:mm]
+        want = ref.mix_aggregate(w, th)
+        err = check(f"mix k={k} m={mm}", ops.mix_aggregate(w, th, impl="cuda"), want,
                     1e-5 * float(want.abs().max()))
-        rows[f"mix_aggregate_k{k}"] = dict(
+        rows[name] = dict(
             source="src/repro_torch/kernels/csrc/mix_aggregate.cu",
             replaces="src/repro/kernels/mix_aggregate.py:40", max_abs_err=err,
-            ms=time_ms(lambda w=w: ops.mix_aggregate(w, theta, impl="cuda"), dev),
-            plain_ms=time_ms(lambda w=w: ref.mix_aggregate(w, theta), dev),
-            library_ms=time_ms(lambda w=w: w @ theta, dev),
-            bytes=4 * (k * m + m * d_al + k * d_al), flops=2 * k * m * d_al)
+            ms=time_ms(lambda w=w, th=th: ops.mix_aggregate(w, th, impl="cuda"), dev),
+            plain_ms=time_ms(lambda w=w, th=th: ref.mix_aggregate(w, th), dev),
+            library_ms=time_ms(lambda w=w, th=th: w @ th, dev),
+            bytes=4 * (k * mm + mm * d_al + k * d_al), flops=2 * k * mm * d_al)
     mix_sweep(gen, dev)
 
     # kmeans_assign: W's 100 rows against 4 centroids, plus an exact tie
@@ -283,19 +310,7 @@ def kernel_phase(dev):
     rows.update(flash_rows(dev))
 
     for name, r in rows.items():
-        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"),
-                                                r.pop("flop_rate", F32_FLOP_PER_S))
-        extra = ((f"  read_ms {r['read_ms']:.4f} ms" if "read_ms" in r else "")
-                 + (f"  library read {r['library_read_ms']:.4f} ms"
-                    if "library_read_ms" in r else "")
-                 + (f"  f32 CUDA-core bound {r['bound_f32_ms']:.5f} ms"
-                    if "bound_f32_ms" in r else "")
-                 + (f"  [{r['plan']}]" if "plan" in r else "")
-                 + (f"  [{r['route_detail']}]" if "route_detail" in r else ""))
-        print(f"  {name}: max_abs_err {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
-              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
-              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})  "
-              f"kernel/library {r['ms'] / r['library_ms']:.2f}{extra}")
+        finish_row(name, r)
     decode = rows["flash_attention_decode"]
     print("flash_decode " + json.dumps({"long": decode.pop("long"), "host": decode.pop("host")}))
     print("kmeans_k99 " + json.dumps(rows["kmeans_assign"].pop("k99")))
@@ -303,8 +318,25 @@ def kernel_phase(dev):
     floor = launch_floor(dev)
     print("launch_floor " + json.dumps({"zero_1_ms": floor}))
     print(f"  launch floor: a one-element zero_() times {floor:.4f} ms under time_ms")
-    phase("kernels", t0, "8 kernels agree with their plain versions (10 rows)")
+    phase("kernels", t0, f"8 kernels agree with their plain versions ({len(rows)} rows)")
     return rows
+
+
+def finish_row(name, r):
+    """Turn a kernel row's bytes and FLOP into its bound, and print it."""
+    r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"),
+                                            r.pop("flop_rate", F32_FLOP_PER_S))
+    extra = ((f"  read_ms {r['read_ms']:.4f} ms" if "read_ms" in r else "")
+             + (f"  library read {r['library_read_ms']:.4f} ms"
+                if "library_read_ms" in r else "")
+             + (f"  f32 CUDA-core bound {r['bound_f32_ms']:.5f} ms"
+                if "bound_f32_ms" in r else "")
+             + (f"  [{r['plan']}]" if "plan" in r else "")
+             + (f"  [{r['route_detail']}]" if "route_detail" in r else ""))
+    print(f"  {name}: max_abs_err {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
+          f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
+          f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})  "
+          f"kernel/library {r['ms'] / r['library_ms']:.2f}{extra}")
 
 
 def ptxas_info(source):
@@ -317,7 +349,8 @@ def ptxas_info(source):
 
 def gram_rows(gen, dev, m, d, d_al):
     """gram at the special round's slab-wide rows (m, 47,616) with the 45
-    columns past d zero, and at 512 clients: exactly symmetric, within
+    columns past d zero, at 512 clients, and at FedFomo's 50-slot cohort
+    (``gram_m50``, the one-job tile): exactly symmetric, within
     1e-5 of the plain version's largest entry, two calls bit-equal, one
     launch and no synchronizing call a call, no padded copy; Δ on
     clustered rows (4 groups, each row its group's gradient plus noise at
@@ -328,44 +361,64 @@ def gram_rows(gen, dev, m, d, d_al):
     tensor work: 3 x FLOP at 495 TFLOP/s), bound_f32_ms the f32 CUDA
     cores' (FLOP at 67 TFLOP/s), FLOP counted as m(m+1)d."""
     rows = {}
-    regs, spills = ptxas_info("gram.cu")
-    for name, mm in (("gram", m), ("gram_m512", 512)):
+    for name, mm in (("gram", m), ("gram_m512", 512), ("gram_m50", 50)):
         g = torch.zeros(mm, d_al, device=dev)
         g[:, :d] = 1e-2 * torch.randn(mm, d, generator=gen, device=dev)
-        want = ref.gram(g)
-        launches, copies = GRAM.launches, GRAM.padded
-        got = ops.gram(g, impl="cuda")
-        if GRAM.launches - launches != 1 or GRAM.padded != copies:
-            raise AssertionError(f"{name}: {GRAM.launches - launches} launches, "
-                                 f"{GRAM.padded - copies} padded copies in one call")
-        torch.cuda.synchronize()
-        if not torch.equal(got, got.T):
-            raise AssertionError(f"{name}: kernel output is not exactly symmetric")
-        if not torch.equal(got, ops.gram(g, impl="cuda")):
-            raise AssertionError(f"{name}: two calls gave different bits")
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            ops.gram(g, impl="cuda")
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        # f32 sums of 47,571 products in another order: 1e-5 of the largest entry
-        err = check(name, got, want, 1e-5 * float(want.abs().max()))
-        flops = mm * (mm + 1) * d
-        nbytes = 4 * (mm * d_al + mm * mm)
-        rows[name] = dict(
-            source="src/repro_torch/kernels/csrc/gram.cu",
-            replaces="src/repro/kernels/pairwise_delta.py:41", max_abs_err=err,
-            ms=time_ms(lambda g=g: ops.gram(g, impl="cuda"), dev),
-            read_ms=time_ms(lambda g=g: ops.gram(g, impl="cuda"), dev, flush="read"),
-            plain_ms=time_ms(lambda g=g: ref.gram(g), dev),
-            library_ms=time_ms(lambda g=g: g @ g.T, dev),
-            library_read_ms=time_ms(lambda g=g: g @ g.T, dev, flush="read"),
-            bound_f32_ms=bound_ms(nbytes, flops)[0],
-            route_detail=f"wgmma 3xTF32, TMA ring; {regs} registers, {spills} bytes spilled",
-            bytes=nbytes, flops=3 * flops, flop_rate=TF32_FLOP_PER_S)
+        rows[name] = gram_row(name, g, d, dev)
     rows["gram"]["delta"] = gram_delta_check(dev, m, d, d_al)
     return rows
+
+
+def gram_row(name, g, d, dev):
+    """gram on the (m, d_al) rows ``g`` (true width d): the checks and the
+    times of :func:`gram_rows`; returns the kernel row."""
+    regs, spills = ptxas_info("gram.cu")
+    mm, d_al = g.shape
+    want = ref.gram(g)
+    launches, copies = GRAM.launches, GRAM.padded
+    got = ops.gram(g, impl="cuda")
+    if GRAM.launches - launches != 1 or GRAM.padded != copies:
+        raise AssertionError(f"{name}: {GRAM.launches - launches} launches, "
+                             f"{GRAM.padded - copies} padded copies in one call")
+    torch.cuda.synchronize()
+    if not torch.equal(got, got.T):
+        raise AssertionError(f"{name}: kernel output is not exactly symmetric")
+    if not torch.equal(got, ops.gram(g, impl="cuda")):
+        raise AssertionError(f"{name}: two calls gave different bits")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.gram(g, impl="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # f32 sums of 47,571 products in another order: 1e-5 of the largest entry
+    err = check(name, got, want, 1e-5 * float(want.abs().max()))
+    flops = mm * (mm + 1) * d
+    nbytes = 4 * (mm * d_al + mm * mm)
+    return dict(
+        source="src/repro_torch/kernels/csrc/gram.cu",
+        replaces="src/repro/kernels/pairwise_delta.py:41", max_abs_err=err,
+        ms=time_ms(lambda: ops.gram(g, impl="cuda"), dev),
+        read_ms=time_ms(lambda: ops.gram(g, impl="cuda"), dev, flush="read"),
+        plain_ms=time_ms(lambda: ref.gram(g), dev),
+        library_ms=time_ms(lambda: g @ g.T, dev),
+        library_read_ms=time_ms(lambda: g @ g.T, dev, flush="read"),
+        bound_f32_ms=bound_ms(nbytes, flops)[0],
+        route_detail=f"wgmma 3xTF32, TMA ring; {regs} registers, {spills} bytes spilled",
+        bytes=nbytes, flops=3 * flops, flop_rate=TF32_FLOP_PER_S)
+
+
+def delta_errors(g):
+    """The largest errors of Δ from the kernel and from ``g @ g.T`` (full
+    f32) against Δ from an f64 Gram of the same f32 rows, and that Gram's
+    largest diagonal."""
+    g64 = g.double()
+    gram64 = g64 @ g64.T
+    exact = ref.delta_from_gram(gram64)
+    return {"kernel_err": float((ref.delta_from_gram(ops.gram(g, impl="cuda").double())
+                                 - exact).abs().max()),
+            "f32_err": float((ref.delta_from_gram((g @ g.T).double()) - exact).abs().max()),
+            "largest_diagonal": float(torch.diagonal(gram64).max())}
 
 
 def gram_delta_check(dev, m, d, d_al, groups=4, noise=1e-3):
@@ -379,18 +432,14 @@ def gram_delta_check(dev, m, d, d_al, groups=4, noise=1e-3):
     rows = rows + noise * rows.norm(dim=1, keepdim=True) * jitter / jitter.norm(dim=1, keepdim=True)
     g = torch.zeros(m, d_al, device=dev)
     g[:, :d] = rows.float()
-    g64 = g.double()
-    gram64 = g64 @ g64.T
-    exact = ref.delta_from_gram(gram64)
-    err = float((ref.delta_from_gram(ops.gram(g, impl="cuda").double()) - exact).abs().max())
-    err_f32 = float((ref.delta_from_gram((g @ g.T).double()) - exact).abs().max())
-    diag = float(torch.diagonal(gram64).max())
+    out = delta_errors(g)
+    err, err_f32, diag = out["kernel_err"], out["f32_err"], out["largest_diagonal"]
     if not (err <= 2 * err_f32 and err <= 1e-5 * diag):
         raise AssertionError(f"gram: Δ on clustered rows off by {err:.3e}, g @ g.T in f32 by "
                              f"{err_f32:.3e}, largest diagonal {diag:.3e}")
     print(f"  gram Δ on clustered rows ({groups} groups, noise {noise} of the norm): kernel "
           f"{err:.3e}, g @ g.T f32 {err_f32:.3e}, largest diagonal {diag:.3e}")
-    return {"kernel_err": err, "f32_err": err_f32, "largest_diagonal": diag}
+    return out
 
 
 def mix_sweep(gen, dev):
@@ -894,7 +943,8 @@ def union_length(intervals):
 def profile(fn, dev, top=8):
     """Run ``fn`` once under torch.profiler; returns the host wall time, the
     device's busy time (the union of its kernel, copy and set intervals),
-    the device's idle share of the wall time, and the top kernels by time.
+    the device's idle share of the wall time, the top kernels by time, and
+    the device time and count of its copies to the host.
 
     Annotation ranges that the profiler mirrors onto the device span other
     kernels and the gaps between them, so they are left out."""
@@ -921,8 +971,10 @@ def profile(fn, dev, top=8):
         ms, calls = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (e - s) / 1e3, calls + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    to_host = [v for k, v in by_name.items() if "DtoH" in k]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
+            "dtoh_ms": sum(ms for ms, _ in to_host), "dtoh_calls": sum(c for _, c in to_host),
             "top": [{"kernel": k[:90], "ms": ms, "calls": c} for k, (ms, c) in ranked[:top]]}
 
 
@@ -1086,6 +1138,102 @@ def cohort_phase(dev, data, params0, untrained):
           "(fraction 0.5) and ucfl (50-slot availability cohorts) at m=100")
     print("cohort_path " + json.dumps({"runs": results, "untrained_avg_acc": untrained}))
     return launches
+
+
+def baseline_launches(name, masked):
+    """The kernel launches of one round of baseline ``name``: dense, the
+    fedavg family's mean (k = 1) or the group rule (k = m), FedFomo's gram
+    and mix; a cohort round, one gather for each slab it gathers, then its
+    mix (k = 1 over the uploads), the group rule's mix-scatter, or
+    FedFomo's gram and mix over its slots; ``local`` mixes nothing."""
+    if name == "fedfomo":
+        out = {"gram": 1, "mix_aggregate": 1}
+    elif name in ("oracle", "cfl") and masked:
+        out = {"masked_mix_scatter": 1}
+    else:
+        out = {} if name == "local" else {"mix_aggregate": 1}
+    if masked:
+        out["cohort_gather"] = GATHERS.get(name, 1)
+    return out
+
+
+def baselines_phase(dev, data, params0, untrained):
+    """The nine baselines at their reference defaults on the main task,
+    dense and at fraction 0.5, through ``simulation.run``: each beats the
+    untrained model, launches exactly its kernels (a warm-up round and the
+    timed rounds), FedFomo's gram copies nothing; one dense round of each
+    profiled (for CFL a split round, past its warm-up: its copy of the
+    update deltas to the host is read from that profile). Then the gram row
+    on FedFomo's trained slab."""
+    t0 = time.perf_counter()
+    m = data.num_clients
+    results, launches, fomo_slab = {}, {}, None
+    for name in BASELINES:
+        for pcfg in (None, ParticipationConfig(fraction=0.5)):
+            cell = name if pcfg is None else f"{name}_half"
+            rounds = BASELINE_ROUNDS.get(name, 2)
+            strat = REGISTRY[name](lenet.apply_stacked, params0, device=dev)
+            zero_counters()
+            torch.cuda.reset_peak_memory_stats(dev)
+            hist = simulation.run(strat, lenet.apply_stacked, data, SEED, rounds=rounds,
+                                  participation=pcfg, device=dev)
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            per_round = baseline_launches(name, pcfg is not None)
+            got = read_counters(cell, {k: v * (rounds + 1) for k, v in per_round.items()})
+            if GRAM.padded:
+                raise AssertionError(f"{cell}: gram made {GRAM.padded} padded copies")
+            if not hist.avg_acc[-1] > untrained:
+                raise AssertionError(f"{cell}: avg accuracy {hist.avg_acc[-1]:.4f} does not "
+                                     f"beat the untrained model's {untrained:.4f}")
+            state = hist.state
+            slabs = [v for v in state.values() if isinstance(v, torch.Tensor)]
+            if not all(bool(torch.isfinite(v).all()) for v in slabs):
+                raise AssertionError(f"{cell}: non-finite state")
+            launches[cell] = got
+            res = dict(strategy=strat.name, rounds=rounds, init_s=hist.init_s,
+                       round_s=hist.wall_s / rounds, eval_s=hist.eval_s / rounds,
+                       avg_acc=hist.avg_acc[-1], worst_acc=hist.worst_acc[-1],
+                       streams=[mt["streams"] for mt in hist.metrics],
+                       launches_per_round=per_round, peak_gb=peak_gb)
+            if pcfg is None:
+                pgen = torch.Generator(device=dev)
+                pgen.manual_seed(SEED + 1)
+                res["profile"] = profile(
+                    lambda: strat.round(simulation.clone_state(state), data, pgen), dev)
+                print_profiles(cell, {"round": res["profile"]})
+                if name == "fedfomo":
+                    fomo_slab = state["params"]
+                if name == "cfl":
+                    prof = res["profile"]
+                    if not prof["dtoh_calls"] >= 1:
+                        raise AssertionError("cfl: the profiled split round copied nothing "
+                                             "to the host")
+                    results["cfl_delta_copy_ms"] = prof["dtoh_ms"]
+                    print(f"  cfl: the split round's copy of its {m} update deltas to the host "
+                          f"takes {prof['dtoh_ms']:.3f} ms of device time "
+                          f"({prof['dtoh_calls']} copies)")
+            else:
+                sizes = {mt["cohort_size"] for mt in hist.metrics}
+                if sizes != {m // 2}:
+                    raise AssertionError(f"{cell}: cohort sizes {sizes}, not {m // 2} slots")
+            if name == "cfl":
+                res["assignment_sizes"] = np.bincount(state["assignment"]).tolist()
+            results[cell] = res
+            print(f"  {cell}: init {hist.init_s:.3f} s, steady round {res['round_s']:.4f} s over "
+                  f"{rounds}, avg {res['avg_acc']:.4f} worst {res['worst_acc']:.4f} (untrained "
+                  f"{untrained:.4f}), peak {peak_gb:.2f} GB, launches a round {per_round}",
+                  flush=True)
+    # gram on a slab after two FedFomo rounds: rows a few steps apart
+    row = gram_row("gram_trained", fomo_slab, flat.LayoutTable.build(params0).dim, dev)
+    row["delta"] = delta_errors(fomo_slab)
+    if not row["delta"]["kernel_err"] <= row["delta"]["f32_err"]:
+        raise AssertionError(f"gram_trained: Δ off by {row['delta']['kernel_err']:.3e} against "
+                             f"an f64 Gram, g @ g.T in f32 by {row['delta']['f32_err']:.3e}")
+    finish_row("gram_trained", row)
+    print("gram_trained_delta " + json.dumps(row.pop("delta")))
+    phase("baselines", t0, f"the nine baselines at m={m}, d=47,571, dense and at fraction 0.5")
+    print("baselines_path " + json.dumps({"runs": results, "untrained_avg_acc": untrained}))
+    return launches, row
 
 
 @contextlib.contextmanager
@@ -1370,14 +1518,28 @@ def main():
     task = full_size_task(dev)
     launches = main_phase(dev, *task)
     cohort = cohort_phase(dev, *task)
+    base, rows["gram_trained"] = baselines_phase(dev, *task)
     del task
     fma_launches = serve_agree_phase(dev)
     served = serve_phase(dev)
     full, k4 = launches["ucfl"], launches["ucfl_k4"]
-    counts = {"gram": full["gram"] + k4["gram"], "mix_aggregate_k100": full["mix_aggregate"],
-              "mix_aggregate_k4": k4["mix_aggregate"], "kmeans_assign": k4["kmeans_assign"],
-              "cohort_gather": sum(r["cohort_gather"] for r in cohort.values()),
-              "masked_mix_scatter": sum(r["masked_mix_scatter"] for r in cohort.values()),
+    # each launch counts under the row of its shape: a dense round mixes
+    # over the 100-row slab, a cohort round over its 50 slots' uploads
+    k1 = ("fedavg", "fedprox", "scaffold", "ditto", "pfedme")
+    counts = {"gram": full["gram"] + k4["gram"],
+              "mix_aggregate_k100": full["mix_aggregate"] + sum(
+                  base[c]["mix_aggregate"] for c in ("oracle", "cfl", "fedfomo")),
+              "mix_aggregate_k4": k4["mix_aggregate"],
+              "mix_aggregate_k1": sum(base[c]["mix_aggregate"] for c in k1),
+              "mix_aggregate_k50": base["fedfomo_half"]["mix_aggregate"],
+              "mix_aggregate_k1_m50": sum(base[f"{c}_half"]["mix_aggregate"] for c in k1),
+              "kmeans_assign": k4["kmeans_assign"],
+              "cohort_gather": sum(r["cohort_gather"] for r in cohort.values())
+              + sum(r["cohort_gather"] for r in base.values()),
+              "masked_mix_scatter": sum(r["masked_mix_scatter"] for r in cohort.values())
+              + sum(r["masked_mix_scatter"] for r in base.values()),
+              "gram_trained": base["fedfomo"]["gram"],
+              "gram_m50": base["fedfomo_half"]["gram"],
               "flash_attention_prefill": served["prefill_launches"]["flash_attention_prefill"],
               "flash_attention_decode": served["serve_launches"]["flash_attention_decode"],
               "flash_attention_fma": fma_launches}

@@ -17,14 +17,18 @@ carry the sentinel index m and mask False, and get zero column weight
 before the row renormalization), and the round-end PS step is ONE
 ``masked_mix_scatter`` kernel pass over the (c, d) upload slab
 (:func:`mix_scatter_flat`); the round starts with ONE ``cohort_gather``
-(:func:`cohort_gather`). ``cohort_mixing_matrix`` and ``clustered_cohort``
-are the unpadded rules that the padded ones must reproduce.
+(:func:`cohort_gather`) of each slab it reads. A strategy without a PS
+mix writes its real slots back with :func:`scatter_rows`.
+``cohort_mixing_matrix``, ``cohort_column_mixing``, ``fedavg_cohort``,
+``user_centric_cohort`` and ``clustered_cohort`` are the unpadded rules
+that the padded ones must reproduce.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import pytree
 from repro_torch.kernels import ops
 
 
@@ -95,6 +99,28 @@ def cohort_mixing_matrix(w, cohort):
     s = torch.sum(wc, dim=1, keepdim=True)
     eye = torch.eye(wc.shape[0], dtype=wc.dtype, device=wc.device)
     return torch.where(s > 1e-12, wc / torch.clamp_min(s, 1e-12), eye)
+
+
+def cohort_column_mixing(w, cohort):
+    """W's columns sliced to the cohort, every row renormalized: (m, c),
+    plus the (m,) bool marking rows with any mass on the cohort (a row
+    without it is the caller's cue to keep the previous model)."""
+    cols = w[:, cohort.long()]
+    s = torch.sum(cols, dim=1, keepdim=True)
+    return cols / torch.clamp_min(s, 1e-12), s[:, 0] > 1e-12
+
+
+def fedavg_cohort(stacked_cohort, n_cohort, m):
+    """Eq. 1 over the cohort's uploads (unpadded); the new global is
+    broadcast to all m clients."""
+    w = (n_cohort / torch.sum(n_cohort)).float()[None, :]  # (1, c)
+    mixed = _mix_tree(w, stacked_cohort)
+    return _map(lambda x: x.expand((m,) + tuple(x.shape[1:])).clone(), mixed)
+
+
+def user_centric_cohort(stacked_cohort, w, cohort):
+    """Eq. 8 restricted to the cohort (unpadded): the (c, ...) mix."""
+    return _mix_tree(cohort_mixing_matrix(w, cohort), stacked_cohort)
 
 
 def clustered_cohort(theta_c, w, labels, num_clusters, cohort):
@@ -188,6 +214,24 @@ def cohort_gather(full, safe):
     ``cohort_gather`` launch; ``safe`` is pre-clamped
     (:func:`safe_gather_index`)."""
     return ops.cohort_gather(_slab(full, "cohort_gather"), safe)
+
+
+def scatter_rows(full, idx, rows, real):
+    """``full[idx[i]] = rows[i]`` for the cohort's ``real`` members, the
+    slots of its sorted prefix; the pad slots after them write nothing.
+    ``real`` is a host int, so the scatter needs no sync. On the card the
+    slab is written in place; on the CPU a new tensor is returned. The
+    caller uses the return value either way."""
+    out = _slab(full, "scatter_rows")
+    if not out.is_cuda:
+        out = out.clone()
+    return out.index_copy_(0, idx[:real].long(), rows[:real])
+
+
+def mix_scatter(full, cohort_updated, rows, idx, mask):
+    """:func:`mix_scatter_flat` of a cohort-stacked update tree, raveled
+    once to a (c, d) matrix in sorted-key column order."""
+    return mix_scatter_flat(full, pytree.stacked_ravel(cohort_updated), rows, idx, mask)
 
 
 def mix_scatter_flat(full, flat_c, rows, idx, mask):

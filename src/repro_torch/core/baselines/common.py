@@ -1,15 +1,24 @@
-"""The cohort engine every strategy's ``round`` is built from.
+"""The cohort engine every strategy's ``round`` is built from, and the
+pieces the baselines share.
 
   * :func:`cohort_round` — the one dispatch point: normalizes the cohort
     argument to the padded ``(indices, mask)`` contract
     (:func:`repro_torch.federated.participation.as_cohort`), routes to the
     dense or the masked path, and attaches the host-side ``cohort_size``.
-  * :func:`make_masked_round` — the masked round body on the slab: cohort
-    gather (kernel ``cohort_gather``) -> local SGD of the cohort rows ->
-    the strategy's mix, which ends in the fused ``masked_mix_scatter``.
+  * :func:`gather_cohort` — the padded cohort's contract in one place:
+    the slots on the card, their clamped ids, one ``cohort_gather``
+    launch for each slab the strategy trains from, the slots' data and
+    their batch orders. Each strategy's masked round starts with it,
+    trains the gathered rows, and ends in its mix (the fused
+    ``masked_mix_scatter``, the FedAvg broadcast, or
+    :func:`repro_torch.core.aggregation.scatter_rows` of the real slots).
   * :func:`cohort_keys` — client-indexed batch orders, so that a slot's
     randomness depends only on its client id and pad slots stay
     invisible.
+  * :func:`make_fedavg_masked_round` — the FedAvg family's masked round:
+    the n-weighted mean of the real uploads, broadcast to every row.
+  * :func:`group_mixing_matrix` / :func:`group_average` — per-group FedAvg
+    (CFL's clusters, the Oracle's true groups).
 
 In place: on the card the masked round writes the cohort rows of the
 ``params`` slab in place, the port's analogue of the reference's buffer
@@ -18,17 +27,62 @@ A/B comparison from one start state) runs the round on
 :func:`repro_torch.federated.simulation.clone_state` of it.
 
 Not ported yet: the mesh, ``shard_state`` and the reference's
-``StateOps`` layout object (the mesh), the async buffer, upload stage,
-transport and topology branches (the engine knobs), and the baselines
-themselves: each is an item of ROADMAP queue A.
+``StateOps`` layout object (the mesh), and the async buffer, upload stage,
+transport and topology branches (the engine knobs): each is an item of
+ROADMAP queue A.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
-from repro_torch.core import aggregation
+from repro_torch.core import aggregation, flat
 from repro_torch.data.loader import draw_permutations
+from repro_torch.device import resolve_device
+from repro_torch.federated import client as fedclient
 from repro_torch.federated import participation
+
+
+def prepare(params0, device):
+    """``params0`` on the strategy's device (CUDA unless told otherwise)
+    and its slab layout."""
+    dev = resolve_device(device)
+    params0 = {k: v.to(dev) for k, v in params0.items()}
+    return params0, flat.LayoutTable.build(params0), dev
+
+
+def local_sgd(apply_stacked, layout, cfg, *, grad_hook=None):
+    """The federated ClientUpdate at ``cfg``'s hyperparameters."""
+    return fedclient.make_federated_local_sgd(
+        apply_stacked, layout, lr=cfg.lr, momentum=cfg.momentum, epochs=cfg.epochs,
+        batch_size=cfg.batch_size, chunk_size=cfg.chunk_size, grad_hook=grad_hook)
+
+
+def device_slots(idx, mask, dev):
+    """The cohort's host slots as (idx int32, mask bool) on ``dev``, in one
+    copy; from pinned memory it does not block the host as a copy from
+    pageable memory would."""
+    c = len(idx)
+    slots = torch.from_numpy(np.concatenate([idx, mask]).astype(np.int32))
+    if dev.type == "cuda":
+        slots = slots.pin_memory().to(dev, non_blocking=True)
+    return slots[:c], slots[c:].bool()
+
+
+def group_mixing_matrix(assignment, n):
+    """Row-stochastic W of per-group FedAvg (CFL, Oracle):
+    W[i, j] = n_j · 1[a_i == a_j] / Σ_{a_k == a_i} n_k."""
+    same = (assignment[:, None] == assignment[None, :]).to(torch.float32)
+    w = same * n.to(torch.float32)[None, :]
+    return w / torch.sum(w, dim=1, keepdim=True)
+
+
+def group_average(stacked, assignment, n):
+    """Each client gets its group's n-weighted mean: one ``mix_aggregate``
+    launch with k = m over the slab."""
+    return aggregation.user_centric(stacked, group_mixing_matrix(assignment, n))
 
 
 def cohort_round(dense_fn, masked_fn):
@@ -77,25 +131,50 @@ def cohort_keys(gen, m, safe, *, epochs, n, perms=None):
     return perms[safe]
 
 
-def make_masked_round(train, mix, *, epochs):
-    """The standard masked round body on the slab.
+@dataclasses.dataclass(frozen=True)
+class CohortRows:
+    """A padded cohort's slots and gathered rows, on the slab's device.
 
-    ``train(pc, xc, yc, perms_c, *args) -> (c, dim_aligned)`` trains the
-    gathered cohort rows; ``mix(params, post, idx, mask, *args) -> (m,
-    dim_aligned)`` is the PS step. Returns ``body(params, idx, mask, x, y,
-    gen, *args, perms=None)`` with ``idx`` (c,) int32 and ``mask`` (c,)
-    bool on the slab's device. ``args`` (W, labels, n, ...) go to both.
-    """
-    def body(params, idx, mask, x, y, gen, *args, perms=None):
-        m, n = y.shape
-        safe32 = aggregation.safe_gather_index(idx, m)
-        safe = safe32.long()
-        perms_c = cohort_keys(gen, m, safe, epochs=epochs, n=n, perms=perms)
-        pc = aggregation.cohort_gather(params, safe32)
-        post = train(pc, x[safe], y[safe], perms_c, *args)
-        return mix(params, post, idx, mask, *args)
+    ``idx`` (c,) int32 client ids, pads at m, and ``mask`` (c,) bool are
+    what the kernels take; ``safe`` (c,) int64 clamps the pads to m − 1;
+    ``members`` are the real ids on the host, the slots' sorted prefix;
+    ``rows`` maps a state key to its gathered (c, dim_aligned) rows, a
+    copy; ``x``/``y`` are the slots' data."""
 
-    return body
+    idx: torch.Tensor
+    mask: torch.Tensor
+    safe: torch.Tensor
+    members: np.ndarray
+    rows: dict
+    x: torch.Tensor
+    y: torch.Tensor
+    gen: torch.Generator | None
+    m: int
+    epochs: int
+
+    @property
+    def real(self):
+        """The real slots, counted on the host."""
+        return len(self.members)
+
+    def keys(self, perms=None, *, n=None):
+        """The slots' (c, epochs, n) batch orders (:func:`cohort_keys`),
+        ``n`` the samples a client trains on (all of ``y``'s by default)."""
+        return cohort_keys(self.gen, self.m, self.safe, epochs=self.epochs,
+                           n=self.y.shape[1] if n is None else n, perms=perms)
+
+
+def gather_cohort(state, data, gen, idx, mask, *, dev, epochs, slabs=("params",)):
+    """The start of every masked round: the host slots ``idx``/``mask``
+    on ``dev``, one ``cohort_gather`` launch for each key of ``state`` in
+    ``slabs``, and the slots' data, as a :class:`CohortRows`."""
+    m = data.num_clients
+    idx_t, mask_t = device_slots(idx, mask, dev)
+    safe32 = aggregation.safe_gather_index(idx_t, m)
+    safe = safe32.long()
+    rows = {k: aggregation.cohort_gather(state[k], safe32) for k in slabs}
+    return CohortRows(idx_t, mask_t, safe, idx[mask], rows, data.x[safe], data.y[safe], gen, m,
+                      epochs)
 
 
 def fedavg_masked_mix(params, updated, idx, mask, n):
@@ -111,3 +190,18 @@ def fedavg_masked_mix(params, updated, idx, mask, n):
     w = aggregation.masked_fedavg_weights(n[safe], mask)
     mixed = aggregation.user_centric(updated, w)  # (1, d)
     return torch.where(torch.any(mask), mixed.expand_as(params), params)
+
+
+def make_fedavg_masked_round(train, *, dev, epochs):
+    """The FedAvg family's masked round (FedAvg, FedProx): the gathered
+    rows trained by ``train(co, perms) -> (c, dim_aligned)``, ``co`` the
+    :class:`CohortRows`, then :func:`fedavg_masked_mix` (the reference's
+    ``fedavg_mix_closure`` without a downlink stage or a topology).
+    Returns ``masked(state, data, gen, idx, mask, perms)`` for
+    :func:`cohort_round`."""
+    def masked(state, data, gen, idx, mask, perms):
+        co = gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=epochs)
+        new = fedavg_masked_mix(state["params"], train(co, perms), co.idx, co.mask, data.n)
+        return dict(state, params=new), {"streams": 1}
+
+    return masked

@@ -1,0 +1,57 @@
+"""Ditto (Li et al., 2021): a global model trained by FedAvg, and a
+personal model per client trained with the pull λ·(v_i − θ_global)
+towards the global model the client received. Evaluation uses the
+personal models.
+
+Each round draws two batch orders a client: one for the global model's
+local SGD, then one for the personal model's. ``round(..., perms=)``
+takes both, stacked as (2, m, epochs, ≥ steps·B). The cohort round
+gathers the cohort's rows of both slabs (one ``cohort_gather`` launch
+each); the personal solver pulls towards the gathered round-start global
+rows, a copy, so the new global written before it does not reach it.
+"""
+from __future__ import annotations
+
+from repro_torch.core import aggregation
+from repro_torch.core.baselines import common
+from repro_torch.core.strategy import FedConfig, Strategy, register
+
+
+@register("ditto")
+def make_ditto(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, lam: float = 0.5,
+               device=None):
+    def ditto_hook(g, p, center):
+        return g + lam * (p - center)
+
+    params0, layout, dev = common.prepare(params0, device)
+    local_global = common.local_sgd(apply_stacked, layout, cfg)
+    local_personal = common.local_sgd(apply_stacked, layout, cfg, grad_hook=ditto_hook)
+
+    def init(gen, data):
+        m = data.num_clients
+        return {"params": layout.slab(params0, m), "personal": layout.slab(params0, m)}
+
+    def dense(state, data, gen, perms):
+        perms_g, perms_p = (None, None) if perms is None else perms
+        params = state["params"]
+        updated = local_global(params, data.x, data.y, gen=gen, perms=perms_g)
+        new_global = aggregation.fedavg(updated, data.n)
+        # the personal solver runs against the global the clients received
+        personal = local_personal(state["personal"], data.x, data.y, params, gen=gen,
+                                  perms=perms_p)
+        return {"params": new_global, "personal": personal}, {"streams": 1}
+
+    def masked(state, data, gen, idx, mask, perms):
+        perms_g, perms_p = (None, None) if perms is None else perms
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
+                                  slabs=("params", "personal"))
+        pc = co.rows["params"]
+        post = local_global(pc, co.x, co.y, perms=co.keys(perms_g))
+        new_global = common.fedavg_masked_mix(state["params"], post, co.idx, co.mask, data.n)
+        new_pc = local_personal(co.rows["personal"], co.x, co.y, pc, perms=co.keys(perms_p))
+        personal = aggregation.scatter_rows(state["personal"], co.idx, new_pc, co.real)
+        return {"params": new_global, "personal": personal}, {"streams": 1}
+
+    return Strategy(f"ditto_lam{lam}", init, common.cohort_round(dense, masked),
+                    lambda s: layout.unravel(s["personal"]),
+                    comm_scheme="broadcast", num_streams=1)

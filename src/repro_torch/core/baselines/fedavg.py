@@ -1,0 +1,35 @@
+"""FedAvg (McMahan et al., 2017): Eq. 1.
+
+Dense: every client trains from the global model, and the n-weighted mean
+of the uploads (one ``mix_aggregate`` launch, k = 1) is broadcast back to
+every row of the slab. Cohort round: the cohort trains from the global,
+and the mean of its real uploads (k = 1 over the (c, d) uploads) is
+broadcast, pad slots weighing 0. One downlink stream either way.
+"""
+from __future__ import annotations
+
+from repro_torch.core import aggregation
+from repro_torch.core.baselines import common
+from repro_torch.core.strategy import FedConfig, Strategy, register
+
+
+@register("fedavg")
+def make_fedavg(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=None):
+    params0, layout, dev = common.prepare(params0, device)
+    local = common.local_sgd(apply_stacked, layout, cfg)
+
+    def init(gen, data):
+        return {"params": layout.slab(params0, data.num_clients)}
+
+    def dense(state, data, gen, perms):
+        updated = local(state["params"], data.x, data.y, gen=gen, perms=perms)
+        return {"params": aggregation.fedavg(updated, data.n)}, {"streams": 1}
+
+    def train(co, perms):
+        return local(co.rows["params"], co.x, co.y, perms=co.keys(perms))
+
+    masked = common.make_fedavg_masked_round(train, dev=dev, epochs=cfg.epochs)
+
+    return Strategy("fedavg", init, common.cohort_round(dense, masked),
+                    lambda s: layout.unravel(s["params"]),
+                    comm_scheme="broadcast", num_streams=1)

@@ -1,0 +1,36 @@
+"""FedProx (Li et al., 2018): FedAvg with the proximal term
+μ/2·||θ − θ_global||² in every local step, centred at the model the round
+started from."""
+from __future__ import annotations
+
+from repro_torch.core import aggregation
+from repro_torch.core.baselines import common
+from repro_torch.core.strategy import FedConfig, Strategy, register
+
+
+@register("fedprox")
+def make_fedprox(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, mu: float = 0.1,
+                 device=None):
+    def prox_hook(g, p, center):
+        return g + mu * (p - center)
+
+    params0, layout, dev = common.prepare(params0, device)
+    local = common.local_sgd(apply_stacked, layout, cfg, grad_hook=prox_hook)
+
+    def init(gen, data):
+        return {"params": layout.slab(params0, data.num_clients)}
+
+    def dense(state, data, gen, perms):
+        params = state["params"]
+        updated = local(params, data.x, data.y, params, gen=gen, perms=perms)
+        return {"params": aggregation.fedavg(updated, data.n)}, {"streams": 1}
+
+    def train(co, perms):
+        pc = co.rows["params"]
+        return local(pc, co.x, co.y, pc, perms=co.keys(perms))  # centred at the round's start
+
+    masked = common.make_fedavg_masked_round(train, dev=dev, epochs=cfg.epochs)
+
+    return Strategy(f"fedprox_mu{mu}", init, common.cohort_round(dense, masked),
+                    lambda s: layout.unravel(s["params"]),
+                    comm_scheme="broadcast", num_streams=1)

@@ -1,0 +1,46 @@
+"""Oracle: FedAvg within each of the data's true groups (the paper's
+upper bound).
+
+Dense: one ``mix_aggregate`` launch, k = m, of the group rule. Cohort
+round: each real slot averages the real uploads of its group
+(``masked_group_rows``), mixed and scattered in one ``masked_mix_scatter``
+launch; absent clients keep their last model. The downlink streams are
+the groups present, counted on the host.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core import aggregation
+from repro_torch.core.baselines import common
+from repro_torch.core.strategy import FedConfig, Strategy, register
+
+
+@register("oracle")
+def make_oracle(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=None):
+    params0, layout, dev = common.prepare(params0, device)
+    local = common.local_sgd(apply_stacked, layout, cfg)
+
+    def init(gen, data):
+        # the cohort round counts its streams from this copy, not with a
+        # device sync every round
+        group_host = data.group.cpu().numpy()
+        return {"params": layout.slab(params0, data.num_clients), "group_host": group_host,
+                "num_groups": int(group_host.max()) + 1}
+
+    def dense(state, data, gen, perms):
+        updated = local(state["params"], data.x, data.y, gen=gen, perms=perms)
+        new = common.group_average(updated, data.group, data.n)
+        return dict(state, params=new), {"streams": state["num_groups"]}
+
+    def masked(state, data, gen, idx, mask, perms):
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
+        post = local(co.rows["params"], co.x, co.y, perms=co.keys(perms))
+        rows = aggregation.masked_group_rows(data.group[co.safe], data.n[co.safe], co.mask)
+        new = aggregation.mix_scatter_flat(state["params"], post, rows, co.idx, co.mask)
+        streams = int(np.unique(state["group_host"][co.members]).size)
+        return dict(state, params=new), {"streams": streams}
+
+    return Strategy("oracle", init, common.cohort_round(dense, masked),
+                    lambda s: layout.unravel(s["params"]),
+                    comm_scheme="groupcast")

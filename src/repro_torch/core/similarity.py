@@ -55,3 +55,18 @@ def mixing_weights(delta, sigma_sq_vec, n, *, eps=1e-12):
     logits = logits - torch.amax(logits, dim=1, keepdim=True)
     un = torch.exp(logits)
     return un / torch.sum(un, dim=1, keepdim=True)
+
+
+def collaboration_round(per_client_minibatch_grads, n):
+    """The whole special round on stacked arrays.
+
+    per_client_minibatch_grads (m, K, d): K minibatch gradients per client
+    (the paper's variance-estimation partition); n (m,) dataset sizes.
+    Returns full_grads (m, d), sigma_sq (m,), delta (m, m) and W (m, m).
+    """
+    g = per_client_minibatch_grads
+    full = torch.mean(g, dim=1)  # a client's full gradient: the mean of its partition's
+    sig = sigma_sq(g, full)
+    delta = pairwise_delta(full)
+    return {"full_grads": full, "sigma_sq": sig, "delta": delta,
+            "W": mixing_weights(delta, sig, n)}

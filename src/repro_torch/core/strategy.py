@@ -32,6 +32,10 @@ class Strategy:
     init: Callable[..., Any]
     round: Callable[..., Any]
     eval_params: Callable[[Any], Any]
+    # the downlink, for the comm model: "broadcast", "groupcast",
+    # "unicast" or "client_mixing", and its stream count where fixed
+    comm_scheme: str = "broadcast"
+    num_streams: int | None = None
     skip_round: Callable[[Any], Any] | None = None
 
 

@@ -31,8 +31,9 @@ slots reach the card in one asynchronous copy from pinned memory, so
 the host does not wait for the stream to drain before it queues the
 round.
 
-``ucfl_parallel`` and the engine knobs come with later slices (the
-baselines and the engine knobs, ROADMAP queue A).
+The baselines the paper compares against are in
+:mod:`repro_torch.core.baselines`. ``ucfl_parallel`` and the engine knobs
+come with later slices (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -42,7 +43,6 @@ import torch
 from repro_torch.core import aggregation, clustering, flat, similarity
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
-from repro_torch.device import resolve_device
 from repro_torch.federated import client as fedclient
 
 
@@ -63,17 +63,13 @@ def compute_collaboration(apply_stacked, params0, data, *, var_batch_size=100,
     fulls, sigs = [], []
     for sl in fedclient.chunks(m, chunk_size):
         c = sl.stop - sl.start
-        # each client's fixed partition (loader.fixed_partition), stacked:
-        # unit u is minibatch u % K of client u // K
+        # each client's fixed partition (loader.fixed_partition), stacked
         used = steps * var_batch_size
         xb = data.x[sl, :used].reshape(
-            (c * steps, var_batch_size) + tuple(data.x.shape[2:]))
-        yb = data.y[sl, :used].reshape(c * steps, var_batch_size)
-        p = theta0.expand(c * steps, -1).clone().requires_grad_(True)
-        loss = fedclient.stacked_loss(apply_stacked, layout.unravel(p), xb, yb)
-        (g,) = torch.autograd.grad(loss, p)
+            (c, steps, var_batch_size) + tuple(data.x.shape[2:]))
+        yb = data.y[sl, :used].reshape(c, steps, var_batch_size)
         # the slab's pad columns never reach the loss: their gradient is 0
-        g = g.view(c, steps, -1)
+        g = fedclient.minibatch_gradients(apply_stacked, layout, theta0.expand(c, -1), xb, yb)
         full = torch.mean(g, dim=1)
         fulls.append(full)
         sigs.append(similarity.sigma_sq(g[..., : layout.dim], full[:, : layout.dim]))
@@ -105,12 +101,8 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             or (isinstance(num_streams, int) and num_streams >= 1)):
         raise ValueError(f"num_streams must be None, 'auto' or an int >= 1, "
                          f"got {num_streams!r}")
-    dev = resolve_device(device)
-    params0 = {k: v.to(dev) for k, v in params0.items()}
-    layout = flat.LayoutTable.build(params0)
-    local = fedclient.make_federated_local_sgd(
-        apply_stacked, layout, lr=cfg.lr, momentum=cfg.momentum,
-        epochs=cfg.epochs, batch_size=cfg.batch_size, chunk_size=cfg.chunk_size)
+    params0, layout, dev = common.prepare(params0, device)
+    local = common.local_sgd(apply_stacked, layout, cfg)
 
     def init(gen, data, *, kmeans_init=None):
         """``kmeans_init`` (k, m) replaces the K-means++ seeds (parity
@@ -141,38 +133,23 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             mixed = aggregation.clustered(updated, state["W"], state["labels"], streams)
         return dict(state, params=mixed), {"streams": streams or data.num_clients}
 
-    def train(pc, xc, yc, perms_c, *args):
-        return local(pc, xc, yc, perms=perms_c)
-
-    def serve(params, post, idx, mask, w, labels, streams):
-        if streams is None:
-            rows = aggregation.masked_cohort_matrix(w, idx, mask)
-        else:
-            rows = aggregation.masked_clustered_rows(w, labels, streams, idx, mask)
-        return aggregation.mix_scatter_flat(params, post, rows, idx, mask)
-
-    masked_body = common.make_masked_round(train, serve, epochs=cfg.epochs)
-
     def masked(state, data, gen, idx, mask, perms):
-        dev = state["params"].device
-        c = len(idx)
-        # one copy of (idx, mask) a round; from pinned memory it does not
-        # block the host as a copy from pageable memory would
-        slots = torch.from_numpy(np.concatenate([idx, mask]).astype(np.int32))
-        if dev.type == "cuda":
-            slots = slots.pin_memory().to(dev, non_blocking=True)
-        params = masked_body(
-            state["params"], slots[:c], slots[c:].bool(), data.x, data.y, gen,
-            state["W"], state["labels"], state["streams"], perms=perms)
-        members = idx[mask]
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
+        post = local(co.rows["params"], co.x, co.y, perms=co.keys(perms))
         if state["streams"] is None:
-            n_streams = int(members.size)
+            rows = aggregation.masked_cohort_matrix(state["W"], co.idx, co.mask)
+            n_streams = co.real
         else:  # only the clusters present in the cohort put a model on the downlink
-            n_streams = int(np.unique(state["labels_host"][members]).size)
+            rows = aggregation.masked_clustered_rows(state["W"], state["labels"],
+                                                     state["streams"], co.idx, co.mask)
+            n_streams = int(np.unique(state["labels_host"][co.members]).size)
+        params = aggregation.mix_scatter_flat(state["params"], post, rows, co.idx, co.mask)
         return dict(state, params=params), {"streams": n_streams}
 
     return Strategy(
         name="ucfl" if num_streams is None else f"ucfl_k{num_streams}",
         init=init, round=common.cohort_round(dense, masked),
         eval_params=lambda s: layout.unravel(s["params"]),
+        comm_scheme="unicast" if num_streams is None else "groupcast",
+        num_streams=None if num_streams in (None, "auto") else num_streams,
     )

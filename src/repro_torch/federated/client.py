@@ -2,8 +2,10 @@
 
 ``make_local_sgd`` builds the paper's ClientUpdate: E epochs of minibatch
 SGD (η=0.1, β=0.9 heavy-ball momentum, a fresh optimizer each round) on
-the (U, dim_aligned) slab rows of U clients together. The model's
-``apply_stacked`` runs one model per client in one pass (unfolded
+the (U, dim_aligned) slab rows of U clients together. A ``grad_hook``
+lets the baselines correct every step's gradient (FedProx's proximal
+term, SCAFFOLD's control variates, Ditto's pull) without another loop.
+The model's ``apply_stacked`` runs one model per client in one pass (unfolded
 patches times batched products), and autograd over the sum of the
 per-client mean losses gives every client its own gradient, because no
 client's loss reads another client's row.
@@ -51,14 +53,19 @@ def make_loss(apply_fn):
 
 
 def make_local_sgd(apply_stacked, layout, *, lr=0.1, momentum=0.9, epochs=1,
-                   batch_size=50):
-    """Returns local_sgd(slab, x, y, perms) -> trained slab.
+                   batch_size=50, grad_hook=None):
+    """Returns local_sgd(slab, x, y, perms, hook_state=None) -> trained slab.
 
     slab (U, dim_aligned) f32 is not modified; x (U, n, H, W, C), y (U, n);
     perms (U, epochs, >= steps·B) int64 batch orders.
+
+    ``grad_hook(g, p, hook_state) -> g`` rewrites each step's
+    (U, dim_aligned) gradient ``g`` at the rows ``p`` before the update;
+    ``hook_state`` (tensors with a leading client axis, or tuples of them)
+    is the same at every step.
     """
 
-    def local_sgd(slab, x, y, perms):
+    def local_sgd(slab, x, y, perms, hook_state=None):
         units, n = y.shape
         steps = n // batch_size
         if perms.shape[0] != units or perms.shape[1] < epochs:
@@ -74,10 +81,21 @@ def make_local_sgd(apply_stacked, layout, *, lr=0.1, momentum=0.9, epochs=1,
                 loss = stacked_loss(apply_stacked, layout.unravel(p),
                                     x[rows, idx], y[rows, idx])
                 (g,) = torch.autograd.grad(loss, p)
+                if grad_hook is not None:
+                    g = grad_hook(g, p.detach(), hook_state)
                 sgd_update_(p, g, buf, lr=lr, momentum=momentum)
         return p.detach()
 
     return local_sgd
+
+
+def _rows(tree, sl):
+    """Slice the leading client axis of a hook state (tensor, tuple or None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return tuple(_rows(t, sl) for t in tree)
+    return tree[sl]
 
 
 def chunks(total, chunk_size):
@@ -90,7 +108,9 @@ def make_federated_local_sgd(apply_stacked, layout, *, chunk_size=None,
                              mesh=None, **kw):
     """Local SGD over the client axis, in chunks of ``chunk_size`` clients.
 
-    Returns fed(slab, x, y, *, gen=None, perms=None) -> trained slab. The
+    Returns fed(slab, x, y, hook_state=None, *, gen=None, perms=None) ->
+    trained slab; ``hook_state`` (see :func:`make_local_sgd`) is cut into
+    the same chunks as the slab. The
     rows are any U clients: the whole (m, dim_aligned) slab with all of
     the data, or a cohort's gathered (c, dim_aligned) rows with ``x[safe]``,
     ``y[safe]`` and their (c, epochs, ≥ steps·B) ``perms``, which the
@@ -106,7 +126,7 @@ def make_federated_local_sgd(apply_stacked, layout, *, chunk_size=None,
     local = make_local_sgd(apply_stacked, layout, **kw)
     epochs = kw.get("epochs", 1)
 
-    def fed(slab, x, y, *, gen=None, perms=None):
+    def fed(slab, x, y, hook_state=None, *, gen=None, perms=None):
         m, n = y.shape
         if perms is None:
             if gen is None:
@@ -114,10 +134,31 @@ def make_federated_local_sgd(apply_stacked, layout, *, chunk_size=None,
             perms = draw_permutations(gen, m, epochs, n, device=slab.device)
         out = torch.empty_like(slab)
         for sl in chunks(m, chunk_size):
-            out[sl] = local(slab[sl], x[sl], y[sl], perms[sl])
+            out[sl] = local(slab[sl], x[sl], y[sl], perms[sl], _rows(hook_state, sl))
         return out
 
     return fed
+
+
+def full_gradients(apply_stacked, layout, slab, x, y):
+    """Per-client full-batch gradients: (U, dim_aligned) at the slab rows,
+    each the gradient of its client's mean loss over x (U, n, ...)."""
+    p = slab.detach().requires_grad_(True)  # an alias: the gradient does not write it
+    (g,) = torch.autograd.grad(stacked_loss(apply_stacked, layout.unravel(p), x, y), p)
+    return g
+
+
+def minibatch_gradients(apply_stacked, layout, slab, xb, yb):
+    """Gradients on a fixed minibatch partition: slab (U, dim_aligned),
+    xb (U, K, B, ...), yb (U, K, B) -> (U, K, dim_aligned).
+
+    Every (client, minibatch) pair is one unit of the stacked model, so
+    one backward pass gives all U·K gradients."""
+    units, k = yb.shape[:2]
+    p = slab.repeat_interleave(k, dim=0)
+    g = full_gradients(apply_stacked, layout, p, xb.reshape((units * k,) + tuple(xb.shape[2:])),
+                       yb.reshape(units * k, -1))
+    return g.view(units, k, -1)
 
 
 @torch.no_grad()

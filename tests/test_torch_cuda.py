@@ -60,6 +60,7 @@ GRAM_CASES = [  # (m, d, row stride or None for contiguous, padded copy)
     (100, 47571, None, True),    # the special round's width, contiguous: unaligned rows
     (100, 47616, None, False),   # the slab-wide rows the special round hands the kernel
     (512, 47616, None, False),   # 512 clients: ten tiles, two slices a stage
+    (50, 47616, None, False),    # FedFomo's 50-slot cohort: one tile of one job
     (1, 33, None, True),
     (7, 300, None, False),
     (130, 1000, None, False),    # a second row tile of 2 rows
@@ -126,6 +127,22 @@ def test_cuda_gram_delta_on_clustered_rows():
 
 
 @pytest.mark.cuda
+def test_cuda_gram_delta_on_near_equal_rows():
+    """Δ between near-equal rows (one base plus noise at 1e-3 of its norm,
+    as FedFomo's trained models lie) on the slab-wide (100, 47,616) rows:
+    against Δ from an f64 Gram, the kernel's largest error is at most that
+    of Δ from g @ g.T in full f32 (TF32 off)."""
+    dev = cuda_device()
+    g = torch.zeros(100, 47616, device=dev)
+    g[:, :47571] = clustered_rows(100, 47571, 1, 1e-3, dev).float()
+    exact = ref.delta_from_gram(g.double() @ g.double().T)
+    kernel = ref.delta_from_gram(ops.gram(g, impl="cuda").double())
+    plain = ref.delta_from_gram((g @ g.T).double())
+    err, err_plain = float((kernel - exact).abs().max()), float((plain - exact).abs().max())
+    assert err <= err_plain, (err, err_plain)
+
+
+@pytest.mark.cuda
 def test_cuda_gram_makes_no_synchronizing_call():
     dev = cuda_device()
     g = gram_input(100, 47616, None, dev)
@@ -162,6 +179,9 @@ def test_cuda_gram_refuses_a_plan_it_cannot_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,m,d", [(100, 100, 47616), (4, 100, 47616), (5, 7, 97), (3, 600, 513),
+                                   (1, 100, 47616),   # the FedAvg family's mean over the slab
+                                   (50, 50, 47616),   # FedFomo's mix over a 50-slot cohort
+                                   (1, 50, 47616),    # the FedAvg mean of 50 uploads
                                    (150, 512, 1000),  # a second row tile, a 32-chunk ring
                                    (1, 3, 5),         # the scalar path, one tail chunk
                                    (16, 100, 4096)])  # the 64-row tile, 6 warps past k
@@ -523,6 +543,45 @@ def test_cuda_cohort_round_matches_cpu(num_streams):
     torch.cuda.synchronize()
     assert hm == cm
     assert float((cs["params"].cpu() - hs["params"]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fedavg", "fedfomo"])
+def test_cuda_baseline_rounds_match_cpu(name):
+    """A dense round, then a cohort round with two pad slots, of FedAvg
+    (mix_aggregate at k = 1) and FedFomo (gram on the trained rows, then
+    mix_aggregate at k = c) on the card against the CPU's plain path, from
+    the same data, weights and batch orders: slabs within 1e-4, metrics
+    equal, and the kernels launched."""
+    from repro_torch.core import REGISTRY, FedConfig
+    from repro_torch.data import loader, synthetic
+    from repro_torch.federated import participation
+    from repro_torch.models import lenet
+
+    dev = cuda_device()
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(m=8, n=80, n_test=20, num_classes=6, hw=(16, 16))
+    cpu_data = synthetic.covariate_label_shift(0, device="cpu", **kw)
+    gpu_data = synthetic.FederatedData(*(a.to(dev) for a in cpu_data))
+    p0 = lenet.init(torch.Generator().manual_seed(0), input_hw=(16, 16), num_classes=6,
+                    device="cpu")
+    cfg = FedConfig(batch_size=16)
+    host = REGISTRY[name](lenet.apply_stacked, p0, cfg, device="cpu")
+    card = REGISTRY[name](lenet.apply_stacked, p0, cfg, device=dev)
+    hs, cs = host.init(None, cpu_data), card.init(None, gpu_data)
+    n_train = 64 if name == "fedfomo" else 80  # FedFomo trains on all but its 16 validation rows
+    cohort = participation.pad_slots(participation.as_cohort([1, 3, 6], 8), 5, 8)
+    grams, mixes = GRAM.launches, MIX.launches
+    for r, c in enumerate([None, cohort]):
+        perms = loader.draw_permutations(torch.Generator().manual_seed(r), 8, 1, n_train,
+                                         device="cpu")
+        hs, hm = host.round(hs, cpu_data, None, c, perms=perms)
+        cs, cm = card.round(cs, gpu_data, None, c, perms=perms.to(dev))
+        torch.cuda.synchronize()
+        assert hm == cm
+        assert float((cs["params"].cpu() - hs["params"]).abs().max()) <= 1e-4, r
+    assert MIX.launches - mixes == 2
+    assert GRAM.launches - grams == (2 if name == "fedfomo" else 0)
 
 
 # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, softcap)
