@@ -17,7 +17,8 @@ Phases, each printed as it ends:
                mix_aggregate also at k = 1 (the FedAvg family's mean);
                kmeans_assign also at k = 99 with a tie across lanes, timed;
                the cohort kernels also with pad
-               slots, an all-pad cohort and an odd width, the mix-scatter
+               slots, an all-pad cohort and an odd width, the gather also at
+               SCAFFOLD's (100, 95,232) EF slab, the mix-scatter
                also at 64 and 100 slots, its plan printed, both also timed
                after a read flush (``read_ms``); flash_attention in
                bf16 and f32 over head dims 32-256, GQA, window, softcap,
@@ -59,14 +60,31 @@ Phases, each printed as it ends:
                slab (its Δ within the f32 product's error of an f64 Δ),
                timed as the row ``gram_trained``; cfl's copy of its update
                deltas to the host read from its profiled split round;
-  8. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
+  8. transport — the quantized wire: its stage on the card against the same
+               stage on the CPU, bit for bit, on a 50-slot cohort's
+               (50, 47,616) single-stream and (50, 95,232) SCAFFOLD slabs in
+               int8 and fp8, and a constant delta's 17-round applied sum
+               within one quantization step of 17·delta in every stream;
+               then ucfl, ucfl_k4 and the nine baselines at fraction 0.5 on
+               the same task, each on the raw wire and with int8 (ucfl and
+               fedavg also fp8), 2 timed rounds (cfl 4), from the same seeds:
+               exact launches a round (one cohort_gather more for the EF
+               slab; full ucfl mixes its cohort rows with mix_aggregate and
+               scatters them, for its delta-coded downlink), a profiled
+               cohort round of each, the stage's launches and device time,
+               accuracies, max|ef| and max|ef_dl| (finite, nonzero, schema
+               wide), and the bytes a round from ``comm_model`` raw and int8;
+               fails if ucfl's or ucfl_k4's int8 accuracy falls more than
+               0.05 below the raw wire's, or a delta uplink prices fewer
+               than 3.5x fewer bytes;
+  9. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
                federated prefill step (the FMA kernel) and teacher-forced
                decode steps (the decode kernel; gemma2 past its window-64
                wrap) on the card against the plain path on the CPU; then
                both in bf16, the prefill step through the tensor-core tile
                and 72 decode steps through the decode kernel, each against
                the same steps with the plain attention on the card;
-  9. serve   — personalized serving of qwen2-7b at full width and depth
+  10. serve  — personalized serving of qwen2-7b at full width and depth
                (28 layers, bf16) for 2 clients x 2 requests: the federated
                prefill step over 1024 tokens, a profile of decode steps,
                a profile of one prefill step, then ``serve()`` (a 128-token
@@ -82,7 +100,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
+import inspect
+import itertools
 import json
 import re
 import statistics
@@ -100,8 +121,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import REGISTRY, FedConfig, ParticipationConfig, clustering, flat, ucfl  # noqa: E402
+from repro_torch.core import comm_model  # noqa: E402
 from repro_torch.data import loader, synthetic  # noqa: E402
-from repro_torch.federated import client, participation, simulation  # noqa: E402
+from repro_torch.federated import client, participation, simulation, transport  # noqa: E402
+from repro_torch.federated.transport import TransportConfig  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.cohort_gather import GATHER  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
@@ -521,7 +544,8 @@ def padded_cohort(gen, dev, m, slots, real):
 
 def cohort_kernel_rows(gen, dev, m, d_al, c=50, real=42):
     """cohort_gather and masked_mix_scatter at the cohort phase's shapes: a
-    50-slot cohort of the (100, 47,616) slab with 42 members and 8 pads."""
+    50-slot cohort of the (100, 47,616) slab with 42 members and 8 pads;
+    the gather also of SCAFFOLD's (100, 95,232) EF slab."""
     rows = {}
     full = torch.randn(m, d_al, generator=gen, device=dev)
     idx, mask = padded_cohort(gen, dev, m, c, real)
@@ -534,14 +558,22 @@ def cohort_kernel_rows(gen, dev, m, d_al, c=50, real=42):
                                ref.cohort_gather(f, index)):
                 raise AssertionError(f"cohort_gather d={width}: differs from the plain version")
     safe = idx.long().clamp(max=m - 1)
-    rows["cohort_gather"] = dict(
-        source="src/repro_torch/kernels/csrc/cohort_gather.cu",
-        replaces="src/repro/kernels/masked_gather_mix_scatter.py:93", max_abs_err=0.0,
-        ms=time_ms(lambda: ops.cohort_gather(full, idx, impl="cuda"), dev),
-        read_ms=time_ms(lambda: ops.cohort_gather(full, idx, impl="cuda"), dev, flush="read"),
-        plain_ms=time_ms(lambda: ref.cohort_gather(full, idx), dev),
-        library_ms=time_ms(lambda: full.index_select(0, safe), dev),
-        bytes=2 * 4 * c * d_al + 4 * c, flops=0)
+    # and SCAFFOLD's EF slab under a quantized wire: two streams, (100, 95,232)
+    wide = torch.randn(m, 2 * d_al, generator=gen, device=dev)
+    for index in (idx, torch.full_like(idx, m)):
+        if not torch.equal(ops.cohort_gather(wide, index, impl="cuda"),
+                           ref.cohort_gather(wide, index)):
+            raise AssertionError(f"cohort_gather d={2 * d_al}: differs from the plain version")
+    for name, slab in (("cohort_gather", full), ("cohort_gather_w95232", wide)):
+        rows[name] = dict(
+            source="src/repro_torch/kernels/csrc/cohort_gather.cu",
+            replaces="src/repro/kernels/masked_gather_mix_scatter.py:93", max_abs_err=0.0,
+            ms=time_ms(lambda slab=slab: ops.cohort_gather(slab, idx, impl="cuda"), dev),
+            read_ms=time_ms(lambda slab=slab: ops.cohort_gather(slab, idx, impl="cuda"), dev,
+                            flush="read"),
+            plain_ms=time_ms(lambda slab=slab: ref.cohort_gather(slab, idx), dev),
+            library_ms=time_ms(lambda slab=slab: slab.index_select(0, safe), dev),
+            bytes=2 * 4 * c * slab.shape[1] + 4 * c, flops=0)
 
     # masked_mix_scatter: rules over the real columns only (pad columns 0)
     w, theta = scatter_rules(gen, dev, c, real, d_al)
@@ -943,8 +975,9 @@ def union_length(intervals):
 def profile(fn, dev, top=8):
     """Run ``fn`` once under torch.profiler; returns the host wall time, the
     device's busy time (the union of its kernel, copy and set intervals),
-    the device's idle share of the wall time, the top kernels by time, and
-    the device time and count of its copies to the host.
+    the device's idle share of the wall time, the count of those device
+    operations, the kernel launches the host made, the top kernels by
+    time, and the device time and count of its copies to the host.
 
     Annotation ranges that the profiler mirrors onto the device span other
     kernels and the gaps between them, so they are left out."""
@@ -966,6 +999,10 @@ def profile(fn, dev, top=8):
     if not busy_ms <= wall_ms:
         raise AssertionError(f"profile: device busy {busy_ms:.3f} ms exceeds the wall "
                              f"time {wall_ms:.3f} ms")
+    # kernel launches counted on the host (the runtime's launch calls),
+    # which a trace of the device can miss where it starts
+    launches = sum(1 for e in prof.events()
+                   if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     by_name = {}
     for name, s, e in spans:
         ms, calls = by_name.get(name, (0.0, 0))
@@ -973,7 +1010,8 @@ def profile(fn, dev, top=8):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     to_host = [v for k, v in by_name.items() if "DtoH" in k]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / wall_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms, "device_ops": len(spans),
+            "launches": launches,
             "dtoh_ms": sum(ms for ms, _ in to_host), "dtoh_calls": sum(c for _, c in to_host),
             "top": [{"kernel": k[:90], "ms": ms, "calls": c} for k, (ms, c) in ranked[:top]]}
 
@@ -1234,6 +1272,236 @@ def baselines_phase(dev, data, params0, untrained):
     phase("baselines", t0, f"the nine baselines at m={m}, d=47,571, dense and at fraction 0.5")
     print("baselines_path " + json.dumps({"runs": results, "untrained_avg_acc": untrained}))
     return launches, row
+
+
+def wire_strategy(name, params0, dev, kind):
+    """``name`` at its reference defaults with ``FedConfig.transport`` of
+    ``kind`` (None: the raw wire); ``ucfl_k4`` is ucfl with 4 streams."""
+    tr = None if kind is None else TransportConfig(kind)
+    if name in ("ucfl", "ucfl_k4"):
+        return ucfl.make_ucfl(lenet.apply_stacked, params0, FedConfig(transport=tr),
+                              num_streams=None if name == "ucfl" else 4, var_batch_size=100,
+                              device=dev)
+    cfg = inspect.signature(REGISTRY[name]).parameters["cfg"].default
+    return REGISTRY[name](lenet.apply_stacked, params0, dataclasses.replace(cfg, transport=tr),
+                          device=dev)
+
+
+def wire_launches(name, kind):
+    """The kernel launches of one cohort round of ``name`` on the wire
+    ``kind``: the raw wire's (``baseline_launches``; ucfl's gather and
+    mix-scatter), and under transport one more gather, of the EF slab; full
+    ucfl's delta-coded downlink also gathers its ``ef_dl`` rows and mixes
+    the cohort rows with mix_aggregate in place of the mix-scatter."""
+    if name in ("ucfl", "ucfl_k4"):
+        out = {"cohort_gather": 1, "masked_mix_scatter": 1}
+        if kind is not None and name == "ucfl":
+            out = {"cohort_gather": 2, "mix_aggregate": 1}
+    else:
+        out = baseline_launches(name, True)
+    if kind is not None:
+        out["cohort_gather"] += 1
+    return out
+
+
+def stage_inputs(schema, rows, seed, direction="uplink"):
+    """(pre, post) CPU rows of a wire slab: post − pre spans four decades
+    across its chunks, and each stream's aligned tail is zero."""
+    gen = torch.Generator().manual_seed(seed)
+    width = schema.width_aligned(direction)
+    pre = torch.randn(rows, width, generator=gen)
+    decades = torch.logspace(-3, 1, rows * width // 128).repeat_interleave(128)
+    post = pre + torch.randn(rows, width, generator=gen) * decades.view(rows, width)
+    for s_, (lo, _hi) in zip(schema.streams(direction), schema.slices(direction)):
+        pre[:, lo + s_.width:lo + s_.width_aligned] = 0.0
+        post[:, lo + s_.width:lo + s_.width_aligned] = 0.0
+    return pre, post
+
+
+def wire_stage_check(dev, d):
+    """The wire stage on the card against the same stage on the CPU, bit for
+    bit, at a 50-slot cohort's single-stream (50, 47,616) and SCAFFOLD
+    (50, 95,232) uplink slabs, int8 and fp8, two calls (the second carries
+    the first's EF); a constant delta's 17-round applied sum on the card
+    within one quantization step of 17·delta in every stream (int8:
+    max|chunk|/127; fp8: the e4m3 step at the chunk's top, 32/448 of
+    max|chunk|); and each stage's kernel launches (profiled, counted on
+    the host) and time (``time_ms``) at the rounds' shapes (uplink 50 rows; downlink 50 rows
+    for ucfl, 1 for a broadcast). Returns {(streams, direction, rows,
+    kind): cost}."""
+    schemas = {1: transport.single_delta_schema(
+                   "fedavg", d, downlink=(transport.Stream("model", d),)),
+               2: transport.WireSchema(
+                   "scaffold", uplink=(transport.Stream("delta", d),
+                                       transport.Stream("control_delta", d)),
+                   downlink=(transport.Stream("model", d), transport.Stream("control", d)))}
+    profiles = {}
+    for (streams, schema), kind in itertools.product(schemas.items(), ("int8", "fp8")):
+        cfg = TransportConfig(kind)
+        stage = transport.make_wire_stage(schema, cfg, "uplink")
+        pre, post = stage_inputs(schema, 50, SEED + streams)
+        ef, ef_card = torch.zeros_like(pre), torch.zeros_like(pre, device=dev)
+        for call in range(2):
+            want, ef = stage(pre, post, ef)
+            got, ef_card = stage(pre.to(dev), post.to(dev), ef_card)
+            if not (torch.equal(got.cpu(), want) and torch.equal(ef_card.cpu(), ef)):
+                raise AssertionError(f"wire stage {kind}, {streams} stream(s), call {call}: the "
+                                     "card's bits differ from the CPU's")
+        delta = (post - pre).to(dev)
+        zero = torch.zeros_like(delta)
+        ef_t, total = torch.zeros_like(delta), torch.zeros(delta.shape, dtype=torch.float64,
+                                                           device=dev)
+        for _ in range(17):
+            out, ef_t = stage(zero, delta, ef_t)
+            total += out.double()
+        per_step = 127.0 if kind == "int8" else 448.0 / 32.0
+        for s_, (lo, hi) in zip(schema.uplink, schema.slices("uplink")):
+            dd = delta[:, lo:hi].double()
+            peak = dd.abs().view(50, -1, 128).amax(dim=2).repeat_interleave(128, dim=1)
+            err = (total[:, lo:hi] - 17 * dd).abs()
+            if not bool((err <= peak / per_step + 1e-5 * peak).all()):
+                raise AssertionError(f"wire stage {kind} stream {s_.name}: the 17-round applied "
+                                     f"sum is {float((err / peak).max()):.3e} of max|chunk| "
+                                     "from 17·delta, past one quantization step")
+        for direction, rows in (("uplink", 50), ("downlink", 50), ("downlink", 1)):
+            if direction == "downlink" and rows == 50 and streams == 2:
+                continue  # SCAFFOLD's downlink is a broadcast row
+            st = transport.make_wire_stage(schema, cfg, direction)
+            p_, q_ = (a.to(dev) for a in stage_inputs(schema, rows, SEED, direction))
+            e_ = torch.zeros_like(p_)
+            call = functools.partial(st, p_, q_, e_)
+            call()
+            prof = profile(call, dev)
+            if not prof["launches"] > 0:
+                raise AssertionError(f"wire stage {kind}: no kernel launch counted on the host "
+                                     f"({prof['device_ops']} device ops traced)")
+            cost = {"launches": prof["launches"], "ms": time_ms(call, dev),
+                    "busy_ms": prof["device_busy_ms"]}
+            profiles[(streams, direction, rows, kind)] = cost
+            print(f"  wire stage {kind}, {streams} stream(s), {direction} ({rows}, "
+                  f"{schema.width_aligned(direction)}): {cost['launches']} launches, "
+                  f"{cost['ms']:.4f} ms (time_ms), {cost['busy_ms']:.4f} ms busy profiled "
+                  f"({prof['device_ops']} device ops traced)")
+    print("  wire stage: the card's bits equal the CPU's (int8, fp8; 1 and 2 streams), and "
+          "EF telescopes within one step over 17 rounds in every stream")
+    return profiles
+
+
+def stage_cost(strat, profiles, kind):
+    """(launches, device ms) of one round's wire stages of ``strat``."""
+    schema = strat.wire_schema
+    streams = len(schema.uplink)
+    up = profiles[(streams, "uplink", 50, kind)]
+    ops_, ms = up["launches"], up["ms"]
+    down = transport.make_wire_stage(schema, TransportConfig(kind), "downlink")
+    if down is not None:
+        rows = 50 if schema.strategy == "ucfl" else 1
+        dl = profiles[(streams, "downlink", rows, kind)]
+        ops_, ms = ops_ + dl["launches"], ms + dl["ms"]
+    return ops_, ms
+
+
+def describe_wire_run(kind, r):
+    out = (f"{kind} round {r['round_s']:.4f} s, busy {r['profile']['device_busy_ms']:.2f} ms "
+           f"({r['profile']['launches']} launches), avg {r['avg_acc']:.4f} worst "
+           f"{r['worst_acc']:.4f}")
+    if kind != "raw":
+        out += (f", stage {r['stage_launches']} launches {r['stage_ms']:.4f} ms, max|ef| "
+                f"{r['max_abs_ef']:.3e}")
+        if "max_abs_ef_dl" in r:
+            out += f" max|ef_dl| {r['max_abs_ef_dl']:.3e}"
+    return out
+
+
+def transport_phase(dev, data, params0, untrained):
+    """The quantized wire on the main task: the stage checks, then ucfl,
+    ucfl_k4 and the nine baselines at fraction 0.5 on the raw wire and with
+    int8 (ucfl and fedavg also fp8), through ``simulation.run`` from the
+    same seeds: exact launches, EF slabs, a profiled cohort round of each,
+    accuracies and the bytes a round from ``comm_model``."""
+    t0 = time.perf_counter()
+    m = data.num_clients
+    d = flat.LayoutTable.build(params0).dim
+    profiles = wire_stage_check(dev, d)
+    pcfg = ParticipationConfig(fraction=0.5)
+    int8 = TransportConfig("int8")
+    results, launches = {}, {}
+    for name in ["ucfl", "ucfl_k4"] + BASELINES:
+        rounds = BASELINE_ROUNDS.get(name, 2)
+        cohort = next(c for c in participation.cohort_schedule(pcfg, rounds + 24, m)[rounds:]
+                      if len(c))
+        runs = {}
+        for kind in (None, "int8") + (("fp8",) if name in ("ucfl", "fedavg") else ()):
+            cell = f"{name}_{kind or 'raw'}"
+            strat = wire_strategy(name, params0, dev, kind)
+            zero_counters()
+            hist = simulation.run(strat, lenet.apply_stacked, data, SEED, rounds=rounds,
+                                  participation=pcfg, device=dev)
+            expect = {k: v * (rounds + 1) for k, v in wire_launches(name, kind).items()}
+            if name in ("ucfl", "ucfl_k4"):
+                expect["gram"] = 1  # the special round
+                if name == "ucfl_k4":
+                    if not ASSIGN.launches:
+                        raise AssertionError(f"{cell}: K-means never launched kmeans_assign")
+                    expect["kmeans_assign"] = ASSIGN.launches
+            got = read_counters(cell, expect)
+            if GRAM.padded:
+                raise AssertionError(f"{cell}: gram made {GRAM.padded} padded copies")
+            state = hist.state
+            slabs = [v for v in state.values() if isinstance(v, torch.Tensor)]
+            if not all(bool(torch.isfinite(v).all()) for v in slabs):
+                raise AssertionError(f"{cell}: non-finite state")
+            if not hist.avg_acc[-1] > untrained:
+                raise AssertionError(f"{cell}: avg accuracy {hist.avg_acc[-1]:.4f} does not beat "
+                                     f"the untrained model's {untrained:.4f}")
+            res = dict(strategy=strat.name, rounds=rounds, round_s=hist.wall_s / rounds,
+                       avg_acc=hist.avg_acc[-1], worst_acc=hist.worst_acc[-1],
+                       launches_per_round=wire_launches(name, kind))
+            if kind is not None:
+                schema = strat.wire_schema
+                want = {"ef": (m, schema.width_aligned("uplink"))}
+                if transport.make_wire_stage(schema, TransportConfig(kind), "downlink"):
+                    want["ef_dl"] = (m if name == "ucfl" else 1, schema.width_aligned("downlink"))
+                if sorted(k for k in state if k.startswith("ef")) != sorted(want):
+                    raise AssertionError(f"{cell}: EF slabs {sorted(state)}, want {want}")
+                for k, shape in want.items():
+                    ef = state[k]
+                    if tuple(ef.shape) != shape or not bool(ef.abs().amax() > 0):
+                        raise AssertionError(f"{cell}: {k} {tuple(ef.shape)} (want {shape}) "
+                                             f"max|{k}| {float(ef.abs().amax()):.3e}")
+                    res[f"max_abs_{k}"] = float(ef.abs().amax())
+                res["stage_launches"], res["stage_ms"] = stage_cost(strat, profiles, kind)
+            pgen = torch.Generator(device=dev)
+            pgen.manual_seed(SEED + 1)
+            res["profile"] = profile(
+                lambda: strat.round(simulation.clone_state(state), data, pgen, cohort), dev)
+            launches[cell] = got
+            runs[kind or "raw"] = res
+        raw, q = runs["raw"], runs["int8"]
+        if name in ("ucfl", "ucfl_k4") and not q["avg_acc"] >= raw["avg_acc"] - 0.05:
+            raise AssertionError(f"{name}: int8 avg accuracy {q['avg_acc']:.4f} is more than "
+                                 f"0.05 below the raw wire's {raw['avg_acc']:.4f}")
+        # the bytes a round at c = 50, priced on the strategy's own schema
+        schema = strat.wire_schema
+        scheme, mb = strat.comm_scheme, 4 * d
+        k_streams = strat.num_streams or hist.metrics[-1]["streams"]
+        priced = {}
+        for tag, tr in (("raw", None), ("int8", int8)):
+            priced[f"up_{tag}"] = comm_model.uplink_bytes_per_round(
+                mb, scheme, m, m // 2, transport=tr, schema=schema)
+            priced[f"down_{tag}"] = comm_model.downlink_bytes_per_round(
+                mb, scheme, m, k_streams, m // 2, transport=tr, schema=schema)
+        if not priced["up_raw"] >= 3.5 * priced["up_int8"]:
+            raise AssertionError(f"{name}: int8 prices {priced['up_int8']} uplink bytes a round "
+                                 f"against {priced['up_raw']} raw, under 3.5x fewer")
+        results[name] = dict(runs=runs, bytes=priced)
+        print(f"  {name}: " + "; ".join(describe_wire_run(k, r) for k, r in runs.items())
+              + f"; bytes a round up {priced['up_raw']:,} -> {priced['up_int8']:,}, down "
+              f"{priced['down_raw']:,} -> {priced['down_int8']:,}", flush=True)
+    phase("transport", t0, f"ucfl, ucfl_k4 and the nine baselines at m={m}, d={d:,}, fraction "
+          "0.5, raw wire against int8 (ucfl and fedavg also fp8)")
+    print("transport_path " + json.dumps({"runs": results, "untrained_avg_acc": untrained}))
+    return launches
 
 
 @contextlib.contextmanager
@@ -1519,6 +1787,7 @@ def main():
     launches = main_phase(dev, *task)
     cohort = cohort_phase(dev, *task)
     base, rows["gram_trained"] = baselines_phase(dev, *task)
+    wire = transport_phase(dev, *task)
     del task
     fma_launches = serve_agree_phase(dev)
     served = serve_phase(dev)
@@ -1526,20 +1795,32 @@ def main():
     # each launch counts under the row of its shape: a dense round mixes
     # over the 100-row slab, a cohort round over its 50 slots' uploads
     k1 = ("fedavg", "fedprox", "scaffold", "ditto", "pfedme")
-    counts = {"gram": full["gram"] + k4["gram"],
+
+    def wire_sum(kernel, names):
+        return sum(r[kernel] for cell, r in wire.items() if cell.rsplit("_", 1)[0] in names)
+
+    # the transport phase's scaffold gathers its (m, 95,232) EF slab once a round
+    wide = wire["scaffold_int8"]["cohort_gather"] // (GATHERS["scaffold"] + 1)
+    counts = {"gram": full["gram"] + k4["gram"] + wire_sum("gram", ("ucfl", "ucfl_k4")),
               "mix_aggregate_k100": full["mix_aggregate"] + sum(
                   base[c]["mix_aggregate"] for c in ("oracle", "cfl", "fedfomo")),
               "mix_aggregate_k4": k4["mix_aggregate"],
               "mix_aggregate_k1": sum(base[c]["mix_aggregate"] for c in k1),
-              "mix_aggregate_k50": base["fedfomo_half"]["mix_aggregate"],
-              "mix_aggregate_k1_m50": sum(base[f"{c}_half"]["mix_aggregate"] for c in k1),
-              "kmeans_assign": k4["kmeans_assign"],
+              # FedFomo's mix over its 50 slots, and full ucfl's under a quantized wire
+              "mix_aggregate_k50": base["fedfomo_half"]["mix_aggregate"]
+              + wire_sum("mix_aggregate", ("fedfomo", "ucfl")),
+              "mix_aggregate_k1_m50": sum(base[f"{c}_half"]["mix_aggregate"] for c in k1)
+              + wire_sum("mix_aggregate", k1),
+              "kmeans_assign": k4["kmeans_assign"] + wire_sum("kmeans_assign", ("ucfl_k4",)),
               "cohort_gather": sum(r["cohort_gather"] for r in cohort.values())
-              + sum(r["cohort_gather"] for r in base.values()),
+              + sum(r["cohort_gather"] for r in base.values())
+              + sum(r["cohort_gather"] for r in wire.values()) - wide,
+              "cohort_gather_w95232": wide,
               "masked_mix_scatter": sum(r["masked_mix_scatter"] for r in cohort.values())
-              + sum(r["masked_mix_scatter"] for r in base.values()),
+              + sum(r["masked_mix_scatter"] for r in base.values())
+              + sum(r["masked_mix_scatter"] for r in wire.values()),
               "gram_trained": base["fedfomo"]["gram"],
-              "gram_m50": base["fedfomo_half"]["gram"],
+              "gram_m50": base["fedfomo_half"]["gram"] + wire_sum("gram", ("fedfomo",)),
               "flash_attention_prefill": served["prefill_launches"]["flash_attention_prefill"],
               "flash_attention_decode": served["serve_launches"]["flash_attention_decode"],
               "flash_attention_fma": fma_launches}

@@ -15,6 +15,10 @@ warm-up copies the update deltas of the clients that trained to the host
 (the reference copies them in the warm-up rounds too, and reads them only
 after it). A cohort round's real members are its slot prefix, so their
 deltas are the first rows.
+
+Wire: a ``delta`` upload, quantized first, so the mix and the split
+statistics read what the server decoded, ``post' − θ``; the
+``cluster_models`` groupcast stays raw.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import transport as transport_lib
 
 
 def _spectral_bipartition(sim: np.ndarray) -> np.ndarray:
@@ -48,11 +53,15 @@ def make_cfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
              device=None):
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
+    schema = transport_lib.single_delta_schema(
+        "cfl", layout.dim,
+        downlink=(transport_lib.Stream("cluster_models", layout.dim, coding="raw"),))
+    up, _ = common.wire_stages(schema, cfg.transport)
 
     def init(gen, data):
         m = data.num_clients
         return {"params": layout.slab(params0, m), "assignment": np.zeros(m, dtype=np.int32),
-                "round": 0}
+                "round": 0, **common.wire_state(schema, cfg.transport, m, dev)}
 
     def maybe_split(assignment, members_pool, dmat_rows):
         """The bipartition check over the clients in ``members_pool``;
@@ -97,14 +106,17 @@ def make_cfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
         pc = co.rows["params"]
         post = local(pc, co.x, co.y, perms=co.keys(perms))
+        out = {}
+        if up is not None:
+            post, out["ef"] = common.uplink(up, state, co, pc, post)
         assignment_c = torch.as_tensor(assignment[np.minimum(idx, data.num_clients - 1)],
                                        device=dev)
         rows = aggregation.masked_group_rows(assignment_c, data.n[co.safe], co.mask)
         new = aggregation.mix_scatter_flat(state["params"], post, rows, co.idx, co.mask)
         assignment, rnd = bookkeep(state, co.members, post - pc)
-        return ({"params": new, "assignment": assignment, "round": rnd},
+        return ({"params": new, "assignment": assignment, "round": rnd, **out},
                 {"streams": len(np.unique(assignment[co.members])) if co.real else 0})
 
-    return Strategy("cfl", init, common.cohort_round(dense, masked),
+    return Strategy("cfl", init, common.cohort_round(dense, masked, transport=cfg.transport),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="groupcast")
+                    comm_scheme="groupcast", wire_schema=schema)

@@ -17,6 +17,10 @@ pieces the baselines share.
     invisible.
   * :func:`make_fedavg_masked_round` — the FedAvg family's masked round:
     the n-weighted mean of the real uploads, broadcast to every row.
+  * :func:`wire_stages`, :func:`wire_state` and :func:`uplink` — the
+    quantized wire (``FedConfig.transport``): a strategy's uplink and
+    downlink stages, the EF slabs they add to its state, and the uplink
+    stage of a cohort round, after local SGD and before the mix.
   * :func:`group_mixing_matrix` / :func:`group_average` — per-group FedAvg
     (CFL's clusters, the Oracle's true groups).
 
@@ -27,9 +31,9 @@ A/B comparison from one start state) runs the round on
 :func:`repro_torch.federated.simulation.clone_state` of it.
 
 Not ported yet: the mesh, ``shard_state`` and the reference's
-``StateOps`` layout object (the mesh), and the async buffer, upload stage,
-transport and topology branches (the engine knobs): each is an item of
-ROADMAP queue A.
+``StateOps`` layout object (the mesh), and the async buffer, upload stage
+(faults and robust rules) and topology branches (the engine knobs): each
+is an item of ROADMAP queue A.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.data.loader import draw_permutations
 from repro_torch.device import resolve_device
 from repro_torch.federated import client as fedclient
 from repro_torch.federated import participation
+from repro_torch.federated import transport as transport_lib
 
 
 def prepare(params0, device):
@@ -85,7 +90,7 @@ def group_average(stacked, assignment, n):
     return aggregation.user_centric(stacked, group_mixing_matrix(assignment, n))
 
 
-def cohort_round(dense_fn, masked_fn):
+def cohort_round(dense_fn, masked_fn, *, transport=None):
     """Build ``round(state, data, gen=None, cohort=None, *, perms=None)``.
 
     ``dense_fn(state, data, gen, perms) -> (state, metrics)`` is the full
@@ -94,12 +99,20 @@ def cohort_round(dense_fn, masked_fn):
     arrays (so wrappers can count host-side metrics without a device
     sync). ``cohort`` is None (dense), a
     :class:`~repro_torch.federated.participation.Cohort`, or a plain index
-    array (an unpadded all-real cohort).
+    array (an unpadded all-real cohort). With ``transport`` (the
+    strategy's ``FedConfig.transport``) a dense round raises
+    ``ValueError``: the quantized wire compresses the cohort's uploads.
     """
 
     def round(state, data, gen=None, cohort=None, *, perms=None):
         cohort = participation.as_cohort(cohort, data.num_clients)
         if cohort is None:
+            if transport is not None:
+                raise ValueError(
+                    "FedConfig.transport requires cohort rounds: "
+                    "quantization compresses the masked upload stage, and "
+                    "the dense full-participation path has no upload — "
+                    "pass a participation config (or drop transport)")
             state, metrics = dense_fn(state, data, gen, perms)
             size = data.num_clients
         else:
@@ -167,17 +180,50 @@ class CohortRows:
 def gather_cohort(state, data, gen, idx, mask, *, dev, epochs, slabs=("params",)):
     """The start of every masked round: the host slots ``idx``/``mask``
     on ``dev``, one ``cohort_gather`` launch for each key of ``state`` in
-    ``slabs``, and the slots' data, as a :class:`CohortRows`."""
+    ``slabs`` and for the uplink EF slab ``ef`` where the state holds one
+    (a quantized wire), and the slots' data, as a :class:`CohortRows`."""
     m = data.num_clients
     idx_t, mask_t = device_slots(idx, mask, dev)
     safe32 = aggregation.safe_gather_index(idx_t, m)
     safe = safe32.long()
+    slabs = tuple(slabs) + (("ef",) if "ef" in state else ())
     rows = {k: aggregation.cohort_gather(state[k], safe32) for k in slabs}
     return CohortRows(idx_t, mask_t, safe, idx[mask], rows, data.x[safe], data.y[safe], gen, m,
                       epochs)
 
 
-def fedavg_masked_mix(params, updated, idx, mask, n):
+def wire_stages(schema, transport):
+    """The (uplink, downlink) stages of ``schema`` under ``transport``
+    (:func:`repro_torch.federated.transport.make_wire_stage`); each is None
+    when ``transport`` is, or when its direction has no ``delta`` stream."""
+    return (transport_lib.make_wire_stage(schema, transport, "uplink"),
+            transport_lib.make_wire_stage(schema, transport, "downlink"))
+
+
+def wire_state(schema, transport, m, dev, *, dl_rows=1):
+    """The EF slabs a quantized wire adds to a strategy's state: ``ef``,
+    (m, uplink width), and, where the downlink has a ``delta`` stream,
+    ``ef_dl``, (``dl_rows``, downlink width): one row for a broadcast, m
+    for one a receiver. Empty when ``transport`` is None."""
+    up, down = wire_stages(schema, transport)
+    out = {}
+    if up is not None:
+        out["ef"] = torch.zeros((m, schema.width_aligned("uplink")), device=dev)
+    if down is not None:
+        out["ef_dl"] = torch.zeros((dl_rows, schema.width_aligned("downlink")), device=dev)
+    return out
+
+
+def uplink(stage, state, co, pre, post):
+    """The uplink wire stage of a cohort round on the (c, W) rows ``pre``
+    (what the clients started from) and ``post`` (what they trained):
+    returns what the server decodes, ``post'``, and the state's new EF
+    slab, the slots' residuals written back at the real slots."""
+    post, ef_c = stage(pre, post, co.rows["ef"])
+    return post, aggregation.scatter_rows(state["ef"], co.idx, ef_c, co.real)
+
+
+def fedavg_masked_mix(params, updated, idx, mask, n, *, dstage=None, ef_dl=None):
     """Masked Eq. 1: the n-weighted mean of the real cohort uploads
     (``updated``, (c, d)), broadcast to every row of the ``params`` slab.
 
@@ -185,23 +231,43 @@ def fedavg_masked_mix(params, updated, idx, mask, n):
     against it. An all-masked cohort keeps the previous model instead of
     broadcasting the degenerate zero mix. This is the one sanctioned
     full-state write of the cohort engine; it returns a new tensor.
+
+    With ``dstage``, the downlink stage of a ``delta`` broadcast, the mean
+    is delta-coded against the receivers' shared reference, row 0 of the
+    broadcast-uniform ``params``, with the server's (1, d) EF row
+    ``ef_dl``; the result is then ``(params', ef_dl')``, and an
+    all-masked cohort keeps both as they were.
     """
     safe = aggregation.safe_gather_index(idx, n.shape[0]).long()
     w = aggregation.masked_fedavg_weights(n[safe], mask)
     mixed = aggregation.user_centric(updated, w)  # (1, d)
-    return torch.where(torch.any(mask), mixed.expand_as(params), params)
+    alive = torch.any(mask)
+    if dstage is None:
+        return torch.where(alive, mixed.expand_as(params), params)
+    served, new_ef = dstage(params[0:1], mixed, ef_dl)
+    return (torch.where(alive, served.expand_as(params), params),
+            torch.where(alive, new_ef, ef_dl))
 
 
-def make_fedavg_masked_round(train, *, dev, epochs):
+def make_fedavg_masked_round(train, *, dev, epochs, schema, transport):
     """The FedAvg family's masked round (FedAvg, FedProx): the gathered
     rows trained by ``train(co, perms) -> (c, dim_aligned)``, ``co`` the
     :class:`CohortRows`, then :func:`fedavg_masked_mix` (the reference's
-    ``fedavg_mix_closure`` without a downlink stage or a topology).
-    Returns ``masked(state, data, gen, idx, mask, perms)`` for
+    ``fedavg_mix_closure`` without a topology). Under ``transport`` the
+    uploads pass ``schema``'s uplink stage and the mean its downlink
+    stage. Returns ``masked(state, data, gen, idx, mask, perms)`` for
     :func:`cohort_round`."""
+    up, down = wire_stages(schema, transport)
+
     def masked(state, data, gen, idx, mask, perms):
         co = gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=epochs)
-        new = fedavg_masked_mix(state["params"], train(co, perms), co.idx, co.mask, data.n)
-        return dict(state, params=new), {"streams": 1}
+        post = train(co, perms)
+        if up is None:
+            new = fedavg_masked_mix(state["params"], post, co.idx, co.mask, data.n)
+            return dict(state, params=new), {"streams": 1}
+        post, ef = uplink(up, state, co, co.rows["params"], post)
+        new, ef_dl = fedavg_masked_mix(state["params"], post, co.idx, co.mask, data.n,
+                                       dstage=down, ef_dl=state["ef_dl"])
+        return dict(state, params=new, ef=ef, ef_dl=ef_dl), {"streams": 1}
 
     return masked

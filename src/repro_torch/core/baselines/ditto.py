@@ -9,12 +9,17 @@ takes both, stacked as (2, m, epochs, ≥ steps·B). The cohort round
 gathers the cohort's rows of both slabs (one ``cohort_gather`` launch
 each); the personal solver pulls towards the gathered round-start global
 rows, a copy, so the new global written before it does not reach it.
+
+Wire: only the global model crosses it, a ``delta`` upload and the
+``model`` broadcast delta-coded with the server's EF row; the personal
+model never leaves the client.
 """
 from __future__ import annotations
 
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import transport as transport_lib
 
 
 @register("ditto")
@@ -26,10 +31,14 @@ def make_ditto(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, lam: flo
     params0, layout, dev = common.prepare(params0, device)
     local_global = common.local_sgd(apply_stacked, layout, cfg)
     local_personal = common.local_sgd(apply_stacked, layout, cfg, grad_hook=ditto_hook)
+    schema = transport_lib.single_delta_schema(
+        "ditto", layout.dim, downlink=(transport_lib.Stream("model", layout.dim),))
+    up, down = common.wire_stages(schema, cfg.transport)
 
     def init(gen, data):
         m = data.num_clients
-        return {"params": layout.slab(params0, m), "personal": layout.slab(params0, m)}
+        return {"params": layout.slab(params0, m), "personal": layout.slab(params0, m),
+                **common.wire_state(schema, cfg.transport, m, dev)}
 
     def dense(state, data, gen, perms):
         perms_g, perms_p = (None, None) if perms is None else perms
@@ -47,11 +56,19 @@ def make_ditto(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, lam: flo
                                   slabs=("params", "personal"))
         pc = co.rows["params"]
         post = local_global(pc, co.x, co.y, perms=co.keys(perms_g))
-        new_global = common.fedavg_masked_mix(state["params"], post, co.idx, co.mask, data.n)
+        out = {}
+        if up is None:
+            new_global = common.fedavg_masked_mix(state["params"], post, co.idx, co.mask, data.n)
+        else:
+            post, out["ef"] = common.uplink(up, state, co, pc, post)
+            new_global, out["ef_dl"] = common.fedavg_masked_mix(
+                state["params"], post, co.idx, co.mask, data.n, dstage=down,
+                ef_dl=state["ef_dl"])
         new_pc = local_personal(co.rows["personal"], co.x, co.y, pc, perms=co.keys(perms_p))
         personal = aggregation.scatter_rows(state["personal"], co.idx, new_pc, co.real)
-        return {"params": new_global, "personal": personal}, {"streams": 1}
+        return {"params": new_global, "personal": personal, **out}, {"streams": 1}
 
-    return Strategy(f"ditto_lam{lam}", init, common.cohort_round(dense, masked),
+    return Strategy(f"ditto_lam{lam}", init,
+                    common.cohort_round(dense, masked, transport=cfg.transport),
                     lambda s: layout.unravel(s["personal"]),
-                    comm_scheme="broadcast", num_streams=1)
+                    comm_scheme="broadcast", num_streams=1, wire_schema=schema)

@@ -5,21 +5,29 @@ of the uploads (one ``mix_aggregate`` launch, k = 1) is broadcast back to
 every row of the slab. Cohort round: the cohort trains from the global,
 and the mean of its real uploads (k = 1 over the (c, d) uploads) is
 broadcast, pad slots weighing 0. One downlink stream either way.
+
+Wire: a ``delta`` upload, and the broadcast delta-coded as the ``model``
+stream against the old global with the server's EF row.
 """
 from __future__ import annotations
 
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import transport as transport_lib
 
 
 @register("fedavg")
 def make_fedavg(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=None):
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
+    schema = transport_lib.single_delta_schema(
+        "fedavg", layout.dim, downlink=(transport_lib.Stream("model", layout.dim),))
 
     def init(gen, data):
-        return {"params": layout.slab(params0, data.num_clients)}
+        m = data.num_clients
+        return {"params": layout.slab(params0, m),
+                **common.wire_state(schema, cfg.transport, m, dev)}
 
     def dense(state, data, gen, perms):
         updated = local(state["params"], data.x, data.y, gen=gen, perms=perms)
@@ -28,8 +36,9 @@ def make_fedavg(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=
     def train(co, perms):
         return local(co.rows["params"], co.x, co.y, perms=co.keys(perms))
 
-    masked = common.make_fedavg_masked_round(train, dev=dev, epochs=cfg.epochs)
+    masked = common.make_fedavg_masked_round(train, dev=dev, epochs=cfg.epochs, schema=schema,
+                                             transport=cfg.transport)
 
-    return Strategy("fedavg", init, common.cohort_round(dense, masked),
+    return Strategy("fedavg", init, common.cohort_round(dense, masked, transport=cfg.transport),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="broadcast", num_streams=1)
+                    comm_scheme="broadcast", num_streams=1, wire_schema=schema)

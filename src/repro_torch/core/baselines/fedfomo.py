@@ -16,6 +16,10 @@ The (c, c) loss matrix L[i, j] = L_i(θ_j) is built ``LOSS_CHUNK`` models a
 pass: each model runs over all clients' validation rows at once, and each
 client's mean gives the column. The cohort round mixes over the real
 slots only (pad columns weigh 0) and writes the real slots back.
+
+Wire: a ``delta`` upload, quantized before the loss matrix, so the peers
+score and mix the models the wire carried; the ``peer_models`` downlink
+relays those quantized uploads (priced compressed, no second stage).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.core import aggregation, similarity
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
 from repro_torch.federated import client as fedclient
+from repro_torch.federated import transport as transport_lib
 from repro_torch.kernels import ops
 
 # models scored a pass of the loss matrix: at m = 100 and 200 validation
@@ -75,6 +80,10 @@ def make_fedfomo(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
                  val_frac: float = 0.2, device=None):
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
+    schema = transport_lib.single_delta_schema(
+        "fedfomo", layout.dim,
+        downlink=(transport_lib.Stream("peer_models", layout.dim, coding="relay"),))
+    up, _ = common.wire_stages(schema, cfg.transport)
 
     def split(x, y):
         """(train x, train y, validation x, validation y)."""
@@ -86,7 +95,9 @@ def make_fedfomo(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         return fomo_mix(post, fomo_weights(lmat, post, col_mask))
 
     def init(gen, data):
-        return {"params": layout.slab(params0, data.num_clients)}
+        m = data.num_clients
+        return {"params": layout.slab(params0, m),
+                **common.wire_state(schema, cfg.transport, m, dev)}
 
     def dense(state, data, gen, perms):
         x_tr, y_tr, x_val, y_val = split(data.x, data.y)
@@ -96,11 +107,15 @@ def make_fedfomo(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
     def masked(state, data, gen, idx, mask, perms):
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
         x_tr, y_tr, x_val, y_val = split(co.x, co.y)
-        post = local(co.rows["params"], x_tr, y_tr, perms=co.keys(perms, n=y_tr.shape[1]))
+        pc = co.rows["params"]
+        post = local(pc, x_tr, y_tr, perms=co.keys(perms, n=y_tr.shape[1]))
+        out = {}
+        if up is not None:
+            post, out["ef"] = common.uplink(up, state, co, pc, post)
         new = mixed(post, x_val, y_val, co.mask.float())
-        return ({"params": aggregation.scatter_rows(state["params"], co.idx, new, co.real)},
-                {"streams": co.real})
+        return ({"params": aggregation.scatter_rows(state["params"], co.idx, new, co.real),
+                 **out}, {"streams": co.real})
 
-    return Strategy("fedfomo", init, common.cohort_round(dense, masked),
+    return Strategy("fedfomo", init, common.cohort_round(dense, masked, transport=cfg.transport),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="client_mixing")
+                    comm_scheme="client_mixing", wire_schema=schema)

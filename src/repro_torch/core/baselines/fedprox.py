@@ -1,11 +1,13 @@
 """FedProx (Li et al., 2018): FedAvg with the proximal term
 μ/2·||θ − θ_global||² in every local step, centred at the model the round
-started from."""
+started from. Its wire is FedAvg's: a ``delta`` upload and a delta-coded
+``model`` broadcast."""
 from __future__ import annotations
 
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import transport as transport_lib
 
 
 @register("fedprox")
@@ -16,9 +18,13 @@ def make_fedprox(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, mu: fl
 
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg, grad_hook=prox_hook)
+    schema = transport_lib.single_delta_schema(
+        "fedprox", layout.dim, downlink=(transport_lib.Stream("model", layout.dim),))
 
     def init(gen, data):
-        return {"params": layout.slab(params0, data.num_clients)}
+        m = data.num_clients
+        return {"params": layout.slab(params0, m),
+                **common.wire_state(schema, cfg.transport, m, dev)}
 
     def dense(state, data, gen, perms):
         params = state["params"]
@@ -29,8 +35,10 @@ def make_fedprox(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, mu: fl
         pc = co.rows["params"]
         return local(pc, co.x, co.y, pc, perms=co.keys(perms))  # centred at the round's start
 
-    masked = common.make_fedavg_masked_round(train, dev=dev, epochs=cfg.epochs)
+    masked = common.make_fedavg_masked_round(train, dev=dev, epochs=cfg.epochs, schema=schema,
+                                             transport=cfg.transport)
 
-    return Strategy(f"fedprox_mu{mu}", init, common.cohort_round(dense, masked),
+    return Strategy(f"fedprox_mu{mu}", init,
+                    common.cohort_round(dense, masked, transport=cfg.transport),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="broadcast", num_streams=1)
+                    comm_scheme="broadcast", num_streams=1, wire_schema=schema)

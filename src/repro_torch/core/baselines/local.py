@@ -1,22 +1,28 @@
 """Local training, no collaboration (the reference's lower bound).
 
 The cohort round trains the cohort's rows and writes each real slot back
-to its own row; pad slots write nothing. No downlink stream.
+to its own row; pad slots write nothing. No downlink stream. Wire: a
+``delta`` upload only; each row keeps what the server decoded.
 """
 from __future__ import annotations
 
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import transport as transport_lib
 
 
 @register("local")
 def make_local(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=None):
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
+    schema = transport_lib.single_delta_schema("local", layout.dim)
+    up, _ = common.wire_stages(schema, cfg.transport)
 
     def init(gen, data):
-        return {"params": layout.slab(params0, data.num_clients)}
+        m = data.num_clients
+        return {"params": layout.slab(params0, m),
+                **common.wire_state(schema, cfg.transport, m, dev)}
 
     def dense(state, data, gen, perms):
         return {"params": local(state["params"], data.x, data.y, gen=gen, perms=perms)}, \
@@ -24,10 +30,14 @@ def make_local(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=N
 
     def masked(state, data, gen, idx, mask, perms):
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
-        post = local(co.rows["params"], co.x, co.y, perms=co.keys(perms))
+        pc = co.rows["params"]
+        post = local(pc, co.x, co.y, perms=co.keys(perms))
+        out = {}
+        if up is not None:
+            post, out["ef"] = common.uplink(up, state, co, pc, post)
         return dict(state, params=aggregation.scatter_rows(state["params"], co.idx, post,
-                                                           co.real)), {"streams": 0}
+                                                           co.real), **out), {"streams": 0}
 
-    return Strategy("local", init, common.cohort_round(dense, masked),
+    return Strategy("local", init, common.cohort_round(dense, masked, transport=cfg.transport),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="broadcast", num_streams=0)
+                    comm_scheme="broadcast", num_streams=0, wire_schema=schema)

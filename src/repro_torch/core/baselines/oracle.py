@@ -5,7 +5,9 @@ Dense: one ``mix_aggregate`` launch, k = m, of the group rule. Cohort
 round: each real slot averages the real uploads of its group
 (``masked_group_rows``), mixed and scattered in one ``masked_mix_scatter``
 launch; absent clients keep their last model. The downlink streams are
-the groups present, counted on the host.
+the groups present, counted on the host. Wire: a ``delta`` upload; the
+``group_models`` groupcast stays raw (a group mean is no receiver's old
+model to delta-code against).
 """
 from __future__ import annotations
 
@@ -14,19 +16,26 @@ import numpy as np
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import transport as transport_lib
 
 
 @register("oracle")
 def make_oracle(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=None):
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
+    schema = transport_lib.single_delta_schema(
+        "oracle", layout.dim,
+        downlink=(transport_lib.Stream("group_models", layout.dim, coding="raw"),))
+    up, _ = common.wire_stages(schema, cfg.transport)
 
     def init(gen, data):
         # the cohort round counts its streams from this copy, not with a
         # device sync every round
         group_host = data.group.cpu().numpy()
-        return {"params": layout.slab(params0, data.num_clients), "group_host": group_host,
-                "num_groups": int(group_host.max()) + 1}
+        m = data.num_clients
+        return {"params": layout.slab(params0, m), "group_host": group_host,
+                "num_groups": int(group_host.max()) + 1,
+                **common.wire_state(schema, cfg.transport, m, dev)}
 
     def dense(state, data, gen, perms):
         updated = local(state["params"], data.x, data.y, gen=gen, perms=perms)
@@ -35,12 +44,16 @@ def make_oracle(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=
 
     def masked(state, data, gen, idx, mask, perms):
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
-        post = local(co.rows["params"], co.x, co.y, perms=co.keys(perms))
+        pc = co.rows["params"]
+        post = local(pc, co.x, co.y, perms=co.keys(perms))
+        out = {}
+        if up is not None:
+            post, out["ef"] = common.uplink(up, state, co, pc, post)
         rows = aggregation.masked_group_rows(data.group[co.safe], data.n[co.safe], co.mask)
         new = aggregation.mix_scatter_flat(state["params"], post, rows, co.idx, co.mask)
         streams = int(np.unique(state["group_host"][co.members]).size)
-        return dict(state, params=new), {"streams": streams}
+        return dict(state, params=new, **out), {"streams": streams}
 
-    return Strategy("oracle", init, common.cohort_round(dense, masked),
+    return Strategy("oracle", init, common.cohort_round(dense, masked, transport=cfg.transport),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="groupcast")
+                    comm_scheme="groupcast", wire_schema=schema)

@@ -12,6 +12,10 @@ dispatched from Python: at m = 100 and n = 1000 a round is 50 batches ×
 15 inner steps = 750 of them. The cohort round trains the gathered rows
 (one ``cohort_gather`` launch), mixes with the cohort's own mean (the
 cohort-shaped broadcast) and writes the real slots of both slabs back.
+
+Wire: a ``delta`` upload of w; the server's average reads the dequantized
+uploads, the (1 − β) retention each client's raw w. The ``average``
+downlink stays raw (the β-mix has no shared receiver reference).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
 from repro_torch.data.loader import draw_permutations
 from repro_torch.federated import client as fedclient
+from repro_torch.federated import transport as transport_lib
 
 
 @register("pfedme")
@@ -31,6 +36,10 @@ def make_pfedme(apply_stacked, params0,
                 beta: float = 1.0, device=None):
     params0, layout, dev = common.prepare(params0, device)
     bsz = cfg.batch_size
+    schema = transport_lib.single_delta_schema(
+        "pfedme", layout.dim,
+        downlink=(transport_lib.Stream("average", layout.dim, coding="raw"),))
+    up, _ = common.wire_stages(schema, cfg.transport)
 
     def client_update(w, x, y, perms):
         """(U, dim_aligned) local copies -> (new w, last φ)."""
@@ -60,7 +69,8 @@ def make_pfedme(apply_stacked, params0,
 
     def init(gen, data):
         m = data.num_clients
-        return {"params": layout.slab(params0, m), "personal": layout.slab(params0, m)}
+        return {"params": layout.slab(params0, m), "personal": layout.slab(params0, m),
+                **common.wire_state(schema, cfg.transport, m, dev)}
 
     def dense(state, data, gen, perms):
         m, n = data.y.shape
@@ -74,13 +84,16 @@ def make_pfedme(apply_stacked, params0,
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
         wc = co.rows["params"]
         new_wc, phic = run_clients(wc, co.x, co.y, co.keys(perms))
+        out, wire = {}, new_wc
+        if up is not None:
+            wire, out["ef"] = common.uplink(up, state, co, wc, new_wc)
         # the cohort-shaped broadcast: every slot gets the real slots' mean
-        avg = common.fedavg_masked_mix(wc, new_wc, co.idx, co.mask, data.n)
+        avg = common.fedavg_masked_mix(wc, wire, co.idx, co.mask, data.n)
         w = aggregation.scatter_rows(state["params"], co.idx, (1 - beta) * new_wc + beta * avg,
                                      co.real)
         personal = aggregation.scatter_rows(state["personal"], co.idx, phic, co.real)
-        return {"params": w, "personal": personal}, {"streams": 1}
+        return {"params": w, "personal": personal, **out}, {"streams": 1}
 
-    return Strategy("pfedme", init, common.cohort_round(dense, masked),
+    return Strategy("pfedme", init, common.cohort_round(dense, masked, transport=cfg.transport),
                     lambda s: layout.unravel(s["personal"]),
-                    comm_scheme="broadcast", num_streams=1)
+                    comm_scheme="broadcast", num_streams=1, wire_schema=schema)

@@ -11,6 +11,13 @@ global c, one copy a client). The cohort round gathers the cohort's rows
 of all three (one ``cohort_gather`` launch each), refreshes the cohort's
 c_i only (pad slots write nothing), re-averages every stored c_i, stale
 ones included, and broadcasts the mean of the real uploads.
+
+Wire: two streams each way. Up, ``delta`` and ``control_delta``: the
+client derives its new control from its raw local model first, then the
+stage quantizes ``[post | c_i⁺]`` against ``[θ | c_i]``, each half with
+its own EF slice, so the EF slab is (m, 2·dim_aligned). Down, ``model``
+and ``control``: ``[new global | new c]`` delta-coded against row 0 of
+``[params | c]`` with one server EF row.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import transport as transport_lib
 
 
 def _mean_row(slab):
@@ -35,11 +43,21 @@ def make_scaffold(apply_stacked, params0,
 
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg, grad_hook=control_hook)
+    schema = transport_lib.WireSchema(
+        "scaffold",
+        uplink=(transport_lib.Stream("delta", layout.dim),
+                transport_lib.Stream("control_delta", layout.dim)),
+        downlink=(transport_lib.Stream("model", layout.dim),
+                  transport_lib.Stream("control", layout.dim)))
+    up, down = common.wire_stages(schema, cfg.transport)
+    width = layout.dim_aligned  # one stream's slice of the wire slab
 
     def init(gen, data):
-        stacked = layout.slab(params0, data.num_clients)
+        m = data.num_clients
+        stacked = layout.slab(params0, m)
         return {"params": stacked, "c_i": torch.zeros_like(stacked),
-                "c": torch.zeros_like(stacked)}
+                "c": torch.zeros_like(stacked),
+                **common.wire_state(schema, cfg.transport, m, dev)}
 
     def inv_steps(data):
         """1 / (K·η)."""
@@ -58,10 +76,28 @@ def make_scaffold(apply_stacked, params0,
         pc, cic, cc = (co.rows[k] for k in ("params", "c_i", "c"))
         post = local(pc, co.x, co.y, (cic, cc), perms=co.keys(perms))
         new_cic = cic - cc + inv_steps(data) * (pc - post)
+        if up is None:
+            c_i = aggregation.scatter_rows(state["c_i"], co.idx, new_cic, co.real)
+            params = common.fedavg_masked_mix(state["params"], post, co.idx, co.mask, data.n)
+            return {"params": params, "c_i": c_i, "c": _mean_row(c_i)}, {"streams": 1}
+        wire, ef = common.uplink(up, state, co, torch.cat([pc, cic], dim=1),
+                                 torch.cat([post, new_cic], dim=1))
+        post, new_cic = wire[:, :width], wire[:, width:]
         c_i = aggregation.scatter_rows(state["c_i"], co.idx, new_cic, co.real)
-        params = common.fedavg_masked_mix(state["params"], post, co.idx, co.mask, data.n)
-        return {"params": params, "c_i": c_i, "c": _mean_row(c_i)}, {"streams": 1}
+        # the downlink: both broadcast rows against the old [global | c]
+        params, c = state["params"], state["c"]
+        w = aggregation.masked_fedavg_weights(data.n[co.safe], co.mask)
+        mixed = aggregation.user_centric(post, w)  # (1, width)
+        dl_post = torch.cat([mixed, torch.mean(c_i, dim=0, keepdim=True)], dim=1)
+        served, new_ef_dl = down(torch.cat([params[0:1], c[0:1]], dim=1), dl_post,
+                                 state["ef_dl"])
+        alive = torch.any(co.mask)
+        return {"params": torch.where(alive, served[:, :width].expand_as(params), params),
+                "c_i": c_i,
+                "c": torch.where(alive, served[:, width:].expand_as(c), c),
+                "ef": ef, "ef_dl": torch.where(alive, new_ef_dl, state["ef_dl"])}, \
+            {"streams": 1}
 
-    return Strategy("scaffold", init, common.cohort_round(dense, masked),
+    return Strategy("scaffold", init, common.cohort_round(dense, masked, transport=cfg.transport),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="broadcast", num_streams=1)
+                    comm_scheme="broadcast", num_streams=1, wire_schema=schema)

@@ -37,6 +37,11 @@ class Strategy:
     comm_scheme: str = "broadcast"
     num_streams: int | None = None
     skip_round: Callable[[Any], Any] | None = None
+    # the declared wire layout, a
+    # :class:`repro_torch.federated.transport.WireSchema`: the transport
+    # stages and the comm model's byte pricing
+    # (``comm_model.wire_bytes``) read it
+    wire_schema: Any = None
 
 
 def register(name):
@@ -53,13 +58,25 @@ class FedConfig:
     ``chunk_size`` bounds peak client-axis memory: local SGD and the
     special round train sequential chunks of that many clients (see
     :func:`repro_torch.federated.client.make_federated_local_sgd`); ``None``
-    trains all clients at once. The reference's engine knobs (mesh,
-    shard_state, w_refresh, async_buffer, faults, robust, transport,
-    topology, selection) come with later slices; naming one here raises
-    ``TypeError`` at construction.
+    trains all clients at once.
+
+    ``transport`` (a :class:`repro_torch.federated.transport.TransportConfig`,
+    or ``None`` = off) quantizes the wire of cohort rounds: each strategy's
+    ``delta`` streams travel int8 or fp8 with error feedback, per stream of
+    its ``wire_schema`` (the client's on the uplink, the server's on a
+    delta-coded downlink); the state then holds the EF slabs ``ef`` and,
+    where the downlink is delta-coded, ``ef_dl``. Anything but a
+    ``TransportConfig`` raises ``TypeError`` when a strategy is built; a
+    dense round with it raises ``ValueError``. ``None`` keeps every
+    trajectory bit-identical.
+
+    The reference's other engine knobs (mesh, shard_state, w_refresh,
+    async_buffer, faults, robust, topology, selection) come with later
+    slices; naming one here raises ``TypeError`` at construction.
     """
     lr: float = 0.1
     momentum: float = 0.9
     epochs: int = 1
     batch_size: int = 50
     chunk_size: int | None = None
+    transport: Any = None

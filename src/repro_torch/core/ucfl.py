@@ -31,6 +31,15 @@ slots reach the card in one asynchronous copy from pinned memory, so
 the host does not wait for the stream to drain before it queues the
 round.
 
+Wire (``FedConfig.transport``): one ``delta`` upload either way. Full
+personalization also delta-codes its per-client ``personalized`` downlink
+against each receiver's round-start row, with a server EF row a client
+(``ef_dl``, (m, dim_aligned)): its cohort round then mixes the cohort
+rows in one ``mix_aggregate`` launch, passes them through the downlink
+stage and scatters the real slots, in place of the fused mix-scatter.
+The clustered variant's ``centroids`` groupcast stays raw (a centroid is
+no receiver's old model), and keeps the fused launch.
+
 The baselines the paper compares against are in
 :mod:`repro_torch.core.baselines`. ``ucfl_parallel`` and the engine knobs
 come with later slices (ROADMAP queue A).
@@ -44,6 +53,8 @@ from repro_torch.core import aggregation, clustering, flat, similarity
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
 from repro_torch.federated import client as fedclient
+from repro_torch.federated import transport as transport_lib
+from repro_torch.kernels import ops
 
 
 def compute_collaboration(apply_stacked, params0, data, *, var_batch_size=100,
@@ -103,6 +114,14 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
                          f"got {num_streams!r}")
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
+    if num_streams is None:
+        schema = transport_lib.single_delta_schema(
+            "ucfl", layout.dim, downlink=(transport_lib.Stream("personalized", layout.dim),))
+    else:
+        schema = transport_lib.single_delta_schema(
+            f"ucfl_k{num_streams}", layout.dim,
+            downlink=(transport_lib.Stream("centroids", layout.dim, coding="raw"),))
+    up, down = common.wire_stages(schema, cfg.transport)
 
     def init(gen, data, *, kmeans_init=None):
         """``kmeans_init`` (k, m) replaces the K-means++ seeds (parity
@@ -122,7 +141,8 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             # with a device sync every round
             labels_host = labels.cpu().numpy()
         return {"params": layout.slab(params0, m), "W": w, "labels": labels,
-                "labels_host": labels_host, "streams": k, "collab": collab}
+                "labels_host": labels_host, "streams": k, "collab": collab,
+                **common.wire_state(schema, cfg.transport, m, dev, dl_rows=m)}
 
     def dense(state, data, gen, perms):
         updated = local(state["params"], data.x, data.y, gen=gen, perms=perms)
@@ -134,8 +154,13 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         return dict(state, params=mixed), {"streams": streams or data.num_clients}
 
     def masked(state, data, gen, idx, mask, perms):
-        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
-        post = local(co.rows["params"], co.x, co.y, perms=co.keys(perms))
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
+                                  slabs=("params",) if down is None else ("params", "ef_dl"))
+        pc = co.rows["params"]
+        post = local(pc, co.x, co.y, perms=co.keys(perms))
+        out = {}
+        if up is not None:
+            post, out["ef"] = common.uplink(up, state, co, pc, post)
         if state["streams"] is None:
             rows = aggregation.masked_cohort_matrix(state["W"], co.idx, co.mask)
             n_streams = co.real
@@ -143,13 +168,19 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             rows = aggregation.masked_clustered_rows(state["W"], state["labels"],
                                                      state["streams"], co.idx, co.mask)
             n_streams = int(np.unique(state["labels_host"][co.members]).size)
-        params = aggregation.mix_scatter_flat(state["params"], post, rows, co.idx, co.mask)
-        return dict(state, params=params), {"streams": n_streams}
+        if down is None:
+            params = aggregation.mix_scatter_flat(state["params"], post, rows, co.idx, co.mask)
+        else:  # each receiver's mix, delta-coded against its round-start row
+            served, ef_dl = down(pc, ops.mix_aggregate(rows, post), co.rows["ef_dl"])
+            out["ef_dl"] = aggregation.scatter_rows(state["ef_dl"], co.idx, ef_dl, co.real)
+            params = aggregation.scatter_rows(state["params"], co.idx, served, co.real)
+        return dict(state, params=params, **out), {"streams": n_streams}
 
     return Strategy(
         name="ucfl" if num_streams is None else f"ucfl_k{num_streams}",
-        init=init, round=common.cohort_round(dense, masked),
+        init=init, round=common.cohort_round(dense, masked, transport=cfg.transport),
         eval_params=lambda s: layout.unravel(s["params"]),
         comm_scheme="unicast" if num_streams is None else "groupcast",
         num_streams=None if num_streams in (None, "auto") else num_streams,
+        wire_schema=schema,
     )

@@ -36,7 +36,11 @@ from repro_torch.core import REGISTRY, Cohort, FedConfig, aggregation, flat, sim
 from repro_torch.core.baselines import common, fedfomo
 from repro_torch.federated import client, participation, simulation
 from repro_torch.models import lenet
-from torch_parity import BATCH, SMALL, n, ref_permutations, small_task, t
+from torch_parity import (BATCH, SMALL, n, one_torch_thread,  # noqa: F401
+                          ref_permutations, small_task, t)
+
+# every test on one torch thread (torch_parity.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NAMES = ["fedavg", "fedprox", "local", "oracle", "scaffold", "ditto", "pfedme", "fedfomo", "cfl"]
 SLABS = ("params", "personal", "c_i", "c")

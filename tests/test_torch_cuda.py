@@ -45,6 +45,7 @@ from repro_torch.kernels.kmeans_assign import ASSIGN, kmeans_plan
 from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER
 from repro_torch.kernels.mix_aggregate import MIX, mix_plan
 from repro_torch.kernels import pairwise_delta
+from repro_torch.kernels.cohort_gather import GATHER
 from repro_torch.kernels.pairwise_delta import GRAM
 
 
@@ -313,6 +314,8 @@ def _cohort(m, c, real, gen, dev):
     (13, 97, 6, 4, False),        # odd width: the scalar path
     (7, 300, 7, 7, True),         # d % 4 == 0 but a misaligned base: the scalar path
     (100, 47616, 50, 0, False),   # all pads: every slot reads row m-1
+    (100, 95232, 50, 42, False),  # SCAFFOLD's two-stream EF slab under a quantized wire
+    (100, 95232, 50, 0, False),
 ])
 def test_cuda_cohort_gather_matches_plain(m, d, c, real, misalign):
     dev = cuda_device()
@@ -582,6 +585,101 @@ def test_cuda_baseline_rounds_match_cpu(name):
         assert float((cs["params"].cpu() - hs["params"]).abs().max()) <= 1e-4, r
     assert MIX.launches - mixes == 2
     assert GRAM.launches - grams == (2 if name == "fedfomo" else 0)
+
+
+def _wire_schema(width, streams):
+    from repro_torch.federated import transport
+
+    names = [("delta", "model"), ("control_delta", "control")][:streams]
+    return transport.WireSchema(
+        "scaffold" if streams == 2 else "fedavg",
+        uplink=tuple(transport.Stream(up, width) for up, _ in names),
+        downlink=tuple(transport.Stream(down, width) for _, down in names))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("direction", ["uplink", "downlink"])
+def test_cuda_wire_stage_equals_cpu_bits(kind, streams, direction):
+    """The quantize→dequantize→EF stage on the card gives the CPU's bits
+    (round-half-even, e4m3 cast, division by a tensor) on a 50-slot
+    cohort's (50, 47,616) single-stream and (50, 95,232) SCAFFOLD wire,
+    its zero tail included; two calls, the second carrying the EF."""
+    from repro_torch.federated import transport
+
+    dev = cuda_device()
+    schema = _wire_schema(47571, streams)
+    stage = transport.make_wire_stage(schema, transport.TransportConfig(kind), direction)
+    rows, width = (50 if direction == "uplink" else 1), schema.width_aligned(direction)
+    gen = torch.Generator().manual_seed(streams)
+    pre = torch.randn(rows, width, generator=gen)
+    post = pre + 0.01 * torch.randn(rows, width, generator=gen) * torch.logspace(
+        -2, 2, rows * width // 128).repeat_interleave(128).view(rows, width)
+    tails = [slice(lo + 47571, hi) for lo, hi in schema.slices(direction)]
+    for tail in tails:
+        pre[:, tail], post[:, tail] = 0.0, 0.0
+    ef = torch.zeros(rows, width)
+    ef_card = ef.to(dev)
+    for _ in range(2):
+        want, ef = stage(pre, post, ef)
+        got, ef_card = stage(pre.to(dev), post.to(dev), ef_card)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want) and torch.equal(ef_card.cpu(), ef)
+        assert all(bool((ef[:, tail] == 0).all()) for tail in tails)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ucfl", "fedavg", "scaffold"])
+def test_cuda_wire_rounds_match_cpu(name):
+    """Two int8 cohort rounds (two pad slots) on the card against the
+    CPU's plain path from the same data, weights and batch orders: every
+    slab, EF included, within 1e-4 or, where the card's sums flip a
+    rounding of the wire, one step of its chunk (twice the CPU's largest
+    residual there), for at most 0.1 % of the elements."""
+    from repro_torch.core import REGISTRY, FedConfig
+    from repro_torch.data import loader, synthetic
+    from repro_torch.federated import participation
+    from repro_torch.federated.transport import TransportConfig
+    from repro_torch.models import lenet
+
+    dev = cuda_device()
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(m=8, n=80, n_test=20, num_classes=6, hw=(16, 16))
+    cpu_data = synthetic.covariate_label_shift(0, device="cpu", **kw)
+    gpu_data = synthetic.FederatedData(*(a.to(dev) for a in cpu_data))
+    p0 = lenet.init(torch.Generator().manual_seed(0), input_hw=(16, 16), num_classes=6,
+                    device="cpu")
+    base = dict(lr=0.01, momentum=0.0, epochs=5) if name == "scaffold" else {}
+    cfg = FedConfig(batch_size=16, transport=TransportConfig("int8"), **base)
+    extra = dict(var_batch_size=20) if name == "ucfl" else {}
+    host = REGISTRY[name](lenet.apply_stacked, p0, cfg, device="cpu", **extra)
+    card = REGISTRY[name](lenet.apply_stacked, p0, cfg, device=dev, **extra)
+    hs, cs = host.init(None, cpu_data), card.init(None, gpu_data)
+    cohort = participation.pad_slots(participation.as_cohort([1, 3, 6], 8), 5, 8)
+    gathers = GATHER.launches
+    for r in range(2):
+        perms = loader.draw_permutations(torch.Generator().manual_seed(r), 8, cfg.epochs, 80,
+                                         device="cpu")
+        hs, hm = host.round(hs, cpu_data, None, cohort, perms=perms)
+        cs, cm = card.round(cs, gpu_data, None, cohort, perms=perms.to(dev))
+        torch.cuda.synchronize()
+        assert hm == cm
+        width = hs["params"].shape[1]
+        step = torch.zeros(width)
+        for k in ("ef", "ef_dl"):
+            if k in hs:
+                peak = hs[k].abs().amax(dim=0).view(-1, 128).amax(dim=1).repeat_interleave(128)
+                step += 2 * peak.view(-1, width).amax(dim=0)
+        for k, want in hs.items():
+            if not isinstance(want, torch.Tensor) or want.dtype != torch.float32 or k in (
+                    "W", "collab"):
+                continue
+            err = (cs[k].cpu() - want).abs()
+            assert bool((err <= 1e-4 + step.repeat(want.shape[1] // width)).all()), (r, k)
+            assert float((err > 1e-4).float().mean()) <= 1e-3, (r, k)
+    per_round = {"ucfl": 3, "fedavg": 2, "scaffold": 4}[name]  # one a gathered slab
+    assert GATHER.launches - gathers == 2 * per_round
 
 
 # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, softcap)

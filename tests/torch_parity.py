@@ -12,6 +12,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.data import synthetic as ref_synthetic
@@ -26,6 +27,19 @@ CPU = "cpu"
 SMALL = dict(m=6, n=80, n_test=20, num_classes=6, hw=(16, 16))
 BATCH = 20
 VAR_BATCH = 20
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run a test's torch CPU ops on one thread, then restore the count.
+    Under pytest-xdist several workers share the cores, and torch's
+    default of one OpenMP thread a core oversubscribes them: its threads
+    spin at every barrier, so a heavy file runs several times slower than
+    on one thread. Results stay within the tests' stated tolerances."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _glorot(rng, shape):
