@@ -77,14 +77,35 @@ Phases, each printed as it ends:
                fails if ucfl's or ucfl_k4's int8 accuracy falls more than
                0.05 below the raw wire's, or a delta uplink prices fewer
                than 3.5x fewer bytes;
-  9. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
+  9. knobs  — the engine knobs on the same task: gram on the streaming
+               refresh's slab-wide unit-direction rows (100, 47,616) within
+               1e-5 of its largest entry and with no padded copy, and the
+               mix-scatter with holes mid-cohort (sentinel and in-range ids)
+               bit for bit the compacted cohort's; the refresh and one
+               faulted round at a small size against the CPU (1e-4); then
+               ucfl and ucfl_k4 with ``RefreshConfig()`` at fraction 0.5 (2
+               rounds) and ucfl under availability cohorts with an
+               all-offline round (staleness, W's row sums and distance from
+               the special round's W); ucfl_parallel, one dense round and one
+               at fraction 0.5, without and with the refresh (wall, device
+               busy, peak memory, units trained); ucfl and the nine
+               baselines at fraction 0.5 under sign flips and drops
+               (``FaultConfig(byzantine_frac=0.1, attack="sign_flip",
+               drop_rate=0.1)``) with ``RobustConfig("trimmed_mean",
+               trim_k=5)``; ucfl under each of the five robust rules and
+               under NaN uploads with the finite guard alone: each run's
+               accuracy against the untrained model, exact launches, a
+               profiled cohort round's host-counted launches and busy time,
+               and the upload stage's launches and ms at (50, 47,616);
+               ``knobs_path`` JSON line;
+  10. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
                federated prefill step (the FMA kernel) and teacher-forced
                decode steps (the decode kernel; gemma2 past its window-64
                wrap) on the card against the plain path on the CPU; then
                both in bf16, the prefill step through the tensor-core tile
                and 72 decode steps through the decode kernel, each against
                the same steps with the plain attention on the card;
-  10. serve  — personalized serving of qwen2-7b at full width and depth
+  11. serve  — personalized serving of qwen2-7b at full width and depth
                (28 layers, bf16) for 2 clients x 2 requests: the federated
                prefill step over 1024 tokens, a profile of decode steps,
                a profile of one prefill step, then ``serve()`` (a 128-token
@@ -122,8 +143,11 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import REGISTRY, FedConfig, ParticipationConfig, clustering, flat, ucfl  # noqa: E402
 from repro_torch.core import comm_model  # noqa: E402
+from repro_torch.core.aggregation import RobustConfig  # noqa: E402
+from repro_torch.core.similarity import RefreshConfig  # noqa: E402
 from repro_torch.data import loader, synthetic  # noqa: E402
-from repro_torch.federated import client, participation, simulation, transport  # noqa: E402
+from repro_torch.federated import client, faults, participation, simulation  # noqa: E402
+from repro_torch.federated import transport  # noqa: E402
 from repro_torch.federated.transport import TransportConfig  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.cohort_gather import GATHER  # noqa: E402
@@ -198,6 +222,8 @@ FMA_CASE = (4, 4, 2, 40, 40, 32, True, None, None)
 # the decode route may cost the host at most this much more a call than the
 # FMA route (the decode step is bound by the host's launches)
 HOST_GATE_US = 5.0
+# the knobs phase's small-size agreement: two attackers of eight, drops
+AGREE_FAULTS = faults.FaultConfig(byzantine_frac=0.25, attack="sign_flip", drop_rate=0.2)
 
 
 def phase(name, t0, msg):
@@ -980,7 +1006,10 @@ def profile(fn, dev, top=8):
     time, and the device time and count of its copies to the host.
 
     Annotation ranges that the profiler mirrors onto the device span other
-    kernels and the gaps between them, so they are left out."""
+    kernels and the gaps between them, so they are left out. The trace is
+    read as the profiler's raw events (its ``kineto_results``): building
+    its Python event tree takes about 1 ms a kernel launch, minutes for a
+    round of ucfl_parallel."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -990,19 +1019,23 @@ def profile(fn, dev, top=8):
         fn()
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t) * 1e3
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)]
+    spans, launches = [], 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not e.is_user_annotation():
+                start = e.start_ns() / 1e3
+                spans.append((name, start, start + e.duration_ns() / 1e3))
+        # kernel launches counted on the host (the runtime's launch calls),
+        # which a trace of the device can miss where it starts
+        elif name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches += 1
     if not spans:
         raise AssertionError("profile: no device activity was traced")
     busy_ms = union_length([(s, e) for _, s, e in spans]) / 1e3
     if not busy_ms <= wall_ms:
         raise AssertionError(f"profile: device busy {busy_ms:.3f} ms exceeds the wall "
                              f"time {wall_ms:.3f} ms")
-    # kernel launches counted on the host (the runtime's launch calls),
-    # which a trace of the device can miss where it starts
-    launches = sum(1 for e in prof.events()
-                   if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     by_name = {}
     for name, s, e in spans:
         ms, calls = by_name.get(name, (0.0, 0))
@@ -1276,15 +1309,9 @@ def baselines_phase(dev, data, params0, untrained):
 
 def wire_strategy(name, params0, dev, kind):
     """``name`` at its reference defaults with ``FedConfig.transport`` of
-    ``kind`` (None: the raw wire); ``ucfl_k4`` is ucfl with 4 streams."""
-    tr = None if kind is None else TransportConfig(kind)
-    if name in ("ucfl", "ucfl_k4"):
-        return ucfl.make_ucfl(lenet.apply_stacked, params0, FedConfig(transport=tr),
-                              num_streams=None if name == "ucfl" else 4, var_batch_size=100,
-                              device=dev)
-    cfg = inspect.signature(REGISTRY[name]).parameters["cfg"].default
-    return REGISTRY[name](lenet.apply_stacked, params0, dataclasses.replace(cfg, transport=tr),
-                          device=dev)
+    ``kind`` (None: the raw wire)."""
+    return knob_strategy(name, params0, dev,
+                         transport=None if kind is None else TransportConfig(kind))
 
 
 def wire_launches(name, kind):
@@ -1502,6 +1529,368 @@ def transport_phase(dev, data, params0, untrained):
           "0.5, raw wire against int8 (ucfl and fedavg also fp8)")
     print("transport_path " + json.dumps({"runs": results, "untrained_avg_acc": untrained}))
     return launches
+
+
+# ------------------------------------------------------------------ knobs
+
+
+def unit_gram_check(dev, ghat):
+    """gram on the refresh's slab-wide unit-direction rows (one launch, no
+    padded copy) against the plain Gram, within 1e-5 of its largest
+    entry; returns the error."""
+    padded = GRAM.padded
+    got = ops.gram(ghat, impl="cuda")
+    want = ref.gram(ghat)
+    err = check("gram on unit rows", got, want, 1e-5 * float(want.abs().max()))
+    if GRAM.padded != padded:
+        raise AssertionError("gram on unit rows: the kernel copied its input to a padded scratch")
+    print(f"  gram on the unit-direction rows {tuple(ghat.shape)}: max_abs_err {err:.3e} "
+          "(tolerance 1e-5 of the largest entry), no padded copy")
+    return err
+
+
+def holed_scatter_check(dev, m, d_al):
+    """masked_mix_scatter with a final mask that has holes mid-cohort (what
+    drops, the finite guard, trimmed mean and Krum leave): demoted slots
+    carry the sentinel (the reference's contract) or keep their in-range
+    client id (the port's pre-stage slots), and W has zero columns there.
+    The live rows within 1e-5 of the plain version and bit for bit those
+    of the compacted cohort of the live slots; no other row moves."""
+    c = m // 2
+    real = c * 21 // 25  # 42 of 50 slots at m = 100
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    full = torch.randn(m, d_al, generator=gen, device=dev)
+    idx, mask = padded_cohort(gen, dev, m, c, real)
+    holes = torch.tensor(sorted({0, 3, real * 2 // 5, real * 5 // 7, real - 1}), device=dev)
+    mask = mask.clone()
+    mask[holes] = False
+    w, theta = scatter_rules(gen, dev, c, real, d_al)
+    w = w * mask.float()[None, :]
+    w = w / w.sum(dim=1, keepdim=True)
+    live = torch.nonzero(mask).squeeze(1)
+    for name, index in (("sentinel", torch.where(mask, idx, torch.full_like(idx, m))),
+                        ("in-range", idx)):
+        want = ref.masked_mix_scatter(w, theta, index, mask, full)
+        got = ops.masked_mix_scatter(w, theta, index, mask, full.clone(), impl="cuda")
+        err = check(f"masked_mix_scatter holes ({name})", got, want,
+                    1e-5 * float(want.abs().max()))
+        compact = ops.masked_mix_scatter(w[live][:, live].contiguous(), theta[live].contiguous(),
+                                         idx[live], mask[live], full.clone(), impl="cuda")
+        if not torch.equal(got, compact):
+            raise AssertionError(f"masked_mix_scatter holes ({name}): the live rows are not bit "
+                                 "for bit the compacted cohort's")
+        moved = torch.ones(m, dtype=torch.bool, device=dev)
+        moved[idx[live].long()] = False
+        if not torch.equal(got[moved], full[moved]):
+            raise AssertionError(f"masked_mix_scatter holes ({name}): a demoted or absent row "
+                                 "moved")
+    print(f"  masked_mix_scatter, {int(mask.sum())} live of {c} slots with holes mid-cohort: "
+          f"within {err:.3e} of the plain version, bit for bit the compacted cohort's, demoted "
+          "rows untouched (sentinel and in-range ids)")
+    return err
+
+
+def knobs_agree(dev):
+    """The refresh and the upload stage at a small size on the card against
+    the plain path on the CPU, from the same data, weights, batch orders and
+    fault draws: ucfl with RefreshConfig() over two cohort rounds (slab, W
+    and buffers within 1e-4, staleness exact), and one faulted cohort round
+    (sign flips and drops, trimmed mean) of ucfl and fedavg (slab within
+    1e-4, the same final streams)."""
+    kw = dict(m=8, n=80, n_test=20, num_classes=6, hw=(16, 16))
+    cpu_data = synthetic.covariate_label_shift(SEED, device="cpu", **kw)
+    gpu_data = synthetic.FederatedData(*(a.to(dev) for a in cpu_data))
+    p0 = lenet.init(torch.Generator().manual_seed(SEED), input_hw=(16, 16), num_classes=6,
+                    device="cpu")
+    cohorts = [participation.pad_slots(participation.as_cohort([1, 3, 6], 8), 5, 8),
+               participation.pad_slots(participation.as_cohort([0, 2, 3, 5, 7], 8), 6, 8)]
+    errs = {}
+    runs = [("ucfl_refresh", "ucfl", dict(w_refresh=RefreshConfig())),
+            ("ucfl_faults", "ucfl", dict(faults=AGREE_FAULTS, robust=RobustConfig("trimmed_mean"))),
+            ("fedavg_faults", "fedavg",
+             dict(faults=AGREE_FAULTS, robust=RobustConfig("trimmed_mean")))]
+    for cell, name, knobs in runs:
+        cfg = FedConfig(batch_size=20, **knobs)
+        extra = dict(var_batch_size=20) if name == "ucfl" else {}
+        host = REGISTRY[name](lenet.apply_stacked, p0, cfg, device="cpu", **extra)
+        card = REGISTRY[name](lenet.apply_stacked, p0, cfg, device=dev, **extra)
+        hs, cs = host.init(None, cpu_data), card.init(None, gpu_data)
+        worst = 0.0
+        for r, cohort in enumerate(cohorts if "refresh" in cell else cohorts[1:]):
+            perms = loader.draw_permutations(torch.Generator().manual_seed(30 + r), 8, 1, 80,
+                                             device="cpu")
+            hs, hm = host.round(hs, cpu_data, None, cohort, perms=perms)
+            cs, cm = card.round(cs, gpu_data, None, cohort, perms=perms.to(dev))
+            if int(hm["streams"]) != int(cm["streams"]):
+                raise AssertionError(f"knobs agree {cell}: streams {cm} != {hm}")
+            pairs = [("params", cs["params"], hs["params"])]
+            if "refresh" in cs:
+                pairs += [("W", cs["W"], hs["W"])] + [
+                    (k, cs["refresh"][k], hs["refresh"][k]) for k in ("grads", "sigma_sq",
+                                                                      "delta")]
+                if not torch.equal(cs["refresh"]["staleness"].cpu(), hs["refresh"]["staleness"]):
+                    raise AssertionError(f"knobs agree {cell}: staleness differs")
+            for k, got, want in pairs:
+                err = float((got.cpu() - want).abs().max())
+                if not err <= 1e-4:
+                    raise AssertionError(f"knobs agree {cell} round {r + 1}: {k} differs by "
+                                         f"{err:.3e}")
+                worst = max(worst, err)
+        if not all(bool(torch.isfinite(v).all()) for v in (cs["params"],)):
+            raise AssertionError(f"knobs agree {cell}: non-finite params")
+        errs[cell] = worst
+    print(f"  small size, card against the CPU (within 1e-4): {errs}")
+    return errs
+
+
+def stage_cost_at(dev, fcfg, rcfg, d_al, m):
+    """The upload stage alone on an m/2-slot (50, 47,616 at m = 100) upload
+    slab: its launches (host-counted, one profiled call) and CUDA-event ms."""
+    c = real = m // 2
+    stage = faults.upload_stage(fcfg, rcfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    pre = torch.randn(c, d_al, generator=gen, device=dev)
+    post = pre + 0.01 * torch.randn(c, d_al, generator=gen, device=dev)
+    idx, mask = padded_cohort(gen, dev, m, c, real)
+    call = functools.partial(stage, pre, post, idx, mask, m, 0)
+    call()
+    # four calls a trace: the trace of one short call can miss all of its
+    # device work where it starts; the launches are counted on the host
+    prof = profile(lambda: [call() for _ in range(4)], dev)
+    return {"launches": prof["launches"] / 4, "ms": time_ms(call, dev)}
+
+
+def knob_rows(name, got):
+    """A run's kernel launches under the rows of their shapes: FedFomo's
+    gram and mix over its 50 slots, the FedAvg family's k = 1 mean over 50
+    uploads, and the (100, 47,616) rows of everything else."""
+    out = {}
+    for kernel, count in got.items():
+        if kernel == "gram":
+            row = "gram_m50" if name == "fedfomo" else "gram"
+        elif kernel == "mix_aggregate":
+            row = "mix_aggregate_k50" if name == "fedfomo" else "mix_aggregate_k1_m50"
+        else:
+            row = kernel
+        out[row] = out.get(row, 0) + count
+    return out
+
+
+def knob_strategy(name, params0, dev, **knobs):
+    """``name`` at its reference defaults with the ``FedConfig`` knobs;
+    ``ucfl_k4`` is ucfl with 4 streams."""
+    if name in ("ucfl", "ucfl_k4"):
+        return ucfl.make_ucfl(lenet.apply_stacked, params0, FedConfig(**knobs),
+                              num_streams=None if name == "ucfl" else 4, var_batch_size=100,
+                              device=dev)
+    cfg = inspect.signature(REGISTRY[name]).parameters["cfg"].default
+    return REGISTRY[name](lenet.apply_stacked, params0, dataclasses.replace(cfg, **knobs),
+                          device=dev)
+
+
+def knob_run(cell, name, strat, data, untrained, pcfg, rounds, per_round, once, rows,
+             stage=None):
+    """``rounds`` rounds of ``strat`` through ``simulation.run`` after its
+    warm-up, then one more cohort round profiled: the accuracy against the
+    untrained model's, exact launches (``per_round`` a cohort round that
+    ran, the warm-up's included, and ``once`` for the special round;
+    ucfl_k4's K-means iterations as they came), and a finite state.
+    Returns the run's record, its last state and its history."""
+    m = data.num_clients
+    zero_counters()
+    t = time.perf_counter()
+    hist = simulation.run(strat, lenet.apply_stacked, data, SEED, rounds=rounds,
+                          participation=pcfg, device=data.x.device)
+    total_s = time.perf_counter() - t
+    ran = sum(not mt.get("skipped", False) for mt in hist.metrics) + 1
+    expect = {k: v * ran for k, v in per_round.items()}
+    for k, v in once.items():
+        expect[k] = expect.get(k, 0) + v
+    if name == "ucfl_k4":
+        if not ASSIGN.launches:
+            raise AssertionError(f"{cell}: K-means never launched kmeans_assign")
+        expect["kmeans_assign"] = ASSIGN.launches
+    got = read_counters(cell, expect)
+    if GRAM.padded:
+        raise AssertionError(f"{cell}: gram made {GRAM.padded} padded copies")
+    for k, v in knob_rows(name, got).items():
+        rows[k] = rows.get(k, 0) + v
+    state = hist.state
+    slabs = [v for v in state.values() if isinstance(v, torch.Tensor)]
+    if not all(bool(torch.isfinite(v).all()) for v in slabs):
+        raise AssertionError(f"{cell}: non-finite state")
+    if not hist.avg_acc[-1] > untrained:
+        raise AssertionError(f"{cell}: avg accuracy {hist.avg_acc[-1]:.4f} does not beat the "
+                             f"untrained model's {untrained:.4f}")
+    cohort = next(c for c in participation.cohort_schedule(pcfg, rounds + 24, m)[rounds:]
+                  if len(c))
+    pgen = torch.Generator(device=data.x.device)
+    pgen.manual_seed(SEED + 1)
+    prof = profile(lambda: strat.round(simulation.clone_state(state), data, pgen, cohort),
+                   data.x.device)
+    res = dict(strategy=strat.name, rounds=rounds, round_s=hist.wall_s / rounds,
+               total_s=total_s, avg_acc=hist.avg_acc[-1], worst_acc=hist.worst_acc[-1],
+               launches=got, round_launches=prof["launches"],
+               round_busy_ms=prof["device_busy_ms"], round_wall_ms=prof["wall_ms"],
+               streams=[int(mt["streams"]) for mt in hist.metrics])
+    if stage is not None:
+        res["stage_launches"], res["stage_ms"] = stage["launches"], stage["ms"]
+    return res, state, hist
+
+
+def refresh_report(state):
+    """Staleness and W of a refreshing run's last state."""
+    stale = state["refresh"]["staleness"].float()
+    w = state["W"]
+    rowsum = w.sum(dim=1)
+    if not (torch.allclose(rowsum, torch.ones_like(rowsum), atol=1e-5) and bool((w >= 0).all())):
+        raise AssertionError("refresh: W is not row-stochastic")
+    return dict(staleness_max=int(stale.max()), staleness_mean=float(stale.mean()),
+                w_rowsum_err=float((rowsum - 1).abs().max()),
+                w_dist_from_special=float((w - state["collab"]["W"]).abs().max()))
+
+
+def parallel_runs(dev, data, params0, untrained, rows):
+    """ucfl_parallel at full width: one dense round, then one round at
+    fraction 0.5, without and with the refresh (the dense round never
+    refreshes, so it runs once); each round once for its wall and peak
+    memory, once more profiled for device busy and host-counted launches."""
+    m = data.num_clients
+    cohort = participation.sample_cohort(ParticipationConfig(fraction=0.5), 1, m)
+    out = {}
+    for tag, knobs in (("off", {}), ("refresh", dict(w_refresh=RefreshConfig()))):
+        strat = REGISTRY["ucfl_parallel"](lenet.apply_stacked, params0, FedConfig(**knobs),
+                                          device=dev)
+        zero_counters()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        state = strat.init(gen, data)
+        for kind, c in ((("dense", None),) if tag == "off" else ()) + (("half", cohort),):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            new, met = strat.round(simulation.clone_state(state), data, gen, c)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            if not bool(torch.isfinite(new["params"]).all()) or met["streams"] != m:
+                raise AssertionError(f"ucfl_parallel {tag} {kind}: non-finite params or "
+                                     f"streams {met['streams']}")
+            acc = float(client.evaluate(lenet.apply_stacked, strat.eval_params(new),
+                                        data.x_test, data.y_test).mean())
+            if not acc > untrained:
+                raise AssertionError(f"ucfl_parallel {tag} {kind}: avg accuracy {acc:.4f} does "
+                                     f"not beat the untrained model's {untrained:.4f}")
+            tp = time.perf_counter()
+            prof = profile(lambda: strat.round(simulation.clone_state(state), data, gen, c), dev)
+            prof_s = time.perf_counter() - tp
+            units = m * (m if c is None else len(c))
+            cell = f"ucfl_parallel_{kind}" + ("_refresh" if tag == "refresh" else "")
+            out[cell] = dict(wall_s=wall, busy_ms=prof["device_busy_ms"],
+                             idle_share=prof["idle_share"], launches=prof["launches"],
+                             peak_gb=peak, units=units, avg_acc=acc)
+            if tag == "refresh":
+                out[cell].update(refresh_report(dict(new, collab={"W": state["W"]})))
+            print(f"  {cell}: {units} units in {wall:.3f} s (device busy {prof['device_busy_ms']:.1f}"
+                  f" ms profiled, {prof['launches']} launches; the profiled call took "
+                  f"{prof_s:.1f} s), peak {peak:.2f} GB, avg {acc:.4f}", flush=True)
+        # the special round (and the refresh's unit-row Gram); a cohort_gather
+        # of the refresh's round-start rows in each of its two cohort rounds
+        expect = {"gram": 1 if tag == "off" else 2,
+                  "cohort_gather": 0 if tag == "off" else 2}
+        got = read_counters(f"ucfl_parallel_{tag}", expect)
+        for k, v in knob_rows("ucfl_parallel", got).items():
+            rows[k] = rows.get(k, 0) + v
+    return out
+
+
+def knobs_phase(dev, data, params0, untrained):
+    """The engine knobs on the main task: gram on unit rows and the holed
+    mix-scatter against their plain versions, the knobs at a small size
+    against the CPU, then at m = 100, d = 47,571: ucfl and ucfl_k4 with the
+    refresh (fraction 0.5, and availability cohorts with an all-offline
+    round), ucfl_parallel, the ten fault-taking strategies under sign flips
+    and drops with trimmed mean, and ucfl under each robust rule and under
+    NaN uploads with the guard alone."""
+    t0 = time.perf_counter()
+    m = data.num_clients
+    d_al = flat.LayoutTable.build(params0).dim_aligned
+    rows, results = {}, {}
+    checks = {"holed_scatter_err": holed_scatter_check(dev, m, d_al),
+              "agree": knobs_agree(dev)}
+    print(f"  kernel checks and the small-size agreement: {time.perf_counter() - t0:.1f} s")
+    half = ParticipationConfig(fraction=0.5)
+    trace = participation.diurnal_trace(m)
+    trace[:, 1] = False  # round 2: nobody is online
+    avail = ParticipationConfig(cohort_size=m // 2, sampler="availability", availability=trace)
+    one_round = {"cohort_gather": 1, "masked_mix_scatter": 1}
+
+    # the streaming W refresh: its special round's unit rows first
+    probe = knob_strategy("ucfl", params0, dev, w_refresh=RefreshConfig())
+    zero_counters()
+    ghat = probe.init(None, data)["refresh"]["grads"]
+    if tuple(ghat.shape) != (m, d_al) or GRAM.launches != 2 or GRAM.padded:
+        raise AssertionError(f"refresh init: unit rows {tuple(ghat.shape)}, {GRAM.launches} gram "
+                             f"launches and {GRAM.padded} padded copies (want ({m}, {d_al}), 2, 0)")
+    checks["unit_gram_err"] = unit_gram_check(dev, ghat)
+    del ghat, probe
+    for cell, name, pcfg, rounds in (("ucfl_refresh", "ucfl", half, 2),
+                                     ("ucfl_k4_refresh", "ucfl_k4", half, 2),
+                                     ("ucfl_refresh_availability", "ucfl", avail, 3)):
+        strat = knob_strategy(name, params0, dev, w_refresh=RefreshConfig())
+        # the special round's gram and the unit rows' Δ̂
+        res, state, hist = knob_run(cell, name, strat, data, untrained, pcfg, rounds, one_round,
+                                    {"gram": 2}, rows)
+        res.update(refresh_report(state))
+        if pcfg is avail and not (any(mt.get("skipped") for mt in hist.metrics)
+                                  and res["staleness_max"] >= 2):
+            raise AssertionError(f"{cell}: no skipped round aged the staleness "
+                                 f"({[mt.get('skipped', False) for mt in hist.metrics]}, max "
+                                 f"{res['staleness_max']})")
+        results[cell] = res
+        print(f"  {cell} ({time.perf_counter() - t0:.1f} s): round {res['round_s']:.4f} s, busy "
+              f"{res['round_busy_ms']:.2f} ms ({res['round_launches']} launches), avg "
+              f"{res['avg_acc']:.4f}, staleness max "
+              f"{res['staleness_max']} mean {res['staleness_mean']:.2f}, |W - W0| "
+              f"{res['w_dist_from_special']:.3e}", flush=True)
+    results.update(parallel_runs(dev, data, params0, untrained, rows))
+
+    # faults and the robust rules
+    fcfg = faults.FaultConfig(byzantine_frac=0.1, attack="sign_flip", drop_rate=0.1)
+    trimmed = RobustConfig("trimmed_mean", trim_k=5)
+    stage = stage_cost_at(dev, fcfg, trimmed, d_al, m)
+    for name in ["ucfl"] + BASELINES:
+        per_round = one_round if name == "ucfl" else baseline_launches(name, True)
+        strat = knob_strategy(name, params0, dev, faults=fcfg, robust=trimmed)
+        res, _, _ = knob_run(f"{name}_faults", name, strat, data, untrained, half, 1, per_round,
+                             {"gram": 1} if name == "ucfl" else {}, rows, stage)
+        results[f"{name}_faults"] = res
+        print(f"  {name}_faults ({time.perf_counter() - t0:.1f} s): round {res['round_s']:.4f} s, "
+              f"busy {res['round_busy_ms']:.2f} ms "
+              f"({res['round_launches']} launches), avg {res['avg_acc']:.4f} worst "
+              f"{res['worst_acc']:.4f}, stage {stage['launches']} launches {stage['ms']:.4f} ms",
+              flush=True)
+    rules = {"trimmed_mean": RobustConfig("trimmed_mean", trim_k=5),
+             "median": RobustConfig("median"), "norm_clip": RobustConfig("norm_clip", clip=1.0),
+             "krum": RobustConfig("krum", f=5), "multi_krum": RobustConfig("multi_krum", f=5)}
+    nan = faults.FaultConfig(byzantine_frac=0.1, attack="nan")
+    for tag, knobs in [(r, dict(robust=c)) for r, c in rules.items()] + [("nan", dict(faults=nan))]:
+        st = stage_cost_at(dev, knobs.get("faults"), knobs.get("robust"), d_al, m)
+        strat = knob_strategy("ucfl", params0, dev, **knobs)
+        res, _, _ = knob_run(f"ucfl_{tag}", "ucfl", strat, data, untrained, half, 1, one_round,
+                             {"gram": 1}, rows, st)
+        results[f"ucfl_{tag}"] = res
+        print(f"  ucfl_{tag} ({time.perf_counter() - t0:.1f} s): round {res['round_s']:.4f} s, "
+              f"busy {res['round_busy_ms']:.2f} ms "
+              f"({res['round_launches']} launches), avg {res['avg_acc']:.4f}, stage "
+              f"{st['launches']} launches {st['ms']:.4f} ms", flush=True)
+    phase("knobs", t0, f"the refresh, ucfl_parallel, faults and the robust rules at m={m}, "
+          f"d={flat.LayoutTable.build(params0).dim:,}")
+    print("knobs_path " + json.dumps({"runs": results, "checks": checks,
+                                      "untrained_avg_acc": untrained}))
+    return rows
 
 
 @contextlib.contextmanager
@@ -1788,6 +2177,7 @@ def main():
     cohort = cohort_phase(dev, *task)
     base, rows["gram_trained"] = baselines_phase(dev, *task)
     wire = transport_phase(dev, *task)
+    knobs = knobs_phase(dev, *task)
     del task
     fma_launches = serve_agree_phase(dev)
     served = serve_phase(dev)
@@ -1824,6 +2214,9 @@ def main():
               "flash_attention_prefill": served["prefill_launches"]["flash_attention_prefill"],
               "flash_attention_decode": served["serve_launches"]["flash_attention_decode"],
               "flash_attention_fma": fma_launches}
+    # the knobs phase's launches, each under the row of its shape
+    for row, count in knobs.items():
+        counts[row] += count
     # one kernel for both gram rows: the main path runs it at m = 100
     counts["gram_m512"] = counts["gram"]
     # the cohort and gram rows also carry read_ms, their time after a read

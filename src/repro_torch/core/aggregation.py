@@ -22,8 +22,28 @@ mix writes its real slots back with :func:`scatter_rows`.
 ``cohort_mixing_matrix``, ``cohort_column_mixing``, ``fedavg_cohort``,
 ``user_centric_cohort`` and ``clustered_cohort`` are the unpadded rules
 that the padded ones must reproduce.
+
+The streaming W refresh folds a cohort's observations into running (m, ·)
+buffers with ``masked_ewma_rows``, ``masked_unit_ewma_rows``,
+``masked_delta_rows`` and ``staleness_update``; the Byzantine-robust rules
+(``RobustConfig``, ``robust_stage``) rewrite the (c, d) upload slab and
+may demote slots. Both are in plain torch, in f32.
+
+Write slots: a rule that writes the rows of a running buffer takes the
+slot arrays ``idx``/``mask`` and writes slot i's row where ``mask[i]``.
+``real`` (a host int) says that the slots ``[0, real)`` hold distinct
+client ids (a cohort's sorted real prefix, before any upload stage
+demoted some of them): those rows are written, a slot whose mask went
+False writes its row's own value back, and nothing syncs with the card.
+Without ``real`` the slots whose index is below m are found with one
+sync, so the reference's contract (a demoted slot carries the sentinel
+m) holds too. On the card a buffer is written in place, as the slab is by
+:func:`scatter_rows`; on the CPU a new tensor is returned.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -222,10 +242,87 @@ def scatter_rows(full, idx, rows, real):
     ``real`` is a host int, so the scatter needs no sync. On the card the
     slab is written in place; on the CPU a new tensor is returned. The
     caller uses the return value either way."""
-    out = _slab(full, "scatter_rows")
-    if not out.is_cuda:
-        out = out.clone()
-    return out.index_copy_(0, idx[:real].long(), rows[:real])
+    return _write_rows(_slab(full, "scatter_rows"), idx, rows, real)
+
+
+def _write_slots(idx, m, real):
+    """The slots that write: the prefix ``[0, real)`` when the host counted
+    it, else the slots whose index is below m (one sync)."""
+    if real is not None:
+        return slice(0, int(real))
+    return torch.nonzero(idx.long() < m).squeeze(1)
+
+
+def _own(buf):
+    """``buf`` itself on the card (written in place), a copy on the CPU."""
+    return buf if buf.is_cuda else buf.clone()
+
+
+def _write_rows(buf, idx, rows, real):
+    """``buf[idx[i]] = rows[i]`` for the write slots (module docstring)."""
+    sel = _write_slots(idx, buf.shape[0], real)
+    return _own(buf).index_copy_(0, idx[sel].long(), rows[sel].to(buf.dtype))
+
+
+# ------------------------------------------------------- streaming W refresh
+
+
+def masked_ewma_rows(buf, obs, idx, mask, alpha, *, real=None):
+    """EWMA-fold per-slot observations into rows of a running buffer:
+    real slot i rewrites row ``idx[i]`` as ``(1 − α)·buf + α·obs``; other
+    slots leave the buffer as it was. ``buf`` (m, ...), ``obs`` (c, ...);
+    the refresh's (m,) σ̂² buffer."""
+    safe = safe_gather_index(idx, buf.shape[0]).long()
+    prev = buf[safe]
+    fmask = mask.reshape((-1,) + (1,) * (obs.dim() - 1)).to(buf.dtype)
+    blended = prev + fmask * alpha * (obs.to(buf.dtype) - prev)
+    rows = torch.where(mask.reshape(fmask.shape).bool(), blended, prev)
+    return _write_rows(buf, idx, rows, real)
+
+
+def masked_unit_ewma_rows(buf, obs, idx, mask, alpha, eps=1e-12, *, real=None):
+    """:func:`masked_ewma_rows` of the (m, d) unit-direction buffer, each
+    blend projected back onto the unit sphere (an EWMA of two unit vectors
+    is shorter than 1, and would shrink every later distance)."""
+    safe = safe_gather_index(idx, buf.shape[0]).long()
+    prev = buf[safe]
+    blended = prev + alpha * (obs.to(buf.dtype) - prev)
+    blended = blended / torch.clamp_min(torch.linalg.vector_norm(blended, dim=-1, keepdim=True),
+                                        eps)
+    rows = torch.where(mask.bool()[:, None], blended, prev)
+    return _write_rows(buf, idx, rows, real)
+
+
+def masked_delta_rows(delta, grads, idx, mask, *, real=None):
+    """Refresh the observed clients' rows and columns of the (m, m) Δ̂
+    buffer: ``Δ̂[idx_i, j] = ‖grads[idx_i] − grads[j]‖²`` against the whole
+    (already refreshed) direction buffer, clamped at 0, written to the
+    rows and then to the symmetric columns (so the cohort × cohort block
+    holds the column write); entries between two absent clients keep
+    their value. The (c, d)·(d, m) product is plain f32 (TF32 off)."""
+    m = delta.shape[0]
+    safe = safe_gather_index(idx, m).long()
+    g = grads[safe].to(torch.float32)
+    gm = grads.to(torch.float32)
+    sq = (torch.sum(g * g, dim=-1)[:, None] + torch.sum(gm * gm, dim=-1)[None, :]
+          - 2.0 * (g @ gm.T))
+    live = mask.bool()
+    rows = torch.where(live[:, None], torch.clamp_min(sq, 0.0), delta[safe])
+    sel = _write_slots(idx, m, real)
+    cols = idx[sel].long()
+    out = _own(delta).index_copy_(0, cols, rows[sel])
+    # a slot that writes no column puts the column's current values back
+    return out.index_copy_(1, cols, torch.where(live[sel][None, :], rows[sel].T, out[:, cols]))
+
+
+def staleness_update(stale, idx, mask, *, real=None):
+    """Every client's counter (rounds since its Δ̂/σ̂² were observed) goes
+    up by one; the real cohort slots then reset to 0."""
+    bumped = stale + 1
+    safe = safe_gather_index(idx, stale.shape[0]).long()
+    reset = torch.where(mask.bool(), torch.zeros_like(bumped[safe]), bumped[safe])
+    sel = _write_slots(idx, stale.shape[0], real)
+    return bumped.index_copy_(0, idx[sel].long(), reset[sel])
 
 
 def mix_scatter(full, cohort_updated, rows, idx, mask):
@@ -249,3 +346,191 @@ def mix_scatter_flat(full, flat_c, rows, idx, mask):
     if flat_c.shape[1] > d:
         flat_c = flat_c[:, :d].contiguous()
     return ops.masked_mix_scatter(rows, flat_c, idx, mask, full)
+
+
+# ------------------------------------------------------- Byzantine-robust rules
+#
+# Each rule rewrites the masked upload stage ``(flat_c, idx, mask) ->
+# (flat_c', idx', mask')`` before the (c, c)-row mix: the value rules
+# (trimmed mean, median, norm clip) rewrite the (c, d) upload slab, the
+# selection rules (Krum, multi-Krum) demote slots to masked pad slots
+# (mask False, sentinel index m), and trimmed mean does both (it also
+# demotes rows that are coordinate outliers almost everywhere). A rule at
+# its neutral parameter (``trim_k=0``, ``clip=inf``, multi-Krum keeping
+# every real slot) passes the slab through bit for bit. Every rule expects
+# a finite slab: the finite guard runs first
+# (:func:`repro_torch.federated.faults.finite_guard`).
+
+_BIG = 1e30  # a finite stand-in for +inf (inf · 0 would put NaN in a sort)
+
+
+@dataclasses.dataclass(frozen=True)
+class RobustConfig:
+    """Byzantine-robust aggregation policy (``FedConfig.robust``).
+
+    rule: ``trimmed_mean`` | ``median`` | ``norm_clip`` | ``krum`` |
+      ``multi_krum``.
+    trim_k: values trimmed (winsorized) from each tail of a coordinate
+      (trimmed_mean); rows outside the inlier range in at least 75 % of
+      the coordinates are demoted. 0 passes the slab through.
+    clip: the ceiling of a row's distance from the masked cohort mean
+      (norm_clip). ``inf`` passes the slab through.
+    f: the Byzantine count assumed by the Krum score (a sum over the
+      ``c_real − f − 2`` nearest neighbours).
+    q: the slots multi_krum keeps (``krum`` keeps 1; ``None`` under
+      multi_krum keeps ``c_real − f``); ``q >= c_real`` keeps them all.
+    """
+
+    rule: str = "trimmed_mean"
+    trim_k: int = 1
+    clip: float = math.inf
+    f: int = 1
+    q: int | None = None
+
+    _RULES = ("trimmed_mean", "median", "norm_clip", "krum", "multi_krum")
+
+    def __post_init__(self):
+        if self.rule not in self._RULES:
+            raise ValueError(f"unknown robust rule {self.rule!r} (expected one of {self._RULES})")
+        if self.trim_k < 0:
+            raise ValueError(f"trim_k must be >= 0, got {self.trim_k}")
+        if self.clip <= 0:
+            raise ValueError(f"clip must be > 0, got {self.clip}")
+
+
+def _order_stat(svals, i):
+    """Row ``i`` (a device scalar) of the column-sorted slab, as (1, d)."""
+    return svals.index_select(0, i.reshape(1))
+
+
+def _real_count(mask):
+    return torch.sum(mask.to(torch.int64))
+
+
+def masked_trimmed_mean(flat_c, mask, trim_k: int):
+    """Coordinate-wise winsorized trimmed mean over the real rows: in every
+    coordinate, the ``min(trim_k, (c_real − 1) // 2)`` smallest and largest
+    real values are clamped to the range of the values left between them.
+    In-range values pass through; masked rows are left as they are."""
+    if trim_k == 0:
+        return flat_c
+    lo, hi, fmask = _winsor_bounds(flat_c, mask, trim_k)
+    return torch.where(fmask, torch.clamp(flat_c, lo, hi), flat_c)
+
+
+def _winsor_bounds(flat_c, mask, trim_k: int):
+    """(lo, hi, fmask): the per-coordinate inlier range, (1, d) each, the
+    ``trim_eff``-th and ``(c_real − 1 − trim_eff)``-th order statistics of
+    the real rows, and the (c, 1) bool row mask."""
+    c = flat_c.shape[0]
+    fmask = mask.bool()[:, None]
+    n_real = _real_count(mask)
+    trim_eff = torch.clamp_max(torch.clamp_min(n_real - 1, 0) // 2, trim_k)
+    # ascending, masked rows pushed past every real value
+    svals = torch.sort(torch.where(fmask, flat_c, _BIG), dim=0).values
+    lo_i = torch.clamp(trim_eff, 0, c - 1)
+    hi_i = torch.clamp(n_real - 1 - trim_eff, 0, c - 1)
+    return _order_stat(svals, lo_i), _order_stat(svals, hi_i), fmask
+
+
+def trimmed_outlier_rows(flat_c, mask, trim_k: int, frac: float = 0.75):
+    """(c,) bool: the real rows outside the winsorization range in at least
+    ``frac`` of the coordinates (a sign-flip or noise row is, an honest
+    one is not). Winsorizing such a row leaves it its full mixing mass at
+    the edge of the honest range; the stage demotes it instead."""
+    lo, hi, fmask = _winsor_bounds(flat_c, mask, trim_k)
+    out = fmask & ((flat_c < lo) | (flat_c > hi))
+    d = max(flat_c.shape[1], 1)
+    out_frac = torch.sum(out.to(torch.float32), dim=1) / d
+    return mask.bool() & (out_frac >= frac)
+
+
+def masked_median_rows(flat_c, mask):
+    """Every real row replaced by the coordinate-wise median of the real
+    rows (an even count averages the two central values), so any convex
+    mix of them is the median itself."""
+    c = flat_c.shape[0]
+    n_real = _real_count(mask)
+    svals = torch.sort(torch.where(mask.bool()[:, None], flat_c, _BIG), dim=0).values
+    k_lo = torch.clamp((n_real - 1) // 2, 0, c - 1)
+    k_hi = torch.clamp(n_real // 2, 0, c - 1)
+    med = 0.5 * (_order_stat(svals, k_lo) + _order_stat(svals, k_hi))
+    return torch.where(mask.bool()[:, None], med, flat_c)
+
+
+def masked_norm_clip(flat_c, mask, clip: float):
+    """Each real row's deviation from the masked cohort mean clipped to
+    ``clip``: rows within it pass through bit for bit, the others move
+    onto the ``clip`` sphere around the mean."""
+    live = mask.bool()[:, None]
+    fmask = live.to(flat_c.dtype)
+    cnt = torch.clamp_min(torch.sum(fmask), 1.0)
+    mu = torch.sum(flat_c * fmask, dim=0, keepdim=True) / cnt
+    dev = flat_c - mu
+    norm = torch.sqrt(torch.sum(dev * dev, dim=1, keepdim=True))
+    scaled = mu + dev * (clip / torch.clamp_min(norm, 1e-12))
+    return torch.where((norm <= clip) | ~live, flat_c, scaled)
+
+
+def krum_scores(flat_c, mask, f: int):
+    """Krum scores (lower is more central): the sum of a real slot's
+    ``max(c_real − f − 2, 1)`` smallest squared distances to the other real
+    slots; masked slots score ``_BIG``. The (c, c) distances come from one
+    f32 product (TF32 off)."""
+    c = flat_c.shape[0]
+    live = mask.bool()
+    x = torch.where(live[:, None], flat_c, 0.0).to(torch.float32)
+    sq = torch.sum(x * x, dim=1)
+    d2 = torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * (x @ x.T), 0.0)
+    eye = torch.eye(c, dtype=torch.bool, device=flat_c.device)
+    pair_ok = live[:, None] & live[None, :] & ~eye
+    d2 = torch.where(pair_ok, d2, _BIG)
+    csum = torch.cumsum(torch.sort(d2, dim=1).values, dim=1)
+    k = torch.clamp(_real_count(mask) - f - 2, 1, c - 1)
+    score = csum.index_select(1, (k - 1).reshape(1))[:, 0]
+    return torch.where(live, score, _BIG)
+
+
+def masked_krum_select(flat_c, idx, mask, m: int, f: int, q: int | None = None):
+    """(multi-)Krum as a slot rewrite: the ``q`` lowest-scoring real slots
+    stay (``q=None`` keeps ``c_real − f``), the others become masked pad
+    slots (sentinel index m). The rank is a double stable argsort, so ties
+    go to the lower slot, as the reference's. Returns ``(idx', mask')``."""
+    score = krum_scores(flat_c, mask, f)
+    n_real = _real_count(mask)
+    keep_n = (torch.clamp_min(n_real - f, 1) if q is None
+              else min(max(int(q), 1), flat_c.shape[0]))
+    rank = torch.argsort(torch.argsort(score, stable=True), stable=True)
+    selected = mask.bool() & (rank < keep_n)
+    return torch.where(selected, idx, torch.full_like(idx, m)), selected
+
+
+def robust_stage(cfg: RobustConfig | None):
+    """The robust upload rewrite ``stage(flat_c, idx, mask, m) -> (flat_c',
+    idx', mask')`` over the (c, d) upload slab, or ``None`` when the knob
+    is off. Anything but a :class:`RobustConfig` raises ``TypeError``."""
+    if cfg is None:
+        return None
+    if not isinstance(cfg, RobustConfig):
+        raise TypeError(f"FedConfig.robust must be a RobustConfig or None, "
+                        f"got {type(cfg).__name__}")
+    if cfg.rule == "trimmed_mean":
+        def stage(flat_c, idx, mask, m):
+            out = masked_trimmed_mean(flat_c, mask, cfg.trim_k)
+            if cfg.trim_k == 0:  # neutral: the slab passes through
+                return out, idx, mask
+            keep = mask.bool() & ~trimmed_outlier_rows(flat_c, mask, cfg.trim_k)
+            return out, torch.where(keep, idx, torch.full_like(idx, m)), keep
+    elif cfg.rule == "median":
+        def stage(flat_c, idx, mask, m):
+            return masked_median_rows(flat_c, mask), idx, mask
+    elif cfg.rule == "norm_clip":
+        def stage(flat_c, idx, mask, m):
+            return masked_norm_clip(flat_c, mask, cfg.clip), idx, mask
+    else:  # krum / multi_krum
+        q = 1 if cfg.rule == "krum" else cfg.q
+
+        def stage(flat_c, idx, mask, m):
+            idx, mask = masked_krum_select(flat_c, idx, mask, m, cfg.f, q)
+            return flat_c, idx, mask
+    return stage

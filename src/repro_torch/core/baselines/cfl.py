@@ -16,6 +16,12 @@ warm-up copies the update deltas of the clients that trained to the host
 after it). A cohort round's real members are its slot prefix, so their
 deltas are the first rows.
 
+Upload stage (faults, robust): it runs before the split statistics, and
+its final mask may have holes mid-cohort. Past the warm-up the round
+brings that mask to the host with the deltas, as the reference does, and
+the survivors alone form the member pool; in the warm-up rounds nothing
+is read back and the streams are counted on the card.
+
 Wire: a ``delta`` upload, quantized first, so the mix and the split
 statistics read what the server decoded, ``post' − θ``; the
 ``cluster_models`` groupcast stays raw.
@@ -57,6 +63,7 @@ def make_cfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         "cfl", layout.dim,
         downlink=(transport_lib.Stream("cluster_models", layout.dim, coding="raw"),))
     up, _ = common.wire_stages(schema, cfg.transport)
+    ustage = common.upload_stage(cfg, schema)
 
     def init(gen, data):
         m = data.num_clients
@@ -93,6 +100,19 @@ def make_cfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             assignment = maybe_split(assignment, pool, dict(zip(pool.tolist(), dmat)))
         return assignment, rnd
 
+    def staged_streams(state, co, delta, fmask, assignment_c):
+        """(assignment, round, streams) of a round under the upload stage:
+        past the warm-up the final mask and the deltas come to the host and
+        the survivors form the pool; before it the clusters present are
+        counted on the card."""
+        if state["round"] + 1 > warmup_rounds:
+            slots = np.nonzero(fmask.cpu().numpy())[0]
+            pool = co.members[slots]  # the survivors lie in the real prefix
+            assignment, rnd = bookkeep(state, pool, delta[torch.as_tensor(slots, device=dev)])
+            return assignment, rnd, len(np.unique(assignment[pool])) if len(pool) else 0
+        return (state["assignment"], state["round"] + 1,
+                common.groups_present(assignment_c, int(state["assignment"].max()) + 1, fmask))
+
     def dense(state, data, gen, perms):
         params, assignment = state["params"], state["assignment"]
         post = local(params, data.x, data.y, gen=gen, perms=perms)
@@ -109,14 +129,23 @@ def make_cfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         out = {}
         if up is not None:
             post, out["ef"] = common.uplink(up, state, co, pc, post)
+        fidx, fmask = co.idx, co.mask
+        if ustage is not None:
+            post, fidx, fmask = common.upload(ustage, co, pc, post)
         assignment_c = torch.as_tensor(assignment[np.minimum(idx, data.num_clients - 1)],
                                        device=dev)
-        rows = aggregation.masked_group_rows(assignment_c, data.n[co.safe], co.mask)
-        new = aggregation.mix_scatter_flat(state["params"], post, rows, co.idx, co.mask)
-        assignment, rnd = bookkeep(state, co.members, post - pc)
+        rows = aggregation.masked_group_rows(assignment_c, data.n[co.safe], fmask)
+        new = aggregation.mix_scatter_flat(state["params"], post, rows, fidx, fmask)
+        if ustage is None:
+            assignment, rnd = bookkeep(state, co.members, post - pc)
+            streams = len(np.unique(assignment[co.members])) if co.real else 0
+        else:
+            assignment, rnd, streams = staged_streams(state, co, post - pc, fmask, assignment_c)
         return ({"params": new, "assignment": assignment, "round": rnd, **out},
-                {"streams": len(np.unique(assignment[co.members])) if co.real else 0})
+                {"streams": streams})
 
-    return Strategy("cfl", init, common.cohort_round(dense, masked, transport=cfg.transport),
+    return Strategy("cfl", init,
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="groupcast", wire_schema=schema)
+                    comm_scheme="groupcast", injects_faults=cfg.faults is not None,
+                    wire_schema=schema)

@@ -23,17 +23,29 @@ pieces the baselines share.
     stage of a cohort round, after local SGD and before the mix.
   * :func:`group_mixing_matrix` / :func:`group_average` — per-group FedAvg
     (CFL's clusters, the Oracle's true groups).
+  * :func:`upload_stage`, :func:`upload` and :func:`kept` — the upload
+    stage (``FedConfig.faults``/``robust``): fault injection, the finite
+    guard and the robust rule on the uploads, after the wire stage and
+    before the mix. It returns the final slot arrays, whose mask may have
+    holes mid-cohort (drops, the guard, trimmed-mean and Krum demote
+    slots). The fused mix-scatter takes them as they are; every plain
+    scatter writes the cohort's pre-stage prefix (host-counted) with
+    :func:`kept` rows, a demoted slot getting its own round-start row
+    back, so no path syncs with the card for the final mask. With both
+    knobs off no stage runs, and every path keeps its host counts.
+  * :func:`w_refresh_hook`, :func:`staleness_metrics` and
+    :func:`refresh_skip_round` — the streaming W refresh
+    (``FedConfig.w_refresh``) of the W-owning strategies.
 
 In place: on the card the masked round writes the cohort rows of the
-``params`` slab in place, the port's analogue of the reference's buffer
-donation. A caller that keeps the pre-round state alive (a warm-up, an
-A/B comparison from one start state) runs the round on
-:func:`repro_torch.federated.simulation.clone_state` of it.
+``params`` slab (and the refresh buffers) in place, the port's analogue of
+the reference's buffer donation. A caller that keeps the pre-round state
+alive (a warm-up, an A/B comparison from one start state) runs the round
+on :func:`repro_torch.federated.simulation.clone_state` of it.
 
 Not ported yet: the mesh, ``shard_state`` and the reference's
-``StateOps`` layout object (the mesh), and the async buffer, upload stage
-(faults and robust rules) and topology branches (the engine knobs): each
-is an item of ROADMAP queue A.
+``StateOps`` layout object (the mesh), and the async buffer and topology
+branches (the engine knobs): each is an item of ROADMAP queue A.
 """
 from __future__ import annotations
 
@@ -41,11 +53,13 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core import aggregation, flat
+from repro_torch.core import aggregation, flat, similarity
 from repro_torch.data.loader import draw_permutations
 from repro_torch.device import resolve_device
 from repro_torch.federated import client as fedclient
+from repro_torch.federated import faults as faults_lib
 from repro_torch.federated import participation
 from repro_torch.federated import transport as transport_lib
 
@@ -90,7 +104,7 @@ def group_average(stacked, assignment, n):
     return aggregation.user_centric(stacked, group_mixing_matrix(assignment, n))
 
 
-def cohort_round(dense_fn, masked_fn, *, transport=None):
+def cohort_round(dense_fn, masked_fn, *, transport=None, stage=None):
     """Build ``round(state, data, gen=None, cohort=None, *, perms=None)``.
 
     ``dense_fn(state, data, gen, perms) -> (state, metrics)`` is the full
@@ -102,11 +116,20 @@ def cohort_round(dense_fn, masked_fn, *, transport=None):
     array (an unpadded all-real cohort). With ``transport`` (the
     strategy's ``FedConfig.transport``) a dense round raises
     ``ValueError``: the quantized wire compresses the cohort's uploads.
+    With ``stage`` (the strategy's :func:`upload_stage`) a dense round
+    raises ``ValueError`` too, and every cohort round advances the state's
+    ``fault_round``, the counter the fault draws are keyed on.
     """
 
     def round(state, data, gen=None, cohort=None, *, perms=None):
         cohort = participation.as_cohort(cohort, data.num_clients)
         if cohort is None:
+            if stage is not None:
+                raise ValueError(
+                    "FedConfig.faults/robust require cohort rounds: the "
+                    "injection and robust rewrites are fixed-shape masked "
+                    "slot transforms with no dense counterpart — pass a "
+                    "participation config (or drop faults/robust)")
             if transport is not None:
                 raise ValueError(
                     "FedConfig.transport requires cohort rounds: "
@@ -116,8 +139,11 @@ def cohort_round(dense_fn, masked_fn, *, transport=None):
             state, metrics = dense_fn(state, data, gen, perms)
             size = data.num_clients
         else:
+            rnd = state.get("fault_round", 0)
             state, metrics = masked_fn(state, data, gen, cohort.indices,
                                        cohort.mask, perms)
+            if stage is not None:
+                state = dict(state, fault_round=rnd + 1)
             size = len(cohort)
         return state, {**metrics, "cohort_size": size}
 
@@ -152,7 +178,8 @@ class CohortRows:
     what the kernels take; ``safe`` (c,) int64 clamps the pads to m − 1;
     ``members`` are the real ids on the host, the slots' sorted prefix;
     ``rows`` maps a state key to its gathered (c, dim_aligned) rows, a
-    copy; ``x``/``y`` are the slots' data."""
+    copy; ``x``/``y`` are the slots' data; ``rnd`` the state's
+    ``fault_round`` (0 without the upload stage)."""
 
     idx: torch.Tensor
     mask: torch.Tensor
@@ -164,6 +191,7 @@ class CohortRows:
     gen: torch.Generator | None
     m: int
     epochs: int
+    rnd: int = 0
 
     @property
     def real(self):
@@ -189,7 +217,7 @@ def gather_cohort(state, data, gen, idx, mask, *, dev, epochs, slabs=("params",)
     slabs = tuple(slabs) + (("ef",) if "ef" in state else ())
     rows = {k: aggregation.cohort_gather(state[k], safe32) for k in slabs}
     return CohortRows(idx_t, mask_t, safe, idx[mask], rows, data.x[safe], data.y[safe], gen, m,
-                      epochs)
+                      epochs, state.get("fault_round", 0))
 
 
 def wire_stages(schema, transport):
@@ -212,6 +240,72 @@ def wire_state(schema, transport, m, dev, *, dl_rows=1):
     if down is not None:
         out["ef_dl"] = torch.zeros((dl_rows, schema.width_aligned("downlink")), device=dev)
     return out
+
+
+def upload_stage(cfg, schema):
+    """The strategy's upload stage (``cfg.faults``, ``cfg.robust``) on its
+    uplink wire ``schema``, or None when both knobs are off
+    (:func:`repro_torch.federated.faults.upload_stage`)."""
+    return faults_lib.upload_stage(cfg.faults, cfg.robust, schema)
+
+
+def upload(stage, co, pre, post):
+    """The upload stage on the (c, W) wire rows ``pre`` (the round-start
+    rows) and ``post`` (what the server decoded): returns ``(post', idx',
+    mask')``, the final slot arrays on the card."""
+    return stage(pre, post, co.idx, co.mask, co.m, co.rnd)
+
+
+def kept(mask, new, old):
+    """``new`` where the final ``mask`` keeps the slot, else ``old`` (the
+    slot's round-start row): scattered at the pre-stage prefix, a demoted
+    slot writes its own row back, bit for bit no write. ``mask`` None
+    (no stage) keeps ``new``."""
+    return new if mask is None else torch.where(mask[:, None], new, old)
+
+
+def groups_present(group_c, k, mask):
+    """How many of the ``k`` groups (clusters, true groups) hold a live
+    slot: ``group_c`` the (c,) group of each slot, ``mask`` the final mask.
+    A device scalar: counted on the card, with no sync."""
+    present = F.one_hot(group_c.long(), k) * mask[:, None]
+    return torch.sum(torch.amax(present, dim=0) > 0)
+
+
+def w_refresh_hook(cfg):
+    """The streaming W refresh of ``cfg`` (a
+    :class:`repro_torch.core.similarity.RefreshConfig`), or None when off:
+    ``hook(pre, post, refresh, idx, mask, n, real) -> (refresh', W')`` folds
+    the (c, d) uploads' proxies ``pre − post`` (the uploads the round has
+    already, so no extra bytes) into the buffers. Anything but a
+    ``RefreshConfig`` raises ``TypeError``."""
+    if cfg is None:
+        return None
+    if not isinstance(cfg, similarity.RefreshConfig):
+        raise TypeError(f"FedConfig.w_refresh must be a RefreshConfig or None, "
+                        f"got {type(cfg).__name__}")
+
+    def hook(pre, post, refresh, idx, mask, n, real):
+        return similarity.streaming_refresh(refresh, similarity.grad_proxy(pre, post), idx,
+                                            mask, n, cfg=cfg, real=real)
+
+    return hook
+
+
+def staleness_metrics(refresh):
+    """The refresh's round metrics: the (m,) staleness counters and their
+    max and mean, device scalars (no sync in the round)."""
+    stale = refresh["staleness"]
+    return {"staleness": stale, "staleness_max": torch.max(stale),
+            "staleness_mean": torch.mean(stale.to(torch.float32))}
+
+
+def refresh_skip_round(state):
+    """``Strategy.skip_round`` of a refreshing strategy: a round nobody
+    attends ages every client's statistics by one (an all-masked
+    ``staleness_update``)."""
+    refresh = state["refresh"]
+    return dict(state, refresh=dict(refresh, staleness=refresh["staleness"] + 1))
 
 
 def uplink(stage, state, co, pre, post):
@@ -249,25 +343,32 @@ def fedavg_masked_mix(params, updated, idx, mask, n, *, dstage=None, ef_dl=None)
             torch.where(alive, new_ef, ef_dl))
 
 
-def make_fedavg_masked_round(train, *, dev, epochs, schema, transport):
+def make_fedavg_masked_round(train, *, dev, epochs, schema, transport, stage=None):
     """The FedAvg family's masked round (FedAvg, FedProx): the gathered
     rows trained by ``train(co, perms) -> (c, dim_aligned)``, ``co`` the
     :class:`CohortRows`, then :func:`fedavg_masked_mix` (the reference's
     ``fedavg_mix_closure`` without a topology). Under ``transport`` the
     uploads pass ``schema``'s uplink stage and the mean its downlink
-    stage. Returns ``masked(state, data, gen, idx, mask, perms)`` for
-    :func:`cohort_round`."""
+    stage; then the upload ``stage`` (:func:`upload_stage`), whose final
+    mask weighs the mean. Returns ``masked(state, data, gen, idx, mask,
+    perms)`` for :func:`cohort_round`."""
     up, down = wire_stages(schema, transport)
 
     def masked(state, data, gen, idx, mask, perms):
         co = gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=epochs)
+        pc = co.rows["params"]
         post = train(co, perms)
-        if up is None:
-            new = fedavg_masked_mix(state["params"], post, co.idx, co.mask, data.n)
-            return dict(state, params=new), {"streams": 1}
-        post, ef = uplink(up, state, co, co.rows["params"], post)
-        new, ef_dl = fedavg_masked_mix(state["params"], post, co.idx, co.mask, data.n,
-                                       dstage=down, ef_dl=state["ef_dl"])
-        return dict(state, params=new, ef=ef, ef_dl=ef_dl), {"streams": 1}
+        out = {}
+        if up is not None:
+            post, out["ef"] = uplink(up, state, co, pc, post)
+        fidx, fmask = co.idx, co.mask
+        if stage is not None:
+            post, fidx, fmask = upload(stage, co, pc, post)
+        if down is None:
+            new = fedavg_masked_mix(state["params"], post, fidx, fmask, data.n)
+            return dict(state, params=new, **out), {"streams": 1}
+        new, out["ef_dl"] = fedavg_masked_mix(state["params"], post, fidx, fmask, data.n,
+                                              dstage=down, ef_dl=state["ef_dl"])
+        return dict(state, params=new, **out), {"streams": 1}
 
     return masked

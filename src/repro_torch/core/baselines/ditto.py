@@ -12,7 +12,9 @@ rows, a copy, so the new global written before it does not reach it.
 
 Wire: only the global model crosses it, a ``delta`` upload and the
 ``model`` broadcast delta-coded with the server's EF row; the personal
-model never leaves the client.
+model never leaves the client. The upload stage (faults, robust) rewrites
+the global model's upload only: its final mask weighs the mean, and every
+real slot's personal model advances.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ def make_ditto(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, lam: flo
     schema = transport_lib.single_delta_schema(
         "ditto", layout.dim, downlink=(transport_lib.Stream("model", layout.dim),))
     up, down = common.wire_stages(schema, cfg.transport)
+    ustage = common.upload_stage(cfg, schema)
 
     def init(gen, data):
         m = data.num_clients
@@ -56,19 +59,22 @@ def make_ditto(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, lam: flo
                                   slabs=("params", "personal"))
         pc = co.rows["params"]
         post = local_global(pc, co.x, co.y, perms=co.keys(perms_g))
-        out = {}
-        if up is None:
-            new_global = common.fedavg_masked_mix(state["params"], post, co.idx, co.mask, data.n)
-        else:
+        out, gidx, gmask = {}, co.idx, co.mask
+        if up is not None:
             post, out["ef"] = common.uplink(up, state, co, pc, post)
+        if ustage is not None:
+            post, gidx, gmask = common.upload(ustage, co, pc, post)
+        if down is None:
+            new_global = common.fedavg_masked_mix(state["params"], post, gidx, gmask, data.n)
+        else:
             new_global, out["ef_dl"] = common.fedavg_masked_mix(
-                state["params"], post, co.idx, co.mask, data.n, dstage=down,
-                ef_dl=state["ef_dl"])
+                state["params"], post, gidx, gmask, data.n, dstage=down, ef_dl=state["ef_dl"])
         new_pc = local_personal(co.rows["personal"], co.x, co.y, pc, perms=co.keys(perms_p))
         personal = aggregation.scatter_rows(state["personal"], co.idx, new_pc, co.real)
         return {"params": new_global, "personal": personal, **out}, {"streams": 1}
 
     return Strategy(f"ditto_lam{lam}", init,
-                    common.cohort_round(dense, masked, transport=cfg.transport),
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
                     lambda s: layout.unravel(s["personal"]),
-                    comm_scheme="broadcast", num_streams=1, wire_schema=schema)
+                    comm_scheme="broadcast", num_streams=1,
+                    injects_faults=cfg.faults is not None, wire_schema=schema)

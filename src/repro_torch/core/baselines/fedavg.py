@@ -7,7 +7,8 @@ and the mean of its real uploads (k = 1 over the (c, d) uploads) is
 broadcast, pad slots weighing 0. One downlink stream either way.
 
 Wire: a ``delta`` upload, and the broadcast delta-coded as the ``model``
-stream against the old global with the server's EF row.
+stream against the old global with the server's EF row. Upload stage
+(faults, robust): the final mask weighs the mean.
 """
 from __future__ import annotations
 
@@ -36,9 +37,12 @@ def make_fedavg(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=
     def train(co, perms):
         return local(co.rows["params"], co.x, co.y, perms=co.keys(perms))
 
+    ustage = common.upload_stage(cfg, schema)
     masked = common.make_fedavg_masked_round(train, dev=dev, epochs=cfg.epochs, schema=schema,
-                                             transport=cfg.transport)
+                                             transport=cfg.transport, stage=ustage)
 
-    return Strategy("fedavg", init, common.cohort_round(dense, masked, transport=cfg.transport),
+    return Strategy("fedavg", init,
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="broadcast", num_streams=1, wire_schema=schema)
+                    comm_scheme="broadcast", num_streams=1,
+                    injects_faults=cfg.faults is not None, wire_schema=schema)

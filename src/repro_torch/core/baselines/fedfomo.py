@@ -19,7 +19,10 @@ slots only (pad columns weigh 0) and writes the real slots back.
 
 Wire: a ``delta`` upload, quantized before the loss matrix, so the peers
 score and mix the models the wire carried; the ``peer_models`` downlink
-relays those quantized uploads (priced compressed, no second stage).
+relays those quantized uploads (priced compressed, no second stage). The
+upload stage (faults, robust) rewrites the uploads before they are
+scored; its final mask zeroes the demoted columns (no peer downloads a
+guarded model) and a demoted slot keeps its row.
 """
 from __future__ import annotations
 
@@ -84,6 +87,7 @@ def make_fedfomo(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         "fedfomo", layout.dim,
         downlink=(transport_lib.Stream("peer_models", layout.dim, coding="relay"),))
     up, _ = common.wire_stages(schema, cfg.transport)
+    ustage = common.upload_stage(cfg, schema)
 
     def split(x, y):
         """(train x, train y, validation x, validation y)."""
@@ -112,10 +116,16 @@ def make_fedfomo(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         out = {}
         if up is not None:
             post, out["ef"] = common.uplink(up, state, co, pc, post)
-        new = mixed(post, x_val, y_val, co.mask.float())
+        fmask, final = co.mask, None
+        if ustage is not None:
+            post, _, fmask = common.upload(ustage, co, pc, post)
+            final = fmask
+        new = common.kept(final, mixed(post, x_val, y_val, fmask.float()), pc)
         return ({"params": aggregation.scatter_rows(state["params"], co.idx, new, co.real),
                  **out}, {"streams": co.real})
 
-    return Strategy("fedfomo", init, common.cohort_round(dense, masked, transport=cfg.transport),
+    return Strategy("fedfomo", init,
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="client_mixing", wire_schema=schema)
+                    comm_scheme="client_mixing", injects_faults=cfg.faults is not None,
+                    wire_schema=schema)

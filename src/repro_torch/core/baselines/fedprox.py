@@ -35,10 +35,12 @@ def make_fedprox(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, mu: fl
         pc = co.rows["params"]
         return local(pc, co.x, co.y, pc, perms=co.keys(perms))  # centred at the round's start
 
+    ustage = common.upload_stage(cfg, schema)
     masked = common.make_fedavg_masked_round(train, dev=dev, epochs=cfg.epochs, schema=schema,
-                                             transport=cfg.transport)
+                                             transport=cfg.transport, stage=ustage)
 
     return Strategy(f"fedprox_mu{mu}", init,
-                    common.cohort_round(dense, masked, transport=cfg.transport),
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="broadcast", num_streams=1, wire_schema=schema)
+                    comm_scheme="broadcast", num_streams=1,
+                    injects_faults=cfg.faults is not None, wire_schema=schema)

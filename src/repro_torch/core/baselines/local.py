@@ -1,7 +1,8 @@
 """Local training, no collaboration (the reference's lower bound).
 
 The cohort round trains the cohort's rows and writes each real slot back
-to its own row; pad slots write nothing. No downlink stream. Wire: a
+to its own row; pad slots write nothing, and neither does a slot that the
+upload stage (faults, robust) demoted. No downlink stream. Wire: a
 ``delta`` upload only; each row keeps what the server decoded.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ def make_local(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=N
     local = common.local_sgd(apply_stacked, layout, cfg)
     schema = transport_lib.single_delta_schema("local", layout.dim)
     up, _ = common.wire_stages(schema, cfg.transport)
+    ustage = common.upload_stage(cfg, schema)
 
     def init(gen, data):
         m = data.num_clients
@@ -35,9 +37,14 @@ def make_local(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=N
         out = {}
         if up is not None:
             post, out["ef"] = common.uplink(up, state, co, pc, post)
+        if ustage is not None:
+            post, _, fmask = common.upload(ustage, co, pc, post)
+            post = common.kept(fmask, post, pc)
         return dict(state, params=aggregation.scatter_rows(state["params"], co.idx, post,
                                                            co.real), **out), {"streams": 0}
 
-    return Strategy("local", init, common.cohort_round(dense, masked, transport=cfg.transport),
+    return Strategy("local", init,
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="broadcast", num_streams=0, wire_schema=schema)
+                    comm_scheme="broadcast", num_streams=0,
+                    injects_faults=cfg.faults is not None, wire_schema=schema)

@@ -5,7 +5,8 @@ Dense: one ``mix_aggregate`` launch, k = m, of the group rule. Cohort
 round: each real slot averages the real uploads of its group
 (``masked_group_rows``), mixed and scattered in one ``masked_mix_scatter``
 launch; absent clients keep their last model. The downlink streams are
-the groups present, counted on the host. Wire: a ``delta`` upload; the
+the groups present, counted on the host (under the upload stage, from its
+final mask on the card). Wire: a ``delta`` upload; the
 ``group_models`` groupcast stays raw (a group mean is no receiver's old
 model to delta-code against).
 """
@@ -27,6 +28,7 @@ def make_oracle(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=
         "oracle", layout.dim,
         downlink=(transport_lib.Stream("group_models", layout.dim, coding="raw"),))
     up, _ = common.wire_stages(schema, cfg.transport)
+    ustage = common.upload_stage(cfg, schema)
 
     def init(gen, data):
         # the cohort round counts its streams from this copy, not with a
@@ -49,11 +51,18 @@ def make_oracle(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=
         out = {}
         if up is not None:
             post, out["ef"] = common.uplink(up, state, co, pc, post)
-        rows = aggregation.masked_group_rows(data.group[co.safe], data.n[co.safe], co.mask)
-        new = aggregation.mix_scatter_flat(state["params"], post, rows, co.idx, co.mask)
-        streams = int(np.unique(state["group_host"][co.members]).size)
+        if ustage is None:
+            fidx, fmask = co.idx, co.mask
+            streams = int(np.unique(state["group_host"][co.members]).size)
+        else:
+            post, fidx, fmask = common.upload(ustage, co, pc, post)
+            streams = common.groups_present(data.group[co.safe], state["num_groups"], fmask)
+        rows = aggregation.masked_group_rows(data.group[co.safe], data.n[co.safe], fmask)
+        new = aggregation.mix_scatter_flat(state["params"], post, rows, fidx, fmask)
         return dict(state, params=new, **out), {"streams": streams}
 
-    return Strategy("oracle", init, common.cohort_round(dense, masked, transport=cfg.transport),
+    return Strategy("oracle", init,
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="groupcast", wire_schema=schema)
+                    comm_scheme="groupcast", injects_faults=cfg.faults is not None,
+                    wire_schema=schema)

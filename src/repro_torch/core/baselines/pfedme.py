@@ -16,6 +16,11 @@ cohort-shaped broadcast) and writes the real slots of both slabs back.
 Wire: a ``delta`` upload of w; the server's average reads the dequantized
 uploads, the (1 − β) retention each client's raw w. The ``average``
 downlink stays raw (the β-mix has no shared receiver reference).
+
+Upload stage (faults, robust): on the w upload, after the wire stage. Its
+final mask weighs the average, and a demoted slot keeps its w row;
+without the wire stage the retention reads what the stage left (the
+reference's path). φ is the client's own, and every real slot's advances.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ def make_pfedme(apply_stacked, params0,
         "pfedme", layout.dim,
         downlink=(transport_lib.Stream("average", layout.dim, coding="raw"),))
     up, _ = common.wire_stages(schema, cfg.transport)
+    ustage = common.upload_stage(cfg, schema)
 
     def client_update(w, x, y, perms):
         """(U, dim_aligned) local copies -> (new w, last φ)."""
@@ -84,16 +90,24 @@ def make_pfedme(apply_stacked, params0,
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
         wc = co.rows["params"]
         new_wc, phic = run_clients(wc, co.x, co.y, co.keys(perms))
-        out, wire = {}, new_wc
+        out, wire, widx, wmask, final = {}, new_wc, co.idx, co.mask, None
         if up is not None:
             wire, out["ef"] = common.uplink(up, state, co, wc, new_wc)
+        if ustage is not None:
+            wire, widx, wmask = common.upload(ustage, co, wc, wire)
+            final = wmask
+            if up is None:
+                new_wc = wire
         # the cohort-shaped broadcast: every slot gets the real slots' mean
-        avg = common.fedavg_masked_mix(wc, wire, co.idx, co.mask, data.n)
-        w = aggregation.scatter_rows(state["params"], co.idx, (1 - beta) * new_wc + beta * avg,
+        avg = common.fedavg_masked_mix(wc, wire, widx, wmask, data.n)
+        w = aggregation.scatter_rows(state["params"], co.idx,
+                                     common.kept(final, (1 - beta) * new_wc + beta * avg, wc),
                                      co.real)
         personal = aggregation.scatter_rows(state["personal"], co.idx, phic, co.real)
         return {"params": w, "personal": personal, **out}, {"streams": 1}
 
-    return Strategy("pfedme", init, common.cohort_round(dense, masked, transport=cfg.transport),
+    return Strategy("pfedme", init,
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
                     lambda s: layout.unravel(s["personal"]),
-                    comm_scheme="broadcast", num_streams=1, wire_schema=schema)
+                    comm_scheme="broadcast", num_streams=1,
+                    injects_faults=cfg.faults is not None, wire_schema=schema)

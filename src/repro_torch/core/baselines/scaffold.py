@@ -18,6 +18,10 @@ stage quantizes ``[post | c_i⁺]`` against ``[θ | c_i]``, each half with
 its own EF slice, so the EF slab is (m, 2·dim_aligned). Down, ``model``
 and ``control``: ``[new global | new c]`` delta-coded against row 0 of
 ``[params | c]`` with one server EF row.
+
+Upload stage (faults, robust): on the same ``[post | c_i⁺]`` wire slab,
+after the wire stage, with the finite guard per stream; a demoted slot
+keeps its c_i row, and the final mask weighs the mean.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ def make_scaffold(apply_stacked, params0,
         downlink=(transport_lib.Stream("model", layout.dim),
                   transport_lib.Stream("control", layout.dim)))
     up, down = common.wire_stages(schema, cfg.transport)
+    ustage = common.upload_stage(cfg, schema)
     width = layout.dim_aligned  # one stream's slice of the wire slab
 
     def init(gen, data):
@@ -76,28 +81,39 @@ def make_scaffold(apply_stacked, params0,
         pc, cic, cc = (co.rows[k] for k in ("params", "c_i", "c"))
         post = local(pc, co.x, co.y, (cic, cc), perms=co.keys(perms))
         new_cic = cic - cc + inv_steps(data) * (pc - post)
-        if up is None:
-            c_i = aggregation.scatter_rows(state["c_i"], co.idx, new_cic, co.real)
-            params = common.fedavg_masked_mix(state["params"], post, co.idx, co.mask, data.n)
-            return {"params": params, "c_i": c_i, "c": _mean_row(c_i)}, {"streams": 1}
-        wire, ef = common.uplink(up, state, co, torch.cat([pc, cic], dim=1),
-                                 torch.cat([post, new_cic], dim=1))
-        post, new_cic = wire[:, :width], wire[:, width:]
+        out, fidx, fmask = {}, co.idx, co.mask
+        if up is not None or ustage is not None:
+            # the wire carries [model | control]: the client derives its new
+            # control from its raw local model, then the wire stage and the
+            # upload stage rewrite both halves
+            pre = torch.cat([pc, cic], dim=1)
+            wire = torch.cat([post, new_cic], dim=1)
+            if up is not None:
+                wire, out["ef"] = common.uplink(up, state, co, pre, wire)
+            if ustage is not None:
+                wire, fidx, fmask = common.upload(ustage, co, pre, wire)
+                wire = common.kept(fmask, wire, pre)
+            post, new_cic = wire[:, :width], wire[:, width:]
         c_i = aggregation.scatter_rows(state["c_i"], co.idx, new_cic, co.real)
+        if down is None:
+            params = common.fedavg_masked_mix(state["params"], post, fidx, fmask, data.n)
+            return {"params": params, "c_i": c_i, "c": _mean_row(c_i), **out}, {"streams": 1}
         # the downlink: both broadcast rows against the old [global | c]
         params, c = state["params"], state["c"]
-        w = aggregation.masked_fedavg_weights(data.n[co.safe], co.mask)
+        w = aggregation.masked_fedavg_weights(data.n[co.safe], fmask)
         mixed = aggregation.user_centric(post, w)  # (1, width)
         dl_post = torch.cat([mixed, torch.mean(c_i, dim=0, keepdim=True)], dim=1)
         served, new_ef_dl = down(torch.cat([params[0:1], c[0:1]], dim=1), dl_post,
                                  state["ef_dl"])
-        alive = torch.any(co.mask)
+        alive = torch.any(fmask)
         return {"params": torch.where(alive, served[:, :width].expand_as(params), params),
                 "c_i": c_i,
                 "c": torch.where(alive, served[:, width:].expand_as(c), c),
-                "ef": ef, "ef_dl": torch.where(alive, new_ef_dl, state["ef_dl"])}, \
+                "ef_dl": torch.where(alive, new_ef_dl, state["ef_dl"]), **out}, \
             {"streams": 1}
 
-    return Strategy("scaffold", init, common.cohort_round(dense, masked, transport=cfg.transport),
+    return Strategy("scaffold", init,
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
                     lambda s: layout.unravel(s["params"]),
-                    comm_scheme="broadcast", num_streams=1, wire_schema=schema)
+                    comm_scheme="broadcast", num_streams=1,
+                    injects_faults=cfg.faults is not None, wire_schema=schema)

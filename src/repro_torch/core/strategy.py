@@ -17,6 +17,10 @@ A strategy owns these callables:
   * ``skip_round(state) -> state`` (optional) — what a round that nobody
     attends (an all-offline availability cohort) does to the state; the
     simulation loop calls it instead of ``round``.
+
+``injects_faults`` is True when the strategy was built with
+``FedConfig.faults``: the simulation loop's finite check then stands down
+(the upload stage's finite guard absorbs the injected NaN/Inf uploads).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ class Strategy:
     comm_scheme: str = "broadcast"
     num_streams: int | None = None
     skip_round: Callable[[Any], Any] | None = None
+    injects_faults: bool = False
     # the declared wire layout, a
     # :class:`repro_torch.federated.transport.WireSchema`: the transport
     # stages and the comm model's byte pricing
@@ -70,13 +75,32 @@ class FedConfig:
     dense round with it raises ``ValueError``. ``None`` keeps every
     trajectory bit-identical.
 
-    The reference's other engine knobs (mesh, shard_state, w_refresh,
-    async_buffer, faults, robust, topology, selection) come with later
-    slices; naming one here raises ``TypeError`` at construction.
+    ``w_refresh`` (a :class:`repro_torch.core.similarity.RefreshConfig`, or
+    ``None`` = off) opts the W-owning strategies (``ucfl``, its clustered
+    variant, ``ucfl_parallel``) into the streaming W refresh: every cohort
+    round folds the cohort's uploads into running Δ̂/σ̂² buffers and
+    recomputes W, with per-client staleness in the round metrics. The
+    dense round never refreshes; strategies without a W ignore the knob.
+
+    ``faults`` (a :class:`repro_torch.federated.faults.FaultConfig`) and
+    ``robust`` (a :class:`repro_torch.core.aggregation.RobustConfig`), each
+    ``None`` = off, insert the upload stage into every cohort round, after
+    the wire stage and before the mix: fault injection (Byzantine uploads,
+    drops), the finite guard, then the robust rule. Demoted slots keep
+    their previous rows. A dense round with either raises ``ValueError``;
+    ``ucfl_parallel`` raises ``NotImplementedError`` at construction.
+
+    Off (``None``), each of the three keeps every trajectory bit-identical.
+    The reference's other engine knobs (mesh, shard_state, async_buffer,
+    topology, selection) come with later slices; naming one here raises
+    ``TypeError`` at construction.
     """
     lr: float = 0.1
     momentum: float = 0.9
     epochs: int = 1
     batch_size: int = 50
     chunk_size: int | None = None
+    w_refresh: Any = None
+    faults: Any = None
+    robust: Any = None
     transport: Any = None

@@ -40,9 +40,24 @@ stage and scatters the real slots, in place of the fused mix-scatter.
 The clustered variant's ``centroids`` groupcast stays raw (a centroid is
 no receiver's old model), and keeps the fused launch.
 
-The baselines the paper compares against are in
-:mod:`repro_torch.core.baselines`. ``ucfl_parallel`` and the engine knobs
-come with later slices (ROADMAP queue A).
+Streaming W refresh (``FedConfig.w_refresh``): the state also holds
+``refresh``, the slab-wide (m, dim_aligned) unit-direction buffer, Δ̂, σ̂²
+and the staleness counters (:func:`repro_torch.core.similarity.init_refresh_state`,
+one gram launch at init); every cohort round folds its uploads into them
+and replaces ``W`` before the mix, and reports ``staleness_max`` and
+``staleness_mean``. The labels of the clustered variant stay those of
+init. The dense round never refreshes; a round nobody attends ages the
+counters (``skip_round``).
+
+Upload stage (``FedConfig.faults``/``robust``): after the wire stage and
+before the refresh and the mix. The mix-scatter takes the final slots as
+they are; under the delta-coded downlink the cohort's prefix is scattered
+with a demoted slot's own rows, and the streams are counted on the card
+from the final mask.
+
+``ucfl_parallel`` (:func:`make_ucfl_parallel`) is the §V-E upper bound
+of Fig. 6. The baselines the paper compares against are in
+:mod:`repro_torch.core.baselines`.
 """
 from __future__ import annotations
 
@@ -52,6 +67,7 @@ import torch
 from repro_torch.core import aggregation, clustering, flat, similarity
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.data.loader import draw_permutations
 from repro_torch.federated import client as fedclient
 from repro_torch.federated import transport as transport_lib
 from repro_torch.kernels import ops
@@ -114,6 +130,7 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
                          f"got {num_streams!r}")
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
+    refresh = common.w_refresh_hook(cfg.w_refresh)
     if num_streams is None:
         schema = transport_lib.single_delta_schema(
             "ucfl", layout.dim, downlink=(transport_lib.Stream("personalized", layout.dim),))
@@ -122,6 +139,7 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             f"ucfl_k{num_streams}", layout.dim,
             downlink=(transport_lib.Stream("centroids", layout.dim, coding="raw"),))
     up, down = common.wire_stages(schema, cfg.transport)
+    ustage = common.upload_stage(cfg, schema)
 
     def init(gen, data, *, kmeans_init=None):
         """``kmeans_init`` (k, m) replaces the K-means++ seeds (parity
@@ -140,11 +158,15 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             # the cohort round counts its streams from this copy, not
             # with a device sync every round
             labels_host = labels.cpu().numpy()
-        return {"params": layout.slab(params0, m), "W": w, "labels": labels,
-                "labels_host": labels_host, "streams": k, "collab": collab,
-                **common.wire_state(schema, cfg.transport, m, dev, dl_rows=m)}
+        state = {"params": layout.slab(params0, m), "W": w, "labels": labels,
+                 "labels_host": labels_host, "streams": k, "collab": collab,
+                 **common.wire_state(schema, cfg.transport, m, dev, dl_rows=m)}
+        if refresh is not None:
+            state["refresh"] = similarity.init_refresh_state(collab, m, width=layout.dim_aligned)
+        return state
 
     def dense(state, data, gen, perms):
+        # the dense round never refreshes: it stays the paper's compute-W-once round
         updated = local(state["params"], data.x, data.y, gen=gen, perms=perms)
         streams = state["streams"]
         if streams is None:
@@ -153,34 +175,180 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             mixed = aggregation.clustered(updated, state["W"], state["labels"], streams)
         return dict(state, params=mixed), {"streams": streams or data.num_clients}
 
+    def count_streams(state, co, fmask, staged):
+        """The round's downlink streams: its real members (full
+        personalization) or the clusters they belong to, on the host; under
+        the upload stage, from the final mask on the card."""
+        k = state["streams"]
+        if not staged:
+            if k is None:
+                return co.real
+            return int(np.unique(state["labels_host"][co.members]).size)
+        if k is None:
+            return torch.sum(fmask)
+        return common.groups_present(state["labels"][co.safe], k, fmask)
+
     def masked(state, data, gen, idx, mask, perms):
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
                                   slabs=("params",) if down is None else ("params", "ef_dl"))
         pc = co.rows["params"]
         post = local(pc, co.x, co.y, perms=co.keys(perms))
-        out = {}
+        out, metrics = {}, {}
         if up is not None:
             post, out["ef"] = common.uplink(up, state, co, pc, post)
+        fidx, fmask, final = co.idx, co.mask, None
+        if ustage is not None:
+            post, fidx, fmask = common.upload(ustage, co, pc, post)
+            final = fmask
+        w = state["W"]
+        if refresh is not None:
+            # the decoded, guarded uploads at the pre-stage slots, under the final mask
+            out["refresh"], w = refresh(pc, post, state["refresh"], co.idx, fmask, data.n,
+                                        co.real)
+            out["W"] = w
+            metrics = common.staleness_metrics(out["refresh"])
         if state["streams"] is None:
-            rows = aggregation.masked_cohort_matrix(state["W"], co.idx, co.mask)
-            n_streams = co.real
+            rows = aggregation.masked_cohort_matrix(w, fidx, fmask)
         else:  # only the clusters present in the cohort put a model on the downlink
-            rows = aggregation.masked_clustered_rows(state["W"], state["labels"],
-                                                     state["streams"], co.idx, co.mask)
-            n_streams = int(np.unique(state["labels_host"][co.members]).size)
+            rows = aggregation.masked_clustered_rows(w, state["labels"], state["streams"],
+                                                     fidx, fmask)
+        metrics["streams"] = count_streams(state, co, fmask, final is not None)
         if down is None:
-            params = aggregation.mix_scatter_flat(state["params"], post, rows, co.idx, co.mask)
+            params = aggregation.mix_scatter_flat(state["params"], post, rows, fidx, fmask)
         else:  # each receiver's mix, delta-coded against its round-start row
-            served, ef_dl = down(pc, ops.mix_aggregate(rows, post), co.rows["ef_dl"])
-            out["ef_dl"] = aggregation.scatter_rows(state["ef_dl"], co.idx, ef_dl, co.real)
-            params = aggregation.scatter_rows(state["params"], co.idx, served, co.real)
-        return dict(state, params=params, **out), {"streams": n_streams}
+            ef_rows = co.rows["ef_dl"]
+            served, ef_dl = down(pc, ops.mix_aggregate(rows, post), ef_rows)
+            out["ef_dl"] = aggregation.scatter_rows(state["ef_dl"], co.idx,
+                                                    common.kept(final, ef_dl, ef_rows), co.real)
+            params = aggregation.scatter_rows(state["params"], co.idx,
+                                              common.kept(final, served, pc), co.real)
+        return dict(state, params=params, **out), metrics
 
     return Strategy(
         name="ucfl" if num_streams is None else f"ucfl_k{num_streams}",
-        init=init, round=common.cohort_round(dense, masked, transport=cfg.transport),
+        init=init,
+        round=common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
         eval_params=lambda s: layout.unravel(s["params"]),
         comm_scheme="unicast" if num_streams is None else "groupcast",
         num_streams=None if num_streams in (None, "auto") else num_streams,
+        skip_round=None if refresh is None else common.refresh_skip_round,
+        injects_faults=cfg.faults is not None,
         wire_schema=schema,
+    )
+
+
+@register("ucfl_parallel")
+def make_ucfl_parallel(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
+                       var_batch_size=100, device=None):
+    """§V-E upper bound (Fig. 6): m parallel FL instances solving Eq. 4.
+
+    Every participating client trains all m stream models each round (m×
+    the compute and the uplink) and the PS applies Eq. 12,
+    ``θ_i ← Σ_j w_ij θ_ij``, stream i's row product over the clients'
+    updates of it. A (stream, client) pair is one unit of the stacked
+    model; the streams train in groups of ``cfg.chunk_size`` units (m when
+    None, the size of a ucfl round), and each group is mixed as soon as it
+    is trained, so the (m, c, d) stack of updates is never held whole,
+    unless the refresh needs it: its proxy is each slot's update of its own
+    stream, and the refreshed W mixes every stream.
+
+    The cohort round mixes each stream over the real cohort columns of W,
+    renormalized (``masked_column_mixing``); a stream without mass on the
+    cohort keeps its model. ``streams`` is m either way (every participant
+    downloads all m models). ``round(..., perms=)`` takes the (m streams,
+    m clients, epochs, ≥ steps·B) batch orders. The state is a new tensor
+    each round (every stream's row is rewritten).
+
+    Its wire has no single (c, d) upload slab: ``transport`` and
+    ``faults``/``robust`` raise ``NotImplementedError`` at construction.
+    """
+    if cfg.faults is not None or cfg.robust is not None:
+        raise NotImplementedError(
+            "FedConfig.faults/robust are not supported by ucfl_parallel: "
+            "the m× per-stream update stack has no single (c, d) upload "
+            "slab for the fault/robust stage to rewrite — this idealized "
+            "§V-E upper bound assumes honest clients by construction")
+    transport_lib.unsupported(
+        cfg.transport, "ucfl_parallel",
+        "the m× per-stream update stack has no single (c, d) upload "
+        "slab to quantize — the m× uplink cost is the point of this "
+        "upper bound")
+    params0, layout, dev = common.prepare(params0, device)
+    local = common.local_sgd(apply_stacked, layout, cfg)
+    refresh = common.w_refresh_hook(cfg.w_refresh)
+
+    def init(gen, data):
+        m = data.num_clients
+        collab = compute_collaboration(
+            apply_stacked, params0, data, var_batch_size=var_batch_size,
+            chunk_size=cfg.chunk_size, layout=layout)
+        state = {"params": layout.slab(params0, m), "W": collab["W"]}
+        if refresh is not None:
+            state["refresh"] = similarity.init_refresh_state(collab, m, width=layout.dim_aligned)
+        return state
+
+    def stream_perms(gen, perms, m, n):
+        if perms is None:
+            if gen is None:
+                raise ValueError("ucfl_parallel's round needs gen= or perms=")
+            perms = draw_permutations(gen, m * m, cfg.epochs, n, device=dev).view(
+                m, m, cfg.epochs, n)
+        if tuple(perms.shape[:2]) != (m, m):
+            raise ValueError(f"perms {tuple(perms.shape)}: ucfl_parallel takes the (m streams, "
+                             "m clients, epochs, n) orders of all clients")
+        return perms
+
+    def groups(params, x, y, perms):
+        """Yield (stream slice, (g, c, d) updates): every one of the c
+        clients of ``x``/``y`` trains each stream of the group from its
+        row, on ``perms`` (m, c, epochs, n)."""
+        m, c = params.shape[0], y.shape[0]
+        for sl in fedclient.chunks(m, max(1, (cfg.chunk_size or m) // c)):
+            g = sl.stop - sl.start
+            xs = x.expand((g,) + tuple(x.shape)).reshape((g * c,) + tuple(x.shape[1:]))
+            ys = y.expand((g,) + tuple(y.shape)).reshape(g * c, -1)
+            ps = perms[sl].reshape((g * c,) + tuple(perms.shape[2:]))
+            upd = local(params[sl].repeat_interleave(c, dim=0), xs, ys, perms=ps)
+            yield sl, upd.view(g, c, -1)
+
+    def mix(w_rows, upd):
+        """Eq. 12 for a group: (g, c)·(g, c, d) -> (g, d), in f32."""
+        return torch.bmm(w_rows.unsqueeze(1), upd).squeeze(1)
+
+    def dense(state, data, gen, perms):
+        params, w = state["params"], state["W"]
+        m, n = data.y.shape
+        perms = stream_perms(gen, perms, m, n)
+        new = torch.empty_like(params)
+        for sl, upd in groups(params, data.x, data.y, perms):
+            new[sl] = mix(w[sl], upd)
+        return dict(state, params=new), {"streams": m}
+
+    def masked(state, data, gen, idx, mask, perms):
+        params = state["params"]
+        m, n = data.y.shape
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
+                                  slabs=() if refresh is None else ("params",))
+        perms = stream_perms(gen, perms, m, n)[:, co.safe]
+        if refresh is None:
+            wc, alive = aggregation.masked_column_mixing(state["W"], co.idx, co.mask)
+            new = torch.empty_like(params)
+            for sl, upd in groups(params, co.x, co.y, perms):
+                new[sl] = torch.where(alive[sl, None], mix(wc[sl], upd), params[sl])
+            return dict(state, params=new), {"streams": m}
+        stack = torch.cat([upd for _, upd in groups(params, co.x, co.y, perms)])
+        # client j's own trajectory is stream idx_j: its update of it is the proxy
+        own = stack[co.safe, torch.arange(co.safe.shape[0], device=dev)]
+        buffers, w = refresh(co.rows["params"], own, state["refresh"], co.idx, co.mask, data.n,
+                             co.real)
+        wc, alive = aggregation.masked_column_mixing(w, co.idx, co.mask)
+        new = torch.where(alive[:, None], mix(wc, stack), params)
+        return (dict(state, params=new, W=w, refresh=buffers),
+                {"streams": m, **common.staleness_metrics(buffers)})
+
+    return Strategy(
+        name="ucfl_parallel", init=init, round=common.cohort_round(dense, masked),
+        eval_params=lambda s: layout.unravel(s["params"]),
+        comm_scheme="unicast",
+        skip_round=None if refresh is None else common.refresh_skip_round,
     )

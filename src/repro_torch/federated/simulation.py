@@ -34,7 +34,11 @@ evaluation run after round ``rnd`` only when ``rnd % eval_every == 0`` or
 ``rnd == rounds``; ``History.rounds`` lists the rounds evaluated, and
 ``History.paired_best`` takes its argmax over those alone. The
 reference's Tables 1/2 pass ``eval_every = max(rounds // 4, 1)`` to
-``run_trials``.
+``run_trials``. The finite check stands down by default when the strategy
+injects faults (``Strategy.injects_faults``): its finite guard absorbs
+the poisoned uploads. ``verbose`` prints a line a evaluated round, with
+the refresh's ``staleness_max`` and ``staleness_mean`` where the round
+reports them.
 """
 from __future__ import annotations
 
@@ -92,10 +96,12 @@ class History:
 
 
 def clone_state(state):
-    """Copy every tensor of a state dict. The cohort round writes the
-    params slab in place, so a caller that keeps the pre-round state (the
-    warm-up, an A/B comparison) runs the round on this copy."""
-    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+    """Copy every tensor of a state dict, and of the dicts in it (the
+    refresh buffers). The cohort round writes the params slab (and the
+    refresh buffers) in place, so a caller that keeps the pre-round state
+    (the warm-up, an A/B comparison) runs the round on this copy."""
+    return {k: v.clone() if isinstance(v, torch.Tensor)
+            else clone_state(v) if isinstance(v, dict) else v
             for k, v in state.items()}
 
 
@@ -145,12 +151,21 @@ def _warmup_cohort(participation, m, n):
     return cohort
 
 
+def _round_line(name, rnd, accs, metrics):
+    stale = ("" if "staleness_max" not in metrics else
+             f" stale_max={int(metrics['staleness_max'])}"
+             f" stale_mean={float(metrics['staleness_mean']):.1f}")
+    return (f"[{name}] round {rnd:4d} avg={accs.mean():.4f} worst={accs.min():.4f} "
+            f"streams={metrics.get('streams')}{stale}")
+
+
 def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: int = 1,
         participation: part.ParticipationConfig | None = None,
-        device=None) -> History:
+        device=None, check_finite: bool | None = None, verbose: bool = False) -> History:
     """Run ``rounds`` rounds; after round ``rnd`` a finite check of the
     clients' models and an evaluation run when ``rnd % eval_every == 0``
-    or ``rnd == rounds`` (the reference's rule).
+    or ``rnd == rounds`` (the reference's rule). ``check_finite`` None
+    means on unless the strategy injects faults.
 
     ``participation`` None (or a full policy) runs the dense
     full-participation round; otherwise each round's cohort is
@@ -164,6 +179,8 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: in
         raise ValueError(f"data lives on {data.x.device}, run on {dev}")
     m = data.num_clients
     n_host = data.n.cpu().numpy()  # for the weighted sampler, copied once
+    if check_finite is None:
+        check_finite = not strategy.injects_faults
     init_gen, warm_gen, round_gen = _generators(seed, dev)
     hist = History(strategy.name, [], [], [], [])
 
@@ -184,9 +201,12 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: in
     def do_eval(rnd, metrics):
         _sync(dev)  # the round's queued work belongs to the round time
         te = time.perf_counter()
-        _check_finite_state(strategy, state, rnd)
+        if check_finite:
+            _check_finite_state(strategy, state, rnd)
         accs = evaluate(apply_stacked, strategy.eval_params(state), data.x_test,
                         data.y_test).cpu().numpy()
+        if verbose:
+            print(_round_line(strategy.name, rnd, accs, metrics), flush=True)
         hist.eval_s += time.perf_counter() - te
         hist.rounds.append(rnd)
         hist.avg_acc.append(float(accs.mean()))

@@ -207,7 +207,7 @@ def test_cfl_splits_match_reference():
 
 
 def test_registry_names_match_reference():
-    assert set(REGISTRY) == set(ref_core.REGISTRY) - {"ucfl_parallel"}
+    assert set(REGISTRY) == set(ref_core.REGISTRY)
     assert set(NAMES) < set(REGISTRY)
 
 

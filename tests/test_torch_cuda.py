@@ -34,6 +34,7 @@ plain attention's within 2^-5 of the largest logit, as its prefill does.
 import ctypes
 import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -680,6 +681,158 @@ def test_cuda_wire_rounds_match_cpu(name):
             assert float((err > 1e-4).float().mean()) <= 1e-3, (r, k)
     per_round = {"ucfl": 3, "fedavg": 2, "scaffold": 4}[name]  # one a gathered slab
     assert GATHER.launches - gathers == 2 * per_round
+
+
+def _small_task(dev):
+    from repro_torch.data import synthetic
+    from repro_torch.models import lenet
+
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(m=8, n=80, n_test=20, num_classes=6, hw=(16, 16))
+    cpu_data = synthetic.covariate_label_shift(0, device="cpu", **kw)
+    gpu_data = synthetic.FederatedData(*(a.to(dev) for a in cpu_data))
+    p0 = lenet.init(torch.Generator().manual_seed(0), input_hw=(16, 16), num_classes=6,
+                    device="cpu")
+    return cpu_data, gpu_data, p0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ucfl", "ucfl_k2", "ucfl_parallel"])
+def test_cuda_refresh_rounds_match_cpu(name):
+    """Init and two cohort rounds (two pad slots, then one) with
+    ``RefreshConfig()`` on the card against the CPU's plain path: slab, W and
+    the refresh buffers within 1e-4, staleness exact; the special round and
+    the unit rows' Δ̂ are one gram launch each, with no padded copy."""
+    from repro_torch.core import REGISTRY, FedConfig, clustering, ucfl
+    from repro_torch.core.similarity import RefreshConfig
+    from repro_torch.data import loader
+    from repro_torch.federated import participation
+    from repro_torch.models import lenet
+
+    dev = cuda_device()
+    cpu_data, gpu_data, p0 = _small_task(dev)
+    cfg = FedConfig(batch_size=20, w_refresh=RefreshConfig())
+    ns = 2 if name == "ucfl_k2" else None
+    if name == "ucfl_parallel":
+        host, card = (REGISTRY[name](lenet.apply_stacked, p0, cfg, var_batch_size=20, device=d)
+                      for d in ("cpu", dev))
+        init_kw = ({}, {})
+    else:
+        host, card = (ucfl.make_ucfl(lenet.apply_stacked, p0, cfg, num_streams=ns,
+                                     var_batch_size=20, device=d) for d in ("cpu", dev))
+        seeds = None if ns is None else clustering._plusplus_init(
+            torch.Generator().manual_seed(2), ucfl.compute_collaboration(
+                lenet.apply_stacked, p0, cpu_data, var_batch_size=20)["W"], ns)
+        init_kw = ({"kmeans_init": seeds}, {"kmeans_init": None if seeds is None
+                                            else seeds.to(dev)})
+    grams, padded = GRAM.launches, GRAM.padded
+    hs, cs = host.init(None, cpu_data, **init_kw[0]), card.init(None, gpu_data, **init_kw[1])
+    assert GRAM.launches - grams == 2 and GRAM.padded == padded
+    cohorts = [participation.pad_slots(participation.as_cohort([1, 3, 6], 8), 5, 8),
+               participation.pad_slots(participation.as_cohort([0, 2, 3, 5], 8), 5, 8)]
+    for r, cohort in enumerate(cohorts):
+        shape = (8, 8, 1, 80) if name == "ucfl_parallel" else (8, 1, 80)
+        perms = loader.draw_permutations(torch.Generator().manual_seed(r), int(np.prod(
+            shape[:-2])), 1, 80, device="cpu").view(shape)
+        hs, hm = host.round(hs, cpu_data, None, cohort, perms=perms)
+        cs, cm = card.round(cs, gpu_data, None, cohort, perms=perms.to(dev))
+        torch.cuda.synchronize()
+        assert int(hm["streams"]) == int(cm["streams"])
+        for k, got, want in [("params", cs["params"], hs["params"]), ("W", cs["W"], hs["W"])] + [
+                (k, cs["refresh"][k], hs["refresh"][k]) for k in ("grads", "sigma_sq", "delta")]:
+            assert float((got.cpu() - want).abs().max()) <= 1e-4, (r, k)
+        assert torch.equal(cs["refresh"]["staleness"].cpu(), hs["refresh"]["staleness"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ucfl", "fedavg", "scaffold", "cfl"])
+def test_cuda_faulted_rounds_match_cpu(name):
+    """Two cohort rounds under sign-flip attackers and drops with trimmed
+    mean on the card against the CPU's plain path, from the same data,
+    weights, batch orders and fault draws (the attacker set and the drop
+    uniforms come from numpy): every slab within 1e-4, the same final
+    streams; the mix-scatter takes the holed final mask as it is."""
+    from repro_torch.core import REGISTRY, FedConfig
+    from repro_torch.core.aggregation import RobustConfig
+    from repro_torch.data import loader
+    from repro_torch.federated import faults, participation
+    from repro_torch.models import lenet
+
+    dev = cuda_device()
+    cpu_data, gpu_data, p0 = _small_task(dev)
+    base = dict(lr=0.01, momentum=0.0, epochs=5) if name == "scaffold" else {}
+    cfg = FedConfig(batch_size=16, faults=faults.FaultConfig(
+        byzantine_frac=0.25, attack="sign_flip", drop_rate=0.2), robust=RobustConfig(), **base)
+    extra = dict(var_batch_size=20) if name == "ucfl" else {}
+    host = REGISTRY[name](lenet.apply_stacked, p0, cfg, device="cpu", **extra)
+    card = REGISTRY[name](lenet.apply_stacked, p0, cfg, device=dev, **extra)
+    hs, cs = host.init(None, cpu_data), card.init(None, gpu_data)
+    cohort = participation.pad_slots(participation.as_cohort([0, 1, 3, 4, 6, 7], 8), 7, 8)
+    for r in range(2):
+        perms = loader.draw_permutations(torch.Generator().manual_seed(r), 8, cfg.epochs, 80,
+                                         device="cpu")
+        hs, hm = host.round(hs, cpu_data, None, cohort, perms=perms)
+        cs, cm = card.round(cs, gpu_data, None, cohort, perms=perms.to(dev))
+        torch.cuda.synchronize()
+        assert int(hm["streams"]) == int(cm["streams"])
+        for k, want in hs.items():
+            if isinstance(want, torch.Tensor) and want.dtype == torch.float32 and k != "W":
+                assert bool(torch.isfinite(cs[k]).all()), (r, k)
+                assert float((cs[k].cpu() - want).abs().max()) <= 1e-4, (r, k)
+        if name == "cfl":
+            assert np.array_equal(cs["assignment"], hs["assignment"])
+
+
+@pytest.mark.cuda
+def test_cuda_masked_mix_scatter_with_holes_matches_compacted_cohort():
+    """A final mask with holes mid-cohort (demoted slots with the sentinel
+    or with their own in-range id, zero columns in W): the live rows bit for
+    bit those of the compacted cohort, within 1e-5 of the plain version, and
+    no demoted row moves."""
+    dev = cuda_device()
+    m, c, d = 100, 50, 47616
+    gen = torch.Generator().manual_seed(3)
+    full = torch.randn(m, d, generator=gen).to(dev)
+    idx = torch.full((c,), m, dtype=torch.int32)
+    idx[:42] = torch.sort(torch.randperm(m, generator=gen)[:42]).values.to(torch.int32)
+    mask = torch.arange(c) < 42
+    mask[[0, 3, 16, 30, 41]] = False
+    w = torch.softmax(torch.randn(c, c, generator=gen), dim=1) * mask.float()[None, :]
+    w = w / w.sum(dim=1, keepdim=True)
+    theta = 0.05 * torch.randn(c, d, generator=gen)
+    w, theta, idx, mask = w.to(dev), theta.to(dev), idx.to(dev), mask.to(dev)
+    live = torch.nonzero(mask).squeeze(1)
+    for index in (torch.where(mask, idx, torch.full_like(idx, m)), idx):
+        got = ops.masked_mix_scatter(w, theta, index, mask, full.clone(), impl="cuda")
+        want = ref.masked_mix_scatter(w, theta, index, mask, full)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        compact = ops.masked_mix_scatter(w[live][:, live].contiguous(), theta[live].contiguous(),
+                                         idx[live], mask[live], full.clone(), impl="cuda")
+        assert torch.equal(got, compact)
+        still = torch.ones(m, dtype=torch.bool, device=dev)
+        still[idx[live].long()] = False
+        assert torch.equal(got[still], full[still])
+
+
+@pytest.mark.cuda
+def test_cuda_gram_on_unit_rows_reads_them_where_they_lie():
+    """The refresh's slab-wide unit directions (zero tail): one launch, no
+    padded copy, within 1e-5 of the largest entry, Δ̂ symmetric."""
+    from repro_torch.core import similarity
+
+    dev = cuda_device()
+    gen = torch.Generator().manual_seed(4)
+    full = torch.randn(100, 47571, generator=gen).to(dev)
+    launches, padded = GRAM.launches, GRAM.padded
+    buf = similarity.init_refresh_state({"full_grads": full, "sigma_sq": torch.ones(100, device=dev)},
+                                        100, width=47616)
+    torch.cuda.synchronize()
+    assert GRAM.launches - launches == 1 and GRAM.padded == padded
+    g = buf["grads"]
+    assert tuple(g.shape) == (100, 47616) and not bool(g[:, 47571:].any())
+    got, want = ops.gram(g, impl="cuda"), ref.gram(g)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(buf["delta"], buf["delta"].T)
 
 
 # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, softcap)

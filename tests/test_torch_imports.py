@@ -44,7 +44,8 @@ def test_import_without_jax_loaded():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.federated.simulation, "
         "repro_torch.data.synthetic, repro_torch.models.lenet, repro_torch.interop, "
-        "repro_torch.configs, repro_torch.models.transformer, repro_torch.launch.serve\n"
+        "repro_torch.configs, repro_torch.models.transformer, repro_torch.launch.serve, "
+        "repro_torch.federated.faults, repro_torch.core.similarity\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")

@@ -350,4 +350,4 @@ def test_a_transport_that_is_no_transport_config_raises_at_construction(name):
                 REGISTRY[name](lenet.apply_stacked, tparams, cfg, device="cpu")
     assert FedConfig().transport is None
     with pytest.raises(TypeError):  # the reference's other engine knobs are not ported yet
-        FedConfig(w_refresh=object())
+        FedConfig(async_buffer=object())

@@ -177,3 +177,60 @@ def assert_tree_close(got, want, **tol):
             assert_tree_close(got[k], want[k], **tol)
         else:
             np.testing.assert_allclose(n(got[k]), np.asarray(want[k]), err_msg=k, **tol)
+
+
+def padded_cohorts(members=((0, 2, 5), (1, 2, 3, 4)), slots=5, m=None):
+    """The slice tests' cohorts: three, then four real members, each padded
+    to ``slots`` slots (port ``Cohort`` objects)."""
+    from repro_torch.federated import participation
+    m = SMALL["m"] if m is None else m
+    return [participation.pad_slots(participation.as_cohort(np.asarray(mem), m), slots, m)
+            for mem in members]
+
+
+def key_schedule(cohorts, seed=1):
+    """(init key, [(round key, cohort)]): the key stream of
+    ``repro.federated.simulation.run``, one split for init, one a round."""
+    key = jax.random.PRNGKey(seed)
+    key, ikey = jax.random.split(key)
+    rounds = []
+    for cohort in cohorts:
+        key, rkey = jax.random.split(key)
+        rounds.append((rkey, cohort))
+    return ikey, rounds
+
+
+def ref_cohort(cohort):
+    """A port ``Cohort`` as the reference's."""
+    from repro.federated import participation as ref_part
+    return None if cohort is None else ref_part.Cohort(indices=cohort.indices, mask=cohort.mask)
+
+
+def ref_stream_permutations(key, m, epochs, n, batch_size):
+    """ucfl_parallel's batch orders under round key ``key``: stream i's
+    client j trains on the orders of split(split(key, m)[i], m)[j]
+    (``repro/core/ucfl.py:564`` and ``:587``). Returns (m, m, epochs,
+    steps·B) int64 numpy."""
+    return np.stack([ref_permutations(k, m, epochs, n, batch_size)
+                     for k in jax.random.split(key, m)])
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _ref_fault_keys(rkey, fold, m, width):
+    keys = jax.random.split(jax.random.fold_in(rkey, fold), m)
+    u = jax.vmap(lambda k: jax.random.uniform(jax.random.fold_in(k, 2)))(keys)
+    noise = jax.vmap(lambda k: jax.random.normal(jax.random.fold_in(k, 1), (width,)))(keys)
+    return u, noise
+
+
+def ref_fault_draws(ref_cfg, rkey, m, width):
+    """The reference's fault draws of the round under ``rkey``, client by
+    client (``repro/federated/faults.py:123-170``): the attacker set, the
+    drop uniforms and the unscaled noise rows, as a port
+    :class:`~repro_torch.federated.faults.FaultDraws` on the CPU."""
+    from repro.federated import faults as ref_faults
+    from repro_torch.federated import faults
+    u, noise = _ref_fault_keys(rkey, ref_faults._FOLD, m, width)
+    return faults.FaultDraws(torch.as_tensor(np.asarray(ref_faults.attacker_mask(ref_cfg, m))),
+                             torch.as_tensor(np.asarray(u)),
+                             torch.as_tensor(np.asarray(noise)))
