@@ -14,13 +14,19 @@ Phases, each printed as it ends:
                2x the error of ``g @ g.T`` in f32; mix_aggregate also at leaf widths,
                a second row tile, one rule and an offset view, with two calls
                bit-equal and 28 zero columns of W bit-invisible;
-               mix_aggregate also at k = 1 (the FedAvg family's mean);
+               mix_aggregate also at k = 1 (the FedAvg family's mean) and
+               at the engine's shapes (k = 1 over the 109 buffer rows, the
+               4 edge aggregates, ucfl_k4's 16 tiered partial rules and the
+               tier-2 combine over 4 edges);
                kmeans_assign also at k = 99 with a tie across lanes, timed;
                the cohort kernels also with pad
                slots, an all-pad cohort and an odd width, the gather also at
                SCAFFOLD's (100, 95,232) EF slab, the mix-scatter
-               also at 64 and 100 slots, its plan printed, both also timed
-               after a read flush (``read_ms``); flash_attention in
+               also at 64 and 100 slots and over the async buffer's 109
+               rows (live ids in arrival order after a deduped overwrite,
+               a sentinel tail: exact inputs bit for bit the plain
+               version), its plan printed, both also timed after a read
+               flush (``read_ms``); flash_attention in
                bf16 and f32 over head dims 32-256, GQA, window, softcap,
                ragged and one-query shapes up to 4,096 keys, from strided
                views, printing which of its three kernels each case took:
@@ -98,14 +104,30 @@ Phases, each printed as it ends:
                profiled cohort round's host-counted launches and busy time,
                and the upload stage's launches and ms at (50, 47,616);
                ``knobs_path`` JSON line;
-  10. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
+  10. engine — the last engine knobs on the same task: the buffered-async
+               server (``AsyncConfig(flush_k=60, alpha=0.5)``, a 109-row
+               buffer) on ucfl, ucfl_k4, fedavg and fedprox at fraction 0.5
+               for 4 rounds, deposit-only and flush rounds in turn, printing
+               each round's flushed, applied, buffer_fill, tau_max and
+               tau_mean (ucfl's τ > 0, the FedAvg family's 0), exact
+               launches, a profiled round and one more buffered round with
+               no synchronizing call; ucfl with ``AsyncConfig(flush_k=1,
+               alpha=0.0)``, 2 rounds bit for bit the barrier rounds; the
+               two-tier ``Topology.contiguous(100, 4)`` on ucfl_k4, fedavg
+               and fedprox, 2 rounds within 1e-4 of the flat runs from the
+               same seeds; ucfl through ``run(selection=SelectionConfig(...))``
+               for 3 rounds (every cohort holds the fairness lane's client
+               and no battery-gated one); ucfl under the ``scaled_noise``
+               and ``inf`` attacks with trimmed mean, 1 round, finite and
+               above the untrained model; ``engine_path`` JSON line;
+  11. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
                federated prefill step (the FMA kernel) and teacher-forced
                decode steps (the decode kernel; gemma2 past its window-64
                wrap) on the card against the plain path on the CPU; then
                both in bf16, the prefill step through the tensor-core tile
                and 72 decode steps through the decode kernel, each against
                the same steps with the plain attention on the card;
-  11. serve  — personalized serving of qwen2-7b at full width and depth
+  12. serve  — personalized serving of qwen2-7b at full width and depth
                (28 layers, bf16) for 2 clients x 2 requests: the federated
                prefill step over 1024 tokens, a profile of decode steps,
                a profile of one prefill step, then ``serve()`` (a 128-token
@@ -142,12 +164,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import REGISTRY, FedConfig, ParticipationConfig, clustering, flat, ucfl  # noqa: E402
-from repro_torch.core import comm_model  # noqa: E402
+from repro_torch.core import aggregation, comm_model  # noqa: E402
 from repro_torch.core.aggregation import RobustConfig  # noqa: E402
 from repro_torch.core.similarity import RefreshConfig  # noqa: E402
 from repro_torch.data import loader, synthetic  # noqa: E402
-from repro_torch.federated import client, faults, participation, simulation  # noqa: E402
-from repro_torch.federated import transport  # noqa: E402
+from repro_torch.federated import async_buffer, client, faults, participation  # noqa: E402
+from repro_torch.federated import simulation, transport  # noqa: E402
+from repro_torch.federated.async_buffer import AsyncConfig  # noqa: E402
+from repro_torch.federated.topology import Topology  # noqa: E402
 from repro_torch.federated.transport import TransportConfig  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.cohort_gather import GATHER  # noqa: E402
@@ -224,6 +248,13 @@ FMA_CASE = (4, 4, 2, 40, 40, 32, True, None, None)
 HOST_GATE_US = 5.0
 # the knobs phase's small-size agreement: two attackers of eight, drops
 AGREE_FAULTS = faults.FaultConfig(byzantine_frac=0.25, attack="sign_flip", drop_rate=0.2)
+# the engine phase: a 60-upload flush over 50-slot cohorts, so deposit-only
+# and flush rounds alternate; its buffer holds B = 60 - 1 + 50 rows; four
+# contiguous edges for the two-tier runs
+ENGINE_ASYNC = AsyncConfig(flush_k=60, alpha=0.5)
+ENGINE_ROUNDS = 4
+BUFFER_ROWS = ENGINE_ASYNC.capacity(50)
+EDGES = 4
 
 
 def phase(name, t0, msg):
@@ -313,11 +344,18 @@ def kernel_phase(dev):
     # mix_aggregate over the slab: full ucfl (k = 100), ucfl_k4 (k = 4) and
     # the FedAvg family's mean (k = 1); over a 50-slot cohort's uploads,
     # FedFomo's mix (k = 50) and the FedAvg family's mean (k = 1)
-    theta = 0.05 * torch.randn(m, d_al, generator=gen, device=dev)
+    # the engine's shapes: the FedAvg family's flush over the B buffer rows,
+    # tiered FedAvg's 4 edge aggregates and their combine, and ucfl_k4's
+    # (E·k, c) tiered partial rules
+    theta = 0.05 * torch.randn(BUFFER_ROWS, d_al, generator=gen, device=dev)
     theta[:, d:] = 0.0
     for name, k, mm in (("mix_aggregate_k100", 100, m), ("mix_aggregate_k4", 4, m),
                         ("mix_aggregate_k1", 1, m), ("mix_aggregate_k50", 50, 50),
-                        ("mix_aggregate_k1_m50", 1, 50)):
+                        ("mix_aggregate_k1_m50", 1, 50),
+                        ("mix_aggregate_k1_b109", 1, BUFFER_ROWS),
+                        ("mix_aggregate_k4_m50", EDGES, 50),
+                        ("mix_aggregate_k16_m50", EDGES * 4, 50),
+                        ("mix_aggregate_k1_m4", 1, EDGES)):
         w = torch.softmax(torch.randn(k, mm, generator=gen, device=dev), dim=1)
         th = theta[:mm]
         want = ref.mix_aggregate(w, th)
@@ -356,6 +394,7 @@ def kernel_phase(dev):
     rows["kmeans_assign"]["k99"] = kmeans_k99(gen, dev, pts)
 
     rows.update(cohort_kernel_rows(gen, dev, m, d_al))
+    rows["masked_mix_scatter_b109"] = buffer_scatter_row(gen, dev, m, d_al)
     rows.update(flash_rows(dev))
 
     for name, r in rows.items():
@@ -666,6 +705,100 @@ def check_scatter(name, w, theta, idx, mask, full, real):
     if not torch.equal(unpadded, got):
         raise AssertionError(f"{name}: the padded cohort's rows are not bit-for-bit the "
                              "unpadded cohort's")
+    return err
+
+
+def buffer_scatter_row(gen, dev, m, d_al):
+    """masked_mix_scatter over the async buffer's B = 109 rows, as ucfl's
+    flush runs it: two 50-slot cohorts deposited on the card (the second
+    overwriting some of the first's clients in place and appending the
+    rest), so the live ids are in arrival order, not increasing, with the
+    sentinel tail after them; the deposits equal the same deposits on the
+    CPU. The flush rules of the live slots, weighted by staleness: within
+    1e-5 of the plain version, and with exact inputs (rules in eighths,
+    integer rows) bit for bit the plain version, whatever the order of the
+    sums; a deposit-only flush (mask False) moves nothing. Timed like the
+    cohort row; its bound counts the live rows and columns that this
+    buffer's data needs."""
+    cpu_gen = torch.Generator().manual_seed(SEED + 11)
+    bufs = [async_buffer.init_buffer(ENGINE_ASYNC, m, 50, d_al, device=d) for d in ("cpu", dev)]
+    for rnd, real in ((0, 44), (1, 42)):
+        members = torch.sort(torch.randperm(m, generator=cpu_gen)[:real]).values
+        idx = torch.full((50,), m, dtype=torch.int32)
+        idx[:real] = members.to(torch.int32)
+        mask = torch.arange(50) < real
+        upload = torch.randn(50, d_al, generator=cpu_gen)
+        base = torch.full((50,), rnd, dtype=torch.int32)
+        args = (upload, idx, mask, base)
+        bufs = [async_buffer.deposit(b, *(x.to(b["idx"].device) for x in args), m) for b in bufs]
+    host, buf = bufs
+    for k in ("idx", "ver", "count", "version", "last_sync"):
+        if not torch.equal(buf[k].cpu(), host[k]):
+            raise AssertionError(f"async deposit on the card: {k} differs from the CPU's")
+    if not torch.equal(async_buffer.rows(buf).cpu(), async_buffer.rows(host)):
+        raise AssertionError("async deposit on the card: the buffer rows differ from the CPU's")
+    bidx = buf["idx"]
+    valid = async_buffer.valid_mask(buf, m)
+    count = int(buf["count"])
+    ids = bidx[:count].cpu()
+    if (bool((ids[1:] > ids[:-1]).all()) or bool(valid[count:].any())
+            or not bool(valid[:count].all()) or not count < 44 + 42):
+        raise AssertionError(f"the buffer's live ids are not deduped, unsorted and followed by "
+                             f"the sentinel tail: {bidx.tolist()}")
+    buf = dict(buf, version=torch.ones_like(buf["version"]))  # round 1's slots are 1 old
+    weights = async_buffer.staleness_weights(buf, m, ENGINE_ASYNC.alpha)
+    w_all = torch.softmax(torch.randn(m, m, generator=gen, device=dev), dim=1)
+    rules = aggregation.masked_cohort_matrix(w_all, bidx, valid, weights)
+    theta = async_buffer.rows(buf)
+    full = torch.randn(m, d_al, generator=gen, device=dev)
+    b = BUFFER_ROWS
+    flush = torch.ones((), dtype=torch.bool, device=dev)
+    err = check_scatter_unsorted("masked_mix_scatter b=109", rules, theta, bidx, valid & flush,
+                                 full)
+    # exact inputs: every sum is exact in f32, so any order gives the same bits
+    exact_w = torch.randint(0, 9, (b, b), generator=gen, device=dev).float() / 8.0
+    exact_w = exact_w * valid.float()[None, :]
+    exact_t = torch.randint(-8, 9, (b, d_al), generator=gen, device=dev).float()
+    want = ref.masked_mix_scatter(exact_w, exact_t, bidx, valid, full)
+    got = ops.masked_mix_scatter(exact_w, exact_t, bidx, valid, full.clone(), impl="cuda")
+    if not torch.equal(got, want):
+        raise AssertionError("masked_mix_scatter b=109: exact inputs differ from the plain "
+                             "version")
+    idle = ops.masked_mix_scatter(rules, theta, bidx, valid & ~flush, full.clone(), impl="cuda")
+    if not torch.equal(idle, full):
+        raise AssertionError("masked_mix_scatter b=109: a deposit-only flush moved a row")
+    live = torch.nonzero(valid).squeeze(1)
+    rows_live = bidx[live].long()
+    w_live = rules[live].contiguous()
+    scratch = full.clone()
+    nl = int(live.numel())
+    print(f"  masked_mix_scatter over the {b}-row buffer ({nl} live ids in arrival order, "
+          f"sentinel tail): within {err:.3e}, exact inputs bit for bit, deposit-only writes "
+          "nothing, deposits as on the CPU")
+    return dict(
+        source="src/repro_torch/kernels/csrc/masked_mix_scatter.cu",
+        replaces="src/repro/kernels/masked_mix_scatter.py:132, "
+                 "src/repro/kernels/masked_gather_mix_scatter.py:167", max_abs_err=err,
+        ms=time_ms(lambda: ops.masked_mix_scatter(rules, theta, bidx, valid, scratch,
+                                                  impl="cuda"), dev),
+        read_ms=time_ms(lambda: ops.masked_mix_scatter(rules, theta, bidx, valid, scratch,
+                                                       impl="cuda"), dev, flush="read"),
+        plain_ms=time_ms(lambda: ref.masked_mix_scatter(rules, theta, bidx, valid, full), dev),
+        library_ms=time_ms(lambda: scratch.index_copy_(0, rows_live, w_live @ theta), dev),
+        bytes=4 * (nl * nl + 2 * nl * d_al), flops=2 * nl * nl * d_al)
+
+
+def check_scatter_unsorted(name, w, theta, idx, mask, full):
+    """masked_mix_scatter into a copy of ``full`` against the plain version
+    with live ids in any order: within 1e-5 of the largest output, and no
+    row outside the live ids moved. Returns the largest error."""
+    want = ref.masked_mix_scatter(w, theta, idx, mask, full)
+    got = ops.masked_mix_scatter(w, theta, idx, mask, full.clone(), impl="cuda")
+    err = check(name, got, want, 1e-5 * float(want.abs().max()))
+    outside = torch.ones(full.shape[0], dtype=torch.bool, device=full.device)
+    outside[idx[mask].long()] = False
+    if not torch.equal(got[outside], full[outside]):
+        raise AssertionError(f"{name}: a row outside the live ids moved")
     return err
 
 
@@ -1181,19 +1314,8 @@ def cohort_phase(dev, data, params0, untrained):
             raise AssertionError(f"{name}: the profiled cohort round moved a row outside "
                                  "its cohort")
         # and one more, unprofiled: queueing it must not wait for the card
-        copy = simulation.clone_state(state)
-        torch.cuda.synchronize(dev)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                strat.round(copy, data, pgen, cohort)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        syncs = sorted({str(w.message).splitlines()[0] for w in caught
-                        if "called a synchronizing" in str(w.message)})
-        if syncs:
-            raise AssertionError(f"{name}: the cohort round synchronized with the card: {syncs}")
+        no_sync(name, lambda: strat.round(simulation.clone_state(state), data, pgen, cohort),
+                dev)
         print_profiles(name, prof)
         avg, worst = hist.paired_best
         results[name] = dict(
@@ -1209,6 +1331,23 @@ def cohort_phase(dev, data, params0, untrained):
           "(fraction 0.5) and ucfl (50-slot availability cohorts) at m=100")
     print("cohort_path " + json.dumps({"runs": results, "untrained_avg_acc": untrained}))
     return launches
+
+
+def no_sync(name, fn, dev):
+    """Run ``fn`` (a cohort round) with ``torch.cuda.set_sync_debug_mode``
+    on: it fails if queueing the round made a synchronizing CUDA call."""
+    torch.cuda.synchronize(dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sorted({str(w.message).splitlines()[0] for w in caught
+                    if "called a synchronizing" in str(w.message)})
+    if syncs:
+        raise AssertionError(f"{name}: the cohort round synchronized with the card: {syncs}")
 
 
 def baseline_launches(name, masked):
@@ -1691,18 +1830,20 @@ def knob_strategy(name, params0, dev, **knobs):
 
 
 def knob_run(cell, name, strat, data, untrained, pcfg, rounds, per_round, once, rows,
-             stage=None):
-    """``rounds`` rounds of ``strat`` through ``simulation.run`` after its
-    warm-up, then one more cohort round profiled: the accuracy against the
-    untrained model's, exact launches (``per_round`` a cohort round that
-    ran, the warm-up's included, and ``once`` for the special round;
-    ucfl_k4's K-means iterations as they came), and a finite state.
-    Returns the run's record, its last state and its history."""
+             stage=None, selection=None):
+    """``rounds`` rounds of ``strat`` through ``simulation.run`` (with
+    ``selection``, if any) after its warm-up, then one more cohort round
+    profiled: the accuracy against the untrained model's, exact launches
+    (``per_round`` a cohort round that ran, the warm-up's included, and
+    ``once`` for the special round; ucfl_k4's K-means iterations as they
+    came), and a finite state. ``rows`` None leaves the launches to the
+    caller. Returns the run's record, its last state and its history."""
     m = data.num_clients
     zero_counters()
     t = time.perf_counter()
     hist = simulation.run(strat, lenet.apply_stacked, data, SEED, rounds=rounds,
-                          participation=pcfg, device=data.x.device)
+                          participation=pcfg, device=data.x.device, selection=selection)
+    pcfg = participation.with_selection(pcfg, selection)
     total_s = time.perf_counter() - t
     ran = sum(not mt.get("skipped", False) for mt in hist.metrics) + 1
     expect = {k: v * ran for k, v in per_round.items()}
@@ -1715,7 +1856,7 @@ def knob_run(cell, name, strat, data, untrained, pcfg, rounds, per_round, once, 
     got = read_counters(cell, expect)
     if GRAM.padded:
         raise AssertionError(f"{cell}: gram made {GRAM.padded} padded copies")
-    for k, v in knob_rows(name, got).items():
+    for k, v in (knob_rows(name, got) if rows is not None else {}).items():
         rows[k] = rows.get(k, 0) + v
     state = hist.state
     slabs = [v for v in state.values() if isinstance(v, torch.Tensor)]
@@ -1890,6 +2031,196 @@ def knobs_phase(dev, data, params0, untrained):
           f"d={flat.LayoutTable.build(params0).dim:,}")
     print("knobs_path " + json.dumps({"runs": results, "checks": checks,
                                       "untrained_avg_acc": untrained}))
+    return rows
+
+
+def engine_rows(rows, got, ran, shapes):
+    """Add a run's launches to the kernel rows of their shapes: ``shapes``
+    maps a row to its launches a cohort round (``ran`` rounds, the
+    warm-up's included); the special round's gram and K-means launches go
+    under their own rows as they came."""
+    for row, count in shapes.items():
+        rows[row] = rows.get(row, 0) + count * ran
+    for kernel in ("gram", "kmeans_assign"):
+        rows[kernel] = rows.get(kernel, 0) + got[kernel]
+
+
+def row_kernel(row):
+    """The kernel counter a row's launches count on."""
+    return next(k for k in ("mix_aggregate", "masked_mix_scatter", "cohort_gather", "gram",
+                            "kmeans_assign") if row.startswith(k))
+
+
+def engine_cell(cell, name, params0, data, untrained, pcfg, rounds, shapes, rows, *,
+                selection=None, sync=False, **knobs):
+    """One engine run through :func:`knob_run`, its launches under the rows
+    of their shapes; with ``sync``, one more cohort round on a copy must
+    make no synchronizing call. Returns its record, last state and history."""
+    strat = knob_strategy(name, params0, data.x.device, **knobs)
+    per_round = {}
+    for row, count in shapes.items():
+        per_round[row_kernel(row)] = per_round.get(row_kernel(row), 0) + count
+    once = {"gram": 1} if name.startswith("ucfl") else {}
+    res, state, hist = knob_run(cell, name, strat, data, untrained, pcfg, rounds, per_round,
+                                once, None, selection=selection)
+    ran = sum(not mt.get("skipped", False) for mt in hist.metrics) + 1
+    engine_rows(rows, res["launches"], ran, shapes)
+    if sync:
+        pgen = torch.Generator(device=data.x.device)
+        pgen.manual_seed(SEED + 2)
+        cohort = participation.sample_cohort(participation.with_selection(pcfg, selection),
+                                             rounds + 1, data.num_clients)
+        no_sync(cell, lambda: strat.round(simulation.clone_state(state), data, pgen, cohort),
+                data.x.device)
+    return res, state, hist
+
+
+def async_metrics(hist):
+    """The buffered rounds' flush metrics, one dict a round."""
+    keys = ("flushed", "applied", "buffer_fill", "tau_max", "tau_mean", "streams")
+    return [{k: float(mt[k]) for k in keys} for mt in hist.metrics]
+
+
+def flush1_check(dev, data, params0):
+    """ucfl with ``AsyncConfig(flush_k=1, alpha=0.0)``: two cohort rounds at
+    fraction 0.5 bit for bit the barrier rounds from the same state and
+    batch orders (at α = 0.5 the second round would differ: a client no
+    flush has rewritten since version 0 uploads with τ = 1). Returns the
+    launches of the four rounds (one gather and one 50-row mix-scatter
+    each)."""
+    barrier = knob_strategy("ucfl", params0, dev)
+    asy = knob_strategy("ucfl", params0, dev, async_buffer=AsyncConfig(flush_k=1, alpha=0.0))
+    zero_counters()
+    state = barrier.init(torch.Generator(device=dev).manual_seed(SEED), data)
+    sb, sa = simulation.clone_state(state), simulation.clone_state(state)
+    m, n = data.y.shape
+    for rnd in (1, 2):
+        cohort = participation.sample_cohort(ParticipationConfig(fraction=0.5), rnd, m)
+        perms = loader.draw_permutations(torch.Generator(device=dev).manual_seed(SEED + rnd), m,
+                                         1, n, device=dev)
+        sb, mb = barrier.round(sb, data, None, cohort, perms=perms)
+        sa, ma = asy.round(sa, data, None, cohort, perms=perms)
+        if not (torch.equal(sa["params"], sb["params"]) and int(ma["flushed"]) == 1
+                and int(ma["streams"]) == mb["streams"]):
+            raise AssertionError(f"flush-1 round {rnd}: the buffered round is not bit for bit "
+                                 f"the barrier round (max diff "
+                                 f"{float((sa['params'] - sb['params']).abs().max()):.3e})")
+    got = read_counters("flush1", {"gram": 1, "cohort_gather": 4, "masked_mix_scatter": 4})
+    print("  ucfl flush_k=1 (alpha 0): 2 cohort rounds bit for bit the barrier rounds")
+    return got
+
+
+def engine_phase(dev, data, params0, untrained):
+    """The last engine knobs on the main task: the buffered-async server on
+    ucfl, ucfl_k4, fedavg and fedprox (4 rounds at fraction 0.5, flush_k
+    60: deposit-only and flush rounds), ucfl's flush-1 rounds bit for bit
+    the barrier's, the two-tier topology on ucfl_k4, fedavg and fedprox (2
+    rounds, within 1e-4 of the flat runs), Pareto selection on ucfl (3
+    rounds), and ucfl under the scaled_noise and inf attacks with trimmed
+    mean (1 round). Returns the launches under the kernel rows."""
+    t0 = time.perf_counter()
+    m = data.num_clients
+    d_al = flat.LayoutTable.build(params0).dim_aligned
+    half = ParticipationConfig(fraction=0.5)
+    rows, results = {}, {}
+
+    # buffered-async: B = 109 buffer rows
+    for name in ("ucfl", "ucfl_k4", "fedavg", "fedprox"):
+        shapes = ({"cohort_gather": 1, "masked_mix_scatter_b109": 1} if name.startswith("ucfl")
+                  else {"cohort_gather": 1, "mix_aggregate_k1_b109": 1})
+        res, state, hist = engine_cell(f"{name}_async", name, params0, data, untrained, half,
+                                       ENGINE_ROUNDS, shapes, rows, sync=True,
+                                       async_buffer=ENGINE_ASYNC)
+        res["rounds_metrics"] = per = async_metrics(hist)
+        flushed = [int(r["flushed"]) for r in per]
+        if not (0 in flushed and 1 in flushed):
+            raise AssertionError(f"{name}_async: flushes {flushed}, want deposit-only and flush "
+                                 "rounds")
+        taus = max(r["tau_max"] for r in per)
+        if (taus > 0) != name.startswith("ucfl"):
+            raise AssertionError(f"{name}_async: tau_max {taus}; ucfl's must be > 0, the FedAvg "
+                                 "family's 0")
+        if tuple(state["abuf"]["upd"].shape) != (BUFFER_ROWS + 1, d_al):
+            raise AssertionError(f"{name}_async: buffer {tuple(state['abuf']['upd'].shape)}")
+        results[f"{name}_async"] = res
+        print(f"  {name}_async ({time.perf_counter() - t0:.1f} s): round {res['round_s']:.4f} s, "
+              f"busy {res['round_busy_ms']:.2f} ms ({res['round_launches']} launches), avg "
+              f"{res['avg_acc']:.4f} (untrained {untrained:.4f}), launches {res['launches']}",
+              flush=True)
+        for r, mt in enumerate(per, start=1):
+            print(f"    round {r}: flushed {int(mt['flushed'])} applied {int(mt['applied'])} "
+                  f"buffer_fill {int(mt['buffer_fill'])} tau_max {int(mt['tau_max'])} "
+                  f"tau_mean {mt['tau_mean']:.3f} streams {int(mt['streams'])}")
+    got = flush1_check(dev, data, params0)
+    rows["gram"] = rows.get("gram", 0) + got["gram"]
+    for k in ("cohort_gather", "masked_mix_scatter"):
+        rows[k] = rows.get(k, 0) + got[k]
+
+    # two-tier: four contiguous edges, against the flat runs from the same seeds
+    topo = Topology.contiguous(m, EDGES)
+    for name in ("ucfl_k4", "fedavg", "fedprox"):
+        if name == "ucfl_k4":
+            tiered, flat_shapes = {"cohort_gather": 1, "mix_aggregate_k16_m50": 1}, {
+                "cohort_gather": 1, "masked_mix_scatter": 1}
+        else:
+            tiered = {"cohort_gather": 1, "mix_aggregate_k4_m50": 1, "mix_aggregate_k1_m4": 1}
+            flat_shapes = {"cohort_gather": 1, "mix_aggregate_k1_m50": 1}
+        res, state, _ = engine_cell(f"{name}_tiered", name, params0, data, untrained, half, 2,
+                                    tiered, rows, topology=topo)
+        flat_res, flat_state, _ = engine_cell(f"{name}_flat", name, params0, data, untrained,
+                                              half, 2, flat_shapes, rows)
+        diff = float((state["params"] - flat_state["params"]).abs().max())
+        if not diff <= 1e-4:
+            raise AssertionError(f"{name}_tiered: {diff:.3e} from the flat run (tolerance 1e-4)")
+        res["max_abs_diff_from_flat"] = diff
+        results[f"{name}_tiered"], results[f"{name}_flat"] = res, flat_res
+        print(f"  {name}_tiered ({time.perf_counter() - t0:.1f} s): round {res['round_s']:.4f} s, "
+              f"busy {res['round_busy_ms']:.2f} ms ({res['round_launches']} launches), avg "
+              f"{res['avg_acc']:.4f}, {diff:.3e} from the flat run (round "
+              f"{flat_res['round_s']:.4f} s, busy {flat_res['round_busy_ms']:.2f} ms, "
+              f"{flat_res['round_launches']} launches)", flush=True)
+
+    # Pareto selection: every cohort holds the fairness lane's client and no gated one
+    rng = np.random.default_rng(SEED)
+    sel = participation.SelectionConfig(compute=rng.uniform(0.25, 4.0, m),
+                                        link=rng.uniform(0.5, 2.0, m),
+                                        battery=participation.battery_trace(m), bias=2.0)
+    res, _, hist = engine_cell("ucfl_selection", "ucfl", params0, data, untrained, half, 3,
+                               {"cohort_gather": 1, "masked_mix_scatter": 1}, rows, selection=sel)
+    static = np.flatnonzero(sel.static_mass(m) > 0)
+    cohorts = participation.cohort_schedule(participation.with_selection(half, sel), 3, m)
+    lanes = []
+    for rnd, co in enumerate(cohorts, start=1):
+        up = sel.battery[:, (rnd - 1) % sel.battery.shape[1]]
+        lane = int(static[(rnd - 1) % static.size])
+        if bool((~up[co.members]).any()) or (up[lane] and lane not in co.members):
+            raise AssertionError(f"ucfl_selection round {rnd}: cohort {co.members.tolist()}, "
+                                 f"lane {lane} (up {bool(up[lane])})")
+        lanes.append(dict(lane=lane, lane_up=bool(up[lane]), size=len(co), up=int(up.sum())))
+    if [mt["cohort_size"] for mt in hist.metrics] != [c["size"] for c in lanes]:
+        raise AssertionError("ucfl_selection: run drew other cohorts than the pareto sampler")
+    res["cohorts"] = lanes
+    results["ucfl_selection"] = res
+    print(f"  ucfl_selection ({time.perf_counter() - t0:.1f} s): cohorts {lanes}, avg "
+          f"{res['avg_acc']:.4f}, busy {res['round_busy_ms']:.2f} ms", flush=True)
+
+    # the two attacks that the knobs phase does not run
+    trimmed = RobustConfig("trimmed_mean", trim_k=5)
+    for attack in ("scaled_noise", "inf"):
+        fcfg = faults.FaultConfig(byzantine_frac=0.1, attack=attack)
+        stage = stage_cost_at(dev, fcfg, trimmed, d_al, m)
+        res, _, _ = engine_cell(f"ucfl_{attack}", "ucfl", params0, data, untrained, half, 1,
+                                {"cohort_gather": 1, "masked_mix_scatter": 1}, rows,
+                                faults=fcfg, robust=trimmed)
+        res["stage_launches"], res["stage_ms"] = stage["launches"], stage["ms"]
+        results[f"ucfl_{attack}"] = res
+        print(f"  ucfl_{attack} ({time.perf_counter() - t0:.1f} s): avg {res['avg_acc']:.4f} "
+              f"worst {res['worst_acc']:.4f} (untrained {untrained:.4f}), finite, stage "
+              f"{stage['launches']} launches {stage['ms']:.4f} ms", flush=True)
+    phase("engine", t0, f"the buffered-async server, the two-tier topology, Pareto selection "
+          f"and the scaled_noise and inf attacks at m={m}, "
+          f"d={flat.LayoutTable.build(params0).dim:,}")
+    print("engine_path " + json.dumps({"runs": results, "untrained_avg_acc": untrained}))
     return rows
 
 
@@ -2178,6 +2509,7 @@ def main():
     base, rows["gram_trained"] = baselines_phase(dev, *task)
     wire = transport_phase(dev, *task)
     knobs = knobs_phase(dev, *task)
+    engine = engine_phase(dev, *task)
     del task
     fma_launches = serve_agree_phase(dev)
     served = serve_phase(dev)
@@ -2214,9 +2546,10 @@ def main():
               "flash_attention_prefill": served["prefill_launches"]["flash_attention_prefill"],
               "flash_attention_decode": served["serve_launches"]["flash_attention_decode"],
               "flash_attention_fma": fma_launches}
-    # the knobs phase's launches, each under the row of its shape
-    for row, count in knobs.items():
-        counts[row] += count
+    # the knobs and engine phases' launches, each under the row of its shape
+    for phase_rows in (knobs, engine):
+        for row, count in phase_rows.items():
+            counts[row] = counts.get(row, 0) + count
     # one kernel for both gram rows: the main path runs it at m = 100
     counts["gram_m512"] = counts["gram"]
     # the cohort and gram rows also carry read_ms, their time after a read

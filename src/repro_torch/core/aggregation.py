@@ -165,28 +165,37 @@ def safe_gather_index(idx, m):
     return torch.clamp_max(idx, m - 1)
 
 
-def masked_cohort_matrix(w, idx, mask):
+def masked_cohort_matrix(w, idx, mask, weights=None):
     """Fixed-shape :func:`cohort_mixing_matrix`: (c, c) with zeroed pad
-    columns, rows renormalized; degenerate rows fall back to identity."""
+    columns, rows renormalized; degenerate rows fall back to identity.
+
+    ``weights`` (c,) replaces the binary mask as the column weight (the
+    buffered-async flush's staleness discounts, 0 on empty slots); None is
+    bit for bit the mask path."""
     safe = safe_gather_index(idx, w.shape[0]).long()
-    wc = w[safe][:, safe] * mask.to(w.dtype)[None, :]
+    colw = mask.to(w.dtype) if weights is None else weights
+    wc = w[safe][:, safe] * colw[None, :]
     s = torch.sum(wc, dim=1, keepdim=True)
     eye = torch.eye(wc.shape[0], dtype=wc.dtype, device=wc.device)
     return torch.where(s > 1e-12, wc / torch.clamp_min(s, 1e-12), eye)
 
 
-def masked_clustered_rows(w, labels, num_clusters, idx, mask):
+def masked_clustered_rows(w, labels, num_clusters, idx, mask, weights=None):
     """Fixed-shape :func:`clustered_cohort` as per-slot (c, c) rows.
 
     Slot i's row is its cluster's centroid rule rebuilt from the real
     members (renormalized over real columns); a slot whose rule has no
     mass on the cohort gets the identity row; pad rows are don't-care.
+    ``weights`` (c,) replaces the mask as the uploads' column weight (the
+    staleness discounts); cluster membership stays the mask's. None is bit
+    for bit the mask path.
     """
     fmask = mask.to(w.dtype)
+    colw = fmask if weights is None else weights
     safe = safe_gather_index(idx, w.shape[0]).long()
     lc = labels.long()[safe]
     onehot = F.one_hot(lc, num_clusters).to(w.dtype) * fmask[:, None]
-    raw = onehot.T @ (w[safe][:, safe] * fmask[None, :])  # (mt, c)
+    raw = onehot.T @ (w[safe][:, safe] * colw[None, :])  # (mt, c)
     rules = renormalize_rows(raw)
     alive = (torch.sum(raw, dim=1) > 1e-12)[lc]  # (c,)
     eye = torch.eye(safe.shape[0], dtype=w.dtype, device=w.device)
@@ -204,10 +213,12 @@ def masked_group_rows(assignment_c, n_c, mask):
     return torch.where(s > 1e-12, w / torch.clamp_min(s, 1e-12), eye)
 
 
-def masked_fedavg_weights(n_c, mask):
+def masked_fedavg_weights(n_c, mask, weights=None):
     """Fixed-shape Eq. 1 weights over the cohort: (1, c), pad slots 0; an
-    all-masked cohort gives all-zero weights (0/eps), not NaN."""
-    wn = n_c.to(torch.float32) * mask.to(torch.float32)
+    all-masked cohort gives all-zero weights (0/eps), not NaN. ``weights``
+    (c,) replaces the mask (the staleness discounts, 0 on empty slots);
+    None is bit for bit the mask path."""
+    wn = n_c.to(torch.float32) * (mask.to(torch.float32) if weights is None else weights)
     return (wn / torch.clamp_min(torch.sum(wn), 1e-12))[None, :]
 
 

@@ -34,6 +34,7 @@ import torch
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 
 
@@ -57,6 +58,11 @@ def _spectral_bipartition(sim: np.ndarray) -> np.ndarray:
 def make_cfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
              eps1_rel: float = 0.4, warmup_rounds: int = 3, min_cluster: int = 4,
              device=None):
+    topology_lib.unsupported(
+        cfg.topology, "cfl",
+        "the split check consumes every surviving member's PER-CLIENT update-delta row "
+        "at the host each round — per-edge partial means would erase the rows the "
+        "spectral bipartition needs")
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
     schema = transport_lib.single_delta_schema(
@@ -145,7 +151,8 @@ def make_cfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
                 {"streams": streams})
 
     return Strategy("cfl", init,
-                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
+                                        async_cfg=cfg.async_buffer),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="groupcast", injects_faults=cfg.faults is not None,
                     wire_schema=schema)

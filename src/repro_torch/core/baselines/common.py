@@ -36,16 +36,27 @@ pieces the baselines share.
   * :func:`w_refresh_hook`, :func:`staleness_metrics` and
     :func:`refresh_skip_round` — the streaming W refresh
     (``FedConfig.w_refresh``) of the W-owning strategies.
+  * :func:`state_async_buffer`, :func:`make_fedavg_async_round` and
+    :func:`fedavg_async_wrapper` — the buffered-async server
+    (``FedConfig.async_buffer``, :mod:`repro_torch.federated.async_buffer`):
+    :func:`cohort_round` routes every cohort round to the strategy's
+    buffered body, and the FedAvg family's banks deltas and adds their
+    staleness-weighted mean at a flush, predicated on the card.
+  * :func:`tiered_fedavg_weights` and :func:`fedavg_mix_closure` — the
+    FedAvg family's mix, flat or over a two-tier
+    :class:`~repro_torch.federated.topology.Topology`
+    (``FedConfig.topology``): tier-1 edge aggregates and the tier-2
+    combine, each one ``mix_aggregate`` launch.
 
 In place: on the card the masked round writes the cohort rows of the
-``params`` slab (and the refresh buffers) in place, the port's analogue of
-the reference's buffer donation. A caller that keeps the pre-round state
-alive (a warm-up, an A/B comparison from one start state) runs the round
-on :func:`repro_torch.federated.simulation.clone_state` of it.
+``params`` slab (and the refresh buffers, and the async buffer's rows) in
+place, the port's analogue of the reference's buffer donation. A caller
+that keeps the pre-round state alive (a warm-up, an A/B comparison from
+one start state) runs the round on
+:func:`repro_torch.federated.simulation.clone_state` of it.
 
 Not ported yet: the mesh, ``shard_state`` and the reference's
-``StateOps`` layout object (the mesh), and the async buffer and topology
-branches (the engine knobs): each is an item of ROADMAP queue A.
+``StateOps`` layout object (the mesh), an item of ROADMAP queue A.
 """
 from __future__ import annotations
 
@@ -58,10 +69,13 @@ import torch.nn.functional as F
 from repro_torch.core import aggregation, flat, similarity
 from repro_torch.data.loader import draw_permutations
 from repro_torch.device import resolve_device
+from repro_torch.federated import async_buffer
 from repro_torch.federated import client as fedclient
 from repro_torch.federated import faults as faults_lib
 from repro_torch.federated import participation
+from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
+from repro_torch.kernels import ops
 
 
 def prepare(params0, device):
@@ -104,7 +118,8 @@ def group_average(stacked, assignment, n):
     return aggregation.user_centric(stacked, group_mixing_matrix(assignment, n))
 
 
-def cohort_round(dense_fn, masked_fn, *, transport=None, stage=None):
+def cohort_round(dense_fn, masked_fn, *, transport=None, stage=None, async_fn=None,
+                 async_cfg=None, topology=None):
     """Build ``round(state, data, gen=None, cohort=None, *, perms=None)``.
 
     ``dense_fn(state, data, gen, perms) -> (state, metrics)`` is the full
@@ -119,11 +134,30 @@ def cohort_round(dense_fn, masked_fn, *, transport=None, stage=None):
     With ``stage`` (the strategy's :func:`upload_stage`) a dense round
     raises ``ValueError`` too, and every cohort round advances the state's
     ``fault_round``, the counter the fault draws are keyed on.
+
+    ``async_cfg`` (``FedConfig.async_buffer``) routes every cohort round to
+    ``async_fn``, the strategy's buffered body (same signature as
+    ``masked_fn``); without one the strategy has no buffered rule and
+    construction raises ``NotImplementedError``. A dense round under it
+    raises ``ValueError``, as under ``topology`` (the strategy's checked
+    ``FedConfig.topology``, whose tiered mix its masked body closes over).
     """
+    if async_cfg is not None and async_fn is None:
+        raise NotImplementedError(
+            "FedConfig.async_buffer is set but this strategy has no "
+            "buffered-async aggregation rule (supported: ucfl "
+            "full/clustered and the FedAvg family — strategies whose PS "
+            "step is the masked row aggregation)")
+    fn = masked_fn if async_cfg is None else async_fn
 
     def round(state, data, gen=None, cohort=None, *, perms=None):
         cohort = participation.as_cohort(cohort, data.num_clients)
         if cohort is None:
+            if async_cfg is not None:
+                raise ValueError(
+                    "the buffered-async engine processes arrival cohorts; "
+                    "cohort=None is the bulk-synchronous dense path — pass "
+                    "a participation config (or drop FedConfig.async_buffer)")
             if stage is not None:
                 raise ValueError(
                     "FedConfig.faults/robust require cohort rounds: the "
@@ -136,12 +170,18 @@ def cohort_round(dense_fn, masked_fn, *, transport=None, stage=None):
                     "quantization compresses the masked upload stage, and "
                     "the dense full-participation path has no upload — "
                     "pass a participation config (or drop transport)")
+            if topology is not None:
+                raise ValueError(
+                    "FedConfig.topology requires cohort rounds: the "
+                    "two-tier engine partitions the cohort's upload slots "
+                    "over edge aggregators, and the dense "
+                    "full-participation path has no per-edge upload stage "
+                    "— pass a participation config (or drop topology)")
             state, metrics = dense_fn(state, data, gen, perms)
             size = data.num_clients
         else:
             rnd = state.get("fault_round", 0)
-            state, metrics = masked_fn(state, data, gen, cohort.indices,
-                                       cohort.mask, perms)
+            state, metrics = fn(state, data, gen, cohort.indices, cohort.mask, perms)
             if stage is not None:
                 state = dict(state, fault_round=rnd + 1)
             size = len(cohort)
@@ -343,16 +383,84 @@ def fedavg_masked_mix(params, updated, idx, mask, n, *, dstage=None, ef_dl=None)
             torch.where(alive, new_ef, ef_dl))
 
 
-def make_fedavg_masked_round(train, *, dev, epochs, schema, transport, stage=None):
+def tiered_fedavg_weights(edge_arr, num_edges, slots, idx, mask, n):
+    """Two-tier FedAvg weights over a padded cohort.
+
+    Tier 1 is the masked rule per edge over the (E, s) per-edge cohorts of
+    :func:`repro_torch.federated.topology.edge_partition`: each edge
+    normalizes its own members' n mass (an empty edge gets zeros). Tier 2 is
+    the same rule over the per-edge masses. Returns ``wpe`` (E, c), the
+    tier-1 weights on the cohort's columns (``wpe @ uploads`` is the (E, d)
+    slab of edge aggregates that crosses the backhaul), and ``w2`` (E,),
+    so that ``w2[e]·wpe[e, j] = n_j / Σn``: the flat mean up to float
+    association."""
+    c = idx.shape[0]
+    eidx, emask, eslot = topology_lib.edge_partition(edge_arr, num_edges, slots, idx, mask)
+    esafe = aggregation.safe_gather_index(eidx, n.shape[0]).long()
+    ne = (n[esafe] * emask).to(torch.float32)  # (E, s), pads 0
+    w1 = ne / torch.clamp_min(torch.sum(ne, dim=1, keepdim=True), 1e-12)
+    # pads point at column c, a spare sliced off
+    wpe = torch.zeros((num_edges, c + 1), dtype=torch.float32, device=idx.device)
+    wpe = wpe.scatter_(1, eslot.long(), w1)[:, :c]
+    mass = torch.sum(ne, dim=1)  # (E,)
+    w2 = aggregation.masked_fedavg_weights(mass, mass > 0)[0]
+    return wpe, w2
+
+
+def fedavg_mix_closure(*, dstage=None, topology=None, device=None):
+    """The FedAvg family's mix ``mix(params, updated, idx, mask, n,
+    ef_dl=None)``: masked Eq. 1, broadcast back (:func:`fedavg_masked_mix`).
+    With ``dstage`` (the downlink stage of a ``delta`` broadcast) it returns
+    ``(params', ef_dl')``. ``topology`` (a checked
+    :class:`~repro_torch.federated.topology.Topology`) swaps the single
+    global mean for the two-tier factorization of
+    :func:`tiered_fedavg_weights` with the same broadcast and EF tail;
+    None keeps the flat mix bit for bit."""
+    if topology is not None:
+        return _tiered_fedavg_mix_closure(topology, dstage=dstage, device=device)
+
+    def mix(params, updated, idx, mask, n, ef_dl=None):
+        return fedavg_masked_mix(params, updated, idx, mask, n, dstage=dstage, ef_dl=ef_dl)
+
+    return mix
+
+
+def _tiered_fedavg_mix_closure(topology, *, dstage=None, device=None):
+    """The two-tier FedAvg mix (:func:`fedavg_mix_closure`): the tier-1 edge
+    aggregates as one (E, c)·(c, d) ``mix_aggregate`` launch over the
+    uploads, the tier-2 combine as one (1, E)·(E, d) launch, then the flat
+    mix's broadcast (and downlink EF) tail. O(c·d + E·d) before the
+    broadcast."""
+    edge_arr = topology.edge_array(device)
+    num_edges = topology.num_edges
+
+    def mix(params, updated, idx, mask, n, ef_dl=None):
+        slots = topology.slots_per_edge(idx.shape[0])
+        wpe, w2 = tiered_fedavg_weights(edge_arr, num_edges, slots, idx, mask, n)
+        agg = ops.mix_aggregate(wpe, updated)  # (E, d): the edge aggregates
+        mixed = ops.mix_aggregate(w2[None, :], agg)  # (1, d)
+        alive = torch.any(mask)
+        if dstage is None:
+            return torch.where(alive, mixed.expand_as(params), params)
+        served, new_ef = dstage(params[0:1], mixed, ef_dl)
+        return (torch.where(alive, served.expand_as(params), params),
+                torch.where(alive, new_ef, ef_dl))
+
+    return mix
+
+
+def make_fedavg_masked_round(train, *, dev, epochs, schema, transport, stage=None,
+                             topology=None):
     """The FedAvg family's masked round (FedAvg, FedProx): the gathered
     rows trained by ``train(co, perms) -> (c, dim_aligned)``, ``co`` the
-    :class:`CohortRows`, then :func:`fedavg_masked_mix` (the reference's
-    ``fedavg_mix_closure`` without a topology). Under ``transport`` the
-    uploads pass ``schema``'s uplink stage and the mean its downlink
-    stage; then the upload ``stage`` (:func:`upload_stage`), whose final
-    mask weighs the mean. Returns ``masked(state, data, gen, idx, mask,
-    perms)`` for :func:`cohort_round`."""
+    :class:`CohortRows`, then the mix of :func:`fedavg_mix_closure` (flat,
+    or two-tier under ``topology``). Under ``transport`` the uploads pass
+    ``schema``'s uplink stage and the mean its downlink stage; then the
+    upload ``stage`` (:func:`upload_stage`), whose final mask weighs the
+    mean. Returns ``masked(state, data, gen, idx, mask, perms)`` for
+    :func:`cohort_round`."""
     up, down = wire_stages(schema, transport)
+    mix = fedavg_mix_closure(dstage=down, topology=topology, device=dev)
 
     def masked(state, data, gen, idx, mask, perms):
         co = gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=epochs)
@@ -365,10 +473,97 @@ def make_fedavg_masked_round(train, *, dev, epochs, schema, transport, stage=Non
         if stage is not None:
             post, fidx, fmask = upload(stage, co, pc, post)
         if down is None:
-            new = fedavg_masked_mix(state["params"], post, fidx, fmask, data.n)
+            new = mix(state["params"], post, fidx, fmask, data.n)
             return dict(state, params=new, **out), {"streams": 1}
-        new, out["ef_dl"] = fedavg_masked_mix(state["params"], post, fidx, fmask, data.n,
-                                              dstage=down, ef_dl=state["ef_dl"])
+        new, out["ef_dl"] = mix(state["params"], post, fidx, fmask, data.n, state["ef_dl"])
         return dict(state, params=new, **out), {"streams": 1}
 
     return masked
+
+
+# ------------------------------------------------------- buffered-async path
+
+
+def state_async_buffer(state, acfg, m, slots, dim, schema=None, device=None):
+    """The state's upload buffer, or a fresh one on ``device``: its slot
+    count depends on the cohort's, which the strategy does not know at
+    ``init``, so the first cohort round creates it. A warm-up on
+    :func:`repro_torch.federated.simulation.clone_state` creates its own
+    and throws it away."""
+    buf = state.get("abuf")
+    if buf is None:
+        buf = async_buffer.init_buffer(acfg, m, slots, dim, schema=schema, device=device)
+    return buf
+
+
+def make_fedavg_async_round(train, acfg, *, dev, epochs, schema, transport, stage=None):
+    """The FedAvg family's buffered-async round (FedAvg, FedProx).
+
+    FedBuff's rule in delta form: the buffer banks the cohort's deltas
+    ``θ_upload − θ_base`` (each against the global current at its
+    upload), and a flush adds their n-weighted, staleness-discounted mean
+    to the current global; with a fresh buffer that is the barrier mean up
+    to float association (θ + Σ w̃(u − θ) against Σ w̃ u). Under the
+    flush-the-whole-buffer rule the family's τ is 0 by construction: a
+    version only moves at a flush, which clears every slot.
+
+    ``train`` as in :func:`make_fedavg_masked_round`. The quantized uplink
+    (with its EF) and the upload stage run before the deposit, so the
+    buffer banks what the wire carried and no demoted row; the downlink
+    stays raw f32. The flush is a device predicate: the add is
+    ``where(flush, θ + step, θ)``, whose weights are 0, never NaN, when
+    nothing is pending. Returns ``body(state, abuf, data, gen, idx, mask,
+    perms) -> (state', abuf', metrics)``."""
+    flush_k = int(acfg.flush_k)
+    up, _ = wire_stages(schema, transport)
+
+    def body(state, abuf, data, gen, idx, mask, perms):
+        m = data.num_clients
+        co = gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=epochs)
+        pc = co.rows["params"]
+        post = train(co, perms)
+        out = {}
+        if up is not None:
+            post, out["ef"] = uplink(up, state, co, pc, post)
+        fidx, fmask = co.idx, co.mask
+        if stage is not None:
+            post, fidx, fmask = upload(stage, co, pc, post)
+        # a FedAvg client downloads the current global when sampled
+        base_ver = abuf["version"].expand(fidx.shape)
+        abuf = async_buffer.deposit(abuf, post - pc, fidx, fmask, base_ver, m)
+        flush = abuf["count"] >= flush_k
+        weights = async_buffer.staleness_weights(abuf, m, acfg.alpha)
+        tau = async_buffer.staleness(abuf)
+        applied = abuf["count"]
+        bsafe = aggregation.safe_gather_index(abuf["idx"], m).long()
+        w = aggregation.masked_fedavg_weights(data.n[bsafe], async_buffer.valid_mask(abuf, m),
+                                              weights)
+        step = ops.mix_aggregate(w, async_buffer.rows(abuf))  # (1, W)
+        params = state["params"]
+        params = torch.where(flush, params + step, params)
+        abuf = async_buffer.flush_reset(abuf, m, flush)
+        metrics = async_buffer.flush_metrics(flush, applied, tau, weights, abuf["count"])
+        # one broadcast stream, when a flush ships a new global
+        metrics["streams"] = flush.to(torch.int32)
+        return dict(state, params=params, **out), abuf, metrics
+
+    return body
+
+
+def fedavg_async_wrapper(train, acfg, *, dev, epochs, schema, transport, stage=None, dim=None):
+    """The FedAvg family's buffered cohort body for
+    :func:`cohort_round`'s ``async_fn``, or None when ``acfg`` is:
+    ``amasked(state, data, gen, idx, mask, perms)`` runs
+    :func:`make_fedavg_async_round` on the state's lazily created buffer
+    ``abuf`` (rows at ``schema``'s uplink width)."""
+    if acfg is None:
+        return None
+    body = make_fedavg_async_round(train, acfg, dev=dev, epochs=epochs, schema=schema,
+                                   transport=transport, stage=stage)
+
+    def amasked(state, data, gen, idx, mask, perms):
+        abuf = state_async_buffer(state, acfg, data.num_clients, len(idx), dim, schema, dev)
+        state, abuf, metrics = body(state, abuf, data, gen, idx, mask, perms)
+        return dict(state, abuf=abuf), metrics
+
+    return amasked

@@ -21,6 +21,7 @@ from __future__ import annotations
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 
 
@@ -30,6 +31,11 @@ def make_ditto(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, lam: flo
     def ditto_hook(g, p, center):
         return g + lam * (p - center)
 
+    topology_lib.unsupported(
+        cfg.topology, "ditto",
+        "the round interleaves the global FedAvg leg with a client-side personal solver "
+        "keyed to the same cohort gather — threading the two-tier mix through both legs "
+        "is future work")
     params0, layout, dev = common.prepare(params0, device)
     local_global = common.local_sgd(apply_stacked, layout, cfg)
     local_personal = common.local_sgd(apply_stacked, layout, cfg, grad_hook=ditto_hook)
@@ -74,7 +80,8 @@ def make_ditto(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, lam: flo
         return {"params": new_global, "personal": personal, **out}, {"streams": 1}
 
     return Strategy(f"ditto_lam{lam}", init,
-                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
+                                        async_cfg=cfg.async_buffer),
                     lambda s: layout.unravel(s["personal"]),
                     comm_scheme="broadcast", num_streams=1,
                     injects_faults=cfg.faults is not None, wire_schema=schema)

@@ -9,17 +9,26 @@ broadcast, pad slots weighing 0. One downlink stream either way.
 Wire: a ``delta`` upload, and the broadcast delta-coded as the ``model``
 stream against the old global with the server's EF row. Upload stage
 (faults, robust): the final mask weighs the mean.
+
+Buffered-async (``FedConfig.async_buffer``): the cohort's deltas are
+banked, and a flush adds their staleness-weighted n-mean to the global
+(k = 1 over the buffer's rows). Two-tier (``FedConfig.topology``): the
+mean as per-edge aggregates and their mass-weighted combine, two
+``mix_aggregate`` launches, then the same broadcast. The two knobs do not
+compose.
 """
 from __future__ import annotations
 
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 
 
 @register("fedavg")
 def make_fedavg(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=None):
+    topo = topology_lib.check_composition(cfg.topology, "fedavg", async_buffer=cfg.async_buffer)
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
     schema = transport_lib.single_delta_schema(
@@ -27,6 +36,8 @@ def make_fedavg(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=
 
     def init(gen, data):
         m = data.num_clients
+        if topo is not None:
+            topo.check_clients(m, "fedavg")
         return {"params": layout.slab(params0, m),
                 **common.wire_state(schema, cfg.transport, m, dev)}
 
@@ -39,10 +50,15 @@ def make_fedavg(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=
 
     ustage = common.upload_stage(cfg, schema)
     masked = common.make_fedavg_masked_round(train, dev=dev, epochs=cfg.epochs, schema=schema,
-                                             transport=cfg.transport, stage=ustage)
+                                             transport=cfg.transport, stage=ustage, topology=topo)
+    amasked = common.fedavg_async_wrapper(train, cfg.async_buffer, dev=dev, epochs=cfg.epochs,
+                                          schema=schema, transport=cfg.transport, stage=ustage,
+                                          dim=layout.dim)
 
     return Strategy("fedavg", init,
-                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
+                                        async_fn=amasked, async_cfg=cfg.async_buffer,
+                                        topology=topo),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="broadcast", num_streams=1,
                     injects_faults=cfg.faults is not None, wire_schema=schema)

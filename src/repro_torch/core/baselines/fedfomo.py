@@ -33,6 +33,7 @@ from repro_torch.core import aggregation, similarity
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
 from repro_torch.federated import client as fedclient
+from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 from repro_torch.kernels import ops
 
@@ -81,6 +82,11 @@ def fomo_mix(flat, w):
 @register("fedfomo")
 def make_fedfomo(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
                  val_frac: float = 0.2, device=None):
+    topology_lib.unsupported(
+        cfg.topology, "fedfomo",
+        "client-side first-order mixing downloads every cohort peer's model per "
+        "receiver (the m× downlink the paper prices) — there is no PS aggregate for an "
+        "edge tier to ship")
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
     schema = transport_lib.single_delta_schema(
@@ -125,7 +131,8 @@ def make_fedfomo(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
                  **out}, {"streams": co.real})
 
     return Strategy("fedfomo", init,
-                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
+                                        async_cfg=cfg.async_buffer),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="client_mixing", injects_faults=cfg.faults is not None,
                     wire_schema=schema)

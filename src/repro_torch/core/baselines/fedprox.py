@@ -1,12 +1,14 @@
 """FedProx (Li et al., 2018): FedAvg with the proximal term
 μ/2·||θ − θ_global||² in every local step, centred at the model the round
 started from. Its wire is FedAvg's: a ``delta`` upload and a delta-coded
-``model`` broadcast."""
+``model`` broadcast; so are its buffered-async round and its two-tier
+mix (:mod:`repro_torch.core.baselines.fedavg`)."""
 from __future__ import annotations
 
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 
 
@@ -16,6 +18,7 @@ def make_fedprox(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, mu: fl
     def prox_hook(g, p, center):
         return g + mu * (p - center)
 
+    topo = topology_lib.check_composition(cfg.topology, "fedprox", async_buffer=cfg.async_buffer)
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg, grad_hook=prox_hook)
     schema = transport_lib.single_delta_schema(
@@ -23,6 +26,8 @@ def make_fedprox(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, mu: fl
 
     def init(gen, data):
         m = data.num_clients
+        if topo is not None:
+            topo.check_clients(m, "fedprox")
         return {"params": layout.slab(params0, m),
                 **common.wire_state(schema, cfg.transport, m, dev)}
 
@@ -37,10 +42,15 @@ def make_fedprox(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, mu: fl
 
     ustage = common.upload_stage(cfg, schema)
     masked = common.make_fedavg_masked_round(train, dev=dev, epochs=cfg.epochs, schema=schema,
-                                             transport=cfg.transport, stage=ustage)
+                                             transport=cfg.transport, stage=ustage, topology=topo)
+    amasked = common.fedavg_async_wrapper(train, cfg.async_buffer, dev=dev, epochs=cfg.epochs,
+                                          schema=schema, transport=cfg.transport, stage=ustage,
+                                          dim=layout.dim)
 
     return Strategy(f"fedprox_mu{mu}", init,
-                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
+                                        async_fn=amasked, async_cfg=cfg.async_buffer,
+                                        topology=topo),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="broadcast", num_streams=1,
                     injects_faults=cfg.faults is not None, wire_schema=schema)

@@ -10,11 +10,16 @@ from __future__ import annotations
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 
 
 @register("local")
 def make_local(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=None):
+    topology_lib.unsupported(
+        cfg.topology, "local",
+        "no collaboration — each participant's upload scatters back to its own row, so "
+        "there is no aggregate for an edge tier to form")
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
     schema = transport_lib.single_delta_schema("local", layout.dim)
@@ -44,7 +49,8 @@ def make_local(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=N
                                                            co.real), **out), {"streams": 0}
 
     return Strategy("local", init,
-                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
+                                        async_cfg=cfg.async_buffer),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="broadcast", num_streams=0,
                     injects_faults=cfg.faults is not None, wire_schema=schema)

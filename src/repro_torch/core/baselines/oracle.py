@@ -17,11 +17,17 @@ import numpy as np
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 
 
 @register("oracle")
 def make_oracle(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=None):
+    topology_lib.unsupported(
+        cfg.topology, "oracle",
+        "per-group FedAvg factorizes over groups, but ground-truth group membership "
+        "crosscuts the static edge assignment — a (group × edge) partial-sum layout is "
+        "future work")
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
     schema = transport_lib.single_delta_schema(
@@ -62,7 +68,8 @@ def make_oracle(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=
         return dict(state, params=new, **out), {"streams": streams}
 
     return Strategy("oracle", init,
-                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
+                                        async_cfg=cfg.async_buffer),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="groupcast", injects_faults=cfg.faults is not None,
                     wire_schema=schema)

@@ -31,6 +31,7 @@ from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
 from repro_torch.data.loader import draw_permutations
 from repro_torch.federated import client as fedclient
+from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 
 
@@ -39,6 +40,11 @@ def make_pfedme(apply_stacked, params0,
                 cfg: FedConfig = FedConfig(lr=0.01, momentum=0.0, epochs=1, batch_size=20), *,
                 lam: float = 15.0, inner_steps: int = 15, inner_lr: float = 0.01,
                 beta: float = 1.0, device=None):
+    topology_lib.unsupported(
+        cfg.topology, "pfedme",
+        "the β-mix blends each participant's RAW w_i with the cohort average CLIENT-"
+        "side — the served value is per-client, not a broadcast aggregate an edge tier "
+        "could relay")
     params0, layout, dev = common.prepare(params0, device)
     bsz = cfg.batch_size
     schema = transport_lib.single_delta_schema(
@@ -107,7 +113,8 @@ def make_pfedme(apply_stacked, params0,
         return {"params": w, "personal": personal, **out}, {"streams": 1}
 
     return Strategy("pfedme", init,
-                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
+                                        async_cfg=cfg.async_buffer),
                     lambda s: layout.unravel(s["personal"]),
                     comm_scheme="broadcast", num_streams=1,
                     injects_faults=cfg.faults is not None, wire_schema=schema)

@@ -30,6 +30,7 @@ import torch
 from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
+from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 
 
@@ -45,6 +46,11 @@ def make_scaffold(apply_stacked, params0,
         c_i, c = ctrl
         return g - c_i + c
 
+    topology_lib.unsupported(
+        cfg.topology, "scaffold",
+        "option II couples every client's control variate to ONE global c re-averaged "
+        "over all m stored c_i rows each round — per-edge partial means of the cohort's "
+        "c_i⁺ are not that update")
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg, grad_hook=control_hook)
     schema = transport_lib.WireSchema(
@@ -113,7 +119,8 @@ def make_scaffold(apply_stacked, params0,
             {"streams": 1}
 
     return Strategy("scaffold", init,
-                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
+                    common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
+                                        async_cfg=cfg.async_buffer),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="broadcast", num_streams=1,
                     injects_faults=cfg.faults is not None, wire_schema=schema)

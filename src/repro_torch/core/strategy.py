@@ -90,10 +90,44 @@ class FedConfig:
     their previous rows. A dense round with either raises ``ValueError``;
     ``ucfl_parallel`` raises ``NotImplementedError`` at construction.
 
-    Off (``None``), each of the three keeps every trajectory bit-identical.
-    The reference's other engine knobs (mesh, shard_state, async_buffer,
-    topology, selection) come with later slices; naming one here raises
-    ``TypeError`` at construction.
+    ``async_buffer`` (a :class:`repro_torch.federated.async_buffer.AsyncConfig`,
+    or ``None`` = off) opts cohort rounds into the buffered-async
+    FedBuff-style server: uploads land in a fixed-shape pending buffer and
+    the PS applies them, staleness-discounted by ``(1+τ)^{-α}``, once
+    ``flush_k`` have accumulated, instead of barrier-mixing every round.
+    Supported by the strategies whose PS step is the masked row aggregation
+    (ucfl full/clustered and the FedAvg family); the rest raise at
+    construction. Requires cohort rounds (a participation config): the
+    dense ``cohort=None`` path is the bulk-synchronous barrier by
+    definition. ``None`` keeps every existing trajectory bit-identical.
+
+    ``topology`` (a :class:`repro_torch.federated.topology.Topology`, or
+    ``None`` = off) opts cohort rounds into the two-tier hierarchical
+    engine: clients are statically assigned to edge aggregators, the
+    tier-1 masked mix runs per edge over fixed-shape padded per-edge slots,
+    and only the ``(E, ·)`` edge-aggregate slab crosses the edge↔PS
+    backhaul for the mass-weighted tier-2 combine, an exact factorization
+    of the flat linear rules up to float association. Supported where the
+    PS rule is linear in the uploads (the FedAvg family and clustered
+    ucfl, composing with ``transport``, ``faults``/``robust`` and
+    ``w_refresh``); per-client unicast mixes (ucfl full, fedfomo, ...) and
+    ``async_buffer`` raise ``NotImplementedError`` at construction, and a
+    value that is not a ``Topology`` raises ``TypeError``. Requires cohort
+    rounds. ``None`` keeps every existing trajectory bit-identical.
+
+    ``selection`` (a :class:`repro_torch.federated.participation.SelectionConfig`,
+    or ``None`` = off) declares Pareto-biased cohort selection: per-round
+    sampling mass biased by compute speed, link quality, a battery or
+    diurnal availability trace and data value, with a deterministic
+    round-robin fairness lane bounding every positive-mass client's
+    selection window. Callers thread it into the sampler with
+    :func:`repro_torch.federated.participation.with_selection` (the
+    strategy never draws cohorts itself). ``None`` keeps the configured
+    sampler untouched.
+
+    Off (``None``), each knob keeps every trajectory bit-identical. The
+    reference's ``mesh`` and ``shard_state`` come with a later slice;
+    naming one here raises ``TypeError`` at construction.
     """
     lr: float = 0.1
     momentum: float = 0.9
@@ -101,6 +135,9 @@ class FedConfig:
     batch_size: int = 50
     chunk_size: int | None = None
     w_refresh: Any = None
+    async_buffer: Any = None
     faults: Any = None
     robust: Any = None
     transport: Any = None
+    topology: Any = None
+    selection: Any = None

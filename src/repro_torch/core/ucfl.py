@@ -14,9 +14,10 @@ State: ``params`` is the (m, dim_aligned) f32 slab
 (:class:`repro_torch.core.flat.LayoutTable`); ``W`` the (m, m) mixing
 matrix; ``labels``/``streams`` the clustered variant's assignment and
 stream count, with ``labels_host`` a host copy of ``labels``; ``collab``
-the special round's statistics. The dense round mixes the whole slab in
-ONE ``mix_aggregate`` launch (the rule is column-independent), where the
-reference launches once per leaf.
+the special round's statistics; ``abuf`` the buffered-async server's
+pending uploads, created by the first buffered round. The dense round
+mixes the whole slab in ONE ``mix_aggregate`` launch (the rule is
+column-independent), where the reference launches once per leaf.
 
 Partial participation, ``round(state, data, gen, cohort)``: the masked
 cohort round of :mod:`repro_torch.core.baselines.common` gathers the
@@ -55,6 +56,20 @@ they are; under the delta-coded downlink the cohort's prefix is scattered
 with a demoted slot's own rows, and the streams are counted on the card
 from the final mask.
 
+Buffered-async (``FedConfig.async_buffer``, not with ``w_refresh``): the
+cohort's uploads (after the wire and upload stages) are deposited in the
+state's ``abuf`` with the version of the row each client trained from
+(``last_sync``); at a flush the B buffer rows are mixed with the masked
+rules weighted by their staleness and scattered in ONE mix-scatter launch
+over the buffer, whose live ids are in arrival order. The flush is a
+device predicate folded into the mask, so no round syncs with the card.
+
+Two-tier (``FedConfig.topology``, the clustered variant only): each edge
+forms per-cluster partial sums of its members' uploads, one
+``mix_aggregate`` launch over the (E·k, c) partial rules, and the PS sums
+them and normalizes once; the served centroids are scattered at the
+cohort's slots. It composes with the refresh.
+
 ``ucfl_parallel`` (:func:`make_ucfl_parallel`) is the §V-E upper bound
 of Fig. 6. The baselines the paper compares against are in
 :mod:`repro_torch.core.baselines`.
@@ -63,12 +78,15 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import aggregation, clustering, flat, similarity
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
 from repro_torch.data.loader import draw_permutations
+from repro_torch.federated import async_buffer
 from repro_torch.federated import client as fedclient
+from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 from repro_torch.kernels import ops
 
@@ -128,7 +146,24 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             or (isinstance(num_streams, int) and num_streams >= 1)):
         raise ValueError(f"num_streams must be None, 'auto' or an int >= 1, "
                          f"got {num_streams!r}")
+    if cfg.async_buffer is not None and cfg.w_refresh is not None:
+        raise ValueError(
+            "FedConfig.async_buffer and FedConfig.w_refresh cannot be "
+            "combined yet: the streaming refresh consumes each barrier "
+            "round's (pre, post) upload pair, which the async buffer "
+            "does not retain (see ROADMAP)")
+    if num_streams is None:
+        topology_lib.unsupported(
+            cfg.topology, "ucfl",
+            "full personalization's Eq. 8 mix is per-client unicast — "
+            "every receiver's row reads every cohort column, so the PS "
+            "rule has no per-edge partial-sum factorization (use the "
+            "clustered variant)")
+    topo = topology_lib.check_composition(cfg.topology, f"ucfl_k{num_streams}",
+                                          async_buffer=cfg.async_buffer)
+    acfg = cfg.async_buffer
     params0, layout, dev = common.prepare(params0, device)
+    edge_arr = None if topo is None else topo.edge_array(dev)
     local = common.local_sgd(apply_stacked, layout, cfg)
     refresh = common.w_refresh_hook(cfg.w_refresh)
     if num_streams is None:
@@ -145,6 +180,8 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         """``kmeans_init`` (k, m) replaces the K-means++ seeds (parity
         tests pass the reference's)."""
         m = data.num_clients
+        if topo is not None:
+            topo.check_clients(m, "ucfl")
         collab = compute_collaboration(
             apply_stacked, params0, data, var_batch_size=var_batch_size,
             chunk_size=cfg.chunk_size, layout=layout)
@@ -188,6 +225,35 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             return torch.sum(fmask)
         return common.groups_present(state["labels"][co.safe], k, fmask)
 
+    def mix_rows(state, w, idx, mask, weights=None):
+        """The masked rules of the slots ``idx``/``mask``: Eq. 8's (c, c)
+        rows, or the centroid rules of the clusters present (§IV-B);
+        ``weights`` the buffered flush's staleness discounts."""
+        if state["streams"] is None:
+            return aggregation.masked_cohort_matrix(w, idx, mask, weights)
+        return aggregation.masked_clustered_rows(w, state["labels"], state["streams"], idx,
+                                                 mask, weights)
+
+    def tiered_serve(state, w, post, idx, mask):
+        """The two-tier §IV-B mix of the (c, d) uploads: tier 1, each edge's
+        per-cluster partial sums of its members' uploads, as one launch of
+        the (E·k, c) partial rules (the raw centroid rules split by edge);
+        tier 2, the PS sums the E partials and their masses and normalizes
+        once. A slot whose centroid has no mass keeps its own upload, as in
+        the flat rule. Returns the (c, d) served rows."""
+        k, m = state["streams"], w.shape[0]
+        fmask = mask.to(w.dtype)
+        safe = aggregation.safe_gather_index(idx, m).long()
+        lc = state["labels"].long()[safe]
+        oc = F.one_hot(lc, k).to(w.dtype) * fmask[:, None]  # (c, k)
+        cw = oc.T @ (w[safe][:, safe] * fmask[None, :])  # (k, c) raw rules
+        eoh = topology_lib.edge_onehot(edge_arr, topo.num_edges, idx, mask)  # (c, E)
+        rules = (eoh.T[:, None, :] * cw[None, :, :]).reshape(-1, cw.shape[1])  # (E·k, c)
+        part = ops.mix_aggregate(rules, post).view(topo.num_edges, k, -1)
+        massk = torch.sum(torch.sum(rules, dim=1).view(topo.num_edges, k), dim=0)  # (k,)
+        cent = torch.sum(part, dim=0) / torch.clamp_min(massk, 1e-12)[:, None]
+        return torch.where((massk > 1e-12)[lc][:, None], cent[lc], post)
+
     def masked(state, data, gen, idx, mask, perms):
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
                                   slabs=("params",) if down is None else ("params", "ef_dl"))
@@ -207,12 +273,13 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
                                         co.real)
             out["W"] = w
             metrics = common.staleness_metrics(out["refresh"])
-        if state["streams"] is None:
-            rows = aggregation.masked_cohort_matrix(w, fidx, fmask)
-        else:  # only the clusters present in the cohort put a model on the downlink
-            rows = aggregation.masked_clustered_rows(w, state["labels"], state["streams"],
-                                                     fidx, fmask)
         metrics["streams"] = count_streams(state, co, fmask, final is not None)
+        if topo is not None:  # the fresh rules, if any, feed the same tiered serve
+            served = tiered_serve(state, w, post, fidx, fmask)
+            params = aggregation.scatter_rows(state["params"], co.idx,
+                                              common.kept(final, served, pc), co.real)
+            return dict(state, params=params, **out), metrics
+        rows = mix_rows(state, w, fidx, fmask)
         if down is None:
             params = aggregation.mix_scatter_flat(state["params"], post, rows, fidx, fmask)
         else:  # each receiver's mix, delta-coded against its round-start row
@@ -224,10 +291,50 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
                                               common.kept(final, served, pc), co.real)
         return dict(state, params=params, **out), metrics
 
+    def amasked(state, data, gen, idx, mask, perms):
+        """The buffered round: the uploads, after the wire and upload
+        stages (the deposit is what the server decoded, ``pre +
+        dequant`` under a wire), land in the buffer with the version of the
+        row they trained from; at a flush the rules of the B buffer slots,
+        weighted by staleness, mix and scatter the buffer in one launch.
+        Not a flush: the mask is all False and nothing is written."""
+        m = data.num_clients
+        abuf = common.state_async_buffer(state, acfg, m, len(idx), layout.dim, schema, dev)
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
+        pc = co.rows["params"]
+        post = local(pc, co.x, co.y, perms=co.keys(perms))
+        out = {}
+        if up is not None:
+            post, out["ef"] = common.uplink(up, state, co, pc, post)
+        fidx, fmask = co.idx, co.mask
+        if ustage is not None:
+            post, fidx, fmask = common.upload(ustage, co, pc, post)
+        # a client trains from its own row, untouched since the flush that last wrote it
+        base_ver = abuf["last_sync"][aggregation.safe_gather_index(fidx, m).long()]
+        abuf = async_buffer.deposit(abuf, post, fidx, fmask, base_ver, m)
+        flush = abuf["count"] >= int(acfg.flush_k)
+        weights = async_buffer.staleness_weights(abuf, m, acfg.alpha)
+        tau = async_buffer.staleness(abuf)
+        applied = abuf["count"]
+        bidx, bvalid = abuf["idx"], async_buffer.valid_mask(abuf, m)
+        rows = mix_rows(state, state["W"], bidx, bvalid, weights)
+        if state["streams"] is None:
+            n_streams = torch.sum(bvalid)
+        else:
+            bsafe = aggregation.safe_gather_index(bidx, m).long()
+            n_streams = common.groups_present(state["labels"][bsafe], state["streams"], bvalid)
+        params = aggregation.mix_scatter_flat(state["params"], async_buffer.rows(abuf), rows,
+                                              bidx, bvalid & flush)
+        abuf = async_buffer.flush_reset(abuf, m, flush)
+        metrics = async_buffer.flush_metrics(flush, applied, tau, weights, abuf["count"])
+        metrics["streams"] = torch.where(flush, n_streams, torch.zeros_like(n_streams))
+        return dict(state, params=params, abuf=abuf, **out), metrics
+
     return Strategy(
         name="ucfl" if num_streams is None else f"ucfl_k{num_streams}",
         init=init,
-        round=common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage),
+        round=common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
+                                  async_fn=amasked, async_cfg=acfg, topology=topo),
         eval_params=lambda s: layout.unravel(s["params"]),
         comm_scheme="unicast" if num_streams is None else "groupcast",
         num_streams=None if num_streams in (None, "auto") else num_streams,
@@ -273,6 +380,11 @@ def make_ucfl_parallel(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         "the m× per-stream update stack has no single (c, d) upload "
         "slab to quantize — the m× uplink cost is the point of this "
         "upper bound")
+    topology_lib.unsupported(
+        cfg.topology, "ucfl_parallel",
+        "the §V-E upper bound mixes EVERY stream over every cohort "
+        "column with the (m, c) column-sliced W — there are no per-edge "
+        "partial aggregates for an edge tier to ship")
     params0, layout, dev = common.prepare(params0, device)
     local = common.local_sgd(apply_stacked, layout, cfg)
     refresh = common.w_refresh_hook(cfg.w_refresh)
@@ -347,7 +459,8 @@ def make_ucfl_parallel(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
                 {"streams": m, **common.staleness_metrics(buffers)})
 
     return Strategy(
-        name="ucfl_parallel", init=init, round=common.cohort_round(dense, masked),
+        name="ucfl_parallel", init=init,
+        round=common.cohort_round(dense, masked, async_cfg=cfg.async_buffer),
         eval_params=lambda s: layout.unravel(s["params"]),
         comm_scheme="unicast",
         skip_round=None if refresh is None else common.refresh_skip_round,

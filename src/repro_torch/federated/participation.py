@@ -25,15 +25,19 @@ Samplers
 ``availability``  uniform over the clients that the (m, period) trace
                   marks up in phase ``(t-1) mod period``, padded when
                   fewer than c are up (none up: an all-masked cohort,
-                  which the simulation loop skips).
+                  which the simulation loop skips);
+``pareto``        without replacement, mass from a :class:`SelectionConfig`
+                  (compute speed, link quality, data value, sharpened by
+                  ``bias`` and gated by a battery trace), with one slot a
+                  round reserved for a round-robin fairness lane over the
+                  clients of positive static mass.
 
 The numpy seed streams are the reference's
 (``repro.federated.participation``), so both packages draw the same
-cohorts index for index. The ``pareto`` sampler (``SelectionConfig``) is
-not ported yet (the pareto selection sampler, ROADMAP queue A).
+cohorts index for index.
 
-Full participation (``fraction=1.0`` outside the availability sampler) is
-a ``None`` cohort, so the engine keeps the dense path.
+Full participation (``fraction=1.0`` outside the availability and pareto
+samplers) is a ``None`` cohort, so the engine keeps the dense path.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ import math
 import numpy as np
 import torch
 
-SAMPLERS = ("uniform", "weighted", "round_robin", "availability")
+SAMPLERS = ("uniform", "weighted", "round_robin", "availability", "pareto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,27 +133,141 @@ def _pad(members: np.ndarray, slots: int, m: int) -> Cohort:
     return Cohort(indices=idx, mask=mask)
 
 
+def _host(n) -> np.ndarray:
+    """Dataset sizes as host float64 (a tensor is copied off the device)."""
+    if isinstance(n, torch.Tensor):
+        n = n.cpu().numpy()
+    return np.asarray(n, np.float64)
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectionConfig:
+    """Pareto-biased cohort selection mass for the ``pareto`` sampler.
+
+    Each knob weights one per-client utility; a round's sampling mass is
+    their product, sharpened by ``bias`` and gated by the battery trace::
+
+        mass_i(t) = (compute_i · link_i · n_i^[data_value])^bias
+                    · battery[i, (t − 1) mod period]
+
+    compute, link: optional (m,) nonnegative relative compute speeds and
+      link qualities; battery: optional (m, period) bool availability
+      trace (:func:`battery_trace`, :func:`diurnal_trace`), a client in a
+      down phase has zero mass that round; data_value: multiply by the
+      local dataset size n; bias: exponent > 0 on the static mass;
+      fairness_lane: one slot a round goes to the clients of positive
+      static mass in round-robin turn (skipped when that client is
+      battery-gated), so none of them starves under a sharp bias.
+    """
+
+    compute: np.ndarray | None = None
+    link: np.ndarray | None = None
+    battery: np.ndarray | None = None
+    data_value: bool = False
+    bias: float = 1.0
+    fairness_lane: bool = True
+
+    def __post_init__(self):
+        if not self.bias > 0.0:
+            raise ValueError(f"bias must be > 0, got {self.bias}")
+        for name in ("compute", "link"):
+            v = getattr(self, name)
+            if v is None:
+                continue
+            v = np.asarray(v, np.float64)
+            if v.ndim != 1:
+                raise ValueError(f"{name} must be 1-D (m,), got {v.shape}")
+            if np.any(v < 0) or not np.all(np.isfinite(v)):
+                raise ValueError(f"{name} must be finite and nonnegative")
+            object.__setattr__(self, name, v)
+        if self.battery is not None:
+            b = np.asarray(self.battery, bool)
+            if b.ndim != 2:
+                raise ValueError(f"battery must be an (m, period) trace, got {b.shape}")
+            object.__setattr__(self, "battery", b)
+
+    def static_mass(self, m: int, n=None) -> np.ndarray:
+        """The round-independent mass (before battery gating)."""
+        mass = np.ones(m, np.float64)
+        for name in ("compute", "link"):
+            v = getattr(self, name)
+            if v is not None:
+                if v.shape[0] != m:
+                    raise ValueError(f"{name} has {v.shape[0]} entries for m={m} clients")
+                mass = mass * v
+        if self.data_value:
+            if n is None:
+                raise ValueError("SelectionConfig.data_value needs per-client sizes n")
+            nn = np.clip(_host(n), 0.0, None)
+            if nn.shape[0] != m:
+                raise ValueError(f"n has {nn.shape[0]} entries for m={m} clients")
+            mass = mass * nn
+        return mass ** self.bias
+
+    def mass(self, rnd: int, m: int, n=None) -> np.ndarray:
+        """Round ``rnd``'s sampling mass (static mass, battery-gated)."""
+        mass = self.static_mass(m, n)
+        if self.battery is not None:
+            if self.battery.shape[0] != m:
+                raise ValueError(f"battery trace has {self.battery.shape[0]} rows for "
+                                 f"m={m} clients")
+            mass = mass * self.battery[:, (rnd - 1) % self.battery.shape[1]]
+        return mass
+
+
+def _pareto_members(sel: SelectionConfig, rng, rnd: int, c: int, m: int,
+                    n=None) -> np.ndarray:
+    """The ``pareto`` sampler's members for one round."""
+    mass = sel.mass(rnd, m, n)
+    pos = np.flatnonzero(mass > 0)
+    if pos.size == 0:
+        # every client gated off this phase: an all-masked cohort
+        return np.empty(0, np.int64)
+    if pos.size <= c:
+        return pos
+    picks = []
+    p = mass.copy()
+    if sel.fairness_lane:
+        static_pos = np.flatnonzero(sel.static_mass(m, n) > 0)
+        lane = int(static_pos[(rnd - 1) % static_pos.size])
+        if p[lane] > 0:  # the lane client may be battery-gated this round
+            picks.append(lane)
+            p[lane] = 0.0
+    rest = rng.choice(m, size=c - len(picks), replace=False, p=p / p.sum())
+    return np.concatenate([np.asarray(picks, np.int64), rest])
+
+
+def with_selection(pcfg: "ParticipationConfig | None", selection: SelectionConfig | None):
+    """Thread a ``FedConfig.selection`` into a participation policy: None
+    returns ``pcfg`` untouched; otherwise the policy (or a fresh
+    full-participation one) switches to the ``pareto`` sampler carrying
+    the selection."""
+    if selection is None:
+        return pcfg
+    base = pcfg if pcfg is not None else ParticipationConfig()
+    return dataclasses.replace(base, sampler="pareto", selection=selection)
+
+
 @dataclasses.dataclass(frozen=True)
 class ParticipationConfig:
     """Who participates each round.
 
     ``fraction`` of m (1.0: everyone), or ``cohort_size`` when set;
     ``sampler`` one of :data:`SAMPLERS`; ``availability`` the (m, period)
-    bool trace of the ``availability`` sampler; ``seed`` salts the
-    sampling stream, which is independent of the training randomness.
+    bool trace of the ``availability`` sampler; ``selection`` the
+    :class:`SelectionConfig` that the ``pareto`` sampler needs (and only
+    it reads); ``seed`` salts the sampling stream, which is independent of
+    the training randomness.
     """
 
     fraction: float = 1.0
     cohort_size: int | None = None
     sampler: str = "uniform"
     availability: np.ndarray | None = None
+    selection: SelectionConfig | None = None
     seed: int = 0
 
     def __post_init__(self):
-        if self.sampler == "pareto":
-            raise NotImplementedError(
-                "the pareto sampler (SelectionConfig) is not ported yet "
-                "(the pareto selection sampler, ROADMAP queue A)")
         if self.sampler not in SAMPLERS:
             raise ValueError(
                 f"unknown sampler {self.sampler!r}; expected one of {SAMPLERS}")
@@ -157,6 +275,9 @@ class ParticipationConfig:
             raise ValueError(f"fraction must be in (0, 1], got {self.fraction}")
         if self.sampler == "availability" and self.availability is None:
             raise ValueError("availability sampler needs an availability trace")
+        if self.sampler == "pareto" and self.selection is None:
+            raise ValueError("pareto sampler needs a SelectionConfig "
+                             "(ParticipationConfig.selection)")
 
     def resolve_size(self, m: int) -> int:
         """Cohort slots for ``m`` clients: ``cohort_size`` clamped to
@@ -168,20 +289,14 @@ class ParticipationConfig:
         return max(1, min(m, math.ceil(round(self.fraction * m, 9))))
 
     def is_full(self, m: int) -> bool:
-        # the availability sampler can mask slots at any size, so it never
-        # takes the dense full-participation path
-        return self.sampler != "availability" and self.resolve_size(m) == m
+        # the availability and pareto samplers can mask slots (gated
+        # clients) at any size, so they never take the dense path
+        return (self.sampler not in ("availability", "pareto")
+                and self.resolve_size(m) == m)
 
 
 def _rng(cfg: ParticipationConfig, rnd: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([cfg.seed, rnd, 0x5EED]))
-
-
-def _host(n) -> np.ndarray:
-    """Dataset sizes as host float64 (a tensor is copied off the device)."""
-    if isinstance(n, torch.Tensor):
-        n = n.cpu().numpy()
-    return np.asarray(n, np.float64)
 
 
 # Deterministic (m, period) availability traces. Both generators make every
@@ -230,7 +345,8 @@ def sample_cohort(cfg: ParticipationConfig | None, rnd: int, m: int,
                   n=None) -> Cohort | None:
     """Round ``rnd``'s (1-based) cohort of ``m`` clients, or ``None`` for
     full participation. ``n`` ((m,) dataset sizes, array or tensor) is
-    needed by the ``weighted`` sampler only. Every cohort of a policy has
+    needed by the ``weighted`` sampler, and by ``pareto`` under
+    ``data_value``. Every cohort of a policy has
     ``cfg.resolve_size(m)`` slots."""
     if cfg is None or cfg.is_full(m):
         return None
@@ -256,6 +372,8 @@ def sample_cohort(cfg: ParticipationConfig | None, rnd: int, m: int,
     elif cfg.sampler == "round_robin":
         start = ((rnd - 1) * c) % m
         members = (start + np.arange(c)) % m
+    elif cfg.sampler == "pareto":
+        members = _pareto_members(cfg.selection, rng, rnd, c, m, n)
     else:  # availability
         trace = np.asarray(cfg.availability, bool)
         up = np.flatnonzero(trace[:, (rnd - 1) % trace.shape[1]])

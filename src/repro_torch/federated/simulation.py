@@ -19,15 +19,24 @@ Randomness: ``run`` takes an integer seed and spawns three independent
 one for the warm-up round and one for the timed rounds, so the warm-up
 never shifts the rounds' batch orders.
 
+Selection: ``run(selection=SelectionConfig(...))`` (``FedConfig.selection``)
+switches the participation policy to the ``pareto`` sampler
+(:func:`repro_torch.federated.participation.with_selection`); the strategy
+never draws cohorts itself.
+
 Timing: the special round (``strategy.init``) is timed into
-``History.init_s``. ``strategy.round`` is then warmed up once on a clone
-of the state (result discarded; under partial participation with round
-1's cohort, or with a synthetic one-member cohort of the same slot count
-when round 1 is all-offline) before the round timer starts, so
-``History.wall_s`` measures steady-state rounds, not first-call costs such
-as the kernel build and cuDNN's algorithm search. The evaluation passes
-are timed separately into ``History.eval_s`` and excluded from
-``wall_s``. Every interval ends in a device synchronize.
+``History.init_s``. With ``warmup`` (the default) ``strategy.round`` is
+then run once on a clone of the state (result discarded; under partial
+participation with round 1's cohort, or with a synthetic one-member
+cohort of the same slot count when round 1 is all-offline) before the
+round timer starts, so ``History.wall_s`` measures steady-state rounds,
+not first-call costs such as the kernel build and cuDNN's algorithm
+search. The warm-up draws from its own generator and leaves the state as
+it was (a buffered strategy's lazily created buffer included), so
+``warmup=False`` gives the same trajectory. The evaluation passes are
+timed separately into ``History.eval_s`` and excluded from ``wall_s``;
+``eval_chunk`` bounds their client axis (``client.evaluate``'s
+``batch``). Every interval ends in a device synchronize.
 
 Evaluation schedule: as the reference's ``run``, the finite check and the
 evaluation run after round ``rnd`` only when ``rnd % eval_every == 0`` or
@@ -36,9 +45,9 @@ evaluation run after round ``rnd`` only when ``rnd % eval_every == 0`` or
 reference's Tables 1/2 pass ``eval_every = max(rounds // 4, 1)`` to
 ``run_trials``. The finite check stands down by default when the strategy
 injects faults (``Strategy.injects_faults``): its finite guard absorbs
-the poisoned uploads. ``verbose`` prints a line a evaluated round, with
-the refresh's ``staleness_max`` and ``staleness_mean`` where the round
-reports them.
+the poisoned uploads. ``verbose`` prints a line an evaluated round, the
+reference's: the accuracies, the round's cohort size, and the refresh's
+``staleness_max`` and ``staleness_mean`` where the round reports them.
 """
 from __future__ import annotations
 
@@ -97,9 +106,10 @@ class History:
 
 def clone_state(state):
     """Copy every tensor of a state dict, and of the dicts in it (the
-    refresh buffers). The cohort round writes the params slab (and the
-    refresh buffers) in place, so a caller that keeps the pre-round state
-    (the warm-up, an A/B comparison) runs the round on this copy."""
+    refresh buffers, the async buffer). The cohort round writes the params
+    slab (and those buffers) in place, so a caller that keeps the
+    pre-round state (the warm-up, an A/B comparison) runs the round on this
+    copy."""
     return {k: v.clone() if isinstance(v, torch.Tensor)
             else clone_state(v) if isinstance(v, dict) else v
             for k, v in state.items()}
@@ -151,17 +161,24 @@ def _warmup_cohort(participation, m, n):
     return cohort
 
 
-def _round_line(name, rnd, accs, metrics):
+def _round_line(name, rnd, accs, metrics, m):
     stale = ("" if "staleness_max" not in metrics else
              f" stale_max={int(metrics['staleness_max'])}"
              f" stale_mean={float(metrics['staleness_mean']):.1f}")
     return (f"[{name}] round {rnd:4d} avg={accs.mean():.4f} worst={accs.min():.4f} "
-            f"streams={metrics.get('streams')}{stale}")
+            f"cohort={metrics.get('cohort_size', m)}{stale}")
+
+
+def _check_selection(selection):
+    if selection is not None and not isinstance(selection, part.SelectionConfig):
+        raise TypeError(f"selection must be a SelectionConfig or None, "
+                        f"got {type(selection).__name__}")
 
 
 def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: int = 1,
-        participation: part.ParticipationConfig | None = None,
-        device=None, check_finite: bool | None = None, verbose: bool = False) -> History:
+        participation: part.ParticipationConfig | None = None, warmup: bool = True,
+        eval_chunk: int | None = None, device=None, check_finite: bool | None = None,
+        verbose: bool = False, selection=None) -> History:
     """Run ``rounds`` rounds; after round ``rnd`` a finite check of the
     clients' models and an evaluation run when ``rnd % eval_every == 0``
     or ``rnd == rounds`` (the reference's rule). ``check_finite`` None
@@ -169,11 +186,17 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: in
 
     ``participation`` None (or a full policy) runs the dense
     full-participation round; otherwise each round's cohort is
-    ``sample_cohort(participation, rnd, m, n)``. ``data`` must already
-    live on ``device`` (CUDA unless told otherwise).
+    ``sample_cohort(participation, rnd, m, n)``; ``selection`` (a
+    :class:`~repro_torch.federated.participation.SelectionConfig`) turns
+    the policy into the ``pareto`` sampler. ``warmup`` runs one discarded
+    round before the timer; ``eval_chunk`` bounds the evaluation's client
+    axis. ``data`` must already live on ``device`` (CUDA unless told
+    otherwise).
     """
     if eval_every < 1:
         raise ValueError(f"eval_every must be at least 1, got {eval_every}")
+    _check_selection(selection)
+    participation = part.with_selection(participation, selection)
     dev = resolve_device(device)
     if data.x.device.type != dev.type:
         raise ValueError(f"data lives on {data.x.device}, run on {dev}")
@@ -190,11 +213,11 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: in
     _sync(dev)
     hist.init_s = time.perf_counter() - t
 
-    # first-call costs stay outside the timed region
-    wstate, _ = strategy.round(clone_state(state), data, warm_gen,
-                               _warmup_cohort(participation, m, n_host))
-    _sync(dev)
-    del wstate
+    if warmup:  # first-call costs stay outside the timed region
+        wstate, _ = strategy.round(clone_state(state), data, warm_gen,
+                                   _warmup_cohort(participation, m, n_host))
+        _sync(dev)
+        del wstate
 
     t0 = time.perf_counter()
 
@@ -204,9 +227,9 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: in
         if check_finite:
             _check_finite_state(strategy, state, rnd)
         accs = evaluate(apply_stacked, strategy.eval_params(state), data.x_test,
-                        data.y_test).cpu().numpy()
+                        data.y_test, batch=eval_chunk).cpu().numpy()
         if verbose:
-            print(_round_line(strategy.name, rnd, accs, metrics), flush=True)
+            print(_round_line(strategy.name, rnd, accs, metrics, m), flush=True)
         hist.eval_s += time.perf_counter() - te
         hist.rounds.append(rnd)
         hist.avg_acc.append(float(accs.mean()))
@@ -242,16 +265,16 @@ def run_trials(make_strategy, apply_stacked, data_fn, *, trials: int, rounds: in
     ``SeedSequence``, so they are independent of a synthesizer that seeds
     a numpy generator with ``s`` itself. The reported (avg, worst) pair of
     a trial is its ``History.paired_best``: one model, the argmax-average
-    evaluated round, as Tables 1/2 pair them.
+    evaluated round, as Tables 1/2 pair them. ``selection`` goes to every
+    trial's ``run``.
     """
-    if selection is not None:
-        raise NotImplementedError("run_trials: selection (Pareto-biased cohorts) is not "
-                                  "ported yet (the pareto selection sampler, ROADMAP queue A)")
+    _check_selection(selection)
     avgs, worsts, hists = [], [], []
     for trial in range(trials):
         s = seed + 1000 * trial
         h = run(make_strategy(trial), apply_stacked, data_fn(s), s, rounds=rounds,
-                eval_every=eval_every, participation=participation, device=device)
+                eval_every=eval_every, participation=participation, device=device,
+                selection=selection)
         avg, worst = h.paired_best
         avgs.append(avg)
         worsts.append(worst)

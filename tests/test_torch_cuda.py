@@ -1182,3 +1182,187 @@ def test_cuda_bf16_decode_kernel_matches_plain_attention(arch, monkeypatch):
     for pos, (g, w) in enumerate(zip(got, want)):
         assert float((g.float() - w.float()).abs().max()) <= 2.0 ** -5 * float(
             w.float().abs().max()), pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ucfl", "ucfl_k2", "fedavg"])
+def test_cuda_async_flush1_rounds_equal_the_barrier_rounds(name):
+    """``AsyncConfig(flush_k=1, alpha=0.0)`` on the card: two cohort rounds
+    from the same state and batch orders as the barrier rounds, bit for bit
+    for ucfl and its clustered variant (the flush mixes and scatters the
+    buffer's rows in the same launch shape), within float association for
+    the FedAvg family's delta form; and the barrier run within 1e-4 of the
+    CPU's."""
+    from repro_torch.core import REGISTRY, FedConfig, ucfl
+    from repro_torch.data import loader
+    from repro_torch.federated import participation, simulation
+    from repro_torch.federated.async_buffer import AsyncConfig
+    from repro_torch.models import lenet
+
+    dev = cuda_device()
+    cpu_data, gpu_data, p0 = _small_task(dev)
+
+    def build(device, **kw):
+        cfg = FedConfig(batch_size=20, **kw)
+        if name == "fedavg":
+            return REGISTRY[name](lenet.apply_stacked, p0, cfg, device=device)
+        return ucfl.make_ucfl(lenet.apply_stacked, p0, cfg, var_batch_size=20, device=device,
+                              num_streams=2 if name == "ucfl_k2" else None)
+
+    barrier, asy = build(dev), build(dev, async_buffer=AsyncConfig(flush_k=1, alpha=0.0))
+    host = build("cpu")
+    state = barrier.init(torch.Generator(device=dev).manual_seed(0), gpu_data)
+    hs = host.init(torch.Generator().manual_seed(0), cpu_data)
+    if name == "ucfl_k2":  # the card's K-means labels on both sides
+        hs = dict(hs, labels=state["labels"].cpu(), labels_host=state["labels_host"])
+    sb, sa = simulation.clone_state(state), simulation.clone_state(state)
+    cohorts = [participation.pad_slots(participation.as_cohort([1, 3, 6], 8), 5, 8),
+               participation.pad_slots(participation.as_cohort([0, 2, 3, 5], 8), 5, 8)]
+    for r, cohort in enumerate(cohorts):
+        perms = loader.draw_permutations(torch.Generator().manual_seed(r), 8, 1, 80,
+                                         device="cpu")
+        sb, mb = barrier.round(sb, gpu_data, None, cohort, perms=perms.to(dev))
+        sa, ma = asy.round(sa, gpu_data, None, cohort, perms=perms.to(dev))
+        hs, _ = host.round(hs, cpu_data, None, cohort, perms=perms)
+        torch.cuda.synchronize()
+        assert int(ma["flushed"]) == 1 and int(ma["streams"]) == int(mb["streams"])
+        if name == "fedavg":
+            assert float((sa["params"] - sb["params"]).abs().max()) <= 1e-5
+        else:
+            assert torch.equal(sa["params"], sb["params"]), r
+        assert float((sb["params"].cpu() - hs["params"]).abs().max()) <= 1e-4, r
+
+
+@pytest.mark.cuda
+def test_cuda_masked_mix_scatter_over_the_async_buffer():
+    """The mix-scatter over a buffer of 109 rows whose live ids are in
+    arrival order (a second deposit overwrote some clients in place and
+    appended the rest), with a sentinel tail: within 1e-5 of the plain
+    version on flush rules, bit for bit on exact inputs (rules in eighths,
+    integer rows), and nothing written when the flush predicate is False;
+    the deposits equal the CPU's."""
+    from repro_torch.core import aggregation
+    from repro_torch.federated import async_buffer
+
+    dev = cuda_device()
+    m, d = 100, 47616
+    acfg = async_buffer.AsyncConfig(flush_k=60)
+    gen = torch.Generator().manual_seed(5)
+    bufs = [async_buffer.init_buffer(acfg, m, 50, d, device=x) for x in ("cpu", dev)]
+    for rnd, real in ((0, 44), (1, 42)):
+        idx = torch.full((50,), m, dtype=torch.int32)
+        idx[:real] = torch.sort(torch.randperm(m, generator=gen)[:real]).values.to(torch.int32)
+        args = (torch.randn(50, d, generator=gen), idx, torch.arange(50) < real,
+                torch.full((50,), rnd, dtype=torch.int32))
+        bufs = [async_buffer.deposit(b, *(a.to(b["upd"].device) for a in args), m)
+                for b in bufs]
+    host, buf = bufs
+    for k in ("idx", "ver", "count"):
+        assert torch.equal(buf[k].cpu(), host[k]), k
+    assert torch.equal(async_buffer.rows(buf).cpu(), async_buffer.rows(host))
+    bidx, valid = buf["idx"], async_buffer.valid_mask(buf, m)
+    live = bidx[valid].cpu()
+    assert not bool((live[1:] > live[:-1]).all()) and int(buf["count"]) < 86
+    buf = dict(buf, version=torch.ones_like(buf["version"]))
+    w = aggregation.masked_cohort_matrix(
+        torch.softmax(torch.randn(m, m, generator=gen), dim=1).to(dev), bidx, valid,
+        async_buffer.staleness_weights(buf, m, 0.5))
+    theta = async_buffer.rows(buf)
+    full = torch.randn(m, d, generator=gen).to(dev)
+    want = ref.masked_mix_scatter(w, theta, bidx, valid, full)
+    got = ops.masked_mix_scatter(w, theta, bidx, valid, full.clone(), impl="cuda")
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    exact_w = (torch.randint(0, 9, (109, 109), generator=gen).float() / 8.0).to(dev)
+    exact_w = exact_w * valid.float()[None, :]
+    exact_t = torch.randint(-8, 9, (109, d), generator=gen).float().to(dev)
+    assert torch.equal(ops.masked_mix_scatter(exact_w, exact_t, bidx, valid, full.clone(),
+                                              impl="cuda"),
+                       ref.masked_mix_scatter(exact_w, exact_t, bidx, valid, full))
+    idle = ops.masked_mix_scatter(w, theta, bidx, valid & False, full.clone(), impl="cuda")
+    assert torch.equal(idle, full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fedavg", "ucfl_k2"])
+def test_cuda_tiered_rounds_match_cpu(name):
+    """Two cohort rounds over ``Topology.contiguous(8, 3)`` on the card
+    against the CPU's plain path (slab within 1e-4, the same streams), and
+    within 1e-4 of the card's flat rounds; the tiered mixes run on the
+    mix kernel (two launches a FedAvg round, one for ucfl_k2's partials)."""
+    from repro_torch.core import REGISTRY, FedConfig, ucfl
+    from repro_torch.data import loader
+    from repro_torch.federated import participation
+    from repro_torch.federated.topology import Topology
+    from repro_torch.models import lenet
+
+    dev = cuda_device()
+    cpu_data, gpu_data, p0 = _small_task(dev)
+
+    def build(device, **kw):
+        cfg = FedConfig(batch_size=20, **kw)
+        if name == "fedavg":
+            return REGISTRY[name](lenet.apply_stacked, p0, cfg, device=device)
+        return ucfl.make_ucfl(lenet.apply_stacked, p0, cfg, var_batch_size=20, device=device,
+                              num_streams=2)
+
+    topo = Topology.contiguous(8, 3)
+    card, host, flat = build(dev, topology=topo), build("cpu", topology=topo), build(dev)
+    cs = card.init(torch.Generator(device=dev).manual_seed(0), gpu_data)
+    hs = host.init(torch.Generator().manual_seed(0), cpu_data)
+    if name == "ucfl_k2":
+        hs = dict(hs, labels=cs["labels"].cpu(), labels_host=cs["labels_host"])
+    fs = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in cs.items()}
+    cohorts = [participation.pad_slots(participation.as_cohort([1, 3, 6], 8), 5, 8),
+               participation.pad_slots(participation.as_cohort([0, 2, 3, 5, 7], 8), 6, 8)]
+    for r, cohort in enumerate(cohorts):
+        perms = loader.draw_permutations(torch.Generator().manual_seed(r), 8, 1, 80,
+                                         device="cpu")
+        before = MIX.launches
+        cs, cm = card.round(cs, gpu_data, None, cohort, perms=perms.to(dev))
+        assert MIX.launches - before == (2 if name == "fedavg" else 1)
+        hs, hm = host.round(hs, cpu_data, None, cohort, perms=perms)
+        fs, _ = flat.round(fs, gpu_data, None, cohort, perms=perms.to(dev))
+        torch.cuda.synchronize()
+        assert int(cm["streams"]) == int(hm["streams"])
+        assert float((cs["params"].cpu() - hs["params"]).abs().max()) <= 1e-4, r
+        assert float((cs["params"] - fs["params"]).abs().max()) <= 1e-4, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attack", ["scaled_noise", "inf"])
+def test_cuda_attacks_match_cpu(attack, monkeypatch):
+    """ucfl under ``scaled_noise`` and ``inf`` attackers with trimmed mean,
+    two cohort rounds on the card against the CPU's plain path from the same
+    draws (the noise drawn once on the host): the slab within 1e-4 and
+    finite, the same streams."""
+    from repro_torch.core import FedConfig, ucfl
+    from repro_torch.core.aggregation import RobustConfig
+    from repro_torch.data import loader
+    from repro_torch.federated import faults, participation
+    from repro_torch.models import lenet
+
+    dev = cuda_device()
+    cpu_data, gpu_data, p0 = _small_task(dev)
+    draw = faults.draw
+
+    def host_draw(cfg, m, width, rnd, device):
+        d = draw(cfg, m, width, rnd, "cpu")
+        return faults.FaultDraws(d.attacker.to(device), d.uniforms.to(device),
+                                 None if d.noise is None else d.noise.to(device))
+
+    monkeypatch.setattr(faults, "draw", host_draw)
+    cfg = FedConfig(batch_size=16, faults=faults.FaultConfig(byzantine_frac=0.25, attack=attack),
+                    robust=RobustConfig("trimmed_mean", trim_k=1))
+    host, card = (ucfl.make_ucfl(lenet.apply_stacked, p0, cfg, var_batch_size=20, device=d)
+                  for d in ("cpu", dev))
+    hs, cs = host.init(None, cpu_data), card.init(None, gpu_data)
+    cohort = participation.pad_slots(participation.as_cohort([0, 1, 3, 4, 6, 7], 8), 7, 8)
+    for r in range(2):
+        perms = loader.draw_permutations(torch.Generator().manual_seed(r), 8, 1, 80,
+                                         device="cpu")
+        hs, hm = host.round(hs, cpu_data, None, cohort, perms=perms)
+        cs, cm = card.round(cs, gpu_data, None, cohort, perms=perms.to(dev))
+        torch.cuda.synchronize()
+        assert int(hm["streams"]) == int(cm["streams"])
+        assert bool(torch.isfinite(cs["params"]).all())
+        assert float((cs["params"].cpu() - hs["params"]).abs().max()) <= 1e-4, r

@@ -118,8 +118,14 @@ def test_config_errors(kw):
 
 
 def test_pareto_sampler_is_not_ported():
-    with pytest.raises(NotImplementedError, match="pareto selection sampler"):
-        part.ParticipationConfig(fraction=0.5, sampler="pareto")
+    """The pareto sampler is ported now (``tests/test_torch_selection.py``);
+    as in the reference, it needs a ``SelectionConfig``."""
+    for mod in (ref, part):
+        with pytest.raises(ValueError, match="SelectionConfig"):
+            mod.ParticipationConfig(fraction=0.5, sampler="pareto")
+    cfg = part.ParticipationConfig(fraction=0.5, sampler="pareto",
+                                   selection=part.SelectionConfig())
+    assert cfg.sampler in part.SAMPLERS and len(part.sample_cohort(cfg, 1, 10)) == 5
 
 
 @pytest.mark.parametrize("indices,mask", [

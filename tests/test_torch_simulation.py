@@ -130,7 +130,9 @@ def test_run_trials_matches_reference():
 
 
 def test_run_trials_selection_raises():
-    with pytest.raises(NotImplementedError, match="pareto selection sampler"):
+    """``selection`` is ported (``tests/test_torch_selection.py``); a value
+    that is no ``SelectionConfig`` raises before any trial runs."""
+    with pytest.raises(TypeError, match="SelectionConfig"):
         simulation.run_trials(None, None, None, trials=1, rounds=1, selection=object())
 
 

@@ -79,7 +79,7 @@ def test_cohort_round_and_unported_knobs_raise():
     assert not torch.equal(new["params"][:3], before[:3])
     assert torch.equal(state["params"], before)
     with pytest.raises(TypeError):
-        FedConfig(async_buffer=object())  # a knob not ported yet
+        FedConfig(mesh=8)  # a knob not ported yet
     with pytest.raises(TypeError, match="RefreshConfig"):  # a knob of the wrong type
         ucfl.make_ucfl(lenet.apply_stacked, tparams, FedConfig(w_refresh=object()),
                        device="cpu")

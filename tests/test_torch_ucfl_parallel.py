@@ -23,7 +23,8 @@ from repro.models import lenet as ref_lenet
 from repro_torch.core import REGISTRY, FedConfig, ucfl
 from repro_torch.core.aggregation import RobustConfig
 from repro_torch.core.similarity import RefreshConfig
-from repro_torch.federated import faults, participation, simulation, transport
+from repro_torch.federated import (async_buffer, faults, participation, simulation, topology,
+                                  transport)
 from repro_torch.models import lenet
 from torch_parity import (BATCH, SMALL, VAR_BATCH, key_schedule,  # noqa: F401
                           one_torch_thread, padded_cohorts, ref_cohort,
@@ -142,8 +143,12 @@ def test_refused_knobs_raise_at_construction():
         build(transport=transport.TransportConfig())
     with pytest.raises(TypeError, match="RefreshConfig"):
         build(w_refresh=object())
+    with pytest.raises(NotImplementedError, match="buffered-async"):
+        build(async_buffer=async_buffer.AsyncConfig())
+    with pytest.raises(NotImplementedError, match="topology is not supported by ucfl_parallel"):
+        build(topology=topology.Topology.contiguous(SMALL["m"], 2))
     with pytest.raises(TypeError):
-        FedConfig(async_buffer=object())  # not ported yet
+        FedConfig(shard_state=True)  # not ported yet
     s = build()
     assert (s.name, s.comm_scheme, s.num_streams, s.wire_schema, s.injects_faults) == \
         ("ucfl_parallel", "unicast", None, None, False)
