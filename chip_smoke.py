@@ -134,7 +134,48 @@ Phases, each printed as it ends:
                teacher-forced prompt and 32 greedy tokens), counting the
                attention kernels' launches (28 of the tensor-core tile per
                prefill, 28 of the decode kernel per decode step, none of the
-               FMA kernel).
+               FMA kernel);
+  13. train  — federated training of stablelm-1.6b at its published widths
+               (d_model 2048, 32 x 64 MHA heads, d_ff 5632, vocab 100,352,
+               bf16, remat), depth cut to 4 of 24 layers, 4 clients in 2
+               groups, 4 x 256 tokens a client a step on chains over 512
+               tokens: the tile at the train shape through
+               ``FlashAttentionFn``, its q, k, v gradients against autograd
+               through the plain version; the collaboration round on real
+               LM gradients (K = 4 partitions raveled into one zero-tailed
+               (4, 4, d_aligned) bf16 buffer, full gradients (4, d_aligned)
+               f32, one gram launch on rows read where they lie, no padded
+               copy, held against the plain gram as row ``gram_lm``; W
+               finite and row-stochastic, its within- and cross-group
+               mass); then 8 steps each of ``user_centric`` (W),
+               ``clustered`` (K-means on W's rows, k = 2), ``fedavg`` and
+               ``local`` from the same start and batches (one user-centric
+               step first against the same step with the plain attention
+               and mix on the card, held on each leaf's change, the plain
+               side launching no kernel): every step's
+               loss, the last below the first, exact launches a step (one
+               mix a leaf for the mixing aggs, none for local; the tile
+               twice a layer), the step's wall, tokens/s, a profiled step
+               and peak memory; one user-centric mix against the plain mix
+               on every leaf, and the mix for k = 4, 2 and 1 against the
+               plain mix at every leaf width, timed at the widest (rows
+               ``mix_aggregate_lm_k*``); then
+               ``launch.train.main([--arch stablelm-1.6b --smoke --rounds
+               20])``, its loss falling; then ``make_ucfl`` over reduced
+               qwen2-7b's slab with last-token class logits, 3 cohort
+               rounds, the loss below half its start. The k-means on W,
+               the entry point and the ucfl run record their kernel calls
+               (``recorded_calls``): every shape each kernel got is held
+               against its plain version on the recorded inputs, and each
+               kernel's launches there form a row (``kmeans_assign_lm``,
+               ``<kernel>_smoke``, ``<kernel>_ucfl_lm``); ``train_path``
+               JSON line;
+  14. checkpoint — ``repro_torch.checkpoint`` save and restore, bit for
+               bit on the card, of a LeNet ``ucfl`` state with
+               ``RefreshConfig()`` and a buffered ``fedavg`` state
+               (``AsyncConfig(flush_k=60)``), each after a cohort round on
+               scenario 2, and one client's trained LM params (1.23 GB of
+               bf16), with their times; ``checkpoint_path`` JSON line.
 Then one ``{"kernels": [...]}`` JSON line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits non-zero and prints no result.
 Imports nothing of jax or of the reference package.
@@ -146,12 +187,15 @@ import ctypes
 import dataclasses
 import functools
 import inspect
+import io
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -162,12 +206,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import configs  # noqa: E402
+from repro_torch import checkpoint, configs  # noqa: E402
 from repro_torch.core import REGISTRY, FedConfig, ParticipationConfig, clustering, flat, ucfl  # noqa: E402
-from repro_torch.core import aggregation, comm_model  # noqa: E402
+from repro_torch.core import aggregation, comm_model, pytree  # noqa: E402
+from repro_torch.core.pytree import leaves  # noqa: E402
 from repro_torch.core.aggregation import RobustConfig  # noqa: E402
 from repro_torch.core.similarity import RefreshConfig  # noqa: E402
-from repro_torch.data import loader, synthetic  # noqa: E402
+from repro_torch.data import lm_synthetic, loader, synthetic  # noqa: E402
 from repro_torch.federated import async_buffer, client, faults, participation  # noqa: E402
 from repro_torch.federated import simulation, transport  # noqa: E402
 from repro_torch.federated.async_buffer import AsyncConfig  # noqa: E402
@@ -184,7 +229,9 @@ from repro_torch.kernels.mix_aggregate import MIX, MIX_TILES, mix_plan  # noqa: 
 from repro_torch.kernels.pairwise_delta import GRAM  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.models import lenet, transformer  # noqa: E402
+from repro_torch.optim import sgd_init  # noqa: E402
 
 # H100 SXM data sheet: HBM3 rate, f32 CUDA-core peak (no tensor cores) and
 # the dense TF32 and bf16 tensor-core peaks
@@ -255,6 +302,23 @@ ENGINE_ASYNC = AsyncConfig(flush_k=60, alpha=0.5)
 ENGINE_ROUNDS = 4
 BUFFER_ROWS = ENGINE_ASYNC.capacity(50)
 EDGES = 4
+# the train phase: stablelm-1.6b at its published widths, depth cut to 4 of
+# 24 layers; 4 clients in 2 groups, 4 x 256 tokens a client a step, chains
+# over a 512-token vocabulary inside the 100,352-row table, 8 steps an agg
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_LAYERS = 4
+TRAIN_CLIENTS, TRAIN_GROUPS = 4, 2
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+TRAIN_CHAIN_VOCAB = 512
+TRAIN_STEPS = 8
+TRAIN_LR = 0.1
+# gram_lm against an f64 Gram of its (4, 616.6 M) rows: 5e-4 of the largest
+# entry, about 4.6 times the kernel's error there (8.69e-4 of 8.06)
+F64_GRAM_TOL = 5e-4
+# a train step's change of a leaf, kernels against the plain attention and
+# mix on the card, |Δ - Δ_plain| / |Δ_plain| in L2: twice the largest
+# reading (0.125, the query projection's)
+STEP_DELTA_TOL = 0.25
 
 
 def phase(name, t0, msg):
@@ -420,11 +484,13 @@ def finish_row(name, r):
              + (f"  f32 CUDA-core bound {r['bound_f32_ms']:.5f} ms"
                 if "bound_f32_ms" in r else "")
              + (f"  [{r['plan']}]" if "plan" in r else "")
-             + (f"  [{r['route_detail']}]" if "route_detail" in r else ""))
+             + (f"  [{r['route_detail']}]" if "route_detail" in r else "")
+             + (f"  [{r['shape']}]" if "shape" in r else ""))
+    library = ("library none" if r["library_ms"] is None else
+               f"library {r['library_ms']:.4f} ms  kernel/library {r['ms'] / r['library_ms']:.2f}")
     print(f"  {name}: max_abs_err {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
-          f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
-          f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})  "
-          f"kernel/library {r['ms'] / r['library_ms']:.2f}{extra}")
+          f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms ({r['bound_by']})  "
+          f"{library}{extra}")
 
 
 def ptxas_info(source):
@@ -457,9 +523,23 @@ def gram_rows(gen, dev, m, d, d_al):
     return rows
 
 
-def gram_row(name, g, d, dev):
+def gram_f64(g, chunk=2**24):
+    """G Gᵀ in f64, summed over column chunks of ``g``."""
+    out = torch.zeros(g.shape[0], g.shape[0], dtype=torch.float64, device=g.device)
+    for c0 in range(0, g.shape[1], chunk):
+        x = g[:, c0: c0 + chunk].double()
+        out += x @ x.T
+    return out
+
+
+def gram_row(name, g, d, dev, *, against_f64=False):
     """gram on the (m, d_al) rows ``g`` (true width d): the checks and the
-    times of :func:`gram_rows`; returns the kernel row."""
+    times of :func:`gram_rows`; returns the kernel row. With
+    ``against_f64`` (rows far wider than the slab's 47,616, where f32 sums
+    of d products in any order drift past 1e-5 of the largest entry) the
+    kernel is held instead against an f64 Gram of the same rows, within
+    F64_GRAM_TOL of its largest entry; the plain f32 version's error
+    against it is printed beside the kernel's."""
     regs, spills = ptxas_info("gram.cu")
     mm, d_al = g.shape
     want = ref.gram(g)
@@ -479,8 +559,21 @@ def gram_row(name, g, d, dev):
         ops.gram(g, impl="cuda")
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    # f32 sums of 47,571 products in another order: 1e-5 of the largest entry
-    err = check(name, got, want, 1e-5 * float(want.abs().max()))
+    if against_f64:
+        exact = gram_f64(g)
+        mine = float((got.double() - exact).abs().max())
+        plain = float((want.double() - exact).abs().max())
+        largest = float(exact.abs().max())
+        if not mine <= F64_GRAM_TOL * largest:
+            raise AssertionError(f"{name}: error {mine:.3e} against an f64 Gram is over "
+                                 f"{F64_GRAM_TOL:g} of its largest entry {largest:.3e} (the plain "
+                                 f"f32 version errs {plain:.3e})")
+        err = float((got - want).abs().max())
+        print(f"  {name}: against an f64 Gram the kernel errs {mine:.3e}, the plain f32 "
+              f"version {plain:.3e} (largest entry {largest:.4e}); kernel - plain {err:.3e}")
+    else:
+        # f32 sums of 47,571 products in another order: 1e-5 of the largest entry
+        err = check(name, got, want, 1e-5 * float(want.abs().max()))
     flops = mm * (mm + 1) * d
     nbytes = 4 * (mm * d_al + mm * mm)
     return dict(
@@ -2443,12 +2536,6 @@ def serve_prefill(dev, cfg):
                 peak_gb=peak / 1e9)
 
 
-def leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in leaves(v)]
-    return [tree]
-
-
 def serve_phase(dev):
     """qwen2-7b at full width and depth, bf16, 2 personalized clients x 2
     requests: the prefill step, a decode profile, then ``serve()``."""
@@ -2498,6 +2585,614 @@ def serve_phase(dev):
     return out
 
 
+RECORDED_OPS = ("gram", "mix_aggregate", "kmeans_assign", "cohort_gather", "masked_mix_scatter",
+                "flash_attention")
+
+
+def _signature(x):
+    return (tuple(x.shape), str(x.dtype)) if isinstance(x, torch.Tensor) else x
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Every call of a kernel op in the block (looked up as ``ops.<name>``
+    by its callers) with its launches: yields {(op, shapes, options):
+    {"args", "kw", "launches"}}, where "args" are copies of the first such
+    call's inputs, taken before the call (the mix-scatter writes into
+    ``full``), and "launches" the launches of each counter over all such
+    calls. On leaving, the launches summed over the calls must equal the
+    counters' rise over the block: every launch came from a recorded call."""
+    calls, ops_before = {}, {n: getattr(ops, n) for n in RECORDED_OPS}
+    start = {k: c.launches for k, c in COUNTERS.items()}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            key = (name,) + tuple(_signature(a) for a in args) + tuple(sorted(kw.items()))
+            rec = calls.get(key)
+            if rec is None:
+                rec = calls[key] = dict(
+                    args=[a.detach().clone() if isinstance(a, torch.Tensor) else a
+                          for a in args], kw=dict(kw), launches={})
+            before = {k: c.launches for k, c in COUNTERS.items()}
+            out = fn(*args, **kw)
+            for k, c in COUNTERS.items():
+                if c.launches != before[k]:
+                    rec["launches"][k] = rec["launches"].get(k, 0) + c.launches - before[k]
+            return out
+        return call
+
+    for name, fn in ops_before.items():
+        setattr(ops, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in ops_before.items():
+            setattr(ops, name, fn)
+    rose = {k: c.launches - start[k] for k, c in COUNTERS.items() if c.launches != start[k]}
+    summed = {}
+    for rec in calls.values():
+        for k, n in rec["launches"].items():
+            summed[k] = summed.get(k, 0) + n
+    if summed != rose:
+        raise AssertionError(f"recorded calls launched {summed}, the counters rose by {rose}")
+
+
+def hold_call(name, args, kw, dev):
+    """One recorded call's inputs through the kernel and through its plain
+    version, each at the tolerance of the kernel phase's row of that
+    kernel: a mix within 1e-5 of the largest output; the gather bit for
+    bit; k-means labels equal and distances within 1e-5 of the largest;
+    attention f32 within 2e-5, bf16 within one bf16 step element by
+    element (``check_each``). Returns the error, the kernel's, the plain
+    version's and the library call's timing closures, bytes, FLOP and rate."""
+    label = f"{name} {[tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]}"
+    size = args[0].element_size()
+    if name == "mix_aggregate":
+        w, theta = args
+        (k, mm), width = w.shape, theta.shape[1]
+        want = ref.mix_aggregate(w, theta)
+        err = check(label, ops.mix_aggregate(w, theta, impl="cuda"), want,
+                    1e-5 * float(want.abs().max()))
+        return (err, lambda: ops.mix_aggregate(w, theta, impl="cuda"),
+                lambda: ref.mix_aggregate(w, theta), lambda: w @ theta,
+                4 * k * mm + theta.element_size() * mm * width + 4 * k * width, 2 * k * mm * width,
+                F32_FLOP_PER_S)
+    if name == "masked_mix_scatter":
+        w, theta, idx, mask, full = args
+        c, width = theta.shape
+        real = int(mask.sum())
+        live, w_live = idx[mask].long(), w[mask].contiguous()
+        want = ref.masked_mix_scatter(w, theta, idx, mask, full)
+        err = check(label, ops.masked_mix_scatter(w, theta, idx, mask, full.clone(),
+                                                  impl="cuda"), want,
+                    1e-5 * float(want.abs().max()))
+        scratch = full.clone()
+        return (err, lambda: ops.masked_mix_scatter(w, theta, idx, mask, scratch, impl="cuda"),
+                lambda: ref.masked_mix_scatter(w, theta, idx, mask, full),
+                lambda: scratch.index_copy_(0, live, w_live @ theta),
+                4 * c * c + size * (c * width + real * width), 2 * c * c * width, F32_FLOP_PER_S)
+    if name == "cohort_gather":
+        full, idx = args
+        safe = idx.long().clamp(max=full.shape[0] - 1)
+        if not torch.equal(ops.cohort_gather(full, idx, impl="cuda"), ref.cohort_gather(full, idx)):
+            raise AssertionError(f"{label}: differs from the plain version")
+        return (0.0, lambda: ops.cohort_gather(full, idx, impl="cuda"),
+                lambda: ref.cohort_gather(full, idx), lambda: full.index_select(0, safe),
+                2 * size * idx.numel() * full.shape[1] + idx.element_size() * idx.numel(), 0,
+                F32_FLOP_PER_S)
+    if name == "gram":
+        g, = args
+        mm, width = g.shape
+        want = ref.gram(g)
+        err = check(label, ops.gram(g, impl="cuda"), want, 1e-5 * float(want.abs().max()))
+        return (err, lambda: ops.gram(g, impl="cuda"), lambda: ref.gram(g), lambda: g @ g.T,
+                size * mm * width + 4 * mm * mm, 3 * mm * (mm + 1) * width, TF32_FLOP_PER_S)
+    if name == "kmeans_assign":
+        pts, cents = args
+        (mm, f), k = pts.shape, cents.shape[0]
+        gl, gd = ops.kmeans_assign(pts, cents, impl="cuda")
+        wl, wd = ref.kmeans_assign(pts, cents)
+        if not torch.equal(gl, wl):
+            raise AssertionError(f"{label}: labels differ from the plain version")
+        err = check(label, gd, wd, 1e-5 * float(wd.abs().max()) + 1e-7)
+        return (err, lambda: ops.kmeans_assign(pts, cents, impl="cuda"),
+                lambda: ref.kmeans_assign(pts, cents),
+                lambda: torch.cdist(pts, cents).argmin(dim=1),
+                4 * (mm * f + k * f + 2 * mm), 2 * mm * k * f + 2 * (mm + k) * f, F32_FLOP_PER_S)
+    if name == "flash_attention":
+        q, k, v = args
+        opts = {o: kw.get(o) for o in ("window", "softcap")} | {"causal": kw.get("causal", True)}
+        with torch.no_grad():
+            want = ref.flash_attention(q, k, v, **opts)
+            got, _ = flash_call(q, k, v, **opts)
+        if q.dtype == torch.float32:
+            err = check(label, got, want, 2e-5)
+        else:
+            check_each(label, got, want)
+            err = check(label, got, want, 2.0 ** -6 * float(want.float().abs().max()))
+        case = tuple(q.shape[:2]) + (k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                                     opts["causal"], opts["window"], opts["softcap"])
+        nbytes, flops = flash_bytes_flops(case, q.dtype)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library = (None if opts["window"] is not None or opts["softcap"] is not None else
+                   lambda: sdpa(q, k, v, is_causal=opts["causal"], enable_gqa=True))
+
+        def kernel():
+            with torch.no_grad():
+                return ops.flash_attention(q, k, v, impl="cuda", **opts)
+        return (err, kernel, lambda: ref.flash_attention(q, k, v, **opts), library, nbytes, flops,
+                F32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S)
+    raise ValueError(f"no plain version to hold {name} against")
+
+
+SOURCES = {"gram": ("gram.cu", "pairwise_delta.py:41"),
+           "mix_aggregate": ("mix_aggregate.cu", "mix_aggregate.py:40"),
+           "kmeans_assign": ("kmeans_assign.cu", "kmeans_assign.py:37"),
+           "cohort_gather": ("cohort_gather.cu", "masked_gather_mix_scatter.py:93"),
+           "masked_mix_scatter": ("masked_mix_scatter.cu", "masked_mix_scatter.py:132, "
+                                  "src/repro/kernels/masked_gather_mix_scatter.py:167"),
+           "flash_attention": ("flash_attention.cu", "flash_attention.py:88")}
+
+
+def recorded_rows(tag, calls, dev):
+    """The kernel rows of a recorded run: one per kernel counter, named
+    ``<counter>_<tag>``, holding every shape the run gave that kernel
+    against its plain version on the recorded inputs (``hold_call``), timed
+    at the shape that moves the most bytes, with the run's launches of that
+    kernel summed over its shapes. Returns (rows, {row: launches})."""
+    groups = {}
+    for key, rec in calls.items():
+        if len(rec["launches"]) != 1:
+            raise AssertionError(f"{tag}: a call of {key[:2]} launched {rec['launches']}")
+        (counter, n), = rec["launches"].items()
+        groups.setdefault(counter, []).append((key[0], rec, n))
+    rows, launches = {}, {}
+    for counter, group in groups.items():
+        held = [(name, rec) + hold_call(name, rec["args"], rec["kw"], dev)
+                for name, rec, _ in group]
+        name, rec, _, kernel, plain, library, nbytes, flops, rate = max(held, key=lambda h: h[6])
+        source, replaces = SOURCES[name]
+        row = f"{counter}_{tag}"
+        rows[row] = dict(
+            source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=f"src/repro/kernels/{replaces}", max_abs_err=max(h[2] for h in held),
+            ms=time_ms(kernel, dev), plain_ms=time_ms(plain, dev),
+            library_ms=None if library is None else time_ms(library, dev),
+            shape=f"{[list(a.shape) for a in rec['args'] if isinstance(a, torch.Tensor)]}"
+                  f" {rec['args'][0].dtype}, {len(held)} shape(s) held",
+            bytes=nbytes, flops=flops, flop_rate=rate)
+        launches[row] = sum(n for _, _, n in group)
+    return rows, launches
+
+
+def train_config():
+    """stablelm-1.6b at its published widths, cut to TRAIN_LAYERS layers."""
+    return dataclasses.replace(configs.get(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+
+
+def flash_train_check(dev, cfg):
+    """The tile at the train step's shape through ``FlashAttentionFn`` (the
+    path autograd records): the output within one bf16 step of the plain
+    version's, element by element, and the gradients of q, k and v, from
+    the Function's backward, against autograd through the plain version
+    (P in f32) on the same inputs: bf16 gradients computed from the same
+    f32 graph, so within 2^-7 of the largest of each (a rounding of the
+    forward output may flip an input's gradient by a step). Returns the
+    kernel row ``flash_attention_train``."""
+    m, b, s = TRAIN_CLIENTS, TRAIN_BATCH, TRAIN_SEQ
+    case = (m * b, cfg.num_heads, cfg.num_kv_heads, s, s, cfg.resolved_head_dim, True, None, None)
+    q, k, v = flash_inputs(*case[:6], torch.bfloat16, dev, seed=11)
+    ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    before = FLASH_TC.launches
+    out = ops.flash_attention(*ins, causal=True)
+    if FLASH_TC.launches - before != 1 or out.grad_fn is None:
+        raise AssertionError("flash train: the tile did not run inside FlashAttentionFn")
+    plain_in = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    want = ref.flash_attention(*plain_in, causal=True)
+    worst = check_each("flash train forward", out.detach(), want.detach())
+    g = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(12),
+                    device=dev).to(torch.bfloat16)
+    got = torch.autograd.grad(out, ins, g)
+    exp = torch.autograd.grad(want, plain_in, g)
+    errs = [check(f"flash train d{name}", a, e, 2.0 ** -7 * float(e.float().abs().max()))
+            for name, a, e in zip("qkv", got, exp)]
+    print(f"  flash (16, 32, 256, 64) bf16 causal through FlashAttentionFn: forward element/"
+          f"allowance {worst:.2f}; grads max_abs_err q {errs[0]:.3e}, k {errs[1]:.3e}, "
+          f"v {errs[2]:.3e} against autograd through the plain version")
+    nbytes, flops = flash_bytes_flops(case, torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:88",
+                max_abs_err=float((out.detach().float() - want.detach().float()).abs().max()),
+                ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=True, impl="cuda"), dev),
+                plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, causal=True), dev),
+                library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True), dev),
+                bytes=nbytes, flops=flops, flop_rate=BF16_FLOP_PER_S,
+                grad_max_abs_err=max(errs))
+
+
+def within_group_mass(w, groups):
+    """The mean over rows of W's mass on the row's own group (client i in
+    group i % groups), and on the others."""
+    m = w.shape[0]
+    same = torch.tensor([[i % groups == j % groups for j in range(m)] for i in range(m)],
+                        device=w.device)
+    within = float((w * same).sum(dim=1).mean())
+    return within, 1.0 - within
+
+
+def train_collaboration(dev, cfg, params, gen, chains):
+    """The collaboration round on real LM gradients at full width: the
+    (m, K, d_aligned) bf16 gradients, full gradients (m, d_aligned) f32 and
+    σ² in column chunks, Δ by one gram launch on the rows where they lie."""
+    zero_counters()
+    box = {}
+    prof = profile(lambda: box.update(collab=train_lib.collaboration(
+        cfg, params, gen, chains, batch=TRAIN_BATCH, seq=TRAIN_SEQ)), dev, top=10)
+    collab, secs = box["collab"], prof["wall_ms"] / 1e3
+    print_profiles(f"{cfg.name} collaboration round", {"(profiled)": prof})
+    got = read_counters("train collaboration", {
+        "gram": 1, "flash_attention_prefill": train_lib.PARTS * cfg.num_layers * 2})
+    full, w = collab["full_grads"], collab["W"]
+    d = sum(x[0].numel() for x in leaves(params))
+    if GRAM.padded != 0 or tuple(full.shape) != (TRAIN_CLIENTS, ops.aligned_dim(d)) \
+            or full.dtype != torch.float32:
+        raise AssertionError(f"train collaboration: {GRAM.padded} padded copies, full_grads "
+                             f"{tuple(full.shape)} {full.dtype}")
+    if not (bool(torch.isfinite(w).all()) and float((w.sum(dim=1) - 1).abs().max()) < 1e-5
+            and bool((w >= 0).all())):
+        raise AssertionError(f"train collaboration: W is not finite and row-stochastic: {w}")
+    within, cross = within_group_mass(w, TRAIN_GROUPS)
+    print(f"  collaboration round: K = {train_lib.PARTS} partitions of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens a client, {secs:.2f} s; full_grads {tuple(full.shape)} f32, "
+          f"sigma^2 {[round(float(x), 4) for x in collab['sigma_sq']]}; gram launches "
+          f"{got['gram']}, padded copies {GRAM.padded}; W within-group mass {within:.3f}, "
+          f"cross-group {cross:.3f}")
+    print("  W = " + json.dumps([[round(float(x), 4) for x in row] for row in w]))
+    row = gram_row("gram_lm", full, d, dev, against_f64=True)
+    return collab, dict(seconds=secs, device_busy_ms=prof["device_busy_ms"],
+                        idle_share=prof["idle_share"], within_group=within, cross_group=cross,
+                        sigma_sq=collab["sigma_sq"].tolist(), W=w.tolist(),
+                        launches=got), row
+
+
+def train_run(dev, cfg, agg, params0, mix, batches):
+    """TRAIN_STEPS steps of ``agg`` from ``params0``, each step's wall time
+    synchronized, with its exact launches: one mix a leaf for a mixing agg,
+    none for local; the tile twice a layer (remat recomputes the forward)."""
+    step = steps.build_train_step(cfg, n_clients=TRAIN_CLIENTS, agg=agg, lr=TRAIN_LR,
+                                  momentum=cfg.momentum)
+    params = transformer.tree_map(torch.clone, params0)
+    opt = sgd_init(params, momentum=cfg.momentum)
+    nleaves = len(leaves(params))
+    losses, walls = [], []
+    zero_counters()
+    for batch in batches:
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        params, opt, met = step(params, opt, mix, batch)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t)
+        losses.append(float(met["loss"]))
+    expect = {"flash_attention_prefill": TRAIN_STEPS * cfg.num_layers * 2}
+    if agg != "local":
+        expect["mix_aggregate"] = TRAIN_STEPS * nleaves
+    got = read_counters(f"train {agg}", expect)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train {agg}: losses {losses} are not finite and falling")
+    return params, opt, step, dict(losses=losses, step_walls_s=walls, launches=got)
+
+
+def train_step_agree(dev, cfg, params0, w, batch):
+    """One user-centric step with the kernels against the same step with
+    the plain attention and the plain mix on the card, from the same
+    params, W and batch; the plain step must launch no kernel. Both sides
+    compute in bf16 with f32 sums, and an attention output that rounds to
+    the neighbouring bf16 value perturbs every later activation and
+    gradient, so the two differ by a few per cent of a gradient element
+    and, where an update is a fraction of a bf16 step of its param, by a
+    step. Held on what the step changed, Δ = params - params0: the loss
+    within 1e-3 of itself, and each leaf's |Δ - Δ_plain| (L2) within
+    STEP_DELTA_TOL of |Δ_plain| (a wrong rule, a leaf mixed with another's
+    or a lost attention gradient is off by about 1). Returns the readings
+    and the kernel step's launches."""
+    step = steps.build_train_step(cfg, n_clients=TRAIN_CLIENTS, agg="user_centric",
+                                  lr=TRAIN_LR, momentum=cfg.momentum)
+    opt = sgd_init(params0, momentum=cfg.momentum)
+    zero_counters()
+    got, _, gm = step(params0, opt, w, batch)
+    launches = read_counters("train step", {"flash_attention_prefill": cfg.num_layers * 2,
+                                            "mix_aggregate": len(leaves(params0))})
+    zero_counters()
+    kernel = ops.flash_attention, ops.mix_aggregate
+    ops.flash_attention = functools.partial(kernel[0], impl="ref")
+    ops.mix_aggregate = functools.partial(kernel[1], impl="ref")
+    try:
+        want, _, wm = step(params0, opt, w, batch)
+    finally:
+        ops.flash_attention, ops.mix_aggregate = kernel
+    read_counters("train step, the plain side", {})
+    loss_err = abs(float(gm["loss"]) - float(wm["loss"]))
+    if not loss_err <= 1e-3 * abs(float(wm["loss"])):
+        raise AssertionError(f"train step: loss {float(gm['loss'])} against the plain path's "
+                             f"{float(wm['loss'])}")
+    rel, differ, total = {}, 0, 0
+    for name, a, b, p0 in zip(pytree.paths(got), leaves(got), leaves(want), leaves(params0)):
+        a, b, p0 = a.float(), b.float(), p0.float()
+        num, den = float((a - b).norm()), float((b - p0).norm())
+        rel["/".join(name)] = num / den if den else (0.0 if num == 0 else float("inf"))
+        differ += int((a != b).sum())
+        total += a.numel()
+    print("  train step, kernels against the plain path: each leaf's change off the plain "
+          "change (L2) " + json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()}))
+    worst = max(rel.values())
+    if not worst <= STEP_DELTA_TOL:
+        raise AssertionError(f"train step: a leaf's change is {worst:.3e} (L2) off the plain "
+                             f"path's, over {STEP_DELTA_TOL}")
+    print(f"  one user-centric step against the plain attention and mix (which launched no "
+          f"kernel): loss {float(gm['loss']):.5f} / {float(wm['loss']):.5f}; the change of a "
+          f"leaf at most {worst:.3e} (L2) off the plain change (gate {STEP_DELTA_TOL}); "
+          f"{differ / total:.2e} of the elements differ")
+    return dict(loss_err=loss_err, delta_rel=rel, differ_share=differ / total), launches
+
+
+def mix_lm_rows(dev, params, w, centroid_w):
+    """The train step's mixes on every leaf width of the trained params:
+    the kernel against the plain mix on the leaf's (4, numel) f32 view,
+    within 1e-5 of the largest output (f32 sums of 4 products), for W
+    (k = 4), the 2 centroid rules and the mean (k = 1), each W rounded to
+    bf16 as the step rounds it; each rule timed at the widest leaf (the
+    205.5 M-wide embedding and head). Also every leaf of one user-centric
+    mix (``steps._mix_user_centric``) against the plain mix rounded to
+    bf16: equal or one bf16 step apart."""
+    mm = TRAIN_CLIENTS
+    rules = [(name, rule.to(torch.bfloat16).float() if rule.shape[0] > 1 else rule)
+             for name, rule in (("mix_aggregate_lm_k4", w), ("mix_aggregate_lm_k2", centroid_w),
+                                ("mix_aggregate_lm_k1",
+                                 torch.full((1, mm), 1.0 / mm, device=dev)))]
+    by_width = {x[0].numel(): x for x in leaves(params)}
+    errs = dict.fromkeys((name for name, _ in rules), 0.0)
+    for width, x in sorted(by_width.items()):
+        theta = x.reshape(mm, -1).float()
+        for name, rule in rules:
+            want = ref.mix_aggregate(rule, theta)
+            errs[name] = max(errs[name], check(f"{name} d={width}",
+                                               ops.mix_aggregate(rule, theta, impl="cuda"), want,
+                                               1e-5 * float(want.abs().max())))
+        del theta
+    theta = by_width[max(by_width)].reshape(mm, -1).float()
+    width = theta.shape[1]
+    rows = {}
+    for name, rule in rules:
+        k = rule.shape[0]
+        rows[name] = dict(
+            source="src/repro_torch/kernels/csrc/mix_aggregate.cu",
+            replaces="src/repro/kernels/mix_aggregate.py:40", max_abs_err=errs[name],
+            ms=time_ms(lambda r=rule: ops.mix_aggregate(r, theta, impl="cuda"), dev, reps=10),
+            plain_ms=time_ms(lambda r=rule: ref.mix_aggregate(r, theta), dev, reps=10),
+            library_ms=time_ms(lambda r=rule: r @ theta, dev, reps=10),
+            shape=f"[[{k}, {mm}], [{mm}, {width}]] torch.float32, {len(by_width)} leaf widths held",
+            bytes=4 * (k * mm + mm * width + k * width), flops=2 * k * mm * width)
+    del theta
+    mixed = aggregation.user_centric(params, w.to(torch.bfloat16).float())
+    worst = 0.0
+    for got, x in zip(leaves(mixed), leaves(params)):
+        plain = ref.mix_aggregate(w.to(torch.bfloat16).float(), x.reshape(mm, -1).float())
+        plain = plain.to(torch.bfloat16).reshape(got.shape)
+        step = 2.0 ** -7 * plain.float().abs()
+        worst = max(worst, float(((got.float() - plain.float()).abs() - step).max()))
+    if worst > 0:
+        raise AssertionError(f"train mix: a leaf is more than one bf16 step off the plain mix "
+                             f"({worst:.3e} past it)")
+    print(f"  one user-centric mix: all {len(leaves(params))} leaves within one bf16 step of "
+          f"the plain mix")
+    return rows
+
+
+def entry_point_run(dev):
+    """``launch.train.main`` as a user calls it (the reduced smoke config,
+    20 rounds) on the card: its final loss below its first. Its kernel
+    calls are recorded and held as rows ``<kernel>_smoke``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), recorded_calls() as calls:
+        final = train_lib.main(["--arch", TRAIN_ARCH, "--smoke", "--rounds", "20"])
+    text = buf.getvalue()
+    first = float(re.search(r"round\s+1 loss=([0-9.]+)", text).group(1))
+    if not (np.isfinite(final) and final < first):
+        raise AssertionError(f"launch.train.main: final loss {final} is not below the first "
+                             f"{first}:\n{text}")
+    rows, launches = recorded_rows("smoke", calls, dev)
+    print(f"  launch.train.main([--arch {TRAIN_ARCH} --smoke --rounds 20]): loss {first:.4f} -> "
+          f"{final:.4f}; launches {launches}")
+    return dict(first_loss=first, final_loss=final, launches=launches), rows
+
+
+def ucfl_transformer_run(dev, classes=8, rounds=3):
+    """``make_ucfl`` over reduced qwen2-7b with last-token class logits as
+    its ``apply_stacked`` (the reference's test_transformer_federated run):
+    m = 4, full cohorts; the mean training loss below half its start after
+    3 rounds, one mix-scatter launch a round. The kernel calls of the
+    whole run (init with its special round, the rounds, the two evals) are
+    recorded and held as rows ``<kernel>_ucfl_lm``."""
+    cfg = configs.get("qwen2-7b").reduced()
+
+    def apply_stacked(params, x):
+        return transformer.forward(params, {"tokens": x}, cfg)[..., -1, :classes]
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params0 = transformer.init(gen, cfg, dev)
+    m, nn, seq = 4, 24, 8
+    toks = torch.randint(1, cfg.vocab_size, (m, nn + 8, seq), generator=gen, device=dev)
+    y = toks[..., -1] % classes
+    data = synthetic.FederatedData(toks[:, :nn], y[:, :nn], toks[:, nn:], y[:, nn:],
+                                   torch.zeros(m, dtype=torch.int64, device=dev),
+                                   torch.full((m,), nn, dtype=torch.int64, device=dev))
+    strat = ucfl.make_ucfl(apply_stacked, params0, FedConfig(lr=0.05, momentum=0.9, epochs=1,
+                                                             batch_size=12),
+                           var_batch_size=12, device=dev)
+
+    def loss_of(state):
+        with torch.no_grad():
+            logits = apply_stacked(strat.eval_params(state), data.x)
+            return float(torch.nn.functional.cross_entropy(logits.reshape(-1, classes),
+                                                           data.y.reshape(-1)))
+
+    with recorded_calls() as calls:
+        state = strat.init(gen, data)
+        loss0 = loss_of(state)
+        before = MIX_SCATTER.launches
+        for _ in range(rounds):
+            state, _ = strat.round(state, data, gen, np.arange(m, dtype=np.int32))
+        scatters = MIX_SCATTER.launches - before
+        loss1 = loss_of(state)
+    if not (loss1 < 0.5 * loss0 and scatters == rounds):
+        raise AssertionError(f"ucfl over a transformer slab: loss {loss0} -> {loss1}, "
+                             f"{scatters} mix-scatter launches in {rounds} rounds")
+    rows, launches = recorded_rows("ucfl_lm", calls, dev)
+    print(f"  ucfl over reduced qwen2-7b's slab {tuple(state['params'].shape)}: loss "
+          f"{loss0:.4f} -> {loss1:.4f} in {rounds} cohort rounds; launches {launches}")
+    return dict(slab=list(state["params"].shape), loss0=loss0, loss1=loss1,
+                launches=launches), rows
+
+
+def train_phase(dev):
+    """stablelm-1.6b training at its published widths (depth cut to
+    TRAIN_LAYERS), m = 4 clients in 2 groups; see the module docstring."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = train_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params0 = train_lib.client_params(cfg, TRAIN_CLIENTS, gen, dev)
+    per_client = sum(x[0].numel() for x in leaves(params0))
+    chains = lm_synthetic.make_group_chains(gen, TRAIN_GROUPS, TRAIN_CHAIN_VOCAB)
+    print(f"  {cfg.name}: {cfg.num_layers} of 24 layers at the published widths, "
+          f"{per_client / 1e6:.1f} M parameters a client ({cfg.param_dtype}, remat "
+          f"{cfg.remat}), {TRAIN_CLIENTS} clients in {TRAIN_GROUPS} groups, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a client a step, chains over "
+          f"{TRAIN_CHAIN_VOCAB} of {cfg.vocab_size:,} tokens")
+    rows = {"flash_attention_train": flash_train_check(dev, cfg)}
+    collab, out, rows["gram_lm"] = train_collaboration(dev, cfg, params0, gen, chains)
+    w = collab["W"]
+    del collab
+    torch.cuda.empty_cache()
+    zero_counters()
+    with recorded_calls() as calls:
+        km = clustering.kmeans(gen, w, 2)  # 50 iterations and a last assignment
+    kmeans = read_counters("train k-means", {"kmeans_assign": 51})["kmeans_assign"]
+    km_rows, row_launches = recorded_rows("lm", calls, dev)
+    rows.update(km_rows)
+    centroid_w = aggregation.centroid_rules(w, km.labels, 2)
+    mixes = {"user_centric": w, "clustered": (centroid_w, km.labels), "fedavg": (), "local": ()}
+    batches = [lm_synthetic.federated_lm_batch(gen, chains, TRAIN_CLIENTS, TRAIN_BATCH,
+                                               TRAIN_SEQ) for _ in range(TRAIN_STEPS)]
+    out["kmeans"] = dict(labels=km.labels.tolist(), launches=kmeans)
+    out["step_agree"], agree = train_step_agree(dev, cfg, params0, w, batches[0])
+    out["runs"] = {}
+    flash_launches = out["launches"]["flash_attention_prefill"] + agree["flash_attention_prefill"]
+    # every mix of an agg's steps, at every leaf width, counts under its k's row
+    mix_launches = {"user_centric": agree["mix_aggregate"], "clustered": 0, "fedavg": 0}
+    for agg, mix in mixes.items():
+        params, opt, step, run = train_run(dev, cfg, agg, params0, mix, batches)
+        flash_launches += run["launches"]["flash_attention_prefill"]
+        if agg != "local":
+            mix_launches[agg] += run["launches"]["mix_aggregate"]
+        tokens = TRAIN_CLIENTS * TRAIN_BATCH * TRAIN_SEQ
+        run["step_s"] = statistics.median(run["step_walls_s"][1:])
+        run["tokens_per_s"] = tokens / run["step_s"]
+        if agg == "user_centric":
+            zero_counters()
+            prof = profile(lambda: step(params, opt, mix, batches[0]), dev, top=10)
+            flash_launches += FLASH_TC.launches
+            mix_launches[agg] += MIX.launches
+            run["profile"] = prof
+            print_profiles(f"{cfg.name} train {agg}", {"step": prof})
+            rows.update(mix_lm_rows(dev, params, w, centroid_w))
+            keep = transformer.tree_map(lambda x: x[0].clone(), params)
+        del params, opt, step
+        torch.cuda.empty_cache()
+        out["runs"][agg] = run
+        print(f"  {agg}: losses {' '.join(f'{x:.4f}' for x in run['losses'])}; step "
+              f"{run['step_s'] * 1e3:.1f} ms (median of {TRAIN_STEPS - 1}), "
+              f"{run['tokens_per_s']:.0f} tokens/s; launches a step: mix_aggregate "
+              f"{run['launches'].get('mix_aggregate', 0) // TRAIN_STEPS}, tile "
+              f"{run['launches']['flash_attention_prefill'] // TRAIN_STEPS}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"  peak memory {out['peak_gb']:.2f} GB")
+    del params0
+    torch.cuda.empty_cache()
+    out["entry_point"], entry_rows = entry_point_run(dev)
+    out["ucfl_transformer"], ucfl_rows = ucfl_transformer_run(dev)
+    rows.update(entry_rows | ucfl_rows)
+    row_launches.update(out["entry_point"]["launches"] | out["ucfl_transformer"]["launches"])
+    for name, r in rows.items():
+        finish_row(name, r)
+    out["row_launches"] = row_launches | {
+        "gram_lm": 1, "flash_attention_train": flash_launches,
+        "mix_aggregate_lm_k4": mix_launches["user_centric"],
+        "mix_aggregate_lm_k2": mix_launches["clustered"],
+        "mix_aggregate_lm_k1": mix_launches["fedavg"]}
+    phase("train", t0, f"{cfg.name} at full width ({cfg.num_layers} layers): the collaboration "
+          f"round and {TRAIN_STEPS} steps of each agg, losses falling")
+    print("train_path " + json.dumps({k: v for k, v in out.items() if k != "runs"}
+                                     | {"runs": {a: {k: v for k, v in r.items() if k != "profile"}
+                                                 for a, r in out["runs"].items()}}))
+    return out, rows, keep
+
+
+def same_leaf(a, b):
+    """Bit for bit: a tensor's values, dtype and device, or a host value."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.device == b.device and a.dtype == b.dtype
+                and torch.equal(a, b))
+    return type(a) is type(b) and np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def checkpoint_phase(dev, lm_params):
+    """Save and restore, bit for bit, on the card: a LeNet ``ucfl`` state
+    with ``RefreshConfig()`` and a buffered ``fedavg`` state
+    (``AsyncConfig(flush_k=60)``), each after one cohort round at fraction
+    0.5 on scenario 2, and one client's trained LM params; files in a
+    temporary directory under build/, deleted afterwards."""
+    t0 = time.perf_counter()
+    data = synthetic.covariate_label_shift(SEED, device=dev)
+    params0 = lenet.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    pcfg = ParticipationConfig(fraction=0.5)
+    cohort = participation.sample_cohort(pcfg, 1, data.num_clients)
+    trees = {}
+    for name, knobs in (("ucfl_refresh", dict(w_refresh=RefreshConfig())),
+                        ("fedavg_async", dict(async_buffer=AsyncConfig(flush_k=60)))):
+        strat = REGISTRY[name.split("_")[0]](lenet.apply_stacked, params0, FedConfig(**knobs),
+                                             device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        state = strat.init(gen, data)
+        state, _ = strat.round(state, data, gen, cohort)
+        trees[name] = state
+    trees["lm_client0"] = lm_params
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for name, tree in trees.items():
+            path = os.path.join(tmp, f"{name}.msgpack")
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            checkpoint.save(path, tree)
+            save_s = time.perf_counter() - t
+            size = os.path.getsize(path)
+            t = time.perf_counter()
+            back = checkpoint.restore(path, tree)
+            torch.cuda.synchronize(dev)
+            restore_s = time.perf_counter() - t
+            got, want = pytree.leaves(back), pytree.leaves(tree)
+            if len(got) != len(want) or not all(same_leaf(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"checkpoint {name}: the restored tree differs")
+            out[name] = dict(leaves=len(want), bytes=size, save_s=save_s, restore_s=restore_s)
+            print(f"  {name}: {len(want)} leaves, {size / 1e9:.3f} GB, save {save_s:.2f} s, "
+                  f"restore {restore_s:.2f} s, bit for bit")
+    phase("checkpoint", t0, "three trees saved and restored bit for bit on the card")
+    print("checkpoint_path " + json.dumps(out))
+    return out
+
+
 def main():
     dev = device_phase()
     build_phase()
@@ -2513,6 +3208,10 @@ def main():
     del task
     fma_launches = serve_agree_phase(dev)
     served = serve_phase(dev)
+    trained, train_rows, lm_client = train_phase(dev)
+    rows.update(train_rows)
+    checkpoint_phase(dev, lm_client)
+    del lm_client
     full, k4 = launches["ucfl"], launches["ucfl_k4"]
     # each launch counts under the row of its shape: a dense round mixes
     # over the 100-row slab, a cohort round over its 50 slots' uploads
@@ -2546,15 +3245,16 @@ def main():
               "flash_attention_prefill": served["prefill_launches"]["flash_attention_prefill"],
               "flash_attention_decode": served["serve_launches"]["flash_attention_decode"],
               "flash_attention_fma": fma_launches}
-    # the knobs and engine phases' launches, each under the row of its shape
-    for phase_rows in (knobs, engine):
+    # the knobs, engine and train phases' launches, each under the row of its shape
+    for phase_rows in (knobs, engine, trained["row_launches"]):
         for row, count in phase_rows.items():
             counts[row] = counts.get(row, 0) + count
     # one kernel for both gram rows: the main path runs it at m = 100
     counts["gram_m512"] = counts["gram"]
     # the cohort and gram rows also carry read_ms, their time after a read
-    # flush; the gram rows library_read_ms and the f32 CUDA-core bound
-    extras = ("read_ms", "library_read_ms", "bound_f32_ms")
+    # flush; the gram rows library_read_ms and the f32 CUDA-core bound; the
+    # rows of a recorded run the shape they were timed at
+    extras = ("read_ms", "library_read_ms", "bound_f32_ms", "shape")
     kernels = [{"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
                 "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

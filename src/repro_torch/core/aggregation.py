@@ -53,21 +53,15 @@ from repro_torch.kernels import ops
 
 
 def _mix_tree(w, stacked):
-    """Apply mixing matrix w (k, m) to a slab or to each leaf of a dict."""
+    """Apply mixing matrix w (k, m) to a slab or to each leaf of a tree:
+    the mix of the leaf's (m, numel) f32 view, cast back to its dtype (an
+    f32 slab is mixed where it lies)."""
 
     def leaf(x):
-        out = ops.mix_aggregate(w, x.reshape(x.shape[0], -1))
-        return out.reshape((w.shape[0],) + tuple(x.shape[1:]))
+        out = ops.mix_aggregate(w, x.reshape(x.shape[0], -1).float())
+        return out.to(x.dtype).reshape((w.shape[0],) + tuple(x.shape[1:]))
 
-    if isinstance(stacked, torch.Tensor):
-        return leaf(stacked)
-    return {k: leaf(v) for k, v in stacked.items()}
-
-
-def _map(fn, stacked):
-    if isinstance(stacked, torch.Tensor):
-        return fn(stacked)
-    return {k: fn(v) for k, v in stacked.items()}
+    return pytree.tree_map(leaf, stacked)
 
 
 def fedavg(stacked, n):
@@ -75,7 +69,7 @@ def fedavg(stacked, n):
     m = n.shape[0]
     w = (n / torch.sum(n)).float()[None, :]  # (1, m)
     mixed = _mix_tree(w, stacked)
-    return _map(lambda x: x.expand((m,) + tuple(x.shape[1:])).clone(), mixed)
+    return pytree.tree_map(lambda x: x.expand((m,) + tuple(x.shape[1:])).clone(), mixed)
 
 
 def user_centric(stacked, w):
@@ -97,9 +91,15 @@ def clustered(stacked, w, labels, num_clusters):
     (m,) cluster assignment from K-means over rows of w; num_clusters m_t.
     Client i receives the mix of its cluster's centroid rule.
     """
-    mixed = _mix_tree(centroid_rules(w, labels, num_clusters), stacked)
+    return mix_centroids(stacked, centroid_rules(w, labels, num_clusters), labels)
+
+
+def mix_centroids(stacked, rules, labels):
+    """Client i receives the mix of its cluster's rule: ``rules`` (m_t, m),
+    labels (m,)."""
+    mixed = _mix_tree(rules, stacked)
     idx = labels.long()
-    return _map(lambda x: x[idx], mixed)
+    return pytree.tree_map(lambda x: x[idx], mixed)
 
 
 def renormalize_rows(w, eps: float = 1e-12):
@@ -135,7 +135,7 @@ def fedavg_cohort(stacked_cohort, n_cohort, m):
     broadcast to all m clients."""
     w = (n_cohort / torch.sum(n_cohort)).float()[None, :]  # (1, c)
     mixed = _mix_tree(w, stacked_cohort)
-    return _map(lambda x: x.expand((m,) + tuple(x.shape[1:])).clone(), mixed)
+    return pytree.tree_map(lambda x: x.expand((m,) + tuple(x.shape[1:])).clone(), mixed)
 
 
 def user_centric_cohort(stacked_cohort, w, cohort):

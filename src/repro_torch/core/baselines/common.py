@@ -66,7 +66,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import aggregation, flat, similarity
+from repro_torch.core import aggregation, flat, pytree, similarity
 from repro_torch.data.loader import draw_permutations
 from repro_torch.device import resolve_device
 from repro_torch.federated import async_buffer
@@ -82,7 +82,7 @@ def prepare(params0, device):
     """``params0`` on the strategy's device (CUDA unless told otherwise)
     and its slab layout."""
     dev = resolve_device(device)
-    params0 = {k: v.to(dev) for k, v in params0.items()}
+    params0 = pytree.tree_map(lambda v: v.to(dev), params0)
     return params0, flat.LayoutTable.build(params0), dev
 
 

@@ -76,16 +76,36 @@ def mixing_weights(delta, sigma_sq_vec, n, *, eps=1e-12):
     return un / torch.sum(un, dim=1, keepdim=True)
 
 
+SIGMA_CHUNK = 2**24  # columns of the (m, K, d) gradients taken to f32 at a time
+
+
 def collaboration_round(per_client_minibatch_grads, n):
     """The whole special round on stacked arrays.
 
-    per_client_minibatch_grads (m, K, d): K minibatch gradients per client
-    (the paper's variance-estimation partition); n (m,) dataset sizes.
-    Returns full_grads (m, d), sigma_sq (m,), delta (m, m) and W (m, m).
+    per_client_minibatch_grads (m, K, d), any float dtype: K minibatch
+    gradients per client (the paper's variance-estimation partition); n
+    (m,) dataset sizes. Returns full_grads (m, d) f32 (a client's full
+    gradient, the f32 mean of its partition's), sigma_sq (m,) f32, delta
+    (m, m) and W (m, m). At most :data:`SIGMA_CHUNK` columns are converted
+    to f32 at a time, so a wide bf16 (m, K, d) never becomes an f32 copy
+    of itself: σ² sums each chunk's squared differences, per client and
+    minibatch, into f32 partial sums. Where d
+    is a 128 multiple (a zero-tailed slab width), the Gram kernel reads
+    the full gradients where they lie.
     """
     g = per_client_minibatch_grads
-    full = torch.mean(g, dim=1)  # a client's full gradient: the mean of its partition's
-    sig = sigma_sq(g, full)
+    m, k, d = g.shape
+    step = SIGMA_CHUNK
+    full = torch.empty((m, d), dtype=torch.float32, device=g.device)
+    sq = torch.zeros((m, k), dtype=torch.float32, device=g.device)
+    for c0 in range(0, d, step):
+        part = g[:, :, c0: c0 + step].to(torch.float32)
+        mean = torch.mean(part, dim=1)
+        full[:, c0: c0 + step] = mean
+        diff = part - mean.unsqueeze(1)
+        sq += torch.sum(diff * diff, dim=-1)
+        del part, diff
+    sig = torch.mean(sq, dim=-1)
     delta = pairwise_delta(full)
     return {"full_grads": full, "sigma_sq": sig, "delta": delta,
             "W": mixing_weights(delta, sig, n)}

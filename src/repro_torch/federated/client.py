@@ -24,8 +24,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import pytree
 from repro_torch.data.loader import draw_permutations
-from repro_torch.optim.sgd import sgd_init, sgd_update_
+from repro_torch.optim import sgd as sgdlib  # the module: optim.sgd imports core.pytree
 
 
 def cross_entropy(logits, labels):
@@ -72,7 +73,7 @@ def make_local_sgd(apply_stacked, layout, *, lr=0.1, momentum=0.9, epochs=1,
             raise ValueError(f"perms {tuple(perms.shape)} do not cover "
                              f"{units} clients x {epochs} epochs")
         p = slab.detach().clone().requires_grad_(True)
-        buf = sgd_init(p, momentum=momentum)
+        buf = sgdlib.sgd_init(p, momentum=momentum)
         rows = torch.arange(units, device=slab.device)[:, None]
         for e in range(epochs):
             order = perms[:, e, : steps * batch_size]
@@ -83,7 +84,7 @@ def make_local_sgd(apply_stacked, layout, *, lr=0.1, momentum=0.9, epochs=1,
                 (g,) = torch.autograd.grad(loss, p)
                 if grad_hook is not None:
                     g = grad_hook(g, p.detach(), hook_state)
-                sgd_update_(p, g, buf, lr=lr, momentum=momentum)
+                sgdlib.sgd_update_(p, g, buf, lr=lr, momentum=momentum)
         return p.detach()
 
     return local_sgd
@@ -173,7 +174,7 @@ def evaluate(apply_stacked, stacked_params, x_test, y_test, *, batch=None):
     m = y_test.shape[0]
     out = torch.empty((m,), dtype=torch.float32, device=y_test.device)
     for sl in chunks(m, batch):
-        params = {k: v[sl] for k, v in stacked_params.items()}
+        params = pytree.tree_map(lambda v: v[sl], stacked_params)
         logits = apply_stacked(params, x_test[sl])
         out[sl] = (torch.argmax(logits, dim=-1) == y_test[sl]).float().mean(dim=1)
     return out

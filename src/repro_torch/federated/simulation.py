@@ -58,6 +58,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from repro_torch.core import pytree
 from repro_torch.device import resolve_device
 from repro_torch.federated import participation as part
 from repro_torch.federated.client import evaluate
@@ -118,7 +119,7 @@ def clone_state(state):
 def _client_rows_finite(stacked: dict) -> torch.Tensor:
     """(m,) bool: every leaf of client i's eval params is finite."""
     rows = [torch.isfinite(x.float()).reshape(x.shape[0], -1).all(dim=1)
-            for x in stacked.values()]
+            for x in pytree.leaves(stacked)]
     return torch.stack(rows).all(dim=0)
 
 

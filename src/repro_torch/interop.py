@@ -2,7 +2,10 @@
 
 The converters take numpy arrays (``np.asarray`` of the reference's jax
 arrays), so the parity tests can run the two packages on the same weights
-and data without this package importing ``jax``.
+and data without this package importing ``jax``. The state converter
+(:func:`state_to_reference`, :func:`state_from_reference`) carries a
+strategy state across the packages' checkpoint files, where the two hold
+some buffers at other shapes.
 """
 from __future__ import annotations
 
@@ -63,3 +66,43 @@ def cache_from_numpy(tree: dict, *, device=None) -> dict:
     """A reference KV-cache tree (``{"blocks": {"l0": {"k", "v", "pos"}}}``)
     of numpy arrays -> tensors, for decode parity."""
     return transformer_params_from_numpy(tree, device=device)
+
+
+# ------------------------------------------------- strategy state converter
+def state_to_reference(state: dict, dim: int) -> dict:
+    """A port strategy state in the reference's shapes (ROADMAP C2), the
+    tensors kept (views, no copy): the refresh direction buffer's first
+    ``dim`` columns (the port's is slab-wide, (m, dim_aligned)), the async
+    buffer's ``upd`` without its spare row ((B + 1, W) in the port), and no
+    ``labels_host`` (a host copy of ``labels`` the reference does not
+    keep). Saved with :func:`repro_torch.checkpoint.save`, it is the file
+    the reference's ``restore`` reads into its own state; as ``like`` of
+    ``restore``, it reads a file the reference wrote."""
+    out = dict(state)
+    if state.get("refresh") is not None:
+        out["refresh"] = dict(state["refresh"], grads=state["refresh"]["grads"][:, :dim])
+    if state.get("abuf") is not None:
+        out["abuf"] = dict(state["abuf"], upd=state["abuf"]["upd"][:-1])
+    if "labels_host" in state:
+        out["labels_host"] = None
+    return out
+
+
+def state_from_reference(tree: dict, like: dict) -> dict:
+    """A state in the reference's shapes (restored into
+    ``state_to_reference(like, dim)``) as the port holds it, shaped as
+    ``like``: the refresh directions zero-padded to the slab width, a zero
+    spare row under ``upd`` and ``labels_host`` copied from ``labels``.
+    The dtypes are ``tree``'s (``restore`` gives ``like``'s)."""
+    out = dict(tree)
+    if like.get("refresh") is not None:
+        g = tree["refresh"]["grads"]
+        width = like["refresh"]["grads"].shape[1]
+        out["refresh"] = dict(tree["refresh"], grads=torch.nn.functional.pad(
+            g, (0, width - g.shape[1])))
+    if like.get("abuf") is not None:
+        upd = tree["abuf"]["upd"]
+        out["abuf"] = dict(tree["abuf"], upd=torch.cat([upd, upd.new_zeros((1,) + upd.shape[1:])]))
+    if like.get("labels_host") is not None:
+        out["labels_host"] = tree["labels"].cpu().numpy()
+    return out

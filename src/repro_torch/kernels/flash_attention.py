@@ -14,6 +14,15 @@ kernel (``FLASH_DEC``, route ``"decode"``), bf16 with Sq >= 16 the
 tensor-core tile (``FLASH_TC``, route ``"tc"``); everything else (f32
 prefill, Sq 2-15, unaligned views, odd head dims) takes the f32 FMA kernel
 (``FLASH_FMA``, route ``"fma"``). Each has its own launch counter.
+
+The kernels compute the forward alone. :class:`FlashAttentionFn` makes a
+call differentiable: its forward is the kernel, and its backward recomputes
+the plain version (:func:`repro_torch.kernels.ref.flash_attention`, P in
+f32 as the kernels keep it) on the saved q, k and v and takes its
+vector-Jacobian product. The reference owes no backward kernel: its
+training attention is the plain ``_attend``, which XLA differentiates. A
+direct call of :func:`flash_attention_cuda` on inputs that need a gradient,
+under grad mode, raises rather than return a result detached from them.
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 # q, k, v, out, strides; b, hq, hkv, sq, sk, dh, causal, window; softcap, scale
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
@@ -183,6 +192,10 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None):
     """
     check_args(q, k, v, window, softcap)
     ts = (q, k, v)
+    if needs_grad(q, k, v):
+        raise RuntimeError("flash_attention_cuda: q, k or v needs a gradient and grad mode is on; "
+                           "the kernel's output would be detached from them (call it through "
+                           "FlashAttentionFn, as ops.flash_attention does)")
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("flash_attention_cuda: q, k and v must lie on one CUDA device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -216,3 +229,32 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None):
     else:
         FLASH_FMA(q.device, *args, _DTYPES[q.dtype], *shape)
     return out
+
+
+def needs_grad(q, k, v) -> bool:
+    """Whether autograd would record a call on q, k and v."""
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``apply(q, k, v, causal, window, softcap, impl)``: the forward is
+    ``impl(q, k, v, causal=, window=, softcap=)`` (on the card
+    :func:`flash_attention_cuda`), the backward the vector-Jacobian
+    product of the plain version, recomputed in f32 from the saved q, k and
+    v. The gradients come back in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, impl):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, softcap)
+        return impl(q, k, v, causal=causal, window=window, softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[:3]
+        causal, window, softcap = ctx.mask
+        with torch.enable_grad():
+            ins = [x.detach().requires_grad_(n) for x, n in zip(ctx.saved_tensors, need)]
+            out = ref.flash_attention(*ins, causal=causal, window=window, softcap=softcap)
+            grads = iter(torch.autograd.grad(out, [x for x in ins if x.requires_grad], grad))
+        return (*(next(grads) if n else None for n in need), None, None, None, None)

@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.cohort_gather import cohort_gather_cuda
 from repro_torch.kernels.flash_attention import check_args as check_flash_args
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention_cuda, needs_grad
 from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda
 from repro_torch.kernels.masked_mix_scatter import masked_mix_scatter_cuda
 from repro_torch.kernels.mix_aggregate import mix_aggregate_cuda
@@ -127,9 +127,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, impl=Non
     reference's kernel's test, not its ops path's truthiness). The CUDA
     kernel takes any batch, head and sequence strides (the last dim
     contiguous), so (B, S, H, Dh) projections pass as ``.transpose(1, 2)``
-    views, and returns a view over (B, Sq, Hq, Dh) memory.
+    views, and returns a view over (B, Sq, Hq, Dh) memory. Where autograd
+    records the call, the kernel runs inside :class:`FlashAttentionFn`,
+    whose backward is the plain version's; the plain path is ordinary
+    autograd.
     """
     check_flash_args(q, k, v, window, softcap)
     if _impl(impl, q) == "ref":
         return ref.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap, flash_attention_cuda)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)

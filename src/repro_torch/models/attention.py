@@ -9,7 +9,9 @@ model is m = 1. Clients fold into the attention kernel's batch axis.
 
 Both entry points reach :func:`repro_torch.kernels.ops.flash_attention`:
 ``forward`` causal (with the layer's window), ``decode`` over the valid
-prefix of the cache with no mask.
+prefix of the cache with no mask. Where autograd records ``forward`` (a
+train step), the kernel runs inside ``FlashAttentionFn``, whose backward
+is the plain version's, so q, k and v get their gradients on the card.
 
 Cache convention, as the reference's: ``{"k": (m, B, L, Hkv, Dh), "v",
 "pos": (m, L) int32}`` with ``pos[w]`` the absolute position in slot w

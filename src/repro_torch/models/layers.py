@@ -98,7 +98,14 @@ def mlp_init(gen, d_model, d_ff, kind, dtype=torch.float32, device=None):
 
 def matmul(x, w):
     """x (..., S, K) @ w (K, N), or per client: x (m, ..., S, K) @ w (m, K, N)
-    as one batched product over the client axis."""
+    as one batched product over the client axis.
+
+    bf16 products accumulate and reduce in f32, as the reference's do: a
+    bf16 product on the card first turns cuBLAS's reduced-precision bf16
+    reduction off. That switch is process-wide, so it also holds for the
+    products autograd issues in the backward, which runs after this."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if w.dim() == 2:
         return x @ w
     lead = x.shape[:-1]

@@ -2,8 +2,7 @@
 
 The bundle serves one model: its functions take the reference's
 single-model params (no client axis) and add and drop the client axis of
-:mod:`repro_torch.models.transformer` around each call. ``loss`` comes
-with the transformer training slice (ROADMAP queue A).
+:mod:`repro_torch.models.transformer` around each call.
 """
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ class Model:
     cfg: ModelConfig
     init: Callable[..., Any]  # (generator, device=None: CUDA) -> params
     forward: Callable[..., Any]  # (params, batch) -> logits (B, S, V)
+    loss: Callable[..., Any]  # (params, batch) -> scalar mean NLL
     init_cache: Callable[..., Any]  # (batch, max_len, device=None: CUDA) -> caches
     decode_step: Callable[..., Any]  # (params, caches, tokens, pos) -> (logits, caches)
 
@@ -41,6 +41,7 @@ def build(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda gen, device=None: transformer.init(gen, cfg, device),
         forward=lambda p, b: transformer.forward(one(p), one(b), cfg)[0],
+        loss=lambda p, b: transformer.loss_fn(one(p), one(b), cfg)[0],
         init_cache=lambda batch, max_len, device=None: unone(
             transformer.init_cache(cfg, 1, batch, max_len, device)),
         decode_step=decode_step,

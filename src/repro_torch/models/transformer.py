@@ -14,15 +14,27 @@ client axis (m, ...), as the reference's ``vmap`` over clients would see
 it, and the inputs are (m, B, S). One model is m = 1
 (:mod:`repro_torch.models.registry` adds and drops that axis).
 
+``loss_fn`` gives each of the m models its own mean next-token NLL, so
+autograd of their sum gives every client the gradient of its own loss
+(the clients' params are disjoint): the reference's
+``vmap(value_and_grad(loss))``. With ``cfg.remat`` each layer group runs
+under ``torch.utils.checkpoint`` (non-reentrant) whenever autograd records
+it, as the reference's ``jax.checkpoint`` of the scanned body.
+
 Families moe, ssm, hybrid, vlm and audio, and ``first_dense > 0``, raise
 ``NotImplementedError`` (the other model families, ROADMAP queue A).
-``loss_fn`` comes with training.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pytree import leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import attention
 from repro_torch.models.attention import AttnConfig
@@ -44,13 +56,6 @@ def _check(cfg: ModelConfig):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (first_dense={cfg.first_dense}) is not ported; "
             "the port has the dense family; the other model families are in ROADMAP queue A")
-
-
-def tree_map(fn, tree):
-    """``fn`` on every tensor of a nested dict, keeping its structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 # --------------------------------------------------------------- sub-configs
@@ -159,6 +164,32 @@ def _apply_group(group_p, h, positions, cfg: ModelConfig, *, caches=None, pos=No
     return h, new_caches
 
 
+# the matrix products remat_policy="dots" keeps (the reference's
+# dots_saveable): every other op of a group is recomputed in the backward
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, cfg: ModelConfig):
+    """Per-layer-group remat: ``body`` under a non-reentrant checkpoint,
+    keeping only its inputs ("full") or also its matrix products ("dots")
+    for the backward. "save_moe" names the MoE output, which the dense
+    family does not have."""
+    if not cfg.remat:
+        return body
+    if cfg.remat_policy == "save_moe":
+        raise NotImplementedError(f"{cfg.name}: remat_policy 'save_moe' saves the MoE layers' "
+                                  "outputs; the MoE family is in ROADMAP queue A")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return lambda *a: checkpoint(body, *a, use_reentrant=False, **kw)
+
+
 def _groups(tree, cfg: ModelConfig):
     """Per-group views of a (m, G, ...) stacked tree."""
     for g in range(cfg.num_groups):
@@ -198,7 +229,14 @@ def forward(params, batch, cfg: ModelConfig, *, return_cache: bool = False,
     h = _embed_inputs(params, tokens, cfg)
     positions = torch.arange(tokens.shape[-1], device=h.device)[None]
     per_group = []
+    remat = None  # built at the first group autograd records
     for group_p in _groups(params["blocks"], cfg):
+        if cfg.remat and not return_cache and torch.is_grad_enabled() and (
+                h.requires_grad or any(x.requires_grad for x in leaves(group_p))):
+            remat = remat or _remat(
+                lambda h, group_p: _apply_group(group_p, h, positions, cfg)[0], cfg)
+            h = remat(h, group_p)
+            continue
         h, kv = _apply_group(group_p, h, positions, cfg)
         if return_cache:
             per_group.append(kv)
@@ -211,6 +249,18 @@ def forward(params, batch, cfg: ModelConfig, *, return_cache: bool = False,
                     "v": torch.stack([g[key][1] for g in per_group], dim=1)}
               for key in per_group[0]}
     return logits, {"blocks": caches}
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, aux_weight=0.01):
+    """(m,) f32: each model's mean next-token NLL over its (B, S) tokens
+    ``batch["tokens"]`` against ``batch["labels"]`` (m, B, S). The dense
+    family has no auxiliary loss, so ``aux_weight`` multiplies 0 and the
+    loss is the NLL alone, as in the reference."""
+    logits = forward(params, batch, cfg)
+    labels = batch["labels"]
+    m = labels.shape[0]
+    nll = F.cross_entropy(logits.flatten(0, -2), labels.flatten(), reduction="none")
+    return nll.view(m, -1).mean(dim=1)
 
 
 # --------------------------------------------------------------- decode

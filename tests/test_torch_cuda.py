@@ -30,6 +30,10 @@ would give). Decode (Sq = 1) takes the split-KV decode kernel in f32 and
 bf16, whose splits merge in a fixed order: strided views give the bits of
 contiguous inputs, and a reduced bf16 model's decode steps match the
 plain attention's within 2^-5 of the largest logit, as its prefill does.
+Under autograd each kernel runs inside ``FlashAttentionFn``: the gradients
+of q, k and v within 2^-7 of the largest of each against autograd through
+the plain version, and a reduced f32 model's per-client loss gradients on
+the card within 1e-4 of the CPU's.
 """
 import ctypes
 import functools
@@ -983,6 +987,70 @@ def test_cuda_flash_tile_keeps_one_bf16_step_at_prefill():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,case", [
+    (torch.bfloat16, (4, 32, 32, 256, 256, 64, True, None, None)),  # the tile (train shape)
+    (torch.float32, (2, 4, 2, 40, 40, 32, True, None, None)),       # the FMA kernel
+    (torch.bfloat16, (2, 16, 8, 100, 100, 128, True, 32, 50.0))])   # window, softcap
+def test_cuda_flash_gradients_flow_through_the_function(dtype, case):
+    """Under autograd the kernel runs inside FlashAttentionFn: the output
+    has a grad_fn and the gradients of q, k and v equal autograd through
+    the plain version (the Function's backward recomputes it). A direct
+    kernel call on inputs that need a gradient raises."""
+    b, hq, hkv, sq, sk, dh, causal, window, cap = case
+    dev = cuda_device()
+    q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev, seed=sq + dh)
+    ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, took = flash_route_taken(lambda: ops.flash_attention(*ins, **kw))
+    assert out.grad_fn is not None and took == flash_route(q, k, v)
+    plain = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    want = ref.flash_attention(*plain, **kw)
+    assert float((out.detach().float() - want.detach().float()).abs().max()) <= flash_tol(
+        want.detach(), dtype)
+    g = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(dtype)
+    for a, e in zip(torch.autograd.grad(out, ins, g), torch.autograd.grad(want, plain, g)):
+        assert a.dtype == dtype
+        assert float((a.float() - e.float()).abs().max()) <= 2.0 ** -7 * float(
+            e.float().abs().max())
+    with pytest.raises(RuntimeError, match="needs a gradient"):
+        flash.flash_attention_cuda(*ins, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_transformer_loss_gradients_match_the_cpu():
+    """A reduced model's per-client loss gradients on the card (attention on
+    the FMA kernel inside FlashAttentionFn) against the plain path on the
+    CPU, f32: every leaf within 1e-4 of the CPU's gradient, so no
+    gradient is lost through attention's q, k and v."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    dev = cuda_device()
+    cfg = configs.get("stablelm-1.6b").reduced()
+    host = transformer.tree_map(lambda x: x[None].repeat(2, *([1] * x.dim())),
+                                transformer.init(torch.Generator().manual_seed(0), cfg, "cpu"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 33), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+
+    def grads(params, b):
+        p = transformer.tree_map(lambda x: x.detach().requires_grad_(True), params)
+        loss = transformer.loss_fn(p, b, cfg)
+        return loss, torch.autograd.grad(loss.sum(), transformer.leaves(p))
+
+    hl, hg = grads(host, batch)
+    before = FLASH_FMA.launches
+    cl, cg = grads(transformer.tree_map(lambda x: x.to(dev), host),
+                   {k: v.to(dev) for k, v in batch.items()})
+    assert FLASH_FMA.launches - before == cfg.num_layers
+    assert float((cl.detach().cpu() - hl.detach()).abs().max()) <= 1e-5
+    for a, e in zip(cg, hg):
+        assert float((a.cpu() - e).abs().max()) <= 1e-4
+    wq = next(i for i, x in enumerate(transformer.leaves(host))
+              if x is host["blocks"]["l0"]["attn"]["wq"])
+    assert float(cg[wq].abs().max()) > 0  # attention's projections get a gradient
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_rejects_what_it_cannot_take():
     dev = cuda_device()
     x = torch.zeros(1, 2, 4, 8, device=dev)
@@ -1366,3 +1434,23 @@ def test_cuda_attacks_match_cpu(attack, monkeypatch):
         assert int(hm["streams"]) == int(cm["streams"])
         assert bool(torch.isfinite(cs["params"]).all())
         assert float((cs["params"].cpu() - hs["params"]).abs().max()) <= 1e-4, r
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_products_reduce_in_f32():
+    """A bf16 product through ``layers.matmul`` on the card turns cuBLAS's
+    reduced-precision bf16 reduction off for the process (the backward's
+    products included), whatever the caller had set."""
+    from repro_torch.models import layers
+
+    dev = cuda_device()
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        x = torch.randn(2, 8, 64, device=dev).to(torch.bfloat16)
+        layers.matmul(x.float(), torch.randn(64, 32, device=dev))
+        assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        layers.matmul(x, torch.randn(2, 64, 32, device=dev).to(torch.bfloat16))
+        assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved

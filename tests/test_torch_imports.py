@@ -1,6 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``, and
-``import repro_torch`` works in a process where jax was never loaded."""
+``chip_smoke.py`` imports ``jax``, the reference package ``repro`` or
+``msgpack`` (the card's machine has none of them; the checkpoints carry
+their own msgpack subset), and ``import repro_torch`` works in a process
+where none of them was ever loaded."""
 import ast
 import os
 import subprocess
@@ -15,7 +17,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _imports(path: Path):
@@ -37,6 +39,7 @@ def test_no_jax_or_reference_import(path):
 
 def test_forbidden_names_are_caught():
     assert _forbidden("jax.numpy") and _forbidden("repro.core") and _forbidden("repro")
+    assert _forbidden("msgpack")
     assert not _forbidden("repro_torch.core") and not _forbidden("torch")
 
 
@@ -45,8 +48,10 @@ def test_import_without_jax_loaded():
         "import sys, repro_torch, repro_torch.core, repro_torch.federated.simulation, "
         "repro_torch.data.synthetic, repro_torch.models.lenet, repro_torch.interop, "
         "repro_torch.configs, repro_torch.models.transformer, repro_torch.launch.serve, "
-        "repro_torch.federated.faults, repro_torch.core.similarity\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
+        "repro_torch.federated.faults, repro_torch.core.similarity, repro_torch.checkpoint, "
+        "repro_torch.checkpoint.io, repro_torch.optim, repro_torch.data.lm_synthetic, "
+        "repro_torch.launch.steps, repro_torch.launch.train, repro_torch.core.pytree\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro', 'msgpack'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
