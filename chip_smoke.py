@@ -135,7 +135,32 @@ Phases, each printed as it ends:
                attention kernels' launches (28 of the tensor-core tile per
                prefill, 28 of the decode kernel per decode step, none of the
                FMA kernel);
-  13. train  — federated training of stablelm-1.6b at its published widths
+  13. families-agree — reduced mixtral-8x7b, kimi-k2 (``first_dense``),
+               mamba2-1.3b and zamba2-2.7b at 12 layers (two shared-attention
+               groups) in f32 for 2 clients: the federated prefill step over
+               64 tokens (the FMA kernel once an attention layer) and 72
+               teacher-forced decode steps (the decode kernel) on the card
+               against the plain path on the CPU, logits and every cache
+               leaf (k, v, pos; the SSM's h and conv) within 1e-4; then each
+               in bf16, the tile's prefill step and 72 decode-kernel steps
+               against the plain attention on the card (2^-5 of the largest
+               logit); then one user-centric train step of reduced mixtral
+               on the card against the CPU (``train_step_agree``'s rule);
+  14. families — mixtral-8x7b at its published widths cut to 4 of 32
+               layers, mamba2-1.3b (48 layers) and zamba2-2.7b (54) at full
+               width and depth, bf16, 2 personalized clients x 2 requests:
+               the federated prefill step over 1024 tokens (mixtral 4 tile
+               launches a call, zamba2 9 at Dh 80, mamba2 none), 16 timed
+               greedy decode steps on its caches and 4 profiled ones (one
+               decode-kernel launch an attention layer a step), each
+               profiled; mixtral's dropped share at capacity factor 1.25;
+               one mixtral MoE layer in f32 with a capacity that drops
+               nothing against the O(E·N) oracle (1e-5 of the largest |y|)
+               and one mamba2 SSD block in f32, its chunked forward over 512
+               tokens against 512 decode steps (the reference's tolerances,
+               y rtol 1e-3 atol 1e-5, h rtol 1e-4 atol 1e-5); ``families_path``
+               JSON line;
+  15. train  — federated training of stablelm-1.6b at its published widths
                (d_model 2048, 32 x 64 MHA heads, d_ff 5632, vocab 100,352,
                bf16, remat), depth cut to 4 of 24 layers, 4 clients in 2
                groups, 4 x 256 tokens a client a step on chains over 512
@@ -170,7 +195,7 @@ Phases, each printed as it ends:
                kernel's launches there form a row (``kmeans_assign_lm``,
                ``<kernel>_smoke``, ``<kernel>_ucfl_lm``); ``train_path``
                JSON line;
-  14. checkpoint — ``repro_torch.checkpoint`` save and restore, bit for
+  16. checkpoint — ``repro_torch.checkpoint`` save and restore, bit for
                bit on the card, of a LeNet ``ucfl`` state with
                ``RefreshConfig()`` and a buffered ``fedavg`` state
                (``AsyncConfig(flush_k=60)``), each after a cohort round on
@@ -287,6 +312,15 @@ FLASH_CASES = [
     (2, 12, 4, 1, 77, 40, False, None, None),       # Dh 40 below its padded width
     (2, 8, 2, 1, 50, 36, False, None, None),        # Dh 36: the FMA kernel
 ]
+# the families phase's attention shapes (2 clients x 2 requests): mixtral-8x7b's
+# GQA-4 at Dh 128 with window 4096, zamba2-2.7b's MHA at Dh 80 (the tile's
+# 128-wide template, the decode kernel's at group 1); decode over the
+# 1,024-token prefill's cache and 16 more tokens
+MIXTRAL_PREFILL = (4, 32, 8, 1024, 1024, 128, True, 4096, None)
+MIXTRAL_DECODE = (4, 32, 8, 1, 1040, 128, False, None, None)
+ZAMBA2_PREFILL = (4, 32, 32, 1024, 1024, 80, True, None, None)
+ZAMBA2_DECODE = (4, 32, 32, 1, 1040, 80, False, None, None)
+FLASH_CASES += [MIXTRAL_PREFILL, MIXTRAL_DECODE, ZAMBA2_PREFILL, ZAMBA2_DECODE]
 # the FMA kernel's row: the reduced f32 prefill step of the serve-agree
 # phase (2 clients x 2 requests x 40 tokens, reduced qwen2-7b's heads)
 FMA_CASE = (4, 4, 2, 40, 40, 32, True, None, None)
@@ -319,6 +353,27 @@ F64_GRAM_TOL = 5e-4
 # mix on the card, |Δ - Δ_plain| / |Δ_plain| in L2: twice the largest
 # reading (0.125, the query projection's)
 STEP_DELTA_TOL = 0.25
+# the families phases: reduced mixtral-8x7b, kimi-k2 (first_dense), mamba2-1.3b
+# and zamba2-2.7b at 12 layers (two hybrid groups) held against the CPU;
+# then mixtral-8x7b cut to 4 of 32 layers, mamba2-1.3b and zamba2-2.7b at
+# full depth, served at full width: a 1,024-token prefill step, then
+# FAMILY_DECODE timed greedy decode steps on its caches and 4 profiled ones
+AGREE_FAMILIES = {"mixtral-8x7b": {}, "kimi-k2-1t-a32b": {}, "mamba2-1.3b": {},
+                  "zamba2-2.7b": {"num_layers": 12}}
+AGREE_PREFILL = 64  # a multiple of the reduced SSD chunk (32)
+# reduced mixtral's f32 train step, card against CPU, |Δ_card - Δ_cpu| /
+# |Δ_cpu| in L2 for each leaf: about 130 times the largest reading
+# (7.647e-07 on an H100); a mix or a product in bf16 or TF32 reads 1e-3
+# and more
+FAMILY_STEP_TOL = 1e-4
+FAMILY_LAYERS = {"mixtral-8x7b": 4, "mamba2-1.3b": None, "zamba2-2.7b": None}
+FAMILY_DECODE, FAMILY_PROFILED = 16, 4
+# the full-width layer checks: the SSD's chunked forward against its
+# one-token recurrence over SSD_TOKENS tokens (the reference's own
+# tolerances, tests/test_models.py), and the MoE layer against the O(E·N)
+# oracle on MOE_TOKENS tokens in f32
+SSD_TOKENS = 512
+MOE_TOKENS = 1024
 
 
 def phase(name, t0, msg):
@@ -1037,29 +1092,40 @@ def flash_rows(dev):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
+    bf16 = torch.bfloat16
     for name, case, dtype, route, rate in (
-            ("flash_attention_prefill", FLASH_CASES[0], torch.bfloat16, "tc", BF16_FLOP_PER_S),
-            ("flash_attention_decode", FLASH_CASES[1], torch.bfloat16, "decode", BF16_FLOP_PER_S),
-            ("flash_attention_fma", FMA_CASE, torch.float32, "fma", F32_FLOP_PER_S)):
-        b, hq, hkv, sq, sk, dh, causal, _, _ = case
+            ("flash_attention_prefill", FLASH_CASES[0], bf16, "tc", BF16_FLOP_PER_S),
+            ("flash_attention_decode", FLASH_CASES[1], bf16, "decode", BF16_FLOP_PER_S),
+            ("flash_attention_fma", FMA_CASE, torch.float32, "fma", F32_FLOP_PER_S),
+            ("flash_attention_prefill_mixtral", MIXTRAL_PREFILL, bf16, "tc", BF16_FLOP_PER_S),
+            ("flash_attention_decode_mixtral", MIXTRAL_DECODE, bf16, "decode", BF16_FLOP_PER_S),
+            ("flash_attention_prefill_zamba2", ZAMBA2_PREFILL, bf16, "tc", BF16_FLOP_PER_S),
+            ("flash_attention_decode_zamba2", ZAMBA2_DECODE, bf16, "decode", BF16_FLOP_PER_S)):
+        b, hq, hkv, sq, sk, dh, causal, window, _ = case
         q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev)
-        got, took = flash_call(q, k, v, causal=causal)
+        kw = dict(causal=causal, window=window)
+        got, took = flash_call(q, k, v, **kw)
         if took != route:
             raise AssertionError(f"{name}: {case} {dtype} took {took}, not {route}")
         err = errs.get((case, dtype))
         if err is None:  # the FMA row's shape is not in the sweep
-            err = check(name, got, ref.flash_attention(q, k, v, causal=causal), 2e-5)
+            err = check(name, got, ref.flash_attention(q, k, v, **kw), 2e-5)
+        if window is not None and window < sk:
+            raise AssertionError(f"{name}: SDPA's causal mask stands for window {window} only "
+                                 f"when it spans the {sk} keys")
         nbytes, flops = flash_bytes_flops(case, dtype)
         rows[name] = dict(
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:88", max_abs_err=err,
-            ms=time_ms(lambda q=q, k=k, v=v, c=causal: ops.flash_attention(
-                q, k, v, causal=c, impl="cuda"), dev),
-            plain_ms=time_ms(lambda q=q, k=k, v=v, c=causal: ref.flash_attention(
-                q, k, v, causal=c), dev),
+            ms=time_ms(lambda q=q, k=k, v=v, kw=kw: ops.flash_attention(
+                q, k, v, impl="cuda", **kw), dev),
+            plain_ms=time_ms(lambda q=q, k=k, v=v, kw=kw: ref.flash_attention(q, k, v, **kw),
+                             dev),
             library_ms=time_ms(lambda q=q, k=k, v=v, c=causal: sdpa(
                 q, k, v, is_causal=c, enable_gqa=True), dev),
             bytes=nbytes, flops=flops, flop_rate=rate)
+        if route == "decode":
+            rows[name]["route_detail"] = f"{decode_splits_of(case, dev)} splits"
     rows["flash_attention_decode"]["long"] = decode_long(dev, sdpa)
     rows["flash_attention_decode"]["host"] = decode_host(dev)
     return rows
@@ -2382,6 +2448,50 @@ def serve_agree_phase(dev):
     return fma_launches
 
 
+class PinnedRouting:
+    """The MoE layers' expert choices of one run, replayed in another.
+
+    A bf16 attention output one step off flips a token's top-k where two of
+    its router probabilities are within that step, and through the
+    capacity a flip also moves which later assignment drops: an MoE
+    model's bf16 runs with the kernel and with the plain attention then
+    differ by a whole expert's output, not by rounding. So the kernel run
+    records each layer's choices (``record``) and the plain run takes
+    them (``replay``: its own router probabilities, renormalized over the
+    recorded experts), and ``flips`` counts the tokens whose own top-k
+    differed. A model without MoE layers passes through unchanged."""
+
+    def __init__(self):
+        self.ids, self.flips, self.tokens = [], 0, 0
+
+    @contextlib.contextmanager
+    def run(self, mode):
+        from repro_torch.models import moe
+
+        real = moe._route
+        recorded = iter(list(self.ids))
+
+        def route(router, xt, mcfg):
+            probs, top_w, top_ids = real(router, xt, mcfg)
+            if mode == "record":
+                self.ids.append(top_ids)
+                return probs, top_w, top_ids
+            ids = next(recorded)
+            self.flips += int((ids != top_ids).any(-1).sum())
+            self.tokens += ids.shape[0] * ids.shape[1]
+            w = probs.gather(-1, ids)
+            return probs, w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), ids
+        moe._route = route
+        try:
+            yield
+        finally:
+            moe._route = real
+
+    def report(self):
+        return (f"; MoE routing pinned to the kernel run's, {self.flips} of {self.tokens} "
+                "token routings of the plain run would have differed" if self.tokens else "")
+
+
 def bf16_prefill_agree(dev, cfg, seq=96):
     """A bf16 model's federated prefill step (2 clients x 2 requests x
     ``seq`` tokens, past gemma2's window 64) through the tensor-core tile,
@@ -2391,25 +2501,29 @@ def bf16_prefill_agree(dev, cfg, seq=96):
     only where an attention output rounds to the neighbouring bf16 value
     (phase 3 holds each to one step), carried through the later layers'
     bf16 products and norms: logits and every cache leaf within 4 bf16
-    steps of their largest magnitude (2^-5 of it)."""
+    steps of their largest magnitude (2^-5 of it). An MoE model's plain run
+    takes the kernel run's expert choices (``PinnedRouting``)."""
     params = serve_lib.personalized_params(cfg, 2, SEED, dev)
     tok = torch.randint(0, cfg.vocab_size, (2, 2, seq),
                         generator=torch.Generator().manual_seed(SEED + 2)).to(dev)
     prefill = steps.build_prefill_step(cfg, federated=True)
+    pin = PinnedRouting()
     zero_counters()
-    got, got_cache = prefill(params, {"tokens": tok})
-    read_counters(f"serve-agree {cfg.name} bf16", {"flash_attention_prefill": cfg.num_layers})
-    with plain_attention():
+    with pin.run("record"):
+        got, got_cache = prefill(params, {"tokens": tok})
+    layers = attention_layers(cfg)
+    read_counters(f"serve-agree {cfg.name} bf16", {"flash_attention_prefill": layers})
+    with plain_attention(), pin.run("replay"):
         want, want_cache = prefill(params, {"tokens": tok})
-    read_counters(f"serve-agree {cfg.name} bf16 plain", {"flash_attention_prefill": cfg.num_layers})
+    read_counters(f"serve-agree {cfg.name} bf16 plain", {"flash_attention_prefill": layers})
     largest = float(want.float().abs().max())
     err = check(f"serve-agree {cfg.name} bf16 prefill logits", got, want, 2.0 ** -5 * largest)
     cache_errs = [check(f"serve-agree {cfg.name} bf16 prefill cache", g, w,
                         2.0 ** -5 * float(w.float().abs().max()))
                   for g, w in zip(leaves(got_cache), leaves(want_cache))]
-    print(f"  {cfg.name} bf16: prefill over {seq} tokens on the tile, {cfg.num_layers} launches; "
+    print(f"  {cfg.name} bf16: prefill over {seq} tokens on the tile, {layers} launches; "
           f"logits max_abs_err {err:.3e} against the plain attention (largest |logit| "
-          f"{largest:.3f}), cache leaves {max(cache_errs):.3e}")
+          f"{largest:.3f}), cache leaves {max(cache_errs):.3e}{pin.report()}")
 
 
 def bf16_decode_agree(dev, cfg, steps_run=72):
@@ -2419,7 +2533,8 @@ def bf16_decode_agree(dev, cfg, steps_run=72):
     As in ``bf16_prefill_agree`` the runs differ only where an attention
     output rounds to the neighbouring bf16 value, carried through later
     layers and into the caches: every step's logits within 4 bf16 steps of
-    that step's largest logit (2^-5 of it)."""
+    that step's largest logit (2^-5 of it). An MoE model's plain run takes
+    the kernel run's expert choices (``PinnedRouting``)."""
     params = serve_lib.personalized_params(cfg, 2, SEED, dev)
     tok = torch.randint(0, cfg.vocab_size, (2, 2, steps_run),
                         generator=torch.Generator().manual_seed(SEED + 4)).to(dev)
@@ -2433,22 +2548,25 @@ def bf16_decode_agree(dev, cfg, steps_run=72):
             logits.append(out)
         return logits
 
+    layers = attention_layers(cfg)
+    pin = PinnedRouting()
     zero_counters()
-    got = run()
+    with pin.run("record"):
+        got = run()
     read_counters(f"serve-agree {cfg.name} bf16 decode",
-                  {"flash_attention_decode": steps_run * cfg.num_layers})
-    with plain_attention():
+                  {"flash_attention_decode": steps_run * layers})
+    with plain_attention(), pin.run("replay"):
         want = run()
     read_counters(f"serve-agree {cfg.name} bf16 decode plain",
-                  {"flash_attention_decode": steps_run * cfg.num_layers})
+                  {"flash_attention_decode": steps_run * layers})
     worst = 0.0
     for pos, (g, w) in enumerate(zip(got, want)):
         largest = float(w.float().abs().max())
         err = check(f"serve-agree {cfg.name} bf16 decode step {pos}", g, w, 2.0 ** -5 * largest)
         worst = max(worst, err / largest)
     print(f"  {cfg.name} bf16: {steps_run} decode steps on the decode kernel, "
-          f"{steps_run * cfg.num_layers} launches; logits within {worst:.3e} of each step's "
-          "largest |logit| against the plain attention (gate 2^-5)")
+          f"{steps_run * layers} launches; logits within {worst:.3e} of each step's "
+          f"largest |logit| against the plain attention (gate 2^-5){pin.report()}")
 
 
 def zero_counters():
@@ -2486,16 +2604,18 @@ def check_logits(name, logits, cfg):
     return diff
 
 
-def serve_prefill(dev, cfg):
-    """Personalized params, then the federated prefill step over
-    PREFILL_LEN tokens (one warm-up call and PREFILL_REPS timed ones) and a
-    profile of decode steps at the serve run's positions."""
+def prefill_run(dev, cfg, top=12):
+    """Personalized params for SERVE_CLIENTS clients, then the federated
+    prefill step over PREFILL_LEN tokens a request (one warm-up call and
+    PREFILL_REPS timed ones, one tile launch an attention layer a call,
+    no other kernel), its logits checked, and a profile of one more call.
+    Returns (out, params, tokens, the last logits, the last caches)."""
     m, b = SERVE_CLIENTS, SERVE_BATCH
     t0 = time.perf_counter()
     params = serve_lib.personalized_params(cfg, m, SEED, dev)
     torch.cuda.synchronize(dev)
-    init_s = time.perf_counter() - t0
-    per_client = sum(x[0].numel() for x in leaves(params))
+    out = dict(init_s=time.perf_counter() - t0,
+               params_per_client=sum(x[0].numel() for x in leaves(params)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
     tokens = torch.randint(0, cfg.vocab_size, (m, b, PREFILL_LEN), generator=gen, device=dev)
@@ -2508,32 +2628,40 @@ def serve_prefill(dev, cfg):
         logits, caches = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t)
-    launches = read_counters("prefill",
-                             {"flash_attention_prefill": cfg.num_layers * (1 + PREFILL_REPS)})
+    out["prefill_launches"] = read_counters(
+        f"{cfg.name} prefill",
+        {"flash_attention_prefill": attention_layers(cfg) * (1 + PREFILL_REPS)})
     if tuple(logits.shape) != (m, b, 1, cfg.padded_vocab):
-        raise AssertionError(f"prefill: logits {tuple(logits.shape)}")
+        raise AssertionError(f"{cfg.name} prefill: logits {tuple(logits.shape)}")
+    out["client_logit_diff"] = check_logits(f"{cfg.name} prefill", logits, cfg)
+    out["prefill_times_s"] = times
+    out["prefill_s"] = statistics.median(times[1:])
+    out["prefill_tok_s"] = m * b * PREFILL_LEN / out["prefill_s"]
+    out["prefill_profile"] = profile(lambda: prefill(params, {"tokens": tokens}), dev, top=top)
+    return out, params, tokens, logits, caches
+
+
+def serve_prefill(dev, cfg):
+    """``prefill_run``, its k cache's shape checked, and a profile of
+    decode steps at the serve run's positions."""
+    m, b = SERVE_CLIENTS, SERVE_BATCH
+    out, params, tokens, logits, caches = prefill_run(dev, cfg)
     k = caches["blocks"]["l0"]["k"]
     if tuple(k.shape) != (m, cfg.num_groups, b, PREFILL_LEN, cfg.num_kv_heads,
                           cfg.resolved_head_dim):
         raise AssertionError(f"prefill: k cache {tuple(k.shape)}")
-    diff = check_logits("prefill", logits, cfg)
     del logits, caches, k
-    prefill_prof = profile(lambda: prefill(params, {"tokens": tokens}), dev, top=12)
-    prefill_s = statistics.median(times[1:])
 
     # decode steps at positions PROMPT_LEN.. of a serve-sized cache
     step = steps.build_serve_step(cfg, federated=True)
     cache = transformer.init_cache(cfg, m, b, PROMPT_LEN + DECODE_TOKENS, dev)
     cur = tokens[:, :, :1]
     step(params, cache, cur, 0)
-    prof = profile(lambda: [step(params, cache, cur, pos)
-                            for pos in range(PROMPT_LEN, PROMPT_LEN + 4)], dev)
-    peak = torch.cuda.max_memory_allocated(dev)
-    return dict(params_per_client=per_client, init_s=init_s, prefill_times_s=times,
-                prefill_s=prefill_s, prefill_tok_s=m * b * PREFILL_LEN / prefill_s,
-                prefill_launches=launches, client_logit_diff=diff, prefill_profile=prefill_prof,
-                decode_profile_4_steps=prof,
-                peak_gb=peak / 1e9)
+    out["decode_profile_4_steps"] = profile(lambda: [step(params, cache, cur, pos)
+                                                     for pos in range(PROMPT_LEN, PROMPT_LEN + 4)],
+                                            dev)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
 
 
 def serve_phase(dev):
@@ -2582,6 +2710,396 @@ def serve_phase(dev):
     torch.cuda.empty_cache()
     phase("serve", t0, f"{cfg.name} at full width and depth served {m} clients x {b} requests")
     print("serve_path " + json.dumps(out))
+    return out
+
+
+def attention_layers(cfg):
+    """The attention layers a forward runs: none in an SSM, one shared
+    layer a group in the hybrid, every layer (first_block's too) else."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_groups
+    return cfg.num_layers
+
+
+def check_tree(name, got, want, tol):
+    """Every leaf of ``got`` within ``tol`` of ``want``'s, or ``tol`` of
+    its largest magnitude where that is over 1 (an SSM state grows with
+    depth); returns the largest error."""
+    return max(check(f"{name} {'/'.join(path)}", g, w,
+                     tol * max(1.0, float(w.float().abs().max())))
+               for path, g, w in zip(pytree.paths(want), leaves(got), leaves(want)))
+
+
+def families_agree_phase(dev):
+    """Reduced mixtral-8x7b, kimi-k2 (first_dense), mamba2-1.3b and
+    zamba2-2.7b at 12 layers (two hybrid groups, so two shared-attention
+    caches) in f32, 2 clients x 2 requests, from the same weights: the
+    federated prefill step over AGREE_PREFILL tokens (the FMA kernel once
+    an attention layer) and 72 teacher-forced decode steps (the decode
+    kernel once an attention layer a step) on the card against the plain
+    path on the CPU, logits atol 1e-4 as in serve-agree and every cache
+    leaf (k, v, pos; h, conv) within 1e-4 (of its largest magnitude where
+    that is over 1). Then each in bf16: the tile's prefill and 72
+    decode-kernel steps against the plain attention on the card
+    (``bf16_prefill_agree``, ``bf16_decode_agree``); then one federated
+    train step of reduced mixtral (``family_train_agree``). The card's f32
+    prefills and the train step run under ``recorded_calls``, so each of
+    their kernels gets a row that holds every shape it was given against
+    the plain version. Returns (rows, {row: launches})."""
+    t0 = time.perf_counter()
+    calls = {}
+    for arch, over in AGREE_FAMILIES.items():
+        cfg = configs.get(arch).reduced(**over)
+        layers = attention_layers(cfg)
+        host = serve_lib.personalized_params(cfg, 2, SEED, "cpu")
+        card = transformer.tree_map(lambda x: x.to(dev), host)
+        tok = torch.randint(0, cfg.vocab_size, (2, 2, 72),
+                            generator=torch.Generator().manual_seed(SEED + 1))
+        prefill = steps.build_prefill_step(cfg, federated=True)
+        hl, hc = prefill(host, {"tokens": tok[:, :, :AGREE_PREFILL]})
+        zero_counters()
+        with recorded_calls() as prefill_calls:
+            cl, cc = prefill(card, {"tokens": tok[:, :, :AGREE_PREFILL].to(dev)})
+        read_counters(f"families-agree {arch} f32 prefill", {"flash_attention_fma": layers})
+        merge_calls(calls, prefill_calls)
+        errs = [check(f"families-agree {arch} prefill", cl, hl.to(dev), 1e-4)]
+        cache_err = check_tree(f"families-agree {arch} prefill cache", cc,
+                               transformer.tree_map(lambda x: x.to(dev), hc), 1e-4)
+        step = steps.build_serve_step(cfg, federated=True)
+        hcache = transformer.init_cache(cfg, 2, 2, 80, "cpu")
+        ccache = transformer.init_cache(cfg, 2, 2, 80, dev)
+        zero_counters()
+        for pos in range(72):
+            hl, hcache = step(host, hcache, tok[:, :, pos:pos + 1], pos)
+            cl, ccache = step(card, ccache, tok[:, :, pos:pos + 1].to(dev), pos)
+            errs.append(check(f"families-agree {arch} decode step {pos}", cl, hl.to(dev), 1e-4))
+        read_counters(f"families-agree {arch} f32 decode", {"flash_attention_decode": 72 * layers})
+        cache_err = max(cache_err, check_tree(f"families-agree {arch} decode cache", ccache,
+                                              transformer.tree_map(lambda x: x.to(dev), hcache),
+                                              1e-4))
+        print(f"  {cfg.name} ({cfg.family}, {cfg.num_layers} layers, {layers} attention): "
+              f"prefill logits max_abs_err {errs[0]:.3e} ({layers} FMA launches), 72 decode "
+              f"steps {max(errs[1:]):.3e} ({72 * layers} decode launches), caches "
+              f"{cache_err:.3e}; largest |logit| {float(hl.abs().max()):.2f}")
+    for arch, over in AGREE_FAMILIES.items():
+        cfg = configs.get(arch).reduced(param_dtype="bfloat16", act_dtype="bfloat16", **over)
+        bf16_prefill_agree(dev, cfg)
+        bf16_decode_agree(dev, cfg)
+    merge_calls(calls, family_train_agree(dev))
+    rows, launches = recorded_rows("families", calls, dev)
+    for name, r in rows.items():
+        finish_row(name, r)
+    phase("families-agree", t0, "reduced mixtral-8x7b, kimi-k2, mamba2-1.3b and zamba2-2.7b "
+          "serve on the card as on the CPU (f32, logits and caches within 1e-4, 72 decode "
+          "steps); in bf16 the tile's prefill and 72 decode steps match the plain attention's; "
+          "a train step of reduced mixtral matches the CPU's")
+    return rows, launches
+
+
+def merge_calls(into, calls):
+    """Add one ``recorded_calls`` block's calls to ``into``, summing the
+    launches of a call both hold."""
+    for key, rec in calls.items():
+        if key not in into:
+            into[key] = rec
+            continue
+        for k, n in rec["launches"].items():
+            into[key]["launches"][k] = into[key]["launches"].get(k, 0) + n
+
+
+def family_train_agree(dev):
+    """One federated user-centric train step of reduced mixtral-8x7b (f32,
+    2 clients, the FMA kernel under autograd once a layer, the mix kernel
+    once a leaf) on the card against the same step on the CPU, from the
+    same params, W and batch: the loss within 1e-3 of itself, each leaf's
+    change within FAMILY_STEP_TOL of the CPU's change (L2). Returns the
+    card step's recorded calls."""
+    cfg = configs.get("mixtral-8x7b").reduced()
+    host = serve_lib.personalized_params(cfg, 2, SEED, "cpu")
+    card = transformer.tree_map(lambda x: x.to(dev), host)
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, AGREE_PREFILL + 1),
+                         generator=torch.Generator().manual_seed(SEED + 5))
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    w = torch.tensor([[0.7, 0.3], [0.4, 0.6]])
+    step = steps.build_train_step(cfg, n_clients=2, agg="user_centric", lr=TRAIN_LR,
+                                  momentum=cfg.momentum)
+    want, _, wm = step(host, sgd_init(host, momentum=cfg.momentum), w, batch)
+    zero_counters()
+    with recorded_calls() as calls:
+        got, _, gm = step(card, sgd_init(card, momentum=cfg.momentum), w.to(dev),
+                          {k: v.to(dev) for k, v in batch.items()})
+    launches = read_counters("families-agree train step",
+                             {"flash_attention_fma": cfg.num_layers,
+                              "mix_aggregate": len(leaves(card))})
+    loss_err = abs(float(gm["loss"]) - float(wm["loss"]))
+    if not loss_err <= 1e-3 * abs(float(wm["loss"])):
+        raise AssertionError(f"families-agree train step: loss {float(gm['loss'])} against the "
+                             f"CPU's {float(wm['loss'])}")
+    worst = 0.0
+    for name, a, b, p0 in zip(pytree.paths(got), leaves(got), leaves(want), leaves(host)):
+        num, den = float((a.cpu() - b).norm()), float((b - p0).norm())
+        rel = num / den if den else (0.0 if num == 0 else float("inf"))
+        if not rel <= FAMILY_STEP_TOL:
+            raise AssertionError(f"families-agree train step: {'/'.join(name)}'s change is "
+                                 f"{rel:.3e} (L2) off the CPU's (gate {FAMILY_STEP_TOL})")
+        worst = max(worst, rel)
+    print(f"  {cfg.name} train step (user_centric, 2 clients, f32) on the card against the CPU: "
+          f"loss {float(gm['loss']):.6f} / {float(wm['loss']):.6f}, the change of a leaf at most "
+          f"{worst:.3e} (L2) off the CPU's (gate {FAMILY_STEP_TOL}); launches {launches}")
+    return calls
+
+
+def family_config(arch):
+    """The configuration at its published widths, depth cut where
+    FAMILY_LAYERS says."""
+    cfg = configs.get(arch)
+    layers = FAMILY_LAYERS[arch]
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def decode_cache(cfg, prefill_caches, clients, batch, max_len, dev):
+    """A decode cache of ``max_len`` positions holding a prefill step's
+    caches: each attention slot's k and v in its first S positions (pos
+    0..S-1), each mamba slot's h and conv."""
+    cache = transformer.init_cache(cfg, clients, batch, max_len, dev)
+
+    def fill(dst, src):
+        if "k" in dst:
+            s = src["k"].shape[-3]
+            dst["k"].narrow(-3, 0, s).copy_(src["k"])
+            dst["v"].narrow(-3, 0, s).copy_(src["v"])
+            dst["pos"].narrow(-1, 0, s).copy_(torch.arange(s, device=dev))
+        else:
+            dst["h"].copy_(src["h"])
+            dst["conv"].copy_(src["conv"])
+
+    for key, dst in cache["blocks"].items():
+        fill(dst, prefill_caches["blocks"][key])
+    if "first_block" in cache:
+        fill(cache["first_block"], prefill_caches["first_block"])
+    return cache
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Every MoE layer the block runs reports its dropped assignments:
+    yields a list of (dropped (a device scalar), assignments)."""
+    from repro_torch.models import moe
+
+    seen = []
+    real = moe.apply_auto
+
+    def counting(p, x, mcfg):
+        seen.append((moe.dropped(p, x, mcfg).sum(), x.shape[0] * x.shape[1] * x.shape[2]
+                     * mcfg.top_k))
+        return real(p, x, mcfg)
+    moe.apply_auto = counting
+    try:
+        yield seen
+    finally:
+        moe.apply_auto = real
+
+
+def family_serve(dev, cfg):
+    """A family at full width, bf16: ``prefill_run``, then FAMILY_DECODE
+    timed greedy decode steps on the prefill's caches and FAMILY_PROFILED
+    profiled ones (each attention layer one decode-kernel launch a step,
+    the FMA kernel never); an MoE model's dropped share at its capacity
+    factor from one more prefill call."""
+    m, b = SERVE_CLIENTS, SERVE_BATCH
+    layers = attention_layers(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, params, tokens, logits, caches = prefill_run(dev, cfg, top=10)
+    out.update(layers=cfg.num_layers, attention_layers=layers)
+    if cfg.family == "moe":
+        with moe_drops() as seen:
+            steps.build_prefill_step(cfg, federated=True)(params, {"tokens": tokens})
+        out["dropped_share"] = sum(int(d) for d, _ in seen) / sum(a for _, a in seen)
+        out["dropped_share_by_layer"] = [int(d) / a for d, a in seen]
+
+    step = steps.build_serve_step(cfg, federated=True)
+    cache = decode_cache(cfg, caches, m, b, PREFILL_LEN + FAMILY_DECODE + FAMILY_PROFILED, dev)
+    del caches
+    cur = torch.argmax(logits, dim=-1)
+    zero_counters()
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    for pos in range(PREFILL_LEN, PREFILL_LEN + FAMILY_DECODE):
+        logits, cache = step(params, cache, cur, pos)
+        cur = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize(dev)
+    out["decode_step_ms"] = (time.perf_counter() - t) / FAMILY_DECODE * 1e3
+    out["decode_tok_s"] = m * b / out["decode_step_ms"] * 1e3
+    start = PREFILL_LEN + FAMILY_DECODE
+    out["decode_profile_4_steps"] = profile(
+        lambda: [step(params, cache, cur, pos) for pos in range(start, start + FAMILY_PROFILED)],
+        dev)
+    out["decode_launches"] = read_counters(
+        f"{cfg.name} decode",
+        {"flash_attention_decode": layers * (FAMILY_DECODE + FAMILY_PROFILED)})
+    out["decode_client_logit_diff"] = check_logits(f"{cfg.name} decode", logits, cfg)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    by_layer = [round(x, 4) for x in out.get("dropped_share_by_layer", ())]
+    drops = (f"; dropped {out['dropped_share']:.4f} of the assignments at capacity factor "
+             f"{cfg.capacity_factor} (by layer {by_layer})" if "dropped_share" in out else "")
+    kernels = (f"{layers} tile launches a prefill call, {layers} decode-kernel launches a step"
+               if layers else "no attention layer: no attention kernel runs")
+    print(f"  {cfg.name}: {out['params_per_client'] / 1e9:.3f} B parameters a client, "
+          f"{cfg.num_layers} layers, {cfg.param_dtype}; init + personalize {out['init_s']:.2f} s; "
+          f"peak memory {out['peak_gb']:.2f} GB; {kernels}{drops}")
+    print(f"  {cfg.name} prefill: {m} clients x {b} requests x {PREFILL_LEN} tokens in "
+          f"{out['prefill_s'] * 1e3:.1f} ms (median of {PREFILL_REPS}; first call "
+          f"{out['prefill_times_s'][0] * 1e3:.1f} ms), {out['prefill_tok_s']:.0f} tokens/s; decode "
+          f"{out['decode_step_ms']:.2f} ms a step ({FAMILY_DECODE} steps from position "
+          f"{PREFILL_LEN}), {out['decode_tok_s']:.1f} tokens/s; clients' logits differ by up to "
+          f"{out['client_logit_diff']:.3f} (prefill), {out['decode_client_logit_diff']:.3f} "
+          "(decode)")
+    print_profiles(cfg.name, {"prefill step": out["prefill_profile"],
+                              f"{FAMILY_PROFILED} decode steps": out["decode_profile_4_steps"]})
+    return out
+
+
+def moe_layer_check(dev, cfg):
+    """One of the configuration's MoE layers at full width in f32 (one
+    client, MOE_TOKENS tokens) with a capacity that drops nothing
+    (capacity factor E / top_k), against ``apply_reference``, the O(E·N)
+    oracle: within 1e-5 of the largest |y|, TF32 off. The layer is the
+    second group's view of a two-group stack, as ``transformer._groups``
+    hands a served model's layers to ``moe.apply``."""
+    from repro_torch.models import moe
+
+    mcfg = dataclasses.replace(transformer.moe_config(cfg),
+                               capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    stack = None
+    for g in range(2):
+        one = moe.init(gen, mcfg, torch.float32, dev)
+        if stack is None:
+            stack = {k: v.new_empty((1, 2) + v.shape) for k, v in one.items()}
+        for k, v in one.items():
+            stack[k][0, g].copy_(v)
+        del one
+    stacked_cfg = dataclasses.replace(cfg, num_layers=cfg.first_dense + 2 * cfg.pattern_len)
+    p = list(transformer._groups(stack, stacked_cfg))[1]
+    x = torch.randn(1, 1, MOE_TOKENS, cfg.d_model, generator=gen, device=dev)
+    y, aux = moe.apply(p, x, mcfg)
+    drops = int(moe.dropped(p, x, mcfg)[0])
+    want = moe.apply_reference(p, x, mcfg)
+    largest = float(want.abs().max())
+    err = check("moe layer f32 against the oracle", y, want, 1e-5 * largest)
+    if drops != 0:
+        raise AssertionError(f"moe layer: {drops} assignments dropped at "
+                             f"capacity factor {mcfg.capacity_factor}")
+    if p["w_gate"].stride(0) != 2 * p["w_gate"].stride(1) * cfg.moe_num_experts:
+        raise AssertionError("moe layer: the experts are not a group's view of the stack")
+    weights_gb = sum(v.numel() * 4 for v in p.values()) / 1e9
+    print(f"  {cfg.name} MoE layer, f32, {MOE_TOKENS} tokens, capacity "
+          f"{moe.capacity(MOE_TOKENS, mcfg)} (nothing dropped), {weights_gb:.2f} GB of weights: "
+          f"max_abs_err {err:.3e} against the O(E·N) oracle (largest |y| {largest:.3f}, gate "
+          f"1e-5 of it); aux {float(aux[0]):.4f}")
+    del p, stack
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, largest=largest, weights_gb=weights_gb)
+
+
+def ssd_recurrence(xh, b, c, dt, a_log):
+    """The SSD as its one-token recurrence, in f32: h_t = exp(dt_t·A)·h_{t-1}
+    + dt_t·(x_t ⊗ B_t), y_t = C_t·h_t. Returns (y (R, S, H, P), h (R, H, P, N))."""
+    r, s, nh, pdim = xh.shape
+    a = torch.exp(dt * -torch.exp(a_log)[:, None, :])  # (R, S, H)
+    h = torch.zeros((r, nh, pdim, b.shape[-1]), dtype=torch.float32, device=xh.device)
+    ys = []
+    for t in range(s):
+        h = (h * a[:, t, :, None, None]
+             + dt[:, t, :, None, None] * xh[:, t, :, :, None] * b[:, t, None, None, :])
+        ys.append(torch.matmul(h, c[:, t, None, :, None])[..., 0])
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_layer_check(dev, cfg):
+    """One SSD block at the configuration's full width in f32, TF32 off,
+    over SSD_TOKENS tokens (2 sequences), against its recurrence, at the
+    reference's own tolerances for this identity (``tests/test_models.py``:
+    y rtol 1e-3, atol 1e-5; the final h rtol 1e-4, atol 1e-5):
+      * the SSD itself: ``_ssd_chunked`` against ``ssd_recurrence`` on the
+        same inputs, held at those tolerances;
+      * the block: the chunked ``forward`` against SSD_TOKENS ``decode``
+        steps from an empty cache. Its h is held at those tolerances; its
+        y is printed against them and held at atol 1e-4: both paths also
+        run the block's projections, over K = 2,048 (in) and 4,096 (out)
+        in f32 in other orders (a (1,024, K) GEMM against a (2, K) one),
+        whose error near zero outputs passes 1e-5 at this width."""
+    from repro_torch.models import ssm
+
+    def over(got, want, rtol, atol):
+        return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+    scfg = transformer.ssm_config(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    p = transformer.tree_map(lambda v: v[None], ssm.init(gen, scfg, torch.float32, dev))
+    x = 0.5 * torch.randn(1, 2, SSD_TOKENS, cfg.d_model, generator=gen, device=dev)
+
+    # the SSD alone, on the block's own inputs to it
+    di, n = scfg.d_inner, scfg.state
+    z, xc, b, c, dt = ssm._split_proj(p, x, scfg)
+    xbc, _ = ssm._causal_conv(torch.cat([xc, b, c], dim=-1), p["conv_w"], p["conv_b"])
+    xc, b, c = (t.flatten(0, 1) for t in torch.split(xbc, [di, n, n], dim=-1))
+    xh = xc.unflatten(-1, (scfg.num_heads, scfg.headdim))
+    a_log = p["A_log"].expand(2, -1)
+    y_chunk, h_chunk = ssm._ssd_chunked(xh, b, c, dt.flatten(0, 1), a_log, scfg)
+    y_seq, h_seq = ssd_recurrence(xh, b, c, dt.flatten(0, 1), a_log)
+    core = dict(y_over=over(y_chunk, y_seq, 1e-3, 1e-5), h_over=over(h_chunk, h_seq, 1e-4, 1e-5),
+                y_max_abs_err=float((y_chunk - y_seq).abs().max()),
+                y_largest=float(y_seq.abs().max()))
+
+    # the block: chunked forward against decode steps
+    y, cache = ssm.forward(p, x, scfg)
+    cc = ssm.init_cache(1, 2, scfg, torch.float32, dev)
+    ys = []
+    for s in range(SSD_TOKENS):
+        yt, cc = ssm.decode(p, x[:, :, s:s + 1], cc, scfg)
+        ys.append(yt)
+    yd = torch.cat(ys, dim=2)
+    block = dict(y_over_ref=over(yd, y, 1e-3, 1e-5), y_over=over(yd, y, 1e-3, 1e-4),
+                 h_over=over(cc["h"], cache["h"], 1e-4, 1e-5),
+                 y_max_abs_err=float((yd - y).abs().max()), y_largest=float(y.abs().max()))
+    print(f"  {cfg.name} SSD, f32, {SSD_TOKENS} tokens in chunks of {scfg.chunk}: "
+          f"_ssd_chunked against the recurrence y at {core['y_over']:.3f} of its allowance "
+          f"(rtol 1e-3, atol 1e-5; max_abs_err {core['y_max_abs_err']:.3e}, largest |y| "
+          f"{core['y_largest']:.3f}), h at {core['h_over']:.3f} (rtol 1e-4, atol 1e-5); the "
+          f"block's forward against {SSD_TOKENS} decode steps y at {block['y_over_ref']:.3f} of "
+          f"the reference's allowance, {block['y_over']:.3f} of atol 1e-4 (max_abs_err "
+          f"{block['y_max_abs_err']:.3e}, largest |y| {block['y_largest']:.3f}), h at "
+          f"{block['h_over']:.3f}")
+    worst = max(core["y_over"], core["h_over"], block["y_over"], block["h_over"])
+    if not worst <= 1.0:
+        raise AssertionError(f"ssd: chunked against sequential, core {core}, block {block}")
+    return dict(core=core, block=block)
+
+
+def families_phase(dev):
+    """mixtral-8x7b (4 of 32 layers), mamba2-1.3b and zamba2-2.7b at full
+    depth, all at full width in bf16, served to 2 clients x 2 requests
+    (``family_serve``); mixtral's MoE layer and mamba2's SSD block also in
+    f32 at full width against their plain forms."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch in FAMILY_LAYERS:
+        cfg = family_config(arch)
+        out[arch] = family_serve(dev, cfg)
+        if cfg.family == "moe":
+            out[arch]["moe_layer_f32"] = moe_layer_check(dev, cfg)
+        if cfg.family == "ssm":
+            out[arch]["ssd_layer_f32"] = ssd_layer_check(dev, cfg)
+    phase("families", t0, "mixtral-8x7b (4 layers), mamba2-1.3b (48) and zamba2-2.7b (54) "
+          f"served {SERVE_CLIENTS} clients x {SERVE_BATCH} requests at full width")
+    print("families_path " + json.dumps(out))
     return out
 
 
@@ -3208,6 +3726,9 @@ def main():
     del task
     fma_launches = serve_agree_phase(dev)
     served = serve_phase(dev)
+    family_rows, family_launches = families_agree_phase(dev)
+    rows.update(family_rows)
+    fam = families_phase(dev)
     trained, train_rows, lm_client = train_phase(dev)
     rows.update(train_rows)
     checkpoint_phase(dev, lm_client)
@@ -3244,9 +3765,17 @@ def main():
               "gram_m50": base["fedfomo_half"]["gram"] + wire_sum("gram", ("fedfomo",)),
               "flash_attention_prefill": served["prefill_launches"]["flash_attention_prefill"],
               "flash_attention_decode": served["serve_launches"]["flash_attention_decode"],
-              "flash_attention_fma": fma_launches}
+              "flash_attention_fma": fma_launches,
+              "flash_attention_prefill_mixtral":
+                  fam["mixtral-8x7b"]["prefill_launches"]["flash_attention_prefill"],
+              "flash_attention_decode_mixtral":
+                  fam["mixtral-8x7b"]["decode_launches"]["flash_attention_decode"],
+              "flash_attention_prefill_zamba2":
+                  fam["zamba2-2.7b"]["prefill_launches"]["flash_attention_prefill"],
+              "flash_attention_decode_zamba2":
+                  fam["zamba2-2.7b"]["decode_launches"]["flash_attention_decode"]}
     # the knobs, engine and train phases' launches, each under the row of its shape
-    for phase_rows in (knobs, engine, trained["row_launches"]):
+    for phase_rows in (knobs, engine, trained["row_launches"], family_launches):
         for row, count in phase_rows.items():
             counts[row] = counts.get(row, 0) + count
     # one kernel for both gram rows: the main path runs it at m = 100

@@ -51,7 +51,9 @@ def _tensor(a, dev) -> torch.Tensor:
 def transformer_params_from_numpy(tree: dict, *, device=None) -> dict:
     """A nested dict of numpy arrays (a reference transformer's params:
     stacked blocks, and a leading client axis where there is one) -> the
-    same nested dict of tensors, dtypes kept (bfloat16 included)."""
+    same nested dict of tensors, each leaf's dtype kept: bfloat16, and the
+    f32 leaves of a bf16 tree (the MoE router, the SSM's A_log, D and
+    dt_bias)."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -63,8 +65,10 @@ def transformer_params_from_numpy(tree: dict, *, device=None) -> dict:
 
 
 def cache_from_numpy(tree: dict, *, device=None) -> dict:
-    """A reference KV-cache tree (``{"blocks": {"l0": {"k", "v", "pos"}}}``)
-    of numpy arrays -> tensors, for decode parity."""
+    """A reference cache tree of numpy arrays -> tensors, for decode
+    parity: ``{"blocks": {"l{i}": ...}}`` with an attention slot's k, v and
+    pos, a mamba slot's h (f32) and conv, and ``first_block``'s k, v and
+    pos where there is one."""
     return transformer_params_from_numpy(tree, device=device)
 
 

@@ -5,6 +5,10 @@ teacher-forced decode steps, then N tokens are decoded greedily.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --no-smoke \\
       --clients 2 --batch 2 --prompt-len 128 --decode-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
+
+``--arch`` takes any configuration of the dense, MoE (mixtral-8x7b,
+kimi-k2-1t-a32b), SSM (mamba2-1.3b) and hybrid (zamba2-2.7b) families.
 
 ``--smoke`` (the default) serves ``cfg.reduced(vocab_size=128)``;
 ``--no-smoke`` serves the configuration at full width and depth. Runs on

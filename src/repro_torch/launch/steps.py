@@ -67,7 +67,7 @@ def build_train_step(cfg: ModelConfig, *, n_clients: int, agg: str, num_streams:
         def fedsgd_step(params, opt, batch):
             p = _tracked(params)
             loss = model.loss(p, batch)
-            grads = unflatten(p, torch.autograd.grad(loss, leaves(p)))
+            grads = unflatten(p, torch.autograd.grad(loss, leaves(p), materialize_grads=True))
             with torch.no_grad():
                 params, opt = sgd_update(grads, opt, tree_map(torch.detach, p), lr=lr,
                                          momentum=momentum)
@@ -80,7 +80,7 @@ def build_train_step(cfg: ModelConfig, *, n_clients: int, agg: str, num_streams:
     def train_step(params, opt, mix, batch):
         p = _tracked(params)
         loss = transformer.loss_fn(p, batch, cfg)  # (m,) per-client losses
-        grads = unflatten(p, torch.autograd.grad(loss.sum(), leaves(p)))
+        grads = unflatten(p, torch.autograd.grad(loss.sum(), leaves(p), materialize_grads=True))
         with torch.no_grad():
             params, opt = sgd_update(grads, opt, tree_map(torch.detach, p), lr=lr,
                                      momentum=momentum)

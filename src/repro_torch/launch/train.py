@@ -53,7 +53,7 @@ def partition_grads(cfg, params, gen, chains, *, batch: int, seq: int, parts: in
     for k in range(parts):
         b = lm_synthetic.federated_lm_batch(gen, chains, m, batch, seq)
         loss = transformer.loss_fn(p, b, cfg)
-        grads = torch.autograd.grad(loss.sum(), leaves(p))
+        grads = torch.autograd.grad(loss.sum(), leaves(p), materialize_grads=True)
         stacked_ravel(unflatten(p, grads), out=g[:, k])
         del grads, loss
     return g

@@ -18,7 +18,7 @@ class Model:
     cfg: ModelConfig
     init: Callable[..., Any]  # (generator, device=None: CUDA) -> params
     forward: Callable[..., Any]  # (params, batch) -> logits (B, S, V)
-    loss: Callable[..., Any]  # (params, batch) -> scalar mean NLL
+    loss: Callable[..., Any]  # (params, batch) -> scalar mean NLL + 0.01 · aux
     init_cache: Callable[..., Any]  # (batch, max_len, device=None: CUDA) -> caches
     decode_step: Callable[..., Any]  # (params, caches, tokens, pos) -> (logits, caches)
 

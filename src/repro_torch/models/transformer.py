@@ -1,28 +1,36 @@
-"""Config-driven decoder LM (``repro.models.transformer``), dense family.
+"""Config-driven decoder LM (``repro.models.transformer``): the dense, MoE,
+SSM and hybrid families.
 
-Layers repeat in groups of ``cfg.attn_pattern`` (gemma2: a local and a
-global layer), and every block leaf is stacked over the groups on its
-group axis, as the reference stacks them for ``lax.scan``; here a Python
-loop walks the groups.
+Layers repeat in groups: ``cfg.attn_pattern`` for dense and MoE (gemma2: a
+local and a global layer), one mamba layer for ssm, and (g − 1) mamba
+layers plus one shared-attention slot for the zamba2-style hybrid. Every
+block leaf is stacked over the groups on its group axis, as the reference
+stacks them for ``lax.scan``; here a Python loop walks the groups. The
+hybrid's attention weights are stored once (``shared_attn``), with a norm
+and a KV cache of its own in every group; kimi's leading dense layer is
+``first_block``.
 
 Params layout, leaf for leaf the reference's:
   embed.table (V, D), final_norm, lm_head.w (D, V) when untied,
-  blocks.l{i}.* with every leaf stacked over num_groups.
+  first_block?, shared_attn?, blocks.l{i}.* with every leaf stacked over
+  num_groups.
 ``init`` builds one model with that layout. ``forward``, ``decode_step``
 and ``init_cache`` run m models at once: every leaf carries a leading
 client axis (m, ...), as the reference's ``vmap`` over clients would see
 it, and the inputs are (m, B, S). One model is m = 1
 (:mod:`repro_torch.models.registry` adds and drops that axis).
 
-``loss_fn`` gives each of the m models its own mean next-token NLL, so
-autograd of their sum gives every client the gradient of its own loss
-(the clients' params are disjoint): the reference's
+``forward`` returns the logits (and the prefill caches), not the MoE
+layers' auxiliary loss; ``loss_fn`` reads it. ``loss_fn`` gives each of
+the m models its own mean next-token NLL plus ``aux_weight`` times its
+summed aux loss, so autograd of their sum gives every client the gradient
+of its own loss (the clients' params are disjoint): the reference's
 ``vmap(value_and_grad(loss))``. With ``cfg.remat`` each layer group runs
 under ``torch.utils.checkpoint`` (non-reentrant) whenever autograd records
 it, as the reference's ``jax.checkpoint`` of the scanned body.
 
-Families moe, ssm, hybrid, vlm and audio, and ``first_dense > 0``, raise
-``NotImplementedError`` (the other model families, ROADMAP queue A).
+Families vlm and audio raise ``NotImplementedError`` (the other model
+families, ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import leaves, tree_map
 from repro_torch.device import resolve_device
-from repro_torch.models import attention
+from repro_torch.models import attention, moe, ssm
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.layers import (
     embed_init,
@@ -50,12 +58,15 @@ from repro_torch.models.layers import (
     softcap,
 )
 
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
 
 def _check(cfg: ModelConfig):
-    if cfg.family != "dense" or cfg.first_dense:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (first_dense={cfg.first_dense}) is not ported; "
-            "the port has the dense family; the other model families are in ROADMAP queue A")
+            f"{cfg.name}: family {cfg.family!r} is not ported; the port has the "
+            f"{', '.join(PORTED_FAMILIES)} families; the other model families are in "
+            "ROADMAP queue A")
 
 
 # --------------------------------------------------------------- sub-configs
@@ -73,8 +84,33 @@ def attn_config(cfg: ModelConfig) -> AttnConfig:
     )
 
 
+def moe_config(cfg: ModelConfig) -> moe.MoEConfig:
+    return moe.MoEConfig(
+        d_model=cfg.d_model,
+        d_ff=cfg.moe_d_ff or cfg.d_ff,
+        num_experts=cfg.moe_num_experts,
+        top_k=cfg.moe_top_k,
+        capacity_factor=cfg.capacity_factor,
+        ep_axis=cfg.expert_axis,
+    )
+
+
+def ssm_config(cfg: ModelConfig) -> ssm.SSMConfig:
+    return ssm.SSMConfig(
+        d_model=cfg.d_model,
+        state=cfg.ssm_state,
+        headdim=cfg.ssm_headdim,
+        expand=cfg.ssm_expand,
+        chunk=cfg.ssm_chunk,
+    )
+
+
 def _group_slots(cfg: ModelConfig):
     """The layer kinds inside one group."""
+    if cfg.family == "ssm":
+        return ("mamba",)
+    if cfg.family == "hybrid":
+        return ("mamba",) * (cfg.hybrid_group - 1) + ("shared_attn",)
     return tuple(f"attn_{a}" for a in cfg.attn_pattern)
 
 
@@ -83,30 +119,48 @@ def _window(cfg: ModelConfig, kind: str):
 
 
 # --------------------------------------------------------------- init
-def _init_attn_layer(gen, cfg: ModelConfig, dtype, device):
+def _init_attn_layer(gen, cfg: ModelConfig, dtype, device, *, moe_mlp: bool):
     ninit, _ = make_norm(cfg.norm)
     p = {
         "ln_attn": ninit(cfg.d_model, dtype, device),
         "attn": attention.init(gen, attn_config(cfg), dtype, device),
         "ln_mlp": ninit(cfg.d_model, dtype, device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device),
     }
+    if moe_mlp:
+        p["moe"] = moe.init(gen, moe_config(cfg), dtype, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device)
     if cfg.post_norms:
         p["ln_post_attn"] = ninit(cfg.d_model, dtype, device)
         p["ln_post_mlp"] = ninit(cfg.d_model, dtype, device)
     return p
 
 
-def _stack(trees):
+def _init_group(gen, cfg: ModelConfig, dtype, device):
+    ninit, _ = make_norm(cfg.norm)
+    p = {}
+    for i, slot in enumerate(_group_slots(cfg)):
+        if slot == "mamba":
+            p[f"l{i}"] = {"ln": ninit(cfg.d_model, dtype, device),
+                          "mamba": ssm.init(gen, ssm_config(cfg), dtype, device)}
+        elif slot == "shared_attn":
+            p[f"l{i}"] = {"ln": ninit(cfg.d_model, dtype, device)}  # weights shared
+        else:
+            p[f"l{i}"] = _init_attn_layer(gen, cfg, dtype, device, moe_mlp=cfg.family == "moe")
+    return p
+
+
+def _stack(trees, dim=0):
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+        return {k: _stack([t[k] for t in trees], dim) for k in first}
+    return torch.stack(trees, dim=dim)
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, device=None):
-    """One model's params in ``cfg.param_dtype`` on ``device`` (CUDA when
-    None), drawn from ``gen``, a generator on that device (``ValueError``
+    """One model's params in ``cfg.param_dtype`` (the MoE router and the
+    SSM's A_log, D and dt_bias in f32) on ``device`` (CUDA when None),
+    drawn from ``gen``, a generator on that device (``ValueError``
     otherwise). Matches the reference in distribution only."""
     _check(cfg)
     device = resolve_device(device)
@@ -123,45 +177,77 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": fan_in_init(gen, (cfg.d_model, cfg.padded_vocab), dtype,
                                               device)}
-    slots = _group_slots(cfg)
-    params["blocks"] = _stack([
-        {f"l{i}": _init_attn_layer(gen, cfg, dtype, device) for i in range(len(slots))}
-        for _ in range(cfg.num_groups)])
+    params["blocks"] = _stack([_init_group(gen, cfg, dtype, device)
+                               for _ in range(cfg.num_groups)])
+    if cfg.first_dense:
+        params["first_block"] = _init_attn_layer(gen, cfg, dtype, device, moe_mlp=False)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_attn_layer(gen, cfg, dtype, device, moe_mlp=False)
     return params
 
 
 # --------------------------------------------------------------- forward
-def _apply_attn_layer(p, h, positions, cfg: ModelConfig, kind: str, *, cache=None, pos=None):
-    """One attention + MLP layer on h (m, B, S, D); returns (h, cache),
-    the cache being (k, v) of the layer in a forward and the written
-    cache in a decode."""
+def _apply_attn_layer(p, h, positions, cfg: ModelConfig, kind: str, *, cache=None, pos=None,
+                      shared=None):
+    """One attention + MLP (or MoE) layer on h (m, B, S, D); returns (h,
+    cache, aux (m,) f32 or None), the cache being {"k", "v"} of the layer
+    in a forward and the written cache in a decode. A shared layer takes
+    its input norm from ``p`` and every other weight from ``shared``."""
     _, napply = make_norm(cfg.norm)
     acfg = attn_config(cfg)
-    x = napply(p["ln_attn"], h)
+    wp = shared if shared is not None else p
+    x = napply(p["ln_attn"] if "ln_attn" in p else p["ln"], h)
     if cache is None:
-        attn_out, new_cache = attention.forward(p["attn"], x, positions, acfg,
-                                                window=_window(cfg, kind))
+        attn_out, (k, v) = attention.forward(wp["attn"], x, positions, acfg,
+                                             window=_window(cfg, kind))
+        new_cache = {"k": k, "v": v}
     else:
-        attn_out, new_cache = attention.decode(p["attn"], x, cache, pos, acfg,
+        attn_out, new_cache = attention.decode(wp["attn"], x, cache, pos, acfg,
                                                window=_window(cfg, kind))
     if cfg.post_norms:
-        attn_out = napply(p["ln_post_attn"], attn_out)
+        attn_out = napply(wp["ln_post_attn"], attn_out)
     h = h + attn_out
-    mlp_out = mlp_apply(p["mlp"], napply(p["ln_mlp"], h), cfg.mlp)
+    aux = None
+    if "moe" in wp:
+        mlp_out, aux = moe.apply_auto(wp["moe"], napply(wp["ln_mlp"], h), moe_config(cfg))
+    else:
+        mlp_out = mlp_apply(wp["mlp"], napply(wp["ln_mlp"], h), cfg.mlp)
     if cfg.post_norms:
-        mlp_out = napply(p["ln_post_mlp"], mlp_out)
-    return h + mlp_out, new_cache
+        mlp_out = napply(wp["ln_post_mlp"], mlp_out)
+    return h + mlp_out, new_cache, aux
 
 
-def _apply_group(group_p, h, positions, cfg: ModelConfig, *, caches=None, pos=None):
-    """One group of layers; ``caches`` keyed like the group's params."""
+def _apply_group(group_p, h, positions, cfg: ModelConfig, *, caches=None, pos=None,
+                 shared=None):
+    """One group of layers; ``caches`` keyed like the group's params.
+    Returns (h, caches, aux (m,) f32: the sum of its MoE layers' aux, or
+    None where it has none)."""
     new_caches = {}
+    aux_total = None
+    _, napply = make_norm(cfg.norm)
     for i, slot in enumerate(_group_slots(cfg)):
         key = f"l{i}"
-        h, new_caches[key] = _apply_attn_layer(
-            group_p[key], h, positions, cfg, slot,
-            cache=None if caches is None else caches[key], pos=pos)
-    return h, new_caches
+        p = group_p[key]
+        cache = None if caches is None else caches[key]
+        if slot == "mamba":
+            x = napply(p["ln"], h)
+            if cache is None:
+                out, new_caches[key] = ssm.forward(p["mamba"], x, ssm_config(cfg))
+            else:
+                out, new_caches[key] = ssm.decode(p["mamba"], x, cache, ssm_config(cfg))
+            h = h + out
+            continue
+        h, new_caches[key], aux = _apply_attn_layer(
+            p, h, positions, cfg, "attn_global" if slot == "shared_attn" else slot,
+            cache=cache, pos=pos, shared=shared if slot == "shared_attn" else None)
+        aux_total = _add_aux(aux_total, aux)
+    return h, new_caches, aux_total
+
+
+def _add_aux(total, aux):
+    """The running sum of MoE aux losses, None until a layer gives one: a
+    family without MoE layers allocates and adds nothing."""
+    return aux if total is None else total if aux is None else total + aux
 
 
 # the matrix products remat_policy="dots" keeps (the reference's
@@ -174,19 +260,29 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _save_moe(ctx, op, *args, **kwargs):
+    """Keep each MoE layer's routing, dispatch indices and output, so the
+    backward recomputes the rest of the group, the expert products among
+    it, but not the dispatch's sort."""
+    return (CheckpointPolicy.MUST_SAVE if moe.saving()
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_POLICIES = {"dots": _save_dots, "save_moe": _save_moe}
+
+
 def _remat(body, cfg: ModelConfig):
     """Per-layer-group remat: ``body`` under a non-reentrant checkpoint,
-    keeping only its inputs ("full") or also its matrix products ("dots")
-    for the backward. "save_moe" names the MoE output, which the dense
-    family does not have."""
+    keeping only its inputs ("full"), also its matrix products ("dots"), or
+    also its MoE layers' routing, dispatch and outputs ("save_moe"; on a
+    family without MoE layers it keeps what "full" keeps) for the
+    backward."""
     if not cfg.remat:
         return body
-    if cfg.remat_policy == "save_moe":
-        raise NotImplementedError(f"{cfg.name}: remat_policy 'save_moe' saves the MoE layers' "
-                                  "outputs; the MoE family is in ROADMAP queue A")
     kw = {}
-    if cfg.remat_policy == "dots":
-        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    if cfg.remat_policy in _POLICIES:
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _POLICIES[cfg.remat_policy])
     return lambda *a: checkpoint(body, *a, use_reentrant=False, **kw)
 
 
@@ -215,6 +311,43 @@ def _readout(params, h, cfg: ModelConfig):
     return logits
 
 
+def _forward(params, batch, cfg: ModelConfig, *, return_cache: bool, last_only: bool):
+    """(logits, aux (m,) f32 or None, prefill caches or None):
+    :func:`forward` with the summed aux loss of the MoE layers (None
+    without MoE layers)."""
+    _check(cfg)
+    tokens = batch["tokens"]
+    h = _embed_inputs(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[-1], device=h.device)[None]
+    shared = params.get("shared_attn")
+    aux = None
+    caches = {}
+    if cfg.first_dense:
+        h, caches["first_block"], _ = _apply_attn_layer(params["first_block"], h, positions,
+                                                        cfg, "attn_global")
+    per_group = []
+    remat = None  # built at the first group autograd records
+    for group_p in _groups(params["blocks"], cfg):
+        if cfg.remat and not return_cache and torch.is_grad_enabled() and (
+                h.requires_grad or any(x.requires_grad for x in leaves(group_p))):
+            remat = remat or _remat(
+                lambda h, group_p: _apply_group(group_p, h, positions, cfg,
+                                                shared=shared)[::2], cfg)
+            h, a = remat(h, group_p)
+        else:
+            h, group_caches, a = _apply_group(group_p, h, positions, cfg, shared=shared)
+            if return_cache:
+                per_group.append(group_caches)
+        aux = _add_aux(aux, a)
+    if last_only:
+        h = h[:, :, -1:]
+    logits = _readout(params, h, cfg)
+    if not return_cache:
+        return logits, aux, None
+    caches["blocks"] = _stack(per_group, dim=1)
+    return logits, aux, caches
+
+
 def forward(params, batch, cfg: ModelConfig, *, return_cache: bool = False,
             last_only: bool = False):
     """Full-sequence forward of m models on tokens (m, B, S) ->
@@ -222,64 +355,57 @@ def forward(params, batch, cfg: ModelConfig, *, return_cache: bool = False,
 
     ``last_only`` reads out the last position alone, (m, B, 1, V): what
     a prefill step returns, without the (m, B, S, V) logits. The caches
-    are ``{"blocks": {"l{i}": {"k", "v"}}}`` with k, v (m, G, B, S, Hkv, Dh).
+    hold every slot's own state, each leaf stacked over the groups:
+    ``{"blocks": {"l{i}": {"k", "v"} (m, G, B, S, Hkv, Dh) of an
+    attention slot, {"h" (m, G, B, H, P, N) f32, "conv" (m, G, B, W − 1,
+    C)} of a mamba slot}}``, and ``"first_block": {"k", "v"}`` (m, B, S,
+    Hkv, Dh) where there is one. The MoE layers' aux loss is ``loss_fn``'s.
     """
-    _check(cfg)
-    tokens = batch["tokens"]
-    h = _embed_inputs(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[-1], device=h.device)[None]
-    per_group = []
-    remat = None  # built at the first group autograd records
-    for group_p in _groups(params["blocks"], cfg):
-        if cfg.remat and not return_cache and torch.is_grad_enabled() and (
-                h.requires_grad or any(x.requires_grad for x in leaves(group_p))):
-            remat = remat or _remat(
-                lambda h, group_p: _apply_group(group_p, h, positions, cfg)[0], cfg)
-            h = remat(h, group_p)
-            continue
-        h, kv = _apply_group(group_p, h, positions, cfg)
-        if return_cache:
-            per_group.append(kv)
-    if last_only:
-        h = h[:, :, -1:]
-    logits = _readout(params, h, cfg)
-    if not return_cache:
-        return logits
-    caches = {key: {"k": torch.stack([g[key][0] for g in per_group], dim=1),
-                    "v": torch.stack([g[key][1] for g in per_group], dim=1)}
-              for key in per_group[0]}
-    return logits, {"blocks": caches}
+    logits, _, caches = _forward(params, batch, cfg, return_cache=return_cache,
+                                 last_only=last_only)
+    return (logits, caches) if return_cache else logits
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, aux_weight=0.01):
     """(m,) f32: each model's mean next-token NLL over its (B, S) tokens
-    ``batch["tokens"]`` against ``batch["labels"]`` (m, B, S). The dense
-    family has no auxiliary loss, so ``aux_weight`` multiplies 0 and the
-    loss is the NLL alone, as in the reference."""
-    logits = forward(params, batch, cfg)
+    ``batch["tokens"]`` against ``batch["labels"]`` (m, B, S), plus
+    ``aux_weight`` times the sum of its MoE layers' aux losses (0 for a
+    family without MoE layers), as in the reference."""
+    logits, aux, _ = _forward(params, batch, cfg, return_cache=False, last_only=False)
     labels = batch["labels"]
     m = labels.shape[0]
     nll = F.cross_entropy(logits.flatten(0, -2), labels.flatten(), reduction="none")
-    return nll.view(m, -1).mean(dim=1)
+    loss = nll.view(m, -1).mean(dim=1)
+    return loss if aux is None else loss + aux_weight * aux
 
 
 # --------------------------------------------------------------- decode
 def init_cache(cfg: ModelConfig, clients: int, batch: int, max_len: int, device=None):
-    """Empty caches of m = ``clients`` models, leaves (m, G, ...): k and v
-    (m, G, B, L, Hkv, Dh) in ``cfg.act_dtype``, pos (m, G, L) int32; L is
-    max_len, or min(window, max_len) for a window layer; on ``device``,
-    CUDA when None."""
+    """Empty caches of m = ``clients`` models, leaves (m, G, ...): an
+    attention slot's k and v (m, G, B, L, Hkv, Dh) in ``cfg.act_dtype``
+    and pos (m, G, L) int32, L being max_len or min(window, max_len) for a
+    window layer; a mamba slot's h (m, G, B, H, P, N) f32 and conv (m, G,
+    B, W − 1, C) in ``cfg.act_dtype``; the hybrid's shared slot a cache
+    of its own in every group; ``first_block``'s (m, B, max_len, Hkv, Dh)
+    without the group axis. On ``device``, CUDA when None."""
     _check(cfg)
     device = resolve_device(device)
     acfg = attn_config(cfg)
+    mg = clients * cfg.num_groups
     out = {}
     for i, slot in enumerate(_group_slots(cfg)):
-        window = _window(cfg, slot)
-        length = min(window, max_len) if window else max_len
-        one = attention.init_cache(clients * cfg.num_groups, batch, length, acfg,
-                                   cfg.act_tdtype, device)
+        if slot == "mamba":
+            one = ssm.init_cache(mg, batch, ssm_config(cfg), cfg.act_tdtype, device)
+        else:
+            window = _window(cfg, slot)
+            length = min(window, max_len) if window else max_len
+            one = attention.init_cache(mg, batch, length, acfg, cfg.act_tdtype, device)
         out[f"l{i}"] = tree_map(lambda x: x.unflatten(0, (clients, cfg.num_groups)), one)
-    return {"blocks": out}
+    caches = {"blocks": out}
+    if cfg.first_dense:
+        caches["first_block"] = attention.init_cache(clients, batch, max_len, acfg,
+                                                     cfg.act_tdtype, device)
+    return caches
 
 
 def decode_step(params, caches, tokens, pos: int, cfg: ModelConfig):
@@ -290,6 +416,10 @@ def decode_step(params, caches, tokens, pos: int, cfg: ModelConfig):
     """
     _check(cfg)
     h = _embed_inputs(params, tokens, cfg)
+    if cfg.first_dense:
+        h, _, _ = _apply_attn_layer(params["first_block"], h, None, cfg, "attn_global",
+                                    cache=caches["first_block"], pos=pos)
+    shared = params.get("shared_attn")
     for group_p, group_c in zip(_groups(params["blocks"], cfg), _groups(caches["blocks"], cfg)):
-        h, _ = _apply_group(group_p, h, None, cfg, caches=group_c, pos=pos)
+        h, _, _ = _apply_group(group_p, h, None, cfg, caches=group_c, pos=pos, shared=shared)
     return _readout(params, h, cfg), caches

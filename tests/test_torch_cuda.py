@@ -866,6 +866,12 @@ FLASH_CASES = [
     (2, 48, 2, 1, 333, 80, False, 7, 30.0),         # group 24: three row tiles a kv head, window
     (2, 12, 4, 1, 77, 40, False, None, None),       # Dh 40 below its padded width
     (2, 8, 2, 1, 50, 36, False, None, None),        # Dh 36: the FMA kernel
+    # the families' shapes: mixtral-8x7b's GQA-4 with window 4096, zamba2-2.7b's
+    # MHA at Dh 80 (the tile's 128-wide template; the decode kernel at group 1)
+    (4, 32, 8, 1024, 1024, 128, True, 4096, None),  # mixtral-8x7b's prefill
+    (4, 32, 8, 1, 1040, 128, False, None, None),    # mixtral-8x7b's decode
+    (4, 32, 32, 1024, 1024, 80, True, None, None),  # zamba2-2.7b's prefill, Dh 80
+    (4, 32, 32, 1, 1040, 80, False, None, None),    # zamba2-2.7b's decode, Dh 80
 ]
 DECODE_CASES = [c for c in FLASH_CASES if c[3] == 1 and c[5] % 8 == 0]
 
@@ -1454,3 +1460,97 @@ def test_cuda_bf16_products_reduce_in_f32():
         assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
+
+
+# ------------------------------------------------------- the model families
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_cuda_moe_layer_matches_cpu(cf):
+    """The MoE layer of 2 clients (one sort and one buffer for both) on the
+    card against the CPU, f32: y within 1e-5 of the largest |y|, the aux
+    loss within 1e-6 and the same count of dropped assignments."""
+    from repro_torch.models import moe
+
+    dev = cuda_device()
+    cfg = moe.MoEConfig(d_model=256, d_ff=512, num_experts=8, top_k=2, capacity_factor=cf)
+    gen = torch.Generator().manual_seed(0)
+    host = {k: torch.stack([v, v.flip(0)]) for k, v in
+            moe.init(gen, cfg, torch.float32, "cpu").items()}
+    host["router"] = host["router"] * 50  # uneven loads
+    x = torch.randn(2, 2, 64, 256, generator=gen)
+    card = {k: v.to(dev) for k, v in host.items()}
+    hy, ha = moe.apply(host, x, cfg)
+    cy, ca = moe.apply(card, x.to(dev), cfg)
+    assert float((cy.cpu() - hy).abs().max()) <= 1e-5 * float(hy.abs().max())
+    assert float((ca.cpu() - ha).abs().max()) <= 1e-6
+    drops = moe.dropped(host, x, cfg)
+    assert torch.equal(moe.dropped(card, x.to(dev), cfg).cpu(), drops)
+    if cf == 0.5:
+        assert int(drops.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_layer_matches_cpu():
+    """One SSD block of 2 clients on the card against the CPU, f32: the
+    chunked forward and 8 decode steps, y and the caches within 1e-5 of the
+    largest of each."""
+    from repro_torch.models import ssm, transformer
+
+    dev = cuda_device()
+    cfg = ssm.SSMConfig(d_model=128, state=32, headdim=16, chunk=32)
+    gen = torch.Generator().manual_seed(1)
+    host = transformer.tree_map(lambda v: torch.stack([v, v * 0.9]),
+                                ssm.init(gen, cfg, torch.float32, "cpu"))
+    host["A_log"] = torch.randn(2, cfg.num_heads, generator=gen) * 0.5
+    card = transformer.tree_map(lambda v: v.to(dev), host)
+    x = 0.5 * torch.randn(2, 2, 96, 128, generator=gen)
+
+    def close(got, want):
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    hy, hc = ssm.forward(host, x, cfg)
+    cy, cc = ssm.forward(card, x.to(dev), cfg)
+    close(cy, hy)
+    close(cc["h"], hc["h"])
+    close(cc["conv"], hc["conv"])
+    for s in range(8):
+        hy, hc = ssm.decode(host, x[:, :, s:s + 1], hc, cfg)
+        cy, cc = ssm.decode(card, x[:, :, s:s + 1].to(dev), cc, cfg)
+        close(cy, hy)
+    close(cc["h"], hc["h"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "kimi-k2-1t-a32b", "mamba2-1.3b",
+                                  "zamba2-2.7b"])
+def test_cuda_family_serve_matches_cpu(arch):
+    """A reduced f32 model of each ported family for 2 clients (zamba2 at 12
+    layers: two shared-attention caches): the federated prefill step over
+    64 tokens (the FMA kernel once an attention layer) and 24 teacher-forced
+    decode steps (the decode kernel) on the card against the CPU, logits
+    atol 1e-4."""
+    from repro_torch import configs
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer
+
+    dev = cuda_device()
+    cfg = configs.get(arch).reduced(**({"num_layers": 12} if arch == "zamba2-2.7b" else {}))
+    layers = {"ssm": 0, "hybrid": cfg.num_groups}.get(cfg.family, cfg.num_layers)
+    host = serve.personalized_params(cfg, 2, 0, "cpu")
+    card = transformer.tree_map(lambda x: x.to(dev), host)
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, 64), generator=torch.Generator().manual_seed(1))
+    prefill = steps.build_prefill_step(cfg, federated=True)
+    hl, _ = prefill(host, {"tokens": tok})
+    before = flash_launches()
+    cl, _ = prefill(card, {"tokens": tok.to(dev)})
+    assert flash_launches() == dict(before, fma=before["fma"] + layers)
+    assert float((cl.cpu() - hl).abs().max()) <= 1e-4
+    step = steps.build_serve_step(cfg, federated=True)
+    hcache = transformer.init_cache(cfg, 2, 2, 32, "cpu")
+    ccache = transformer.init_cache(cfg, 2, 2, 32, dev)
+    before = flash_launches()
+    for s in range(24):
+        hl, hcache = step(host, hcache, tok[:, :, s:s + 1], s)
+        cl, ccache = step(card, ccache, tok[:, :, s:s + 1].to(dev), s)
+        assert float((cl.cpu() - hl).abs().max()) <= 1e-4, s
+    assert flash_launches() == dict(before, decode=before["decode"] + 24 * layers)

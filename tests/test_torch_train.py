@@ -121,15 +121,26 @@ def test_remat_changes_no_bit(policy):
 
 
 def test_remat_save_moe_raises_and_inference_skips_checkpoint():
+    """remat_policy="save_moe" keeps the MoE layers' tensors; on the dense
+    family, which has none, it no longer raises and gives the loss and
+    gradients of "full" bit for bit, one checkpoint a group (the MoE
+    family's case is ``tests/test_torch_families.py``). Params that need
+    no gradient take no checkpoint and give the same logits."""
     _, pcfg = cfgs("stablelm-1.6b")
     tp = interop.transformer_params_from_numpy(client_params("stablelm-1.6b"), device=CPU)
-    b = {"tokens": torch.zeros((M, 1, 4), dtype=torch.long),
-         "labels": torch.zeros((M, 1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        transformer.loss_fn(transformer.tree_map(lambda x: x.detach().requires_grad_(True), tp), b,
-                            dataclasses.replace(pcfg, remat=True, remat_policy="save_moe"))
-    # params that need no gradient: no checkpoint, the same logits
+    rcfg = ref_configs.get("stablelm-1.6b").reduced()
+    b = torch_batch(lm_batch(rcfg, (M, 2)))
+    full = port_loss_and_grads(dataclasses.replace(pcfg, remat=True), tp, b)
     on = dataclasses.replace(pcfg, remat=True, remat_policy="save_moe")
+    calls = []
+    real = torch.utils.checkpoint.checkpoint
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(transformer, "checkpoint", lambda *a, **k: calls.append(1) or real(*a, **k))
+        saved = port_loss_and_grads(on, tp, b)
+    assert len(calls) == pcfg.num_groups
+    assert torch.equal(full[0], saved[0])
+    for a, c in zip(transformer.leaves(full[2]), transformer.leaves(saved[2])):
+        assert torch.equal(full[1][a], saved[1][c])
     np.testing.assert_array_equal(n(transformer.forward(tp, b, on)),
                                   n(transformer.forward(tp, b, pcfg)))
 
