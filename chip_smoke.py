@@ -136,24 +136,36 @@ Phases, each printed as it ends:
                prefill, 28 of the decode kernel per decode step, none of the
                FMA kernel);
   13. families-agree — reduced mixtral-8x7b, kimi-k2 (``first_dense``),
-               mamba2-1.3b and zamba2-2.7b at 12 layers (two shared-attention
-               groups) in f32 for 2 clients: the federated prefill step over
-               64 tokens (the FMA kernel once an attention layer) and 72
-               teacher-forced decode steps (the decode kernel) on the card
+               mamba2-1.3b, zamba2-2.7b at 12 layers (two shared-attention
+               groups), whisper-large-v3 (2 + 2 layers over 32 stub frames)
+               and internvl2-1b (8 patch embeddings) in f32 for 2 clients:
+               the federated prefill step over 64 tokens (the FMA kernel
+               once an attention call: whisper's encoder, self and cross
+               attention) and 72 teacher-forced decode steps (the decode
+               kernel; whisper's cross K/V from its encoder) on the card
                against the plain path on the CPU, logits and every cache
-               leaf (k, v, pos; the SSM's h and conv) within 1e-4; then each
-               in bf16, the tile's prefill step and 72 decode-kernel steps
-               against the plain attention on the card (2^-5 of the largest
-               logit); then one user-centric train step of reduced mixtral
-               on the card against the CPU (``train_step_agree``'s rule);
+               leaf (k, v, pos; the SSM's h and conv; cross_kv) within 1e-4;
+               then each in bf16, the tile's prefill step and 72
+               decode-kernel steps against the plain attention on the card
+               (2^-5 of the largest logit; each attention call within one
+               bf16 step); then one user-centric train step of reduced
+               mixtral, whisper and internvl2 on the card against the CPU
+               (``train_step_agree``'s rule);
   14. families — mixtral-8x7b at its published widths cut to 4 of 32
-               layers, mamba2-1.3b (48 layers) and zamba2-2.7b (54) at full
-               width and depth, bf16, 2 personalized clients x 2 requests:
-               the federated prefill step over 1024 tokens (mixtral 4 tile
-               launches a call, zamba2 9 at Dh 80, mamba2 none), 16 timed
-               greedy decode steps on its caches and 4 profiled ones (one
-               decode-kernel launch an attention layer a step), each
-               profiled; mixtral's dropped share at capacity factor 1.25;
+               layers, mamba2-1.3b (48 layers), zamba2-2.7b (54),
+               whisper-large-v3 (32 encoder + 32 decoder layers),
+               internvl2-1b (24) and gemma2-9b (42) at full width and
+               depth, bf16, 2 personalized clients x 2 requests: the
+               federated prefill step over 1024 tokens (mixtral 4 tile
+               launches a call, zamba2 9 at Dh 80, mamba2 none), whisper's
+               over 1,500 stub frames and a 256-token prompt (96: 32
+               encoder, 32 self, 32 cross over 1,500 keys), internvl2's over
+               256 patches and 768 tokens (24, GQA 7 at Dh 64) and gemma2's
+               over 4,096 tokens (42 at Dh 256, softcap 50, window 4096 on
+               the local layers); 16 timed greedy decode steps on its caches
+               from the prompt's end and 4 profiled ones (one decode-kernel
+               launch an attention call a step: whisper 64, gemma2's local
+               caches wrapping), each profiled; mixtral's dropped share at capacity factor 1.25;
                one mixtral MoE layer in f32 with a capacity that drops
                nothing against the O(E·N) oracle (1e-5 of the largest |y|)
                and one mamba2 SSD block in f32, its chunked forward over 512
@@ -255,7 +267,7 @@ from repro_torch.kernels.pairwise_delta import GRAM  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
-from repro_torch.models import lenet, transformer  # noqa: E402
+from repro_torch.models import lenet, registry, transformer, whisper  # noqa: E402
 from repro_torch.optim import sgd_init  # noqa: E402
 
 # H100 SXM data sheet: HBM3 rate, f32 CUDA-core peak (no tensor cores) and
@@ -321,6 +333,27 @@ MIXTRAL_DECODE = (4, 32, 8, 1, 1040, 128, False, None, None)
 ZAMBA2_PREFILL = (4, 32, 32, 1024, 1024, 80, True, None, None)
 ZAMBA2_DECODE = (4, 32, 32, 1, 1040, 80, False, None, None)
 FLASH_CASES += [MIXTRAL_PREFILL, MIXTRAL_DECODE, ZAMBA2_PREFILL, ZAMBA2_DECODE]
+# the encoder-decoder and VLM families and gemma2-9b at full width, 2 clients
+# x 2 requests: whisper-large-v3's MHA at Dh 64 over its 1,500 encoder frames
+# (bidirectional, no multiple of the tile's 64 rows), its decoder's causal
+# self-attention over the 256-token prompt and its cross-attention over the
+# frames; internvl2-1b's GQA-7 at Dh 64 over 256 patches + 768 tokens;
+# gemma2-9b's Dh 256 with softcap 50 over a 4,096-token prompt, causal on
+# the global layers and within window 4096 on the local ones; decode from
+# the prompt's end for 20 steps (whisper's self-attention over 257-276 keys)
+WHISPER_ENCODER = (4, 20, 20, 1500, 1500, 64, False, None, None)
+WHISPER_SELF = (4, 20, 20, 256, 256, 64, True, None, None)
+WHISPER_CROSS = (4, 20, 20, 256, 1500, 64, False, None, None)
+WHISPER_DECODE_SELF = (4, 20, 20, 1, 276, 64, False, None, None)
+WHISPER_DECODE_CROSS = (4, 20, 20, 1, 1500, 64, False, None, None)
+INTERNVL2_PREFILL = (4, 14, 2, 1024, 1024, 64, True, None, None)
+INTERNVL2_DECODE = (4, 14, 2, 1, 1040, 64, False, None, None)
+GEMMA2_PREFILL = (4, 16, 8, 4096, 4096, 256, True, None, 50.0)
+GEMMA2_PREFILL_WINDOW = (4, 16, 8, 4096, 4096, 256, True, 4096, 50.0)
+GEMMA2_DECODE = (4, 16, 8, 1, 4096, 256, False, None, 50.0)  # in the sweep already
+FLASH_CASES += [WHISPER_ENCODER, WHISPER_SELF, WHISPER_CROSS, WHISPER_DECODE_SELF,
+                WHISPER_DECODE_CROSS, INTERNVL2_PREFILL, INTERNVL2_DECODE, GEMMA2_PREFILL,
+                GEMMA2_PREFILL_WINDOW]
 # the FMA kernel's row: the reduced f32 prefill step of the serve-agree
 # phase (2 clients x 2 requests x 40 tokens, reduced qwen2-7b's heads)
 FMA_CASE = (4, 4, 2, 40, 40, 32, True, None, None)
@@ -359,14 +392,23 @@ STEP_DELTA_TOL = 0.25
 # full depth, served at full width: a 1,024-token prefill step, then
 # FAMILY_DECODE timed greedy decode steps on its caches and 4 profiled ones
 AGREE_FAMILIES = {"mixtral-8x7b": {}, "kimi-k2-1t-a32b": {}, "mamba2-1.3b": {},
-                  "zamba2-2.7b": {"num_layers": 12}}
+                  "zamba2-2.7b": {"num_layers": 12}, "whisper-large-v3": {}, "internvl2-1b": {}}
 AGREE_PREFILL = 64  # a multiple of the reduced SSD chunk (32)
+# the reduced families whose f32 train step families-agree runs
+AGREE_TRAIN = ("mixtral-8x7b", "whisper-large-v3", "internvl2-1b")
 # reduced mixtral's f32 train step, card against CPU, |Δ_card - Δ_cpu| /
 # |Δ_cpu| in L2 for each leaf: about 130 times the largest reading
 # (7.647e-07 on an H100); a mix or a product in bf16 or TF32 reads 1e-3
 # and more
 FAMILY_STEP_TOL = 1e-4
-FAMILY_LAYERS = {"mixtral-8x7b": 4, "mamba2-1.3b": None, "zamba2-2.7b": None}
+FAMILY_LAYERS = {"mixtral-8x7b": 4, "mamba2-1.3b": None, "zamba2-2.7b": None,
+                 "whisper-large-v3": None, "internvl2-1b": None, "gemma2-9b": None}
+# the prompt's tokens where a family's is not PREFILL_LEN: whisper's decoder
+# prompt (beside its 1,500 frames; the 20 decode steps stay inside its
+# 448-position decoder), internvl2's tokens after its 256 patches (1,024
+# positions), and gemma2's 4,096 tokens, which fill its local layers'
+# 4,096-slot rolling caches, so the first decode step wraps them
+FAMILY_PROMPT = {"whisper-large-v3": 256, "internvl2-1b": 768, "gemma2-9b": 4096}
 FAMILY_DECODE, FAMILY_PROFILED = 16, 4
 # the full-width layer checks: the SSD's chunked forward against its
 # one-token recurrence over SSD_TOKENS tokens (the reference's own
@@ -541,7 +583,7 @@ def finish_row(name, r):
              + (f"  [{r['plan']}]" if "plan" in r else "")
              + (f"  [{r['route_detail']}]" if "route_detail" in r else "")
              + (f"  [{r['shape']}]" if "shape" in r else ""))
-    library = ("library none" if r["library_ms"] is None else
+    library = (f"library none ({r.get('library_none')})" if r["library_ms"] is None else
                f"library {r['library_ms']:.4f} ms  kernel/library {r['ms'] / r['library_ms']:.2f}")
     print(f"  {name}: max_abs_err {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
           f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms ({r['bound_by']})  "
@@ -1100,20 +1142,33 @@ def flash_rows(dev):
             ("flash_attention_prefill_mixtral", MIXTRAL_PREFILL, bf16, "tc", BF16_FLOP_PER_S),
             ("flash_attention_decode_mixtral", MIXTRAL_DECODE, bf16, "decode", BF16_FLOP_PER_S),
             ("flash_attention_prefill_zamba2", ZAMBA2_PREFILL, bf16, "tc", BF16_FLOP_PER_S),
-            ("flash_attention_decode_zamba2", ZAMBA2_DECODE, bf16, "decode", BF16_FLOP_PER_S)):
-        b, hq, hkv, sq, sk, dh, causal, window, _ = case
+            ("flash_attention_decode_zamba2", ZAMBA2_DECODE, bf16, "decode", BF16_FLOP_PER_S),
+            ("flash_attention_prefill_whisper_encoder", WHISPER_ENCODER, bf16, "tc",
+             BF16_FLOP_PER_S),
+            ("flash_attention_prefill_whisper_self", WHISPER_SELF, bf16, "tc", BF16_FLOP_PER_S),
+            ("flash_attention_prefill_whisper_cross", WHISPER_CROSS, bf16, "tc", BF16_FLOP_PER_S),
+            ("flash_attention_decode_whisper_self", WHISPER_DECODE_SELF, bf16, "decode",
+             BF16_FLOP_PER_S),
+            ("flash_attention_decode_whisper_cross", WHISPER_DECODE_CROSS, bf16, "decode",
+             BF16_FLOP_PER_S),
+            ("flash_attention_prefill_internvl2", INTERNVL2_PREFILL, bf16, "tc", BF16_FLOP_PER_S),
+            ("flash_attention_decode_internvl2", INTERNVL2_DECODE, bf16, "decode",
+             BF16_FLOP_PER_S),
+            ("flash_attention_prefill_gemma2", GEMMA2_PREFILL, bf16, "tc", BF16_FLOP_PER_S),
+            ("flash_attention_prefill_gemma2_window", GEMMA2_PREFILL_WINDOW, bf16, "tc",
+             BF16_FLOP_PER_S),
+            ("flash_attention_decode_gemma2", GEMMA2_DECODE, bf16, "decode", BF16_FLOP_PER_S)):
+        b, hq, hkv, sq, sk, dh, causal, window, cap = case
         q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev)
-        kw = dict(causal=causal, window=window)
+        kw = dict(causal=causal, window=window, softcap=cap)
         got, took = flash_call(q, k, v, **kw)
         if took != route:
             raise AssertionError(f"{name}: {case} {dtype} took {took}, not {route}")
         err = errs.get((case, dtype))
         if err is None:  # the FMA row's shape is not in the sweep
             err = check(name, got, ref.flash_attention(q, k, v, **kw), 2e-5)
-        if window is not None and window < sk:
-            raise AssertionError(f"{name}: SDPA's causal mask stands for window {window} only "
-                                 f"when it spans the {sk} keys")
         nbytes, flops = flash_bytes_flops(case, dtype)
+        library = sdpa_library(name, q, k, v, **kw)
         rows[name] = dict(
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:88", max_abs_err=err,
@@ -1121,14 +1176,46 @@ def flash_rows(dev):
                 q, k, v, impl="cuda", **kw), dev),
             plain_ms=time_ms(lambda q=q, k=k, v=v, kw=kw: ref.flash_attention(q, k, v, **kw),
                              dev),
-            library_ms=time_ms(lambda q=q, k=k, v=v, c=causal: sdpa(
-                q, k, v, is_causal=c, enable_gqa=True), dev),
+            library_ms=None if library is None else time_ms(library, dev),
             bytes=nbytes, flops=flops, flop_rate=rate)
+        if library is None:
+            rows[name]["library_none"] = "SDPA takes no softcap"
         if route == "decode":
             rows[name]["route_detail"] = f"{decode_splits_of(case, dev)} splits"
     rows["flash_attention_decode"]["long"] = decode_long(dev, sdpa)
     rows["flash_attention_decode"]["host"] = decode_host(dev)
     return rows
+
+
+def sdpa_library(name, q, k, v, *, causal, window, softcap):
+    """One ``scaled_dot_product_attention`` call that computes
+    flash_attention's function on (q, k, v), as a closure, or None under
+    a softcap (SDPA takes none): ``is_causal`` for the top-left causal
+    mask where the window cuts nothing (window >= Sq), else a boolean
+    causal-and-window ``attn_mask`` (True: attend) built outside the
+    call. Its output is held against the plain version within 2^-6 of
+    the largest output (bf16) or 1e-4 (f32): a wrong mask moves whole
+    rows."""
+    if softcap is not None:
+        return None
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sq, sk = q.shape[2], k.shape[2]
+    if window is None or window >= sq:
+        def call():
+            return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+    else:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        mask = cols > rows - window
+        if causal:
+            mask &= cols <= rows
+        def call():
+            return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+    with torch.no_grad():
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        tol = 1e-4 if q.dtype == torch.float32 else 2.0 ** -6 * float(want.float().abs().max())
+        check(f"{name}: SDPA against the plain version", call(), want, tol)
+    return call
 
 
 def decode_long(dev, sdpa):
@@ -1290,6 +1377,16 @@ def union_length(intervals):
     return total
 
 
+class EmptyTrace(AssertionError):
+    """A profile that traced no device activity; ``launches`` is the kernel
+    launches the host made in it."""
+
+    def __init__(self, launches, wall_ms):
+        super().__init__(f"profile: no device activity was traced ({launches} kernel launches "
+                         f"counted on the host, wall {wall_ms:.3f} ms)")
+        self.launches, self.wall_ms = launches, wall_ms
+
+
 def profile(fn, dev, top=8):
     """Run ``fn`` once under torch.profiler; returns the host wall time, the
     device's busy time (the union of its kernel, copy and set intervals),
@@ -1301,7 +1398,8 @@ def profile(fn, dev, top=8):
     kernels and the gaps between them, so they are left out. The trace is
     read as the profiler's raw events (its ``kineto_results``): building
     its Python event tree takes about 1 ms a kernel launch, minutes for a
-    round of ucfl_parallel."""
+    round of ucfl_parallel. A trace with no device activity raises
+    ``EmptyTrace``."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1323,7 +1421,7 @@ def profile(fn, dev, top=8):
         elif name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
             launches += 1
     if not spans:
-        raise AssertionError("profile: no device activity was traced")
+        raise EmptyTrace(launches, wall_ms)
     busy_ms = union_length([(s, e) for _, s, e in spans]) / 1e3
     if not busy_ms <= wall_ms:
         raise AssertionError(f"profile: device busy {busy_ms:.3f} ms exceeds the wall "
@@ -1696,12 +1794,24 @@ def wire_stage_check(dev, d):
             e_ = torch.zeros_like(p_)
             call = functools.partial(st, p_, q_, e_)
             call()
-            prof = profile(call, dev)
+            try:
+                prof = profile(call, dev)
+            except EmptyTrace as e:
+                # one full run's trace of a 0.07 ms stage window came back
+                # empty; the stage is pure, so its trace is taken once more,
+                # and the line says so with what the host launched
+                print(f"  wire stage {kind}, {streams} stream(s), {direction} ({rows}): the "
+                      f"profile traced no device activity ({e.launches} kernel launches "
+                      f"counted on the host, wall {e.wall_ms:.3f} ms); profiling it once more")
+                prof = profile(call, dev)
+                prof["empty_trace_launches"] = e.launches
             if not prof["launches"] > 0:
                 raise AssertionError(f"wire stage {kind}: no kernel launch counted on the host "
                                      f"({prof['device_ops']} device ops traced)")
             cost = {"launches": prof["launches"], "ms": time_ms(call, dev),
                     "busy_ms": prof["device_busy_ms"]}
+            if "empty_trace_launches" in prof:
+                cost["empty_trace_launches"] = prof["empty_trace_launches"]
             profiles[(streams, direction, rows, kind)] = cost
             print(f"  wire stage {kind}, {streams} stream(s), {direction} ({rows}, "
                   f"{schema.width_aligned(direction)}): {cost['launches']} launches, "
@@ -2492,81 +2602,141 @@ class PinnedRouting:
                 "token routings of the plain run would have differed" if self.tokens else "")
 
 
+def family_inputs(cfg, tokens, seed):
+    """A forward's inputs: ``tokens`` (m, B, S), and whisper's stub frames
+    (m, B, T_enc, D) or the VLM's patch embeddings (m, B, P, P_in),
+    N(0, 1) from ``seed`` in the activation dtype, on the tokens' device."""
+    out = {"tokens": tokens}
+    lead = tuple(tokens.shape[:2])
+    if cfg.family == "audio":
+        key, shape = "frames", lead + (cfg.encoder_seq, cfg.d_model)
+    elif cfg.family == "vlm":
+        key, shape = "patch_embeds", lead + (cfg.num_patches, cfg.patch_embed_dim)
+    else:
+        return out
+    extra = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+    out[key] = extra.to(device=tokens.device, dtype=cfg.act_tdtype)
+    return out
+
+
+def prompt_positions(cfg, seq):
+    """The positions a prefill of ``seq`` tokens fills: the VLM's patches
+    come first; whisper's frames are the encoder's, not the decoder's."""
+    return seq + (cfg.num_patches if cfg.family == "vlm" else 0)
+
+
+def family_cache(cfg, params, inputs, clients, batch, max_len, dev):
+    """The family's empty decode caches; whisper's with each decoder
+    layer's cross K/V of the encoder's output on ``inputs["frames"]``
+    (``init_cache(enc_out=, params=)``)."""
+    if cfg.family != "audio":
+        return registry.module(cfg).init_cache(cfg, clients, batch, max_len, dev)
+    enc = whisper.encode(params, inputs["frames"], cfg)
+    return whisper.init_cache(cfg, clients, batch, max_len, dev, enc_out=enc, params=params)
+
+
+def hold_recorded(calls, dev):
+    """Every recorded attention call's inputs through the kernel and the
+    plain version (``hold_call``: bf16 element by element within one bf16
+    step of each output); returns the number of shapes held."""
+    for key, rec in calls.items():
+        hold_call(key[0], rec["args"], rec["kw"], dev)
+    return len(calls)
+
+
 def bf16_prefill_agree(dev, cfg, seq=96):
     """A bf16 model's federated prefill step (2 clients x 2 requests x
-    ``seq`` tokens, past gemma2's window 64) through the tensor-core tile,
-    as ``attention.forward`` calls it (fused-projection views, GQA, window,
-    softcap), against the same step with the plain attention on the card.
-    The two runs share every other kernel and all weights, so they differ
-    only where an attention output rounds to the neighbouring bf16 value
-    (phase 3 holds each to one step), carried through the later layers'
-    bf16 products and norms: logits and every cache leaf within 4 bf16
-    steps of their largest magnitude (2^-5 of it). An MoE model's plain run
-    takes the kernel run's expert choices (``PinnedRouting``)."""
+    ``seq`` tokens, past gemma2's window 64; whisper's frames, the VLM's
+    patches) through the tensor-core tile, as the model calls it
+    (fused-projection views, GQA, window, softcap, whisper's encoder and
+    cross-attention), against the same step with the plain attention on
+    the card. Every attention call's output is held within one bf16 step
+    of the plain version on its own inputs (``hold_recorded``). The two
+    runs share every other kernel and all weights, so they differ only
+    where an attention output rounds to the neighbouring bf16 value,
+    carried through the later layers' bf16 products and norms: logits and
+    every cache leaf within 4 bf16 steps of their largest magnitude (2^-5
+    of it). An MoE model's plain run takes the kernel run's expert choices
+    (``PinnedRouting``)."""
     params = serve_lib.personalized_params(cfg, 2, SEED, dev)
     tok = torch.randint(0, cfg.vocab_size, (2, 2, seq),
                         generator=torch.Generator().manual_seed(SEED + 2)).to(dev)
+    inputs = family_inputs(cfg, tok, SEED + 2)
     prefill = steps.build_prefill_step(cfg, federated=True)
     pin = PinnedRouting()
     zero_counters()
-    with pin.run("record"):
-        got, got_cache = prefill(params, {"tokens": tok})
-    layers = attention_layers(cfg)
+    with pin.run("record"), recorded_calls() as calls:
+        got, got_cache = prefill(params, inputs)
+    layers = attention_calls(cfg)
     read_counters(f"serve-agree {cfg.name} bf16", {"flash_attention_prefill": layers})
+    held = hold_recorded(calls, dev)
+    zero_counters()
     with plain_attention(), pin.run("replay"):
-        want, want_cache = prefill(params, {"tokens": tok})
-    read_counters(f"serve-agree {cfg.name} bf16 plain", {"flash_attention_prefill": layers})
+        want, want_cache = prefill(params, inputs)
+    read_counters(f"serve-agree {cfg.name} bf16 plain", {})
     largest = float(want.float().abs().max())
     err = check(f"serve-agree {cfg.name} bf16 prefill logits", got, want, 2.0 ** -5 * largest)
     cache_errs = [check(f"serve-agree {cfg.name} bf16 prefill cache", g, w,
                         2.0 ** -5 * float(w.float().abs().max()))
                   for g, w in zip(leaves(got_cache), leaves(want_cache))]
-    print(f"  {cfg.name} bf16: prefill over {seq} tokens on the tile, {layers} launches; "
-          f"logits max_abs_err {err:.3e} against the plain attention (largest |logit| "
-          f"{largest:.3f}), cache leaves {max(cache_errs):.3e}{pin.report()}")
+    print(f"  {cfg.name} bf16: prefill over {prompt_positions(cfg, seq)} positions on the tile, "
+          f"{layers} launches, {held} shape(s) each within one bf16 step; logits max_abs_err "
+          f"{err:.3e} against the plain attention (largest |logit| {largest:.3f}), cache leaves "
+          f"{max(cache_errs):.3e}{pin.report()}")
 
 
 def bf16_decode_agree(dev, cfg, steps_run=72):
     """A bf16 model's teacher-forced decode steps (2 clients x 2 requests,
-    past gemma2's window 64) through the decode kernel, against the same
-    steps with the plain attention on the card, each run on its own cache.
-    As in ``bf16_prefill_agree`` the runs differ only where an attention
-    output rounds to the neighbouring bf16 value, carried through later
-    layers and into the caches: every step's logits within 4 bf16 steps of
-    that step's largest logit (2^-5 of it). An MoE model's plain run takes
-    the kernel run's expert choices (``PinnedRouting``)."""
+    past gemma2's window 64; whisper over its encoder's cross K/V, shared
+    by both runs) through the decode kernel, against the same steps with
+    the plain attention on the card, each run on its own cache. Every
+    attention call's output is held within one bf16 step of the plain
+    version on its own inputs (``hold_recorded``). As in
+    ``bf16_prefill_agree`` the runs differ only where an attention output
+    rounds to the neighbouring bf16 value, carried through later layers and
+    into the caches: every step's logits within 4 bf16 steps of that step's
+    largest logit (2^-5 of it). An MoE model's plain run takes the kernel
+    run's expert choices (``PinnedRouting``)."""
     params = serve_lib.personalized_params(cfg, 2, SEED, dev)
     tok = torch.randint(0, cfg.vocab_size, (2, 2, steps_run),
                         generator=torch.Generator().manual_seed(SEED + 4)).to(dev)
     step = steps.build_serve_step(cfg, federated=True)
+    cross = None
+    if cfg.family == "audio":
+        cross = family_cache(cfg, params, family_inputs(cfg, tok, SEED + 4), 2, 2, 1,
+                             dev)["cross_kv"]
 
     def run():
-        cache = transformer.init_cache(cfg, 2, 2, steps_run + 8, dev)
+        cache = registry.module(cfg).init_cache(cfg, 2, 2, steps_run + 8, dev)
+        if cross is not None:
+            cache["cross_kv"] = cross
         logits = []
         for pos in range(steps_run):
             out, cache = step(params, cache, tok[:, :, pos:pos + 1], pos)
             logits.append(out)
         return logits
 
-    layers = attention_layers(cfg)
+    layers = attention_calls(cfg, decode=True)
     pin = PinnedRouting()
     zero_counters()
-    with pin.run("record"):
+    with pin.run("record"), recorded_calls() as calls:
         got = run()
     read_counters(f"serve-agree {cfg.name} bf16 decode",
                   {"flash_attention_decode": steps_run * layers})
+    held = hold_recorded(calls, dev)
+    zero_counters()
     with plain_attention(), pin.run("replay"):
         want = run()
-    read_counters(f"serve-agree {cfg.name} bf16 decode plain",
-                  {"flash_attention_decode": steps_run * layers})
+    read_counters(f"serve-agree {cfg.name} bf16 decode plain", {})
     worst = 0.0
     for pos, (g, w) in enumerate(zip(got, want)):
         largest = float(w.float().abs().max())
         err = check(f"serve-agree {cfg.name} bf16 decode step {pos}", g, w, 2.0 ** -5 * largest)
         worst = max(worst, err / largest)
     print(f"  {cfg.name} bf16: {steps_run} decode steps on the decode kernel, "
-          f"{steps_run * layers} launches; logits within {worst:.3e} of each step's "
-          f"largest |logit| against the plain attention (gate 2^-5){pin.report()}")
+          f"{steps_run * layers} launches, {held} shape(s) each within one bf16 step; logits "
+          f"within {worst:.3e} of each step's largest |logit| against the plain attention "
+          f"(gate 2^-5){pin.report()}")
 
 
 def zero_counters():
@@ -2604,12 +2774,14 @@ def check_logits(name, logits, cfg):
     return diff
 
 
-def prefill_run(dev, cfg, top=12):
+def prefill_run(dev, cfg, top=12, seq=PREFILL_LEN):
     """Personalized params for SERVE_CLIENTS clients, then the federated
-    prefill step over PREFILL_LEN tokens a request (one warm-up call and
-    PREFILL_REPS timed ones, one tile launch an attention layer a call,
-    no other kernel), its logits checked, and a profile of one more call.
-    Returns (out, params, tokens, the last logits, the last caches)."""
+    prefill step over ``seq`` tokens a request (whisper's encoder frames
+    and the VLM's patches beside them, ``family_inputs``; one warm-up call
+    and PREFILL_REPS timed ones, one tile launch an attention call, no
+    other kernel), its logits checked, and a profile of one more call.
+    Returns (out, params, the inputs, the last logits, the last caches,
+    the counted calls' ``recorded_calls``)."""
     m, b = SERVE_CLIENTS, SERVE_BATCH
     t0 = time.perf_counter()
     params = serve_lib.personalized_params(cfg, m, SEED, dev)
@@ -2618,34 +2790,41 @@ def prefill_run(dev, cfg, top=12):
                params_per_client=sum(x[0].numel() for x in leaves(params)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
-    tokens = torch.randint(0, cfg.vocab_size, (m, b, PREFILL_LEN), generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (m, b, seq), generator=gen, device=dev)
+    inputs = family_inputs(cfg, tokens, SEED + 8)
     prefill = steps.build_prefill_step(cfg, federated=True)
     zero_counters()
     times = []
-    for _ in range(1 + PREFILL_REPS):
-        torch.cuda.synchronize(dev)
-        t = time.perf_counter()
-        logits, caches = prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize(dev)
-        times.append(time.perf_counter() - t)
+    with recorded_calls(copy=False) as calls:
+        for _ in range(1 + PREFILL_REPS):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            logits, caches = prefill(params, inputs)
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t)
     out["prefill_launches"] = read_counters(
         f"{cfg.name} prefill",
-        {"flash_attention_prefill": attention_layers(cfg) * (1 + PREFILL_REPS)})
+        {"flash_attention_prefill": attention_calls(cfg) * (1 + PREFILL_REPS)})
     if tuple(logits.shape) != (m, b, 1, cfg.padded_vocab):
         raise AssertionError(f"{cfg.name} prefill: logits {tuple(logits.shape)}")
     out["client_logit_diff"] = check_logits(f"{cfg.name} prefill", logits, cfg)
     out["prefill_times_s"] = times
     out["prefill_s"] = statistics.median(times[1:])
-    out["prefill_tok_s"] = m * b * PREFILL_LEN / out["prefill_s"]
-    out["prefill_profile"] = profile(lambda: prefill(params, {"tokens": tokens}), dev, top=top)
-    return out, params, tokens, logits, caches
+    out["prefill_tokens"] = seq
+    out["prefill_tok_s"] = m * b * seq / out["prefill_s"]
+    # every input position a request brings: the VLM's patches, whisper's frames
+    extra = {"audio": cfg.encoder_seq, "vlm": cfg.num_patches}.get(cfg.family, 0)
+    out["prefill_inputs_s"] = m * b * (seq + extra) / out["prefill_s"]
+    out["prefill_profile"] = profile(lambda: prefill(params, inputs), dev, top=top)
+    return out, params, inputs, logits, caches, calls
 
 
 def serve_prefill(dev, cfg):
     """``prefill_run``, its k cache's shape checked, and a profile of
     decode steps at the serve run's positions."""
     m, b = SERVE_CLIENTS, SERVE_BATCH
-    out, params, tokens, logits, caches = prefill_run(dev, cfg)
+    out, params, inputs, logits, caches, _ = prefill_run(dev, cfg)
+    tokens = inputs["tokens"]
     k = caches["blocks"]["l0"]["k"]
     if tuple(k.shape) != (m, cfg.num_groups, b, PREFILL_LEN, cfg.num_kv_heads,
                           cfg.resolved_head_dim):
@@ -2713,13 +2892,17 @@ def serve_phase(dev):
     return out
 
 
-def attention_layers(cfg):
-    """The attention layers a forward runs: none in an SSM, one shared
-    layer a group in the hybrid, every layer (first_block's too) else."""
+def attention_calls(cfg, decode=False):
+    """The attention kernel calls of one forward (or one decode step):
+    none in an SSM, one shared layer a group in the hybrid; whisper's
+    encoder layers (the forward only), then a self- and a cross-attention
+    call a decoder layer; every layer (first_block's too) else."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.num_groups
+    if cfg.family == "audio":
+        return 2 * cfg.num_layers + (0 if decode else cfg.encoder_layers)
     return cfg.num_layers
 
 
@@ -2733,68 +2916,77 @@ def check_tree(name, got, want, tol):
 
 
 def families_agree_phase(dev):
-    """Reduced mixtral-8x7b, kimi-k2 (first_dense), mamba2-1.3b and
+    """Reduced mixtral-8x7b, kimi-k2 (first_dense), mamba2-1.3b,
     zamba2-2.7b at 12 layers (two hybrid groups, so two shared-attention
-    caches) in f32, 2 clients x 2 requests, from the same weights: the
-    federated prefill step over AGREE_PREFILL tokens (the FMA kernel once
-    an attention layer) and 72 teacher-forced decode steps (the decode
-    kernel once an attention layer a step) on the card against the plain
-    path on the CPU, logits atol 1e-4 as in serve-agree and every cache
-    leaf (k, v, pos; h, conv) within 1e-4 (of its largest magnitude where
-    that is over 1). Then each in bf16: the tile's prefill and 72
-    decode-kernel steps against the plain attention on the card
+    caches), whisper-large-v3 (2 encoder + 2 decoder layers, 32 stub
+    frames) and internvl2-1b (8 patches) in f32, 2 clients x 2 requests,
+    from the same weights and inputs: the federated prefill step over
+    AGREE_PREFILL tokens (the FMA kernel once an attention call) and 72
+    teacher-forced decode steps (the decode kernel once an attention call
+    a step; whisper's cross K/V from its encoder, ``family_cache``) on the
+    card against the plain path on the CPU, logits atol 1e-4 as in
+    serve-agree and every cache leaf (k, v, pos; h, conv; cross_kv) within
+    1e-4 (of its largest magnitude where that is over 1). Then each in
+    bf16: the tile's prefill and 72 decode-kernel steps against the plain
+    attention on the card, each attention call within one bf16 step
     (``bf16_prefill_agree``, ``bf16_decode_agree``); then one federated
-    train step of reduced mixtral (``family_train_agree``). The card's f32
-    prefills and the train step run under ``recorded_calls``, so each of
-    their kernels gets a row that holds every shape it was given against
-    the plain version. Returns (rows, {row: launches})."""
+    user-centric train step of reduced mixtral, whisper and internvl2
+    (``family_train_agree``). The card's f32 prefills and the train steps
+    run under ``recorded_calls``, so each of their kernels gets a row (tag
+    ``families``) that holds every shape it was given against the plain
+    version. Returns (rows, {row: launches})."""
     t0 = time.perf_counter()
     calls = {}
     for arch, over in AGREE_FAMILIES.items():
         cfg = configs.get(arch).reduced(**over)
-        layers = attention_layers(cfg)
+        layers, decode_layers = attention_calls(cfg), attention_calls(cfg, decode=True)
         host = serve_lib.personalized_params(cfg, 2, SEED, "cpu")
         card = transformer.tree_map(lambda x: x.to(dev), host)
         tok = torch.randint(0, cfg.vocab_size, (2, 2, 72),
                             generator=torch.Generator().manual_seed(SEED + 1))
+        hin = family_inputs(cfg, tok[:, :, :AGREE_PREFILL], SEED + 3)
+        cin = {k: v.to(dev) for k, v in hin.items()}
         prefill = steps.build_prefill_step(cfg, federated=True)
-        hl, hc = prefill(host, {"tokens": tok[:, :, :AGREE_PREFILL]})
+        hl, hc = prefill(host, hin)
         zero_counters()
         with recorded_calls() as prefill_calls:
-            cl, cc = prefill(card, {"tokens": tok[:, :, :AGREE_PREFILL].to(dev)})
+            cl, cc = prefill(card, cin)
         read_counters(f"families-agree {arch} f32 prefill", {"flash_attention_fma": layers})
         merge_calls(calls, prefill_calls)
         errs = [check(f"families-agree {arch} prefill", cl, hl.to(dev), 1e-4)]
         cache_err = check_tree(f"families-agree {arch} prefill cache", cc,
                                transformer.tree_map(lambda x: x.to(dev), hc), 1e-4)
         step = steps.build_serve_step(cfg, federated=True)
-        hcache = transformer.init_cache(cfg, 2, 2, 80, "cpu")
-        ccache = transformer.init_cache(cfg, 2, 2, 80, dev)
+        hcache = family_cache(cfg, host, hin, 2, 2, 80, "cpu")
+        ccache = family_cache(cfg, card, cin, 2, 2, 80, dev)
         zero_counters()
         for pos in range(72):
             hl, hcache = step(host, hcache, tok[:, :, pos:pos + 1], pos)
             cl, ccache = step(card, ccache, tok[:, :, pos:pos + 1].to(dev), pos)
             errs.append(check(f"families-agree {arch} decode step {pos}", cl, hl.to(dev), 1e-4))
-        read_counters(f"families-agree {arch} f32 decode", {"flash_attention_decode": 72 * layers})
+        read_counters(f"families-agree {arch} f32 decode",
+                      {"flash_attention_decode": 72 * decode_layers})
         cache_err = max(cache_err, check_tree(f"families-agree {arch} decode cache", ccache,
                                               transformer.tree_map(lambda x: x.to(dev), hcache),
                                               1e-4))
-        print(f"  {cfg.name} ({cfg.family}, {cfg.num_layers} layers, {layers} attention): "
+        print(f"  {cfg.name} ({cfg.family}, {cfg.num_layers} layers, {layers} attention calls): "
               f"prefill logits max_abs_err {errs[0]:.3e} ({layers} FMA launches), 72 decode "
-              f"steps {max(errs[1:]):.3e} ({72 * layers} decode launches), caches "
+              f"steps {max(errs[1:]):.3e} ({72 * decode_layers} decode launches), caches "
               f"{cache_err:.3e}; largest |logit| {float(hl.abs().max()):.2f}")
     for arch, over in AGREE_FAMILIES.items():
         cfg = configs.get(arch).reduced(param_dtype="bfloat16", act_dtype="bfloat16", **over)
         bf16_prefill_agree(dev, cfg)
         bf16_decode_agree(dev, cfg)
-    merge_calls(calls, family_train_agree(dev))
+    for arch in AGREE_TRAIN:
+        merge_calls(calls, family_train_agree(dev, arch))
     rows, launches = recorded_rows("families", calls, dev)
     for name, r in rows.items():
         finish_row(name, r)
-    phase("families-agree", t0, "reduced mixtral-8x7b, kimi-k2, mamba2-1.3b and zamba2-2.7b "
-          "serve on the card as on the CPU (f32, logits and caches within 1e-4, 72 decode "
-          "steps); in bf16 the tile's prefill and 72 decode steps match the plain attention's; "
-          "a train step of reduced mixtral matches the CPU's")
+    phase("families-agree", t0, "reduced mixtral-8x7b, kimi-k2, mamba2-1.3b, zamba2-2.7b, "
+          "whisper-large-v3 and internvl2-1b serve on the card as on the CPU (f32, logits and "
+          "caches within 1e-4, 72 decode steps); in bf16 the tile's prefill and 72 decode "
+          "steps match the plain attention's; a train step of reduced mixtral, whisper and "
+          "internvl2 matches the CPU's")
     return rows, launches
 
 
@@ -2809,19 +3001,19 @@ def merge_calls(into, calls):
             into[key]["launches"][k] = into[key]["launches"].get(k, 0) + n
 
 
-def family_train_agree(dev):
-    """One federated user-centric train step of reduced mixtral-8x7b (f32,
-    2 clients, the FMA kernel under autograd once a layer, the mix kernel
-    once a leaf) on the card against the same step on the CPU, from the
-    same params, W and batch: the loss within 1e-3 of itself, each leaf's
-    change within FAMILY_STEP_TOL of the CPU's change (L2). Returns the
-    card step's recorded calls."""
-    cfg = configs.get("mixtral-8x7b").reduced()
+def family_train_agree(dev, arch):
+    """One federated user-centric train step of a reduced family (f32, 2
+    clients, the FMA kernel under autograd once an attention call, the mix
+    kernel once a leaf) on the card against the same step on the CPU, from
+    the same params, W and batch (whisper's frames, the VLM's patches): the
+    loss within 1e-3 of itself, each leaf's change within FAMILY_STEP_TOL
+    of the CPU's change (L2). Returns the card step's recorded calls."""
+    cfg = configs.get(arch).reduced()
     host = serve_lib.personalized_params(cfg, 2, SEED, "cpu")
     card = transformer.tree_map(lambda x: x.to(dev), host)
     toks = torch.randint(0, cfg.vocab_size, (2, 2, AGREE_PREFILL + 1),
                          generator=torch.Generator().manual_seed(SEED + 5))
-    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    batch = dict(family_inputs(cfg, toks[..., :-1], SEED + 6), labels=toks[..., 1:])
     w = torch.tensor([[0.7, 0.3], [0.4, 0.6]])
     step = steps.build_train_step(cfg, n_clients=2, agg="user_centric", lr=TRAIN_LR,
                                   momentum=cfg.momentum)
@@ -2830,20 +3022,20 @@ def family_train_agree(dev):
     with recorded_calls() as calls:
         got, _, gm = step(card, sgd_init(card, momentum=cfg.momentum), w.to(dev),
                           {k: v.to(dev) for k, v in batch.items()})
-    launches = read_counters("families-agree train step",
-                             {"flash_attention_fma": cfg.num_layers,
+    launches = read_counters(f"families-agree {arch} train step",
+                             {"flash_attention_fma": attention_calls(cfg),
                               "mix_aggregate": len(leaves(card))})
     loss_err = abs(float(gm["loss"]) - float(wm["loss"]))
     if not loss_err <= 1e-3 * abs(float(wm["loss"])):
-        raise AssertionError(f"families-agree train step: loss {float(gm['loss'])} against the "
-                             f"CPU's {float(wm['loss'])}")
+        raise AssertionError(f"families-agree {arch} train step: loss {float(gm['loss'])} "
+                             f"against the CPU's {float(wm['loss'])}")
     worst = 0.0
     for name, a, b, p0 in zip(pytree.paths(got), leaves(got), leaves(want), leaves(host)):
         num, den = float((a.cpu() - b).norm()), float((b - p0).norm())
         rel = num / den if den else (0.0 if num == 0 else float("inf"))
         if not rel <= FAMILY_STEP_TOL:
-            raise AssertionError(f"families-agree train step: {'/'.join(name)}'s change is "
-                                 f"{rel:.3e} (L2) off the CPU's (gate {FAMILY_STEP_TOL})")
+            raise AssertionError(f"families-agree {arch} train step: {'/'.join(name)}'s change "
+                                 f"is {rel:.3e} (L2) off the CPU's (gate {FAMILY_STEP_TOL})")
         worst = max(worst, rel)
     print(f"  {cfg.name} train step (user_centric, 2 clients, f32) on the card against the CPU: "
           f"loss {float(gm['loss']):.6f} / {float(wm['loss']):.6f}, the change of a leaf at most "
@@ -2862,12 +3054,17 @@ def family_config(arch):
 def decode_cache(cfg, prefill_caches, clients, batch, max_len, dev):
     """A decode cache of ``max_len`` positions holding a prefill step's
     caches: each attention slot's k and v in its first S positions (pos
-    0..S-1), each mamba slot's h and conv."""
-    cache = transformer.init_cache(cfg, clients, batch, max_len, dev)
+    0..S-1; a window layer's rolling cache holds at most its window), each
+    mamba slot's h and conv; whisper's self caches so, and the prefill's
+    cross K/V."""
+    cache = registry.module(cfg).init_cache(cfg, clients, batch, max_len, dev)
 
     def fill(dst, src):
         if "k" in dst:
             s = src["k"].shape[-3]
+            if s > dst["k"].shape[-3]:
+                raise AssertionError(f"decode_cache: {s} prefill positions overflow a cache of "
+                                     f"{dst['k'].shape[-3]}")
             dst["k"].narrow(-3, 0, s).copy_(src["k"])
             dst["v"].narrow(-3, 0, s).copy_(src["v"])
             dst["pos"].narrow(-1, 0, s).copy_(torch.arange(s, device=dev))
@@ -2875,6 +3072,10 @@ def decode_cache(cfg, prefill_caches, clients, batch, max_len, dev):
             dst["h"].copy_(src["h"])
             dst["conv"].copy_(src["conv"])
 
+    if cfg.family == "audio":
+        fill(cache["self"], prefill_caches["self"])
+        cache["cross_kv"] = prefill_caches["cross_kv"]
+        return cache
     for key, dst in cache["blocks"].items():
         fill(dst, prefill_caches["blocks"][key])
     if "first_block" in cache:
@@ -2902,43 +3103,124 @@ def moe_drops():
         moe.apply_auto = real
 
 
+def family_rows(cfg):
+    """The kernel rows of a family's attention shapes at full width (named
+    after the configuration's first word), each with the launches that the
+    model's structure gives it a prefill call and a decode step: ({row:
+    launches a prefill call}, {row: launches a decode step}), what
+    ``family_row_launches`` must count."""
+    tag, layers, calls = cfg.name.split("-")[0], cfg.num_layers, attention_calls(cfg)
+    if cfg.family == "audio":
+        return ({f"flash_attention_prefill_{tag}_encoder": cfg.encoder_layers,
+                 f"flash_attention_prefill_{tag}_self": layers,
+                 f"flash_attention_prefill_{tag}_cross": layers},
+                {f"flash_attention_decode_{tag}_self": layers,
+                 f"flash_attention_decode_{tag}_cross": layers})
+    if not calls:
+        return {}, {}
+    prefill = {f"flash_attention_prefill_{tag}": calls}
+    if len(set(cfg.attn_pattern)) > 1:  # gemma2: window layers beside global ones
+        local = calls * cfg.attn_pattern.count("local") // len(cfg.attn_pattern)
+        prefill = {f"flash_attention_prefill_{tag}": calls - local,
+                   f"flash_attention_prefill_{tag}_window": local}
+    return prefill, {f"flash_attention_decode_{tag}": calls}
+
+
+def family_row_launches(cfg, *blocks):
+    """The launches of a full-width family's recorded attention calls
+    (``recorded_calls`` blocks), each under its kernel row (``family_rows``'
+    names): the counter that rose says tile (prefill) or decode kernel.
+    Whisper's encoder calls are non-causal with Sq = Sk = its frames, its
+    cross-attention non-causal over its frames' keys from fewer queries,
+    and its self-attention every other call (its decode steps attend over
+    fewer keys than the frames: whisper's 448 positions against 1,500
+    frames); where window layers sit beside global ones (gemma2), the
+    window rows are the calls with a window."""
+    tag = cfg.name.split("-")[0]
+    rows = {}
+    for calls in blocks:
+        for key, rec in calls.items():
+            (q, _), (k, _), opts = key[1], key[2], dict(key[4:])
+            for counter, n in rec["launches"].items():
+                row = f"{counter}_{tag}"
+                if cfg.family == "audio":
+                    over_frames = not opts["causal"] and k[2] == cfg.encoder_seq
+                    row += ("_self" if not over_frames
+                            else "_encoder" if q[2] == k[2] else "_cross")
+                elif opts.get("window") is not None and len(set(cfg.attn_pattern)) > 1:
+                    row += "_window"
+                rows[row] = rows.get(row, 0) + n
+    return rows
+
+
 def family_serve(dev, cfg):
-    """A family at full width, bf16: ``prefill_run``, then FAMILY_DECODE
-    timed greedy decode steps on the prefill's caches and FAMILY_PROFILED
-    profiled ones (each attention layer one decode-kernel launch a step,
-    the FMA kernel never); an MoE model's dropped share at its capacity
-    factor from one more prefill call."""
+    """A family at full width, bf16: ``prefill_run`` over its prompt
+    (FAMILY_PROMPT tokens, PREFILL_LEN where it names none; whisper's 1,500
+    frames and the VLM's 256 patches beside them), then FAMILY_DECODE timed
+    greedy decode steps on the prefill's caches from the prompt's last
+    position and FAMILY_PROFILED profiled ones (each attention call one
+    decode-kernel launch a step, the FMA kernel never; a window layer's
+    rolling cache, filled by the prompt, wraps); an MoE model's dropped
+    share at its capacity factor from one more prefill call."""
     m, b = SERVE_CLIENTS, SERVE_BATCH
-    layers = attention_layers(cfg)
+    seq = FAMILY_PROMPT.get(cfg.name, PREFILL_LEN)
+    first = prompt_positions(cfg, seq)
+    last = first + FAMILY_DECODE + FAMILY_PROFILED
+    layers, decode_layers = attention_calls(cfg), attention_calls(cfg, decode=True)
+    per_call, per_step = family_rows(cfg)
+    if sum(per_call.values()) != layers or sum(per_step.values()) != decode_layers:
+        raise AssertionError(f"{cfg.name}: kernel rows {per_call}, {per_step} against "
+                             f"{layers} and {decode_layers} attention calls")
+    if cfg.family == "audio" and last >= cfg.encoder_seq:
+        raise AssertionError(f"{cfg.name}: decode to position {last} reaches the "
+                             f"{cfg.encoder_seq} frames, so self and cross calls share shapes")
     torch.cuda.reset_peak_memory_stats(dev)
-    out, params, tokens, logits, caches = prefill_run(dev, cfg, top=10)
-    out.update(layers=cfg.num_layers, attention_layers=layers)
+    out, params, inputs, logits, caches, prefill_calls = prefill_run(dev, cfg, top=10, seq=seq)
+    out.update(layers=cfg.num_layers, attention_calls=layers, decode_from=first)
     if cfg.family == "moe":
         with moe_drops() as seen:
-            steps.build_prefill_step(cfg, federated=True)(params, {"tokens": tokens})
+            steps.build_prefill_step(cfg, federated=True)(params, inputs)
         out["dropped_share"] = sum(int(d) for d, _ in seen) / sum(a for _, a in seen)
         out["dropped_share_by_layer"] = [int(d) / a for d, a in seen]
 
     step = steps.build_serve_step(cfg, federated=True)
-    cache = decode_cache(cfg, caches, m, b, PREFILL_LEN + FAMILY_DECODE + FAMILY_PROFILED, dev)
-    del caches
+    cache = decode_cache(cfg, caches, m, b, last, dev)
+    del caches, inputs
     cur = torch.argmax(logits, dim=-1)
     zero_counters()
-    torch.cuda.synchronize(dev)
-    t = time.perf_counter()
-    for pos in range(PREFILL_LEN, PREFILL_LEN + FAMILY_DECODE):
-        logits, cache = step(params, cache, cur, pos)
-        cur = torch.argmax(logits, dim=-1)
-    torch.cuda.synchronize(dev)
-    out["decode_step_ms"] = (time.perf_counter() - t) / FAMILY_DECODE * 1e3
+    with recorded_calls(copy=False) as decode_calls:
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        for pos in range(first, first + FAMILY_DECODE):
+            logits, cache = step(params, cache, cur, pos)
+            cur = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize(dev)
+        out["decode_step_ms"] = (time.perf_counter() - t) / FAMILY_DECODE * 1e3
+        start = first + FAMILY_DECODE
+        out["decode_profile_4_steps"] = profile(
+            lambda: [step(params, cache, cur, pos) for pos in range(start, last)], dev)
     out["decode_tok_s"] = m * b / out["decode_step_ms"] * 1e3
-    start = PREFILL_LEN + FAMILY_DECODE
-    out["decode_profile_4_steps"] = profile(
-        lambda: [step(params, cache, cur, pos) for pos in range(start, start + FAMILY_PROFILED)],
-        dev)
     out["decode_launches"] = read_counters(
         f"{cfg.name} decode",
-        {"flash_attention_decode": layers * (FAMILY_DECODE + FAMILY_PROFILED)})
+        {"flash_attention_decode": decode_layers * (FAMILY_DECODE + FAMILY_PROFILED)})
+    # each row's launches as the recorded calls counted them, held to the
+    # model's structure
+    out["row_launches"] = family_row_launches(cfg, prefill_calls, decode_calls)
+    want = {r: n * (1 + PREFILL_REPS) for r, n in per_call.items()}
+    want.update({r: n * (FAMILY_DECODE + FAMILY_PROFILED) for r, n in per_step.items()})
+    if out["row_launches"] != want:
+        raise AssertionError(f"{cfg.name}: the recorded calls launched {out['row_launches']} "
+                             f"by row, the model's structure gives {want}")
+    del prefill_calls, decode_calls
+    if cfg.window and "local" in cfg.attn_pattern and cfg.window <= first:
+        # the local layers' rolling caches hold the last `window` positions
+        local = cache["blocks"][f"l{cfg.attn_pattern.index('local')}"]["pos"]
+        if local.shape[-1] != cfg.window or int(local.max()) != last - 1 or int(
+                local.min()) != last - cfg.window:
+            raise AssertionError(f"{cfg.name}: the local cache holds positions "
+                                 f"{int(local.min())}..{int(local.max())} in {local.shape[-1]} "
+                                 f"slots, not the last {cfg.window} before {last}")
+        out["local_cache"] = [int(local.min()), int(local.max()), local.shape[-1]]
     out["decode_client_logit_diff"] = check_logits(f"{cfg.name} decode", logits, cfg)
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     del params, cache, logits
@@ -2946,18 +3228,25 @@ def family_serve(dev, cfg):
     by_layer = [round(x, 4) for x in out.get("dropped_share_by_layer", ())]
     drops = (f"; dropped {out['dropped_share']:.4f} of the assignments at capacity factor "
              f"{cfg.capacity_factor} (by layer {by_layer})" if "dropped_share" in out else "")
-    kernels = (f"{layers} tile launches a prefill call, {layers} decode-kernel launches a step"
+    kernels = (f"{layers} tile launches a prefill call, {decode_layers} decode-kernel "
+               f"launches a step; recorded by row over {1 + PREFILL_REPS} prefill calls and "
+               f"{FAMILY_DECODE + FAMILY_PROFILED} steps: {out['row_launches']}"
                if layers else "no attention layer: no attention kernel runs")
+    wrap = (f"; local caches hold positions {out['local_cache'][0]}..{out['local_cache'][1]} "
+            f"in {out['local_cache'][2]} slots" if "local_cache" in out else "")
+    inputs_s = (f" ({out['prefill_inputs_s']:.0f} input positions/s with the "
+                f"{'frames' if cfg.family == 'audio' else 'patches'})"
+                if cfg.family in ("audio", "vlm") else "")
     print(f"  {cfg.name}: {out['params_per_client'] / 1e9:.3f} B parameters a client, "
           f"{cfg.num_layers} layers, {cfg.param_dtype}; init + personalize {out['init_s']:.2f} s; "
           f"peak memory {out['peak_gb']:.2f} GB; {kernels}{drops}")
-    print(f"  {cfg.name} prefill: {m} clients x {b} requests x {PREFILL_LEN} tokens in "
+    print(f"  {cfg.name} prefill: {m} clients x {b} requests x {seq} tokens in "
           f"{out['prefill_s'] * 1e3:.1f} ms (median of {PREFILL_REPS}; first call "
-          f"{out['prefill_times_s'][0] * 1e3:.1f} ms), {out['prefill_tok_s']:.0f} tokens/s; decode "
-          f"{out['decode_step_ms']:.2f} ms a step ({FAMILY_DECODE} steps from position "
-          f"{PREFILL_LEN}), {out['decode_tok_s']:.1f} tokens/s; clients' logits differ by up to "
-          f"{out['client_logit_diff']:.3f} (prefill), {out['decode_client_logit_diff']:.3f} "
-          "(decode)")
+          f"{out['prefill_times_s'][0] * 1e3:.1f} ms), {out['prefill_tok_s']:.0f} tokens/s"
+          f"{inputs_s}; decode {out['decode_step_ms']:.2f} ms a step ({FAMILY_DECODE} steps from "
+          f"position {first}), {out['decode_tok_s']:.1f} tokens/s; clients' logits differ by up "
+          f"to {out['client_logit_diff']:.3f} (prefill), {out['decode_client_logit_diff']:.3f} "
+          f"(decode){wrap}")
     print_profiles(cfg.name, {"prefill step": out["prefill_profile"],
                               f"{FAMILY_PROFILED} decode steps": out["decode_profile_4_steps"]})
     return out
@@ -3084,10 +3373,11 @@ def ssd_layer_check(dev, cfg):
 
 
 def families_phase(dev):
-    """mixtral-8x7b (4 of 32 layers), mamba2-1.3b and zamba2-2.7b at full
-    depth, all at full width in bf16, served to 2 clients x 2 requests
-    (``family_serve``); mixtral's MoE layer and mamba2's SSD block also in
-    f32 at full width against their plain forms."""
+    """mixtral-8x7b (4 of 32 layers), mamba2-1.3b, zamba2-2.7b,
+    whisper-large-v3, internvl2-1b and gemma2-9b at full depth, all at full
+    width in bf16, served to 2 clients x 2 requests (``family_serve``);
+    mixtral's MoE layer and mamba2's SSD block also in f32 at full width
+    against their plain forms."""
     t0 = time.perf_counter()
     out = {}
     for arch in FAMILY_LAYERS:
@@ -3097,8 +3387,9 @@ def families_phase(dev):
             out[arch]["moe_layer_f32"] = moe_layer_check(dev, cfg)
         if cfg.family == "ssm":
             out[arch]["ssd_layer_f32"] = ssd_layer_check(dev, cfg)
-    phase("families", t0, "mixtral-8x7b (4 layers), mamba2-1.3b (48) and zamba2-2.7b (54) "
-          f"served {SERVE_CLIENTS} clients x {SERVE_BATCH} requests at full width")
+    phase("families", t0, "mixtral-8x7b (4 layers), mamba2-1.3b (48), zamba2-2.7b (54), "
+          "whisper-large-v3 (32 + 32), internvl2-1b (24) and gemma2-9b (42) served "
+          f"{SERVE_CLIENTS} clients x {SERVE_BATCH} requests at full width")
     print("families_path " + json.dumps(out))
     return out
 
@@ -3112,12 +3403,13 @@ def _signature(x):
 
 
 @contextlib.contextmanager
-def recorded_calls():
+def recorded_calls(copy=True):
     """Every call of a kernel op in the block (looked up as ``ops.<name>``
     by its callers) with its launches: yields {(op, shapes, options):
     {"args", "kw", "launches"}}, where "args" are copies of the first such
     call's inputs, taken before the call (the mix-scatter writes into
-    ``full``), and "launches" the launches of each counter over all such
+    ``full``; None without ``copy``, for a run whose calls are only
+    counted), and "launches" the launches of each counter over all such
     calls. On leaving, the launches summed over the calls must equal the
     counters' rise over the block: every launch came from a recorded call."""
     calls, ops_before = {}, {n: getattr(ops, n) for n in RECORDED_OPS}
@@ -3130,7 +3422,7 @@ def recorded_calls():
             if rec is None:
                 rec = calls[key] = dict(
                     args=[a.detach().clone() if isinstance(a, torch.Tensor) else a
-                          for a in args], kw=dict(kw), launches={})
+                          for a in args] if copy else None, kw=dict(kw), launches={})
             before = {k: c.launches for k, c in COUNTERS.items()}
             out = fn(*args, **kw)
             for k, c in COUNTERS.items():
@@ -3231,9 +3523,7 @@ def hold_call(name, args, kw, dev):
         case = tuple(q.shape[:2]) + (k.shape[1], q.shape[2], k.shape[2], q.shape[3],
                                      opts["causal"], opts["window"], opts["softcap"])
         nbytes, flops = flash_bytes_flops(case, q.dtype)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        library = (None if opts["window"] is not None or opts["softcap"] is not None else
-                   lambda: sdpa(q, k, v, is_causal=opts["causal"], enable_gqa=True))
+        library = sdpa_library(label, q, k, v, **opts)
 
         def kernel():
             with torch.no_grad():
@@ -3279,6 +3569,8 @@ def recorded_rows(tag, calls, dev):
             shape=f"{[list(a.shape) for a in rec['args'] if isinstance(a, torch.Tensor)]}"
                   f" {rec['args'][0].dtype}, {len(held)} shape(s) held",
             bytes=nbytes, flops=flops, flop_rate=rate)
+        if library is None:
+            rows[row]["library_none"] = "SDPA takes no softcap"
         launches[row] = sum(n for _, _, n in group)
     return rows, launches
 
@@ -3765,17 +4057,11 @@ def main():
               "gram_m50": base["fedfomo_half"]["gram"] + wire_sum("gram", ("fedfomo",)),
               "flash_attention_prefill": served["prefill_launches"]["flash_attention_prefill"],
               "flash_attention_decode": served["serve_launches"]["flash_attention_decode"],
-              "flash_attention_fma": fma_launches,
-              "flash_attention_prefill_mixtral":
-                  fam["mixtral-8x7b"]["prefill_launches"]["flash_attention_prefill"],
-              "flash_attention_decode_mixtral":
-                  fam["mixtral-8x7b"]["decode_launches"]["flash_attention_decode"],
-              "flash_attention_prefill_zamba2":
-                  fam["zamba2-2.7b"]["prefill_launches"]["flash_attention_prefill"],
-              "flash_attention_decode_zamba2":
-                  fam["zamba2-2.7b"]["decode_launches"]["flash_attention_decode"]}
-    # the knobs, engine and train phases' launches, each under the row of its shape
-    for phase_rows in (knobs, engine, trained["row_launches"], family_launches):
+              "flash_attention_fma": fma_launches}
+    # the knobs, engine, train and families phases' launches, each under the
+    # row of its shape
+    for phase_rows in (knobs, engine, trained["row_launches"], family_launches,
+                       *(f["row_launches"] for f in fam.values())):
         for row, count in phase_rows.items():
             counts[row] = counts.get(row, 0) + count
     # one kernel for both gram rows: the main path runs it at m = 100
@@ -3783,7 +4069,7 @@ def main():
     # the cohort and gram rows also carry read_ms, their time after a read
     # flush; the gram rows library_read_ms and the f32 CUDA-core bound; the
     # rows of a recorded run the shape they were timed at
-    extras = ("read_ms", "library_read_ms", "bound_f32_ms", "shape")
+    extras = ("read_ms", "library_read_ms", "bound_f32_ms", "shape", "library_none")
     kernels = [{"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
                 "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

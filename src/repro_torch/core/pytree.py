@@ -73,6 +73,18 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def stack(trees, dim: int = 0):
+    """Trees of one structure, stacked leaf by leaf on a new axis ``dim``."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=dim), *trees)
+
+
+def layer_views(tree, count: int):
+    """Views of a (m, L, ...) stacked tree at each of its first ``count``
+    indices of axis 1, one tree a layer (or layer group)."""
+    for i in range(count):
+        yield tree_map(lambda x, i=i: x[:, i], tree)
+
+
 def stacked_ravel(tree, lead: int = 1, *, out=None) -> torch.Tensor:
     """Ravel a tree whose leaves share ``lead`` leading axes into a matrix.
 

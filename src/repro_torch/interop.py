@@ -68,7 +68,8 @@ def cache_from_numpy(tree: dict, *, device=None) -> dict:
     """A reference cache tree of numpy arrays -> tensors, for decode
     parity: ``{"blocks": {"l{i}": ...}}`` with an attention slot's k, v and
     pos, a mamba slot's h (f32) and conv, and ``first_block``'s k, v and
-    pos where there is one."""
+    pos where there is one; whisper's ``{"self": {"k", "v", "pos"},
+    "cross_kv"}`` as it is."""
     return transformer_params_from_numpy(tree, device=device)
 
 

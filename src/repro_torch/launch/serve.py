@@ -6,9 +6,14 @@ teacher-forced decode steps, then N tokens are decoded greedily.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --no-smoke \\
       --clients 2 --batch 2 --prompt-len 128 --decode-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --device cpu
 
-``--arch`` takes any configuration of the dense, MoE (mixtral-8x7b,
-kimi-k2-1t-a32b), SSM (mamba2-1.3b) and hybrid (zamba2-2.7b) families.
+``--arch`` takes every configuration: the dense, MoE (mixtral-8x7b,
+kimi-k2-1t-a32b), SSM (mamba2-1.3b), hybrid (zamba2-2.7b), VLM
+(internvl2-1b) and audio (whisper-large-v3) families. As in the
+reference, the prompt is tokens alone: the VLM's decode steps take no
+patches, and whisper's caches come from ``init_cache`` without an
+encoder output, so its cross K/V is zero.
 
 ``--smoke`` (the default) serves ``cfg.reduced(vocab_size=128)``;
 ``--no-smoke`` serves the configuration at full width and depth. Runs on
@@ -25,7 +30,7 @@ import torch
 from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steplib
-from repro_torch.models import transformer
+from repro_torch.models import registry, transformer
 
 NOISE = 0.01  # scale of each client's perturbation of the shared init
 
@@ -60,7 +65,7 @@ def personalized_params(cfg, clients: int, seed: int, device):
     with noise from ``seed + 1``; both drawn on ``device``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    shared = transformer.init(gen, cfg, device)
+    shared = registry.module(cfg).init(gen, cfg, device)
     gen.manual_seed(seed + 1)
     return personalize(shared, clients, gen)
 
@@ -74,7 +79,7 @@ def serve(cfg, *, clients, batch, prompt_len, decode_tokens, seed, device=None) 
     params = personalized_params(cfg, clients, seed, dev)
     max_len = prompt_len + decode_tokens
     serve_step = steplib.build_serve_step(cfg, federated=True)
-    caches = transformer.init_cache(cfg, clients, batch, max_len, dev)
+    caches = registry.module(cfg).init_cache(cfg, clients, batch, max_len, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 2)
     prompt = torch.randint(0, cfg.vocab_size, (clients, batch, prompt_len), generator=gen,

@@ -27,7 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import aggregation
 from repro_torch.core.pytree import leaves, tree_map, unflatten
-from repro_torch.models import registry, transformer
+from repro_torch.models import registry
 from repro_torch.models.registry import one, unone
 from repro_torch.optim import sgd_update
 
@@ -77,9 +77,11 @@ def build_train_step(cfg: ModelConfig, *, n_clients: int, agg: str, num_streams:
     def rounded(w):  # the reference's w.astype(x.dtype), in f32
         return w.to(cfg.param_tdtype).to(torch.float32)
 
+    loss_fn = registry.module(cfg).loss_fn
+
     def train_step(params, opt, mix, batch):
         p = _tracked(params)
-        loss = transformer.loss_fn(p, batch, cfg)  # (m,) per-client losses
+        loss = loss_fn(p, batch, cfg)  # (m,) per-client losses
         grads = unflatten(p, torch.autograd.grad(loss.sum(), leaves(p), materialize_grads=True))
         with torch.no_grad():
             params, opt = sgd_update(grads, opt, tree_map(torch.detach, p), lr=lr,
@@ -99,12 +101,16 @@ def build_train_step(cfg: ModelConfig, *, n_clients: int, agg: str, num_streams:
 def build_prefill_step(cfg: ModelConfig, *, federated: bool):
     """prefill_step(params, batch) -> (logits of the last position, caches).
 
-    Federated: tokens (m, B, S) -> logits (m, B, 1, V) f32 and caches with
-    k, v (m, G, B, S, Hkv, Dh). Only the last position is read out (the
-    reference computes every position's logits and keeps the last).
+    Federated: tokens (m, B, S), with the family's other inputs (whisper's
+    frames, the VLM's patch_embeds), -> logits (m, B, 1, V) f32 and the
+    family's caches (k, v (m, G, B, S, Hkv, Dh) of a transformer). Only the
+    last position is read out (the reference computes every position's
+    logits and keeps the last).
     """
+    forward = registry.module(cfg).forward
+
     def prefill_clients(params, batch):
-        return transformer.forward(params, batch, cfg, return_cache=True, last_only=True)
+        return forward(params, batch, cfg, return_cache=True, last_only=True)
 
     if federated:
         return prefill_clients
@@ -122,7 +128,9 @@ def build_serve_step(cfg: ModelConfig, *, federated: bool):
 
     Federated: tokens (m, B, 1) -> logits (m, B, 1, V) f32.
     """
+    decode_step = registry.module(cfg).decode_step
+
     def serve_clients(params, caches, tokens, pos):
-        return transformer.decode_step(params, caches, tokens, pos, cfg)
+        return decode_step(params, caches, tokens, pos, cfg)
 
     return serve_clients if federated else registry.build(cfg).decode_step

@@ -1,17 +1,21 @@
 """Grouped-query attention with RoPE, sliding windows, softcap and KV caches
-(``repro.models.attention``: ``forward``, ``decode``; ``bidirectional``,
-``cross`` and ``encode_kv`` come with the whisper port, ROADMAP queue A).
+(``repro.models.attention``): ``forward`` (training and prefill
+self-attention), ``decode`` (one token against a cache), and whisper's
+``bidirectional`` (encoder self-attention), ``cross`` (decoder over the
+encoder) and ``encode_kv`` (the cross K/V).
 
 Parameters have the reference's names and shapes with a leading client
 axis: ``wq`` (m, D, Hq, Dh), ``wk``/``wv`` (m, D, Hkv, Dh), ``wo``
 (m, Hq·Dh, D), biases (m, H, Dh); activations are (m, B, S, D). One
 model is m = 1. Clients fold into the attention kernel's batch axis.
 
-Both entry points reach :func:`repro_torch.kernels.ops.flash_attention`:
+Every entry point reaches :func:`repro_torch.kernels.ops.flash_attention`:
 ``forward`` causal (with the layer's window), ``decode`` over the valid
-prefix of the cache with no mask. Where autograd records ``forward`` (a
-train step), the kernel runs inside ``FlashAttentionFn``, whose backward
-is the plain version's, so q, k and v get their gradients on the card.
+prefix of the cache with no mask, ``bidirectional`` and ``cross`` with no
+mask (``cross`` over the encoder's Sk ≠ Sq keys). Where autograd records
+a call (a train step), the kernel runs inside ``FlashAttentionFn``, whose
+backward is the plain version's, so q, k and v get their gradients on the
+card.
 
 Cache convention, as the reference's: ``{"k": (m, B, L, Hkv, Dh), "v",
 "pos": (m, L) int32}`` with ``pos[w]`` the absolute position in slot w
@@ -142,10 +146,8 @@ def _project(x, w, b):
 
 def _qkv(p, x, cfg: AttnConfig, positions):
     """q (m, B, S, Hq, Dh), k and v (m, B, S, Hkv, Dh); positions (B, S)."""
-    bias = cfg.qkv_bias
-    q = _project(x, p["wq"], p["bq"] if bias else None)
-    k = _project(x, p["wk"], p["bk"] if bias else None)
-    v = _project(x, p["wv"], p["bv"] if bias else None)
+    q = _project(x, p["wq"], p["bq"] if cfg.qkv_bias else None)
+    k, v = encode_kv(p, x, cfg)
     if cfg.use_rope:
         q = rope(q, positions, base=cfg.rope_base, rope_dim=cfg.rope_dim)
         k = rope(k, positions, base=cfg.rope_base, rope_dim=cfg.rope_dim)
@@ -171,6 +173,32 @@ def forward(p, x, positions, cfg: AttnConfig, *, window: int | None = None):
     out = ops.flash_attention(_fold(q), _fold(k), _fold(v), causal=True, window=window,
                               softcap=cfg.logit_softcap)
     return matmul(_unfold(out, x.shape[0]), p["wo"]), (k, v)
+
+
+def bidirectional(p, x, positions, cfg: AttnConfig):
+    """Encoder self-attention, no mask. Returns out (m, B, S, D) only."""
+    q, k, v = _qkv(p, x, cfg, positions)
+    out = ops.flash_attention(_fold(q), _fold(k), _fold(v), causal=False,
+                              softcap=cfg.logit_softcap)
+    return matmul(_unfold(out, x.shape[0]), p["wo"])
+
+
+def cross(p, x, enc_kv, cfg: AttnConfig):
+    """Cross-attention of x (m, B, S, D) over precomputed encoder K/V,
+    each (m, B, T, Hkv, Dh): no mask, no rope. Only q is projected from x
+    (the reference's ``_qkv`` also projects k and v and drops them)."""
+    q = _project(x, p["wq"], p["bq"] if cfg.qkv_bias else None)
+    k, v = enc_kv
+    out = ops.flash_attention(_fold(q), _fold(k), _fold(v), causal=False,
+                              softcap=cfg.logit_softcap)
+    return matmul(_unfold(out, x.shape[0]), p["wo"])
+
+
+def encode_kv(p, enc_out, cfg: AttnConfig):
+    """K and V (m, B, T, Hkv, Dh) of enc_out (m, B, T, D), with their biases."""
+    bias = cfg.qkv_bias
+    return (_project(enc_out, p["wk"], p["bk"] if bias else None),
+            _project(enc_out, p["wv"], p["bv"] if bias else None))
 
 
 def init_cache(clients, batch, length, cfg: AttnConfig, dtype=torch.bfloat16, device=None):

@@ -92,8 +92,14 @@ def mlp_init(gen, d_model, d_ff, kind, dtype=torch.float32, device=None):
             "w_up": fan_in_init(gen, (d_model, d_ff), dtype, device),
             "w_down": fan_in_init(gen, (d_ff, d_model), dtype, device),
         }
-    raise ValueError(f"mlp kind {kind!r}: the port has swiglu and geglu "
-                     "(gelu comes with the whisper port, ROADMAP queue A)")
+    if kind == "gelu":  # whisper-style 2-layer MLP with bias
+        return {
+            "w_up": fan_in_init(gen, (d_model, d_ff), dtype, device),
+            "b_up": torch.zeros((d_ff,), dtype=dtype, device=device),
+            "w_down": fan_in_init(gen, (d_ff, d_model), dtype, device),
+            "b_down": torch.zeros((d_model,), dtype=dtype, device=device),
+        }
+    raise ValueError(kind)
 
 
 def matmul(x, w):
@@ -120,6 +126,9 @@ def mlp_apply(p, x, kind):
     if kind == "geglu":
         act = F.gelu(matmul(x, p["w_gate"]), approximate="tanh") * matmul(x, p["w_up"])
         return matmul(act, p["w_down"])
+    if kind == "gelu":  # tanh form, as the reference's jax.nn.gelu(approximate=True)
+        up = F.gelu(matmul(x, p["w_up"]) + _bcast(p["b_up"], x), approximate="tanh")
+        return matmul(up, p["w_down"]) + _bcast(p["b_down"], x)
     raise ValueError(kind)
 
 
@@ -154,3 +163,12 @@ def embed_lookup(p, tokens, *, scale=None):
 def embed_logits(p, h):
     """Tied read-out: (..., D) @ (V, D)ᵀ, per client with a (m, V, D) table."""
     return matmul(h, p["table"].transpose(-1, -2))
+
+
+def sinusoidal_positions(length, d_model, dtype=torch.float32, device=None):
+    """(length, d_model): sin then cos of pos / 10000^(2i / d_model), computed
+    in f32 in the reference's order of operations, then cast to ``dtype``."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d_model))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

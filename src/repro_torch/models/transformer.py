@@ -1,5 +1,5 @@
 """Config-driven decoder LM (``repro.models.transformer``): the dense, MoE,
-SSM and hybrid families.
+SSM, hybrid and VLM families.
 
 Layers repeat in groups: ``cfg.attn_pattern`` for dense and MoE (gemma2: a
 local and a global layer), one mamba layer for ssm, and (g − 1) mamba
@@ -8,12 +8,15 @@ block leaf is stacked over the groups on its group axis, as the reference
 stacks them for ``lax.scan``; here a Python loop walks the groups. The
 hybrid's attention weights are stored once (``shared_attn``), with a norm
 and a KV cache of its own in every group; kimi's leading dense layer is
-``first_block``.
+``first_block``. The VLM (internvl2) projects ``batch["patch_embeds"]``
+(m, B, P, P_in) into the model width and puts them before the token
+embeddings, so its positions run over P + S; its decode steps take tokens
+alone, as the reference's.
 
 Params layout, leaf for leaf the reference's:
   embed.table (V, D), final_norm, lm_head.w (D, V) when untied,
-  first_block?, shared_attn?, blocks.l{i}.* with every leaf stacked over
-  num_groups.
+  first_block?, shared_attn?, projector.{w (P_in, D), b (D,)}?,
+  blocks.l{i}.* with every leaf stacked over num_groups.
 ``init`` builds one model with that layout. ``forward``, ``decode_step``
 and ``init_cache`` run m models at once: every leaf carries a leading
 client axis (m, ...), as the reference's ``vmap`` over clients would see
@@ -29,8 +32,8 @@ of its own loss (the clients' params are disjoint): the reference's
 under ``torch.utils.checkpoint`` (non-reentrant) whenever autograd records
 it, as the reference's ``jax.checkpoint`` of the scanned body.
 
-Families vlm and audio raise ``NotImplementedError`` (the other model
-families, ROADMAP queue A).
+The audio family (whisper, an encoder-decoder) is
+:mod:`repro_torch.models.whisper`'s; here it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.pytree import leaves, tree_map
+from repro_torch.core.pytree import layer_views, leaves, stack, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, moe, ssm
 from repro_torch.models.attention import AttnConfig
@@ -58,15 +61,15 @@ from repro_torch.models.layers import (
     softcap,
 )
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def _check(cfg: ModelConfig):
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; the port has the "
-            f"{', '.join(PORTED_FAMILIES)} families; the other model families are in "
-            "ROADMAP queue A")
+            f"{cfg.name}: family {cfg.family!r} is not this module's; it has the "
+            f"{', '.join(PORTED_FAMILIES)} families, and the audio family is "
+            "models/whisper.py's (registry.build dispatches it)")
 
 
 # --------------------------------------------------------------- sub-configs
@@ -150,13 +153,6 @@ def _init_group(gen, cfg: ModelConfig, dtype, device):
     return p
 
 
-def _stack(trees, dim=0):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees], dim) for k in first}
-    return torch.stack(trees, dim=dim)
-
-
 def init(gen: torch.Generator, cfg: ModelConfig, device=None):
     """One model's params in ``cfg.param_dtype`` (the MoE router and the
     SSM's A_log, D and dt_bias in f32) on ``device`` (CUDA when None),
@@ -177,12 +173,17 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": fan_in_init(gen, (cfg.d_model, cfg.padded_vocab), dtype,
                                               device)}
-    params["blocks"] = _stack([_init_group(gen, cfg, dtype, device)
-                               for _ in range(cfg.num_groups)])
+    params["blocks"] = stack([_init_group(gen, cfg, dtype, device)
+                              for _ in range(cfg.num_groups)])
     if cfg.first_dense:
         params["first_block"] = _init_attn_layer(gen, cfg, dtype, device, moe_mlp=False)
     if cfg.family == "hybrid":
         params["shared_attn"] = _init_attn_layer(gen, cfg, dtype, device, moe_mlp=False)
+    if cfg.family == "vlm":
+        params["projector"] = {
+            "w": fan_in_init(gen, (cfg.patch_embed_dim, cfg.d_model), dtype, device),
+            "b": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        }
     return params
 
 
@@ -286,15 +287,33 @@ def _remat(body, cfg: ModelConfig):
     return lambda *a: checkpoint(body, *a, use_reentrant=False, **kw)
 
 
+def records(h, tree) -> bool:
+    """Whether autograd records a layer of activations h and params
+    ``tree``: remat applies only there."""
+    return torch.is_grad_enabled() and (h.requires_grad
+                                        or any(x.requires_grad for x in leaves(tree)))
+
+
 def _groups(tree, cfg: ModelConfig):
     """Per-group views of a (m, G, ...) stacked tree."""
-    for g in range(cfg.num_groups):
-        yield tree_map(lambda x, g=g: x[:, g], tree)
+    return layer_views(tree, cfg.num_groups)
 
 
-def _embed_inputs(params, tokens, cfg: ModelConfig):
+def _embed_tokens(params, tokens, cfg: ModelConfig):
     scale = cfg.d_model ** 0.5 if cfg.emb_scale else None
     return embed_lookup(params["embed"], tokens, scale=scale).to(cfg.act_tdtype)
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig):
+    """The token embeddings (m, B, S, D); the VLM's projected patch
+    embeddings, computed in the activation dtype, in front of them."""
+    h = _embed_tokens(params, batch["tokens"], cfg)
+    if cfg.family == "vlm":
+        act = cfg.act_tdtype
+        proj = params["projector"]
+        h = torch.cat([matmul(batch["patch_embeds"].to(act), proj["w"].to(act))
+                       + proj["b"].to(act)[:, None, None], h], dim=2)
+    return h
 
 
 def _readout(params, h, cfg: ModelConfig):
@@ -316,9 +335,8 @@ def _forward(params, batch, cfg: ModelConfig, *, return_cache: bool, last_only: 
     :func:`forward` with the summed aux loss of the MoE layers (None
     without MoE layers)."""
     _check(cfg)
-    tokens = batch["tokens"]
-    h = _embed_inputs(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[-1], device=h.device)[None]
+    h = _embed_inputs(params, batch, cfg)
+    positions = torch.arange(h.shape[2], device=h.device)[None]
     shared = params.get("shared_attn")
     aux = None
     caches = {}
@@ -328,8 +346,7 @@ def _forward(params, batch, cfg: ModelConfig, *, return_cache: bool, last_only: 
     per_group = []
     remat = None  # built at the first group autograd records
     for group_p in _groups(params["blocks"], cfg):
-        if cfg.remat and not return_cache and torch.is_grad_enabled() and (
-                h.requires_grad or any(x.requires_grad for x in leaves(group_p))):
+        if cfg.remat and not return_cache and records(h, group_p):
             remat = remat or _remat(
                 lambda h, group_p: _apply_group(group_p, h, positions, cfg,
                                                 shared=shared)[::2], cfg)
@@ -344,14 +361,15 @@ def _forward(params, batch, cfg: ModelConfig, *, return_cache: bool, last_only: 
     logits = _readout(params, h, cfg)
     if not return_cache:
         return logits, aux, None
-    caches["blocks"] = _stack(per_group, dim=1)
+    caches["blocks"] = stack(per_group, dim=1)
     return logits, aux, caches
 
 
 def forward(params, batch, cfg: ModelConfig, *, return_cache: bool = False,
             last_only: bool = False):
     """Full-sequence forward of m models on tokens (m, B, S) ->
-    logits f32 (m, B, S, V) [, prefill caches].
+    logits f32 (m, B, S, V) [, prefill caches]; the VLM's inputs also
+    hold patch_embeds (m, B, P, P_in) and its logits cover P + S positions.
 
     ``last_only`` reads out the last position alone, (m, B, 1, V): what
     a prefill step returns, without the (m, B, S, V) logits. The caches
@@ -370,9 +388,12 @@ def loss_fn(params, batch, cfg: ModelConfig, *, aux_weight=0.01):
     """(m,) f32: each model's mean next-token NLL over its (B, S) tokens
     ``batch["tokens"]`` against ``batch["labels"]`` (m, B, S), plus
     ``aux_weight`` times the sum of its MoE layers' aux losses (0 for a
-    family without MoE layers), as in the reference."""
+    family without MoE layers), as in the reference. The VLM's labels
+    cover its token positions, the last S of its logits."""
     logits, aux, _ = _forward(params, batch, cfg, return_cache=False, last_only=False)
     labels = batch["labels"]
+    if cfg.family == "vlm":
+        logits = logits[:, :, -labels.shape[-1]:]
     m = labels.shape[0]
     nll = F.cross_entropy(logits.flatten(0, -2), labels.flatten(), reduction="none")
     loss = nll.view(m, -1).mean(dim=1)
@@ -415,7 +436,7 @@ def decode_step(params, caches, tokens, pos: int, cfg: ModelConfig):
     caches).
     """
     _check(cfg)
-    h = _embed_inputs(params, tokens, cfg)
+    h = _embed_tokens(params, tokens, cfg)
     if cfg.first_dense:
         h, _, _ = _apply_attn_layer(params["first_block"], h, None, cfg, "attn_global",
                                     cache=caches["first_block"], pos=pos)

@@ -1,12 +1,15 @@
-"""The MoE, SSM and hybrid model families of the port's transformer against
-the reference, on the CPU: reduced mixtral-8x7b (MoE, window), kimi-k2
-(MoE top-2 of 4 experts behind a dense ``first_block``, fedsgd_sharded),
-mamba2-1.3b (SSM) and zamba2-2.7b at 12 layers (two hybrid groups, so the
-shared attention runs twice with two caches).
+"""The MoE, SSM, hybrid and VLM model families of the port's transformer
+against the reference, on the CPU: reduced mixtral-8x7b (MoE, window),
+kimi-k2 (MoE top-2 of 4 experts behind a dense ``first_block``,
+fedsgd_sharded), mamba2-1.3b (SSM), zamba2-2.7b at 12 layers (two hybrid
+groups, so the shared attention runs twice with two caches) and
+internvl2-1b (VLM: 8 projected patch embeddings of width 64 before the
+tokens, GQA 2 over 2 at the reduced width, qkv bias).
 
 Weights are the reference's reduced init (jit, f32), every leaf perturbed
 with numpy noise, for 2 clients (the second perturbed again), carried
-across by ``interop``; tokens from numpy. The port's attention runs
+across by ``interop``; tokens and the VLM's patch embeddings N(0, 1)
+from numpy. The port's attention runs
 through its plain ``flash_attention``.
 
 Tolerances (f32, sums in another order through the layers and a 512-wide
@@ -40,7 +43,8 @@ LOGIT_TOL = dict(rtol=0, atol=1e-4)
 LOSS_TOL = dict(rtol=0, atol=1e-5)
 CACHE_REL = 5e-5
 ARCHS = {"mixtral": ("mixtral-8x7b", {}), "kimi": ("kimi-k2-1t-a32b", {}),
-         "mamba2": ("mamba2-1.3b", {}), "zamba2": ("zamba2-2.7b", {"num_layers": 12})}
+         "mamba2": ("mamba2-1.3b", {}), "zamba2": ("zamba2-2.7b", {"num_layers": 12}),
+         "internvl2": ("internvl2-1b", {})}
 M = 2
 SEQ = 64  # a multiple of the reduced SSD chunk (32)
 
@@ -61,6 +65,20 @@ def client_params(arch):
 
 def tokens(rcfg, shape, seed):
     return np.random.default_rng(seed).integers(0, rcfg.vocab_size, size=shape).astype(np.int32)
+
+
+def inputs(rcfg, tok, seed=9):
+    """The forward's numpy inputs: tokens, and the VLM's patch embeddings
+    (lead, P, P_in) N(0, 1)."""
+    out = {"tokens": tok}
+    if rcfg.family == "vlm":
+        out["patch_embeds"] = np.random.default_rng(seed).normal(
+            size=tok.shape[:-1] + (rcfg.num_patches, rcfg.patch_embed_dim)).astype(np.float32)
+    return out
+
+
+def torch_inputs(b):
+    return {k: t(v) if v.dtype == np.float32 else t(v).long() for k, v in b.items()}
 
 
 def shapes(tree):
@@ -97,15 +115,6 @@ def test_init_matches_reference_shapes(arch):
     assert shapes(got) == ref_sig(want)
 
 
-def test_unported_families_still_raise():
-    for name in ("internvl2-1b", "whisper-large-v3"):
-        cfg = configs.get(name).reduced()
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            transformer.init(torch.Generator(), cfg, CPU)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            transformer.init_cache(cfg, 1, 1, 8, CPU)
-
-
 # ------------------------------------------------------------------ serve
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_federated_prefill_matches_reference(arch):
@@ -114,14 +123,15 @@ def test_federated_prefill_matches_reference(arch):
     every attention slot, h and conv of every mamba slot, first_block's."""
     rcfg, pcfg = cfgs(arch)
     p = client_params(arch)
-    tok = tokens(rcfg, (M, 2, SEQ), seed=7)
+    b = inputs(rcfg, tokens(rcfg, (M, 2, SEQ), seed=7))
     rfwd = jax.jit(jax.vmap(functools.partial(ref_transformer.forward, cfg=rcfg,
                                               return_cache=True)))
-    want, _, wcache = rfwd(jax_tree(p), {"tokens": jnp.asarray(tok)})
+    want, _, wcache = rfwd(jax_tree(p), jax_tree(b))
     tp = interop.transformer_params_from_numpy(p, device=CPU)
-    got = transformer.forward(tp, {"tokens": t(tok).long()}, pcfg)
+    got = transformer.forward(tp, torch_inputs(b), pcfg)
+    assert got.shape[2] == SEQ + (rcfg.num_patches if rcfg.family == "vlm" else 0)
     np.testing.assert_allclose(n(got), n(want), **LOGIT_TOL)
-    last, gcache = steps.build_prefill_step(pcfg, federated=True)(tp, {"tokens": t(tok).long()})
+    last, gcache = steps.build_prefill_step(pcfg, federated=True)(tp, torch_inputs(b))
     np.testing.assert_allclose(n(last), n(want)[:, :, -1:], **LOGIT_TOL)
     assert_close_rel(gcache, np_tree(wcache), CACHE_REL, 2e-5)
     assert np.abs(n(last[0]) - n(last[1])).max() > 1e-3  # the clients' models differ
@@ -158,7 +168,7 @@ def test_federated_decode_matches_reference_teacher_forced(arch):
 # ------------------------------------------------------------------ train
 def lm_batch(rcfg, lead, seed=5):
     toks = tokens(rcfg, lead + (SEQ + 1,), seed)
-    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    return dict(inputs(rcfg, toks[..., :-1]), labels=toks[..., 1:])
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
@@ -172,7 +182,7 @@ def test_loss_with_aux_and_grads_match_reference(arch):
         functools.partial(ref_transformer.loss_fn, cfg=rcfg))))(jax_tree(p), jax_tree(b))
     tp = transformer.tree_map(lambda x: x.requires_grad_(True),
                               interop.transformer_params_from_numpy(p, device=CPU))
-    tb = {k: t(v).long() for k, v in b.items()}
+    tb = torch_inputs(b)
     loss = transformer.loss_fn(tp, tb, pcfg)
     assert tuple(loss.shape) == (M,)
     np.testing.assert_allclose(n(loss), n(want_loss), **LOSS_TOL)
@@ -213,10 +223,10 @@ def test_train_step_matches_reference(arch):
     topt = sgd_init(tparams, momentum=mom)
     if rmix is None:
         rparams, ropt, rm = rstep(rparams, ropt, jax_tree(b))
-        tparams, topt, tm = step(tparams, topt, {k: t(v).long() for k, v in b.items()})
+        tparams, topt, tm = step(tparams, topt, torch_inputs(b))
     else:
         rparams, ropt, rm = rstep(rparams, ropt, rmix, jax_tree(b))
-        tparams, topt, tm = step(tparams, topt, tmix, {k: t(v).long() for k, v in b.items()})
+        tparams, topt, tm = step(tparams, topt, tmix, torch_inputs(b))
     np.testing.assert_allclose(float(tm["loss"]), float(rm["loss"]), **LOSS_TOL)
     assert_close_rel(tparams, np_tree(rparams), 1e-4)
 
@@ -246,7 +256,7 @@ def test_remat_save_moe_keeps_the_dispatch():
     batched product more a layer, the router's, which save_moe keeps."""
     rcfg, pcfg = cfgs("mixtral")
     p = interop.transformer_params_from_numpy(client_params("mixtral"), device=CPU)
-    b = {k: t(v).long() for k, v in lm_batch(rcfg, (M, 2)).items()}
+    b = torch_inputs(lm_batch(rcfg, (M, 2)))
     layers = pcfg.num_layers
     out = {}
     for policy in ("full", "save_moe"):
@@ -286,10 +296,10 @@ def test_aux_sum_only_from_moe_layers(arch):
     without MoE layers make no (M,) f32 tensor at all."""
     rcfg, pcfg = cfgs(arch)
     p = interop.transformer_params_from_numpy(client_params(arch), device=CPU)
-    tok = t(tokens(rcfg, (M, 2, SEQ), 7)).long()
+    b = torch_inputs(inputs(rcfg, tokens(rcfg, (M, 2, SEQ), 7)))
+    tok = b["tokens"]
     with torch.no_grad(), Outputs() as rec:
-        _, aux, _ = transformer._forward(p, {"tokens": tok}, pcfg, return_cache=False,
-                                         last_only=True)
+        _, aux, _ = transformer._forward(p, b, pcfg, return_cache=False, last_only=True)
         cache = transformer.init_cache(pcfg, M, 2, 8, CPU)
         transformer.decode_step(p, cache, tok[:, :, :1], 0, pcfg)
     if pcfg.family == "moe":
@@ -297,3 +307,41 @@ def test_aux_sum_only_from_moe_layers(arch):
     else:
         assert aux is None
         assert ((M,), torch.float32) not in rec.seen
+
+
+def test_vlm_decode_continues_its_prefill():
+    """internvl2: the prefill over P patches and S tokens fills positions
+    0..P+S-1 of each layer's cache; 6 teacher-forced decode steps from
+    position P+S (tokens alone) against the reference's from the same
+    cache, and the loss reads the last S logits (the labels' positions)."""
+    rcfg, pcfg = cfgs("internvl2")
+    p = client_params("internvl2")
+    b = inputs(rcfg, tokens(rcfg, (M, 2, SEQ), seed=11))
+    total, max_len = rcfg.num_patches + SEQ, rcfg.num_patches + SEQ + 6
+    _, _, wcache = jax.jit(jax.vmap(functools.partial(ref_transformer.forward, cfg=rcfg,
+                                                      return_cache=True)))(jax_tree(p), jax_tree(b))
+    cache = np_tree(jax.vmap(lambda _: ref_transformer.init_cache(rcfg, 2, max_len))(
+        jnp.arange(M)))
+    for key, slot in cache["blocks"].items():
+        for kv in ("k", "v"):
+            slot[kv] = np.array(slot[kv])
+            slot[kv][:, :, :, :total] = np.asarray(wcache["blocks"][key][kv])
+        slot["pos"] = np.array(slot["pos"])
+        slot["pos"][..., :total] = np.arange(total)
+    rcache, tcache = jax_tree(cache), interop.cache_from_numpy(cache, device=CPU)
+    tp = interop.transformer_params_from_numpy(p, device=CPU)
+    rstep = jax.jit(ref_steps.build_serve_step(rcfg, federated=True))
+    step = steps.build_serve_step(pcfg, federated=True)
+    tok = tokens(rcfg, (M, 2, 6), seed=12)
+    for s in range(6):
+        want, rcache = rstep(jax_tree(p), rcache, jnp.asarray(tok[:, :, s:s + 1]),
+                             jnp.asarray(total + s, jnp.int32))
+        got, tcache = step(tp, tcache, t(tok[:, :, s:s + 1]).long(), total + s)
+        np.testing.assert_allclose(n(got), n(want), err_msg=f"step {s}", **LOGIT_TOL)
+    assert_close_rel(tcache, np_tree(rcache), CACHE_REL, 2e-5)
+    lb = lm_batch(rcfg, (M, 2))
+    assert lb["labels"].shape[-1] == SEQ
+    want = jax.jit(jax.vmap(functools.partial(ref_transformer.loss_fn, cfg=rcfg)))(
+        jax_tree(p), jax_tree(lb))
+    np.testing.assert_allclose(n(transformer.loss_fn(tp, torch_inputs(lb), pcfg)), n(want),
+                               **LOSS_TOL)

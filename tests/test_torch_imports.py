@@ -50,7 +50,8 @@ def test_import_without_jax_loaded():
         "repro_torch.configs, repro_torch.models.transformer, repro_torch.launch.serve, "
         "repro_torch.federated.faults, repro_torch.core.similarity, repro_torch.checkpoint, "
         "repro_torch.checkpoint.io, repro_torch.optim, repro_torch.data.lm_synthetic, "
-        "repro_torch.launch.steps, repro_torch.launch.train, repro_torch.core.pytree\n"
+        "repro_torch.launch.steps, repro_torch.launch.train, repro_torch.core.pytree, "
+        "repro_torch.models.whisper, repro_torch.models.registry\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro', 'msgpack'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
