@@ -120,6 +120,28 @@ Phases, each printed as it ends:
                and no battery-gated one); ucfl under the ``scaled_noise``
                and ``inf`` attacks with trimmed mean, 1 round, finite and
                above the untrained model; ``engine_path`` JSON line;
+  10b. mesh  — the client mesh over torch.distributed on the same task:
+               ucfl and ucfl_k4 over a one-rank NCCL group
+               (``FedConfig(mesh="auto")``), with and without
+               ``shard_state``, special round included, 3 cohort rounds at
+               fraction 0.5, each bit for bit the run without a mesh; then
+               2 and 4 gloo ranks spawned on the one card
+               (``mesh.spawn``, the kernels built once before) running
+               ucfl, ucfl_k4, fedavg, ditto, scaffold and buffered-async
+               ucfl, replicated and row-sharded, from the same seeds: each
+               rank's rows within rtol 1e-5, atol 1e-6 of the run without
+               a mesh, row-sharded bit for bit replicated, rows outside the
+               last cohort bit-identical through its round, m/s params rows
+               a rank, accuracy above the untrained model; per rank the
+               rounds' walls, a profiled round's busy time and launches,
+               launches by kernel and the collectives' calls, bytes and ms.
+               Every run records its kernel calls (``recorded_calls``; the
+               ranks' through rank 0's copies): every shape each kernel got
+               is held against its plain version, and each kernel's
+               launches form a row, ``<kernel>_block`` for the row-sharded
+               runs (``cohort_gather_block``, ``masked_mix_scatter_block``
+               on a rank's block), ``<kernel>_mesh`` for the replicated runs
+               and the runs without a mesh; ``mesh_path`` JSON line;
   11. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
                federated prefill step (the FMA kernel) and teacher-forced
                decode steps (the decode kernel; gemma2 past its window-64
@@ -239,6 +261,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -251,6 +274,7 @@ from repro_torch.core.aggregation import RobustConfig  # noqa: E402
 from repro_torch.core.similarity import RefreshConfig  # noqa: E402
 from repro_torch.data import lm_synthetic, loader, synthetic  # noqa: E402
 from repro_torch.federated import async_buffer, client, faults, participation  # noqa: E402
+from repro_torch.federated import mesh as mesh_lib  # noqa: E402
 from repro_torch.federated import simulation, transport  # noqa: E402
 from repro_torch.federated.async_buffer import AsyncConfig  # noqa: E402
 from repro_torch.federated.topology import Topology  # noqa: E402
@@ -2493,6 +2517,289 @@ def engine_phase(dev, data, params0, untrained):
     return rows
 
 
+# ------------------------------------------------------------------ mesh
+
+MESH_SHARDS = (2, 4)
+MESH_ROUNDS = 3
+MESH_RUNS = ("ucfl", "ucfl_k4", "fedavg", "ditto", "scaffold", "ucfl_async")
+MESH_SLABS = ("params", "personal", "c_i", "c")
+# the slabs whose rows only a cohort member's round moves
+MESH_UNTOUCHED = {"ucfl": ("params",), "ucfl_k4": ("params",), "ditto": ("personal",),
+                  "scaffold": ("c_i",)}
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-6
+
+
+def mesh_strategy(name, params0, dev, mesh_knob, shard):
+    """``name`` at its reference defaults over ``mesh_knob``; ``ucfl_async``
+    is ucfl with the engine phase's buffer."""
+    knobs = dict(mesh=mesh_knob, shard_state=shard)
+    if name == "ucfl_async":
+        return knob_strategy("ucfl", params0, dev, async_buffer=ENGINE_ASYNC, **knobs)
+    return knob_strategy(name, params0, dev, **knobs)
+
+
+def mesh_rounds(strat, data, dev, untouched=()):
+    """Init and ``MESH_ROUNDS`` cohort rounds at fraction 0.5, every draw
+    from a fixed seed (the same on every rank and without a mesh). Returns
+    the state, each round's wall time, and whether the ``untouched`` slabs'
+    rows outside the last cohort kept their bits through its round."""
+    m = data.num_clients
+    state = strat.init(torch.Generator(device=dev).manual_seed(SEED), data)
+    walls, kept = [], True
+    for rnd in range(1, MESH_ROUNDS + 1):
+        cohort = participation.sample_cohort(ParticipationConfig(fraction=0.5), rnd, m)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100 + rnd)
+        last = rnd == MESH_ROUNDS
+        before = {k: state[k].clone() for k in untouched} if last else {}
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        state, _ = strat.round(state, data, gen, cohort)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t)
+        for k, old in before.items():
+            rows = mesh_lib.row_mesh(state)
+            lo, hi = (0, m) if rows is None else rows.block(m)
+            outside = np.setdiff1d(np.arange(lo, hi), cohort.members) - lo
+            out = torch.as_tensor(outside, device=dev)
+            kept = kept and torch.equal(state[k][out], old[out])
+    return state, walls, kept
+
+
+def mesh_tag(shard):
+    """The kernel-row tag of a mesh-phase run's calls: ``block`` for the
+    row-sharded runs (the gather and the mix-scatter on a rank's block),
+    ``mesh`` for the replicated runs and the runs without a mesh."""
+    return "block" if shard else "mesh"
+
+
+def call_launches(calls):
+    """The launches of each kernel counter over a ``recorded_calls`` block."""
+    out = {}
+    for rec in calls.values():
+        for k, n in rec["launches"].items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def mesh_rank(rank, ref_path, calls_path, untrained, device, task_kw):
+    """One gloo rank of the mesh phase on the card: every run of
+    ``MESH_RUNS``, replicated and row-sharded, held against the
+    single-process run in ``ref_path`` (rtol 1e-5, atol 1e-6) and against
+    each other (bit for bit). Each run's kernel calls are recorded
+    (``recorded_calls``); rank 0 saves a copy of each distinct call's
+    inputs to ``calls_path``, for the parent to hold against the plain
+    version. Returns the rank's report and {tag: {call: launches}}.
+    ``task_kw`` sizes scenario 2 (empty: its defaults, m = 100)."""
+    dev = torch.device(device)
+    cm = mesh_lib.resolve("auto")
+    data = synthetic.covariate_label_shift(SEED, device=dev, **task_kw)
+    params0 = lenet.init(torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                         input_hw=task_kw.get("hw", (28, 28)),
+                         num_classes=task_kw.get("num_classes", 47))
+    m = data.num_clients
+    lo, hi = cm.block(m)
+    cohort = participation.sample_cohort(ParticipationConfig(fraction=0.5), 1, m)
+    mesh_lib.check_spmd(cm, idx=torch.as_tensor(mesh_lib.pad_cohort(cohort, cm, m).indices),
+                        perm=loader.draw_permutations(
+                            torch.Generator(device=dev).manual_seed(SEED + 101), 1, 1,
+                            data.y.shape[1], device=dev)[0, 0],
+                        x_sum=data.x.sum().reshape(1))
+    want_all = torch.load(ref_path, map_location=dev)
+    report, calls = {}, {"mesh": {}, "block": {}}
+    mesh_lib.TIMING = True
+    for name in MESH_RUNS:
+        kept_rep = {}
+        for shard in (False, True):
+            key = f"{name}_{'sharded' if shard else 'replicated'}"
+            strat = mesh_strategy(name, params0, dev, "auto", shard)
+            mesh_lib.reset_stats()
+            with recorded_calls(copy=rank == 0) as got:
+                state, walls, kept = mesh_rounds(strat, data, dev,
+                                                 MESH_UNTOUCHED.get(name, ()) if shard else ())
+            merge_calls(calls[mesh_tag(shard)], got)
+            stats = {k: dict(v) for k, v in mesh_lib.STATS.items()}
+            if not kept:
+                raise AssertionError(f"{key} rank {rank}: a row outside the cohort moved")
+            rows = mesh_lib.row_mesh(state)
+            if shard and (rows is None or state["params"].shape[0] != m // cm.shards):
+                raise AssertionError(f"{key} rank {rank}: params block "
+                                     f"{tuple(state['params'].shape)}, want {m // cm.shards} rows")
+            diff = 0.0
+            for k, want in want_all[name].items():
+                got_k = state[k]
+                want = want[lo:hi] if shard else want
+                if not torch.allclose(got_k, want, rtol=MESH_RTOL, atol=MESH_ATOL):
+                    raise AssertionError(f"{key} rank {rank} {k}: "
+                                         f"{float((got_k - want).abs().max()):.3e} from the run "
+                                         f"without a mesh (rtol {MESH_RTOL}, atol {MESH_ATOL})")
+                diff = max(diff, float((got_k - want).abs().max()))
+                if shard and not torch.equal(got_k, kept_rep[k]):
+                    raise AssertionError(f"{key} rank {rank} {k}: the row-sharded block is not "
+                                         "bit for bit the replicated run's rows")
+                if not shard:
+                    kept_rep[k] = got_k[lo:hi].clone()
+            accs = client.evaluate(lenet.apply_stacked, strat.eval_params(state), data.x_test,
+                                   data.y_test, mesh=rows if rows is not None else cm)
+            avg = float(accs.mean())
+            if not avg > untrained:
+                raise AssertionError(f"{key}: avg accuracy {avg:.4f} does not beat the untrained "
+                                     f"model's {untrained:.4f}")
+            pgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+            pcohort = participation.sample_cohort(ParticipationConfig(fraction=0.5),
+                                                  MESH_ROUNDS + 1, m)
+            mesh_lib.TIMING = False
+            prof = profile(lambda: strat.round(simulation.clone_state(state), data, pgen,
+                                               pcohort), dev)
+            mesh_lib.TIMING = True
+            report[key] = dict(walls_s=walls, busy_ms=prof["device_busy_ms"],
+                               profiled_wall_ms=prof["wall_ms"], host_launches=prof["launches"],
+                               launches=call_launches(got), collectives=stats,
+                               max_abs_vs_none=diff, rows=int(state["params"].shape[0]),
+                               avg_acc=avg)
+            del state
+    if rank == 0:
+        torch.save({tag: {key: dict(args=[a.cpu() if isinstance(a, torch.Tensor) else a
+                                          for a in rec["args"]], kw=rec["kw"], live=rec["live"])
+                          for key, rec in tc.items()} for tag, tc in calls.items()}, calls_path)
+    return report, {tag: {key: rec["launches"] for key, rec in tc.items()}
+                    for tag, tc in calls.items()}
+
+
+def merge_rank_calls(into, per_rank, calls_path, dev):
+    """Add the spawned ranks' recorded calls to ``into`` ({tag: calls}):
+    the inputs rank 0 saved in ``calls_path``, the launches summed over
+    the ranks. Every rank must have made the calls rank 0 made, at the
+    same shapes and options, so rank 0's inputs hold every launch's
+    shape."""
+    saved = torch.load(calls_path, map_location=dev)
+    for tag, recs in saved.items():
+        for rank, (_, launched) in enumerate(per_rank):
+            if set(launched[tag]) != set(recs):
+                raise AssertionError(f"mesh {tag}: rank {rank} made calls "
+                                     f"{sorted(set(launched[tag]) ^ set(recs))} that rank 0 did "
+                                     "not, or the reverse")
+        calls = {}
+        for key, rec in recs.items():
+            launches = {}
+            for _, launched in per_rank:
+                for k, n in launched[tag][key].items():
+                    launches[k] = launches.get(k, 0) + n
+            calls[key] = dict(rec, launches=launches)
+        merge_calls(into[tag], calls)
+
+
+def mesh_nccl_check(dev, data, params0, calls, backend="nccl"):
+    """ucfl and ucfl_k4 over a one-rank NCCL group (``mesh="auto"``), with
+    and without ``shard_state``, special round included: each bit for bit
+    the run without a mesh. Every run's kernel calls join ``calls`` under
+    their tag (``mesh_tag``). Returns the states of the runs without a
+    mesh."""
+    base = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            for name in ("ucfl", "ucfl_k4"):
+                with recorded_calls() as got:
+                    base[name], _, _ = mesh_rounds(mesh_strategy(name, params0, dev, None, False),
+                                                   data, dev)
+                merge_calls(calls[mesh_tag(False)], got)
+                for shard in (False, True):
+                    mesh_lib.reset_stats()
+                    strat = mesh_strategy(name, params0, dev, "auto", shard)
+                    with recorded_calls() as got:
+                        state, walls, _ = mesh_rounds(strat, data, dev)
+                    merge_calls(calls[mesh_tag(shard)], got)
+                    same = [k for k in ("params", "W", "labels")
+                            if state.get(k) is not None
+                            and not torch.equal(state[k], base[name][k])]
+                    if same or (shard and mesh_lib.row_mesh(state) is None):
+                        raise AssertionError(f"{name} nccl shard_state={shard}: {same} differ "
+                                             "from the run without a mesh")
+                    stats = {k: (v["calls"], v["bytes"]) for k, v in mesh_lib.STATS.items()}
+                    print(f"  {name} one-rank nccl, shard_state={shard}: bit for bit without a "
+                          f"mesh; rounds {[f'{w:.4f}' for w in walls]} s, launches "
+                          f"{call_launches(got)}, collectives (calls, bytes) {stats}", flush=True)
+        finally:
+            dist.destroy_process_group()
+    return base
+
+
+def mesh_phase(dev, data, params0, untrained, task_kw=None, backend="nccl"):
+    """The client mesh on the card at full width: one-rank NCCL runs bit for
+    bit the runs without a mesh, then 2 and 4 gloo ranks sharing the card
+    on ucfl, ucfl_k4, fedavg, ditto, scaffold and buffered-async ucfl, each
+    replicated and row-sharded. Every run records its kernel calls, and
+    each kernel gets two rows (``recorded_rows``): ``<kernel>_block`` for
+    the row-sharded runs and ``<kernel>_mesh`` for the replicated runs and
+    the runs without a mesh, each shape they gave it held against the
+    plain version, the launches of all ranks summed. Returns (launches
+    under the kernel rows, the kernel rows). ``task_kw`` sizes the ranks'
+    scenario 2 as ``data`` was made (empty: its defaults)."""
+    t0 = time.perf_counter()
+    m = data.num_clients
+    calls = {"mesh": {}, "block": {}}
+    base = mesh_nccl_check(dev, data, params0, calls, backend)
+    for name in MESH_RUNS:
+        if name not in base:
+            with recorded_calls() as got:
+                base[name], _, _ = mesh_rounds(mesh_strategy(name, params0, dev, None, False),
+                                               data, dev)
+            merge_calls(calls[mesh_tag(False)], got)
+    reports = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = f"{tmp}/none.pt"
+        torch.save({n: {k: st[k].cpu() for k in MESH_SLABS if isinstance(st.get(k), torch.Tensor)}
+                    for n, st in base.items()}, ref_path)
+        del base
+        for s in MESH_SHARDS:
+            ts = time.perf_counter()
+            device = "cuda:0" if dev.type == "cuda" else "cpu"
+            calls_path = f"{tmp}/calls{s}.pt"
+            per_rank = mesh_lib.spawn(mesh_rank, s, backend="gloo", device=device,
+                                      store_path=f"{tmp}/store{s}", timeout=300,
+                                      args=(ref_path, calls_path, untrained, device,
+                                            task_kw or {}))
+            merge_rank_calls(calls, per_rank, calls_path, dev)
+            reports[s] = [rep for rep, _ in per_rank]
+            print(f"  s = {s} gloo ranks on one card: {time.perf_counter() - ts:.1f} s", flush=True)
+    for s, per_rank in reports.items():
+        for rank, rep in enumerate(per_rank):
+            for key, r in rep.items():
+                coll = {k: f"{v['calls']} calls {v['bytes'] / 1e6:.1f} MB {v['ms']:.1f} ms"
+                        for k, v in r["collectives"].items()}
+                print(f"  s={s} rank {rank} {key}: rounds "
+                      f"{[f'{w:.4f}' for w in r['walls_s']]} s, profiled round wall "
+                      f"{r['profiled_wall_ms']:.1f} ms busy {r['busy_ms']:.2f} ms "
+                      f"({r['host_launches']} launches), launches {r['launches']}, "
+                      f"collectives {coll}, {r['rows']} rows, avg {r['avg_acc']:.4f}, "
+                      f"{r['max_abs_vs_none']:.3e} from the run without a mesh", flush=True)
+    rows, counts = {}, {}
+    for tag, tc in calls.items():
+        got_rows, got_counts = recorded_rows(tag, tc, dev)
+        rows.update(got_rows)
+        counts.update(got_counts)
+    for need in ("cohort_gather_block", "masked_mix_scatter_block"):
+        if need not in rows:
+            raise AssertionError(f"mesh: the row-sharded runs launched no {need[:-6]}")
+    for name, r in rows.items():
+        finish_row(name, r)
+    summary = {str(s): {key: dict(
+        round_s=[statistics.mean(r[key]["walls_s"]) for r in per_rank],
+        busy_ms=[r[key]["busy_ms"] for r in per_rank],
+        collective_ms=[sum(v["ms"] for v in r[key]["collectives"].values()) for r in per_rank],
+        collective_bytes=[sum(v["bytes"] for v in r[key]["collectives"].values())
+                          for r in per_rank],
+        launches=per_rank[0][key]["launches"], rows=per_rank[0][key]["rows"],
+        avg_acc=per_rank[0][key]["avg_acc"],
+        max_abs_vs_none=max(r[key]["max_abs_vs_none"] for r in per_rank))
+        for key in per_rank[0]} for s, per_rank in reports.items()}
+    print("mesh_path " + json.dumps({"runs": summary, "row_launches": counts}))
+    phase("mesh", t0, f"one-rank NCCL bit for bit, {len(MESH_RUNS)} strategies over "
+          f"{' and '.join(map(str, MESH_SHARDS))} gloo ranks at m={m}, "
+          f"d={flat.LayoutTable.build(params0).dim:,}")
+    return counts, rows
+
+
 @contextlib.contextmanager
 def plain_attention():
     """The model's attention calls (``ops.flash_attention``) take the
@@ -2992,11 +3299,13 @@ def families_agree_phase(dev):
 
 def merge_calls(into, calls):
     """Add one ``recorded_calls`` block's calls to ``into``, summing the
-    launches of a call both hold."""
+    launches of a call both hold; a live copy replaces one that is not."""
     for key, rec in calls.items():
         if key not in into:
             into[key] = rec
             continue
+        if rec.get("live") and not into[key].get("live"):
+            into[key].update(args=rec["args"], live=True)
         for k, n in rec["launches"].items():
             into[key]["launches"][k] = into[key]["launches"].get(k, 0) + n
 
@@ -3406,12 +3715,15 @@ def _signature(x):
 def recorded_calls(copy=True):
     """Every call of a kernel op in the block (looked up as ``ops.<name>``
     by its callers) with its launches: yields {(op, shapes, options):
-    {"args", "kw", "launches"}}, where "args" are copies of the first such
-    call's inputs, taken before the call (the mix-scatter writes into
-    ``full``; None without ``copy``, for a run whose calls are only
+    {"args", "kw", "launches", "live"}}, where "args" are copies of the
+    first such call's inputs, taken before the call (the mix-scatter writes
+    into ``full``; None without ``copy``, for a run whose calls are only
     counted), and "launches" the launches of each counter over all such
-    calls. On leaving, the launches summed over the calls must equal the
-    counters' rise over the block: every launch came from a recorded call."""
+    calls. A mix-scatter whose mask has no live slot (a buffered round
+    that does not flush) writes nothing, so its copy ("live" False) gives
+    way to the first later call of that shape with a live slot. On
+    leaving, the launches summed over the calls must equal the counters'
+    rise over the block: every launch came from a recorded call."""
     calls, ops_before = {}, {n: getattr(ops, n) for n in RECORDED_OPS}
     start = {k: c.launches for k, c in COUNTERS.items()}
 
@@ -3420,9 +3732,13 @@ def recorded_calls(copy=True):
             key = (name,) + tuple(_signature(a) for a in args) + tuple(sorted(kw.items()))
             rec = calls.get(key)
             if rec is None:
-                rec = calls[key] = dict(
-                    args=[a.detach().clone() if isinstance(a, torch.Tensor) else a
-                          for a in args] if copy else None, kw=dict(kw), launches={})
+                rec = calls[key] = dict(args=None, kw=dict(kw), launches={}, live=False)
+            if copy and not rec["live"]:
+                live = name != "masked_mix_scatter" or bool(args[3].any())
+                if rec["args"] is None or live:
+                    rec["args"] = [a.detach().clone() if isinstance(a, torch.Tensor) else a
+                                   for a in args]
+                    rec["live"] = live
             before = {k: c.launches for k, c in COUNTERS.items()}
             out = fn(*args, **kw)
             for k, c in COUNTERS.items():
@@ -3480,7 +3796,8 @@ def hold_call(name, args, kw, dev):
         return (err, lambda: ops.masked_mix_scatter(w, theta, idx, mask, scratch, impl="cuda"),
                 lambda: ref.masked_mix_scatter(w, theta, idx, mask, full),
                 lambda: scratch.index_copy_(0, live, w_live @ theta),
-                4 * c * c + size * (c * width + real * width), 2 * c * c * width, F32_FLOP_PER_S)
+                4 * real * c + size * (c * width + real * width), 2 * real * c * width,
+                F32_FLOP_PER_S)
     if name == "cohort_gather":
         full, idx = args
         safe = idx.long().clamp(max=full.shape[0] - 1)
@@ -4015,6 +4332,8 @@ def main():
     wire = transport_phase(dev, *task)
     knobs = knobs_phase(dev, *task)
     engine = engine_phase(dev, *task)
+    mesh_counts, mesh_rows = mesh_phase(dev, *task)
+    rows.update(mesh_rows)
     del task
     fma_launches = serve_agree_phase(dev)
     served = serve_phase(dev)
@@ -4060,7 +4379,7 @@ def main():
               "flash_attention_fma": fma_launches}
     # the knobs, engine, train and families phases' launches, each under the
     # row of its shape
-    for phase_rows in (knobs, engine, trained["row_launches"], family_launches,
+    for phase_rows in (knobs, engine, mesh_counts, trained["row_launches"], family_launches,
                        *(f["row_launches"] for f in fam.values())):
         for row, count in phase_rows.items():
             counts[row] = counts.get(row, 0) + count

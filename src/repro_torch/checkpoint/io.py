@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.checkpoint import _msgpack
 from repro_torch.core import pytree
+from repro_torch.federated import mesh as mesh_lib
 
 # torch dtype -> the numpy name the file records
 _NAMES = {torch.float32: "float32", torch.float64: "float64", torch.float16: "float16",
@@ -51,6 +52,11 @@ def _record(leaf) -> dict:
 
 
 def save(path: str, tree) -> None:
+    if mesh_lib.row_mesh(tree) is not None:
+        raise ValueError(
+            "checkpoint.save: this state is row-sharded (FedConfig.shard_state): it holds only "
+            "this rank's block of each client slab; saving the gathered state is not ported "
+            "yet (ROADMAP A5)")
     # the structure, "*" for a leaf (neither package reads it back)
     flat = pytree.leaves(tree)
     treedef = f"PyTreeDef({pytree.unflatten(tree, ['*'] * len(flat))!r})"

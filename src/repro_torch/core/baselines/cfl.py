@@ -63,8 +63,9 @@ def make_cfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         "the split check consumes every surviving member's PER-CLIENT update-delta row "
         "at the host each round — per-edge partial means would erase the rows the "
         "spectral bipartition needs")
+    sops = common.StateOps(cfg.mesh, cfg.shard_state)
     params0, layout, dev = common.prepare(params0, device)
-    local = common.local_sgd(apply_stacked, layout, cfg)
+    local = common.local_sgd(apply_stacked, layout, cfg, mesh=sops.mesh)
     schema = transport_lib.single_delta_schema(
         "cfl", layout.dim,
         downlink=(transport_lib.Stream("cluster_models", layout.dim, coding="raw"),))
@@ -129,7 +130,8 @@ def make_cfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
 
     def masked(state, data, gen, idx, mask, perms):
         assignment = state["assignment"]
-        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
+                                  sops=sops)
         pc = co.rows["params"]
         post = local(pc, co.x, co.y, perms=co.keys(perms))
         out = {}
@@ -141,7 +143,7 @@ def make_cfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         assignment_c = torch.as_tensor(assignment[np.minimum(idx, data.num_clients - 1)],
                                        device=dev)
         rows = aggregation.masked_group_rows(assignment_c, data.n[co.safe], fmask)
-        new = aggregation.mix_scatter_flat(state["params"], post, rows, fidx, fmask)
+        new = sops.mix_scatter_flat(state["params"], post, rows, fidx, fmask)
         if ustage is None:
             assignment, rnd = bookkeep(state, co.members, post - pc)
             streams = len(np.unique(assignment[co.members])) if co.real else 0
@@ -152,7 +154,8 @@ def make_cfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
 
     return Strategy("cfl", init,
                     common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
-                                        async_cfg=cfg.async_buffer),
+                                        async_cfg=cfg.async_buffer, sops=sops,
+                                        shard_keys=("params", "ef")),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="groupcast", injects_faults=cfg.faults is not None,
                     wire_schema=schema)

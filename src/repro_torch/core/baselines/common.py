@@ -55,8 +55,13 @@ that keeps the pre-round state alive (a warm-up, an A/B comparison from
 one start state) runs the round on
 :func:`repro_torch.federated.simulation.clone_state` of it.
 
-Not ported yet: the mesh, ``shard_state`` and the reference's
-``StateOps`` layout object (the mesh), an item of ROADMAP queue A.
+Layouts (``FedConfig.mesh``, ``FedConfig.shard_state``): every row
+movement against the (m, ·) state goes through the strategy's
+:class:`StateOps`, replicated (each rank holds the whole slab; bit for bit
+the mesh-free engine) or row-sharded (each rank holds its (m/s, ·) block;
+:mod:`repro_torch.federated.mesh`). :func:`cohort_round` pads every
+cohort to a shard multiple and commits the state's ``shard_keys`` slabs to
+the rank's block before the round.
 """
 from __future__ import annotations
 
@@ -72,6 +77,7 @@ from repro_torch.device import resolve_device
 from repro_torch.federated import async_buffer
 from repro_torch.federated import client as fedclient
 from repro_torch.federated import faults as faults_lib
+from repro_torch.federated import mesh as mesh_lib
 from repro_torch.federated import participation
 from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
@@ -86,11 +92,12 @@ def prepare(params0, device):
     return params0, flat.LayoutTable.build(params0), dev
 
 
-def local_sgd(apply_stacked, layout, cfg, *, grad_hook=None):
-    """The federated ClientUpdate at ``cfg``'s hyperparameters."""
+def local_sgd(apply_stacked, layout, cfg, *, grad_hook=None, mesh=None):
+    """The federated ClientUpdate at ``cfg``'s hyperparameters, its client
+    axis sharded over ``mesh`` (the strategy's resolved ``FedConfig.mesh``)."""
     return fedclient.make_federated_local_sgd(
         apply_stacked, layout, lr=cfg.lr, momentum=cfg.momentum, epochs=cfg.epochs,
-        batch_size=cfg.batch_size, chunk_size=cfg.chunk_size, grad_hook=grad_hook)
+        batch_size=cfg.batch_size, chunk_size=cfg.chunk_size, grad_hook=grad_hook, mesh=mesh)
 
 
 def device_slots(idx, mask, dev):
@@ -118,8 +125,166 @@ def group_average(stacked, assignment, n):
     return aggregation.user_centric(stacked, group_mixing_matrix(assignment, n))
 
 
+class StateOps:
+    """The layout of the (m, ·) stacked server state over the client mesh.
+
+    One object a strategy, built from the ``FedConfig`` knobs
+    (``StateOps(cfg.mesh, cfg.shard_state)``), so every gather, scatter and
+    mix against the stacked state goes through one dispatch point:
+
+      * replicated (``shard_state=False``, the default): each rank holds
+        the whole slab and every method is the plain helper
+        (:func:`repro_torch.core.aggregation.cohort_gather`,
+        ``scatter_rows``, ``mix_scatter_flat``, :func:`fedavg_masked_mix`),
+        bit for bit the engine without a mesh;
+      * row-sharded (``shard_state=True``): rank k holds rows [k·m/s,
+        (k+1)·m/s) of each slab its strategy names (``shard_keys``); the
+        gather assembles the cohort with a (c, W) SUM all-reduce, the
+        scatter and the mix-scatter rewrite only the owner's block, and the
+        async flush's all-gather of its (B, W) rows is the one model-sized
+        collective besides. Requires a mesh and ``m % num_shards == 0``.
+
+    Cohort-shaped values (the (c, ·) gathered rows, the (c, c) rules, the
+    slot arrays) are the same on every rank in both layouts; only (m, ·)
+    and (B, ·) stacked state changes layout.
+    """
+
+    def __init__(self, mesh=None, shard_state: bool = False):
+        mesh = mesh_lib.resolve(mesh)
+        if shard_state and mesh is None:
+            raise ValueError(
+                "FedConfig.shard_state requires a mesh (FedConfig.mesh): "
+                "row-sharding partitions the state across the clients "
+                "mesh's devices")
+        self.mesh = mesh
+        self.sharded = bool(shard_state)
+
+    # ---- cohort row movement
+
+    def gather(self, full, safe):
+        """The cohort gather ``full[safe]`` (``safe`` int32, pre-clamped):
+        one ``cohort_gather`` launch, on the rank's block when sharded."""
+        if self.sharded:
+            return mesh_lib.shard_gather_rows(full, safe, self.mesh)
+        return aggregation.cohort_gather(full, safe)
+
+    def scatter(self, full, co, rows):
+        """``full[co.idx[i]] = rows[i]`` for the cohort's real slots
+        (:class:`CohortRows`); pads never write, and a sharded rank writes
+        the slots it owns."""
+        if self.sharded:
+            return mesh_lib.shard_scatter_rows(full, co.members, rows, self.mesh)
+        return aggregation.scatter_rows(full, co.idx, rows, co.real)
+
+    def row0(self, full):
+        """The state's global row 0, (1, W): the shared reference of a
+        broadcast-uniform slab's delta-coded downlink."""
+        if self.sharded:
+            return self.gather(full, torch.zeros((1,), dtype=torch.int32, device=full.device))
+        return full[0:1]
+
+    def row_mean(self, full, m):
+        """The mean of all m rows of ``full``, (1, W). With more than one
+        shard both layouts add the s row blocks' column sums in rank order
+        (:func:`repro_torch.federated.mesh.row_mean`), so they agree bit for
+        bit; without a mesh, on one shard, or where the shards do not divide
+        m (replicated), it is ``torch.mean``."""
+        if self.mesh is None or self.mesh.shards == 1 or m % self.mesh.shards:
+            return torch.mean(full, dim=0, keepdim=True)
+        if self.sharded:
+            return mesh_lib.row_mean(full, self.mesh, m)
+        return mesh_lib.block_mean(full, self.mesh)
+
+    # ---- fused PS mixes
+
+    def mix_scatter(self, full, cohort_updated, rows, idx, mask):
+        """:func:`repro_torch.core.aggregation.mix_scatter` in either layout."""
+        return self.mix_scatter_flat(full, pytree.stacked_ravel(cohort_updated), rows, idx, mask)
+
+    def mix_scatter_flat(self, full, flat_c, rows, idx, mask):
+        """:func:`repro_torch.core.aggregation.mix_scatter_flat` in either
+        layout. Sharded, the (c, c) × (c, W) mix is computed the same on
+        every rank and each rank's kernel writes only the rows of its block
+        (localized ids; the rest drop on the local sentinel)."""
+        if not self.sharded:
+            return aggregation.mix_scatter_flat(full, flat_c, rows, idx, mask)
+        update = mesh_lib.shard_block_update(
+            lambda block, loc, lm, fc, w: aggregation.mix_scatter_flat(block, fc, w, loc, lm),
+            self.mesh)
+        return update(full, idx, mask, flat_c, rows)
+
+    def fedavg_mix(self, params, updated, idx, mask, n, *, dstage=None, ef_dl=None):
+        """:func:`fedavg_masked_mix` in either layout: the (1, c) mix is the
+        same on every rank, broadcast over the rank's rows."""
+        return fedavg_masked_mix(params, updated, idx, mask, n, dstage=dstage, ef_dl=ef_dl,
+                                 row0=None if dstage is None else self.row0(params))
+
+    # ---- commits (the state entering a round)
+
+    def commit_state(self, state, shard_keys, m):
+        """The state with its ``shard_keys`` (m, ·) slabs and the async
+        buffer's rows cut to this rank's block, and marked row-sharded
+        (``mesh.ROW_KEY``). The identity when replicated, and for a state
+        already committed."""
+        if not self.sharded:
+            return state
+        out = dict(state)
+        for k in shard_keys:
+            if state.get(k) is not None:
+                out[k] = mesh_lib.commit_rows(state[k], self.mesh, m)
+        if state.get("abuf") is not None:
+            out["abuf"] = self.commit_buffer(state["abuf"])
+        out[mesh_lib.ROW_KEY] = self.mesh
+        return out
+
+    # ---- the buffered-async buffer
+
+    @property
+    def buffer_shards(self) -> int:
+        """The shard count the async buffer's B slots must divide by."""
+        return mesh_lib.num_shards(self.mesh) if self.sharded else 1
+
+    def buffer_scatter(self):
+        """The deposit hook of :func:`repro_torch.federated.async_buffer.deposit`:
+        each upload row lands in its owner rank's block of the row-sharded
+        ``upd`` (the block's spare row takes the rest). None (the plain
+        write) when replicated."""
+        if not self.sharded:
+            return None
+        rank = self.mesh.rank
+
+        def scatter(upd, dest, rows):
+            loc, _ = mesh_lib._localize(dest, upd.shape[0] - 1, rank)
+            out = upd if upd.is_cuda else upd.clone()
+            return out.index_copy_(0, loc, rows.to(out.dtype))
+
+        return scatter
+
+    def buffer_gather(self, buf):
+        """The (B, W) buffer rows on every rank, for a flush: the all-gather
+        of the row-sharded blocks, each without its spare row (the async
+        engine's one model-sized collective), or the rows themselves when
+        replicated."""
+        if self.sharded:
+            return mesh_lib.all_gather_rows(buf["upd"][:-1], self.mesh)
+        return async_buffer.rows(buf)
+
+    def commit_buffer(self, buf):
+        """The buffer with its (B + 1, W) ``upd`` cut to this rank's (B/s, W)
+        block and a spare row; the metadata (idx, ver, count, version,
+        last_sync) stays whole on every rank."""
+        if not self.sharded:
+            return buf
+        b = buf["idx"].shape[0]
+        upd = buf["upd"]
+        if upd.shape[0] != b + 1 or self.mesh.shards == 1:
+            return buf
+        lo, hi = self.mesh.block(b)
+        return dict(buf, upd=torch.cat([upd[lo:hi], upd.new_zeros((1, upd.shape[1]))]))
+
+
 def cohort_round(dense_fn, masked_fn, *, transport=None, stage=None, async_fn=None,
-                 async_cfg=None, topology=None):
+                 async_cfg=None, topology=None, sops, shard_keys=("params",)):
     """Build ``round(state, data, gen=None, cohort=None, *, perms=None)``.
 
     ``dense_fn(state, data, gen, perms) -> (state, metrics)`` is the full
@@ -141,6 +306,14 @@ def cohort_round(dense_fn, masked_fn, *, transport=None, stage=None, async_fn=No
     construction raises ``NotImplementedError``. A dense round under it
     raises ``ValueError``, as under ``topology`` (the strategy's checked
     ``FedConfig.topology``, whose tiered mix its masked body closes over).
+
+    ``sops`` (the strategy's :class:`StateOps`) over a mesh pads every
+    cohort to a slot count the shard count divides, with sentinel slots,
+    before the masked path sees it. Row-sharded, it commits the state's
+    ``shard_keys`` slabs to the rank's block before every round
+    (:meth:`StateOps.commit_state`), and a dense round raises
+    ``ValueError``: its broadcast is the O(m·d) traffic the row-sharded
+    layout removes.
     """
     if async_cfg is not None and async_fn is None:
         raise NotImplementedError(
@@ -149,10 +322,19 @@ def cohort_round(dense_fn, masked_fn, *, transport=None, stage=None, async_fn=No
             "full/clustered and the FedAvg family — strategies whose PS "
             "step is the masked row aggregation)")
     fn = masked_fn if async_cfg is None else async_fn
+    mesh, sharded = sops.mesh, sops.sharded
 
     def round(state, data, gen=None, cohort=None, *, perms=None):
-        cohort = participation.as_cohort(cohort, data.num_clients)
+        m = data.num_clients
+        cohort = participation.as_cohort(cohort, m)
         if cohort is None:
+            if sharded:
+                raise ValueError(
+                    "FedConfig.shard_state requires cohort rounds: "
+                    "cohort=None is the dense full-participation path, "
+                    "whose broadcast is the O(m·d) traffic row-sharding "
+                    "removes — pass a participation config (or drop "
+                    "shard_state)")
             if async_cfg is not None:
                 raise ValueError(
                     "the buffered-async engine processes arrival cohorts; "
@@ -178,12 +360,18 @@ def cohort_round(dense_fn, masked_fn, *, transport=None, stage=None, async_fn=No
                     "full-participation path has no per-edge upload stage "
                     "— pass a participation config (or drop topology)")
             state, metrics = dense_fn(state, data, gen, perms)
-            size = data.num_clients
+            size = m
         else:
+            if mesh is not None:
+                cohort = mesh_lib.pad_cohort(cohort, mesh, m)
+            if sharded:
+                state = sops.commit_state(state, shard_keys, m)
             rnd = state.get("fault_round", 0)
             state, metrics = fn(state, data, gen, cohort.indices, cohort.mask, perms)
             if stage is not None:
                 state = dict(state, fault_round=rnd + 1)
+            if sharded:  # a body that builds a new dict keeps the mark
+                state = dict(state, **{mesh_lib.ROW_KEY: sops.mesh})
             size = len(cohort)
         return state, {**metrics, "cohort_size": size}
 
@@ -219,7 +407,8 @@ class CohortRows:
     ``members`` are the real ids on the host, the slots' sorted prefix;
     ``rows`` maps a state key to its gathered (c, dim_aligned) rows, a
     copy; ``x``/``y`` are the slots' data; ``rnd`` the state's
-    ``fault_round`` (0 without the upload stage)."""
+    ``fault_round`` (0 without the upload stage); ``sops`` the state's
+    layout."""
 
     idx: torch.Tensor
     mask: torch.Tensor
@@ -231,7 +420,13 @@ class CohortRows:
     gen: torch.Generator | None
     m: int
     epochs: int
-    rnd: int = 0
+    rnd: int
+    sops: StateOps
+
+    def scatter(self, full, rows):
+        """``full[idx[i]] = rows[i]`` at the real slots, in the state's
+        layout (:meth:`StateOps.scatter`)."""
+        return self.sops.scatter(full, self, rows)
 
     @property
     def real(self):
@@ -245,19 +440,20 @@ class CohortRows:
                            n=self.y.shape[1] if n is None else n, perms=perms)
 
 
-def gather_cohort(state, data, gen, idx, mask, *, dev, epochs, slabs=("params",)):
+def gather_cohort(state, data, gen, idx, mask, *, dev, epochs, sops, slabs=("params",)):
     """The start of every masked round: the host slots ``idx``/``mask``
     on ``dev``, one ``cohort_gather`` launch for each key of ``state`` in
     ``slabs`` and for the uplink EF slab ``ef`` where the state holds one
-    (a quantized wire), and the slots' data, as a :class:`CohortRows`."""
+    (a quantized wire), in the layout of ``sops`` (the strategy's
+    :class:`StateOps`), and the slots' data, as a :class:`CohortRows`."""
     m = data.num_clients
     idx_t, mask_t = device_slots(idx, mask, dev)
     safe32 = aggregation.safe_gather_index(idx_t, m)
     safe = safe32.long()
     slabs = tuple(slabs) + (("ef",) if "ef" in state else ())
-    rows = {k: aggregation.cohort_gather(state[k], safe32) for k in slabs}
+    rows = {k: sops.gather(state[k], safe32) for k in slabs}
     return CohortRows(idx_t, mask_t, safe, idx[mask], rows, data.x[safe], data.y[safe], gen, m,
-                      epochs, state.get("fault_round", 0))
+                      epochs, state.get("fault_round", 0), sops)
 
 
 def wire_stages(schema, transport):
@@ -354,12 +550,13 @@ def uplink(stage, state, co, pre, post):
     returns what the server decodes, ``post'``, and the state's new EF
     slab, the slots' residuals written back at the real slots."""
     post, ef_c = stage(pre, post, co.rows["ef"])
-    return post, aggregation.scatter_rows(state["ef"], co.idx, ef_c, co.real)
+    return post, co.scatter(state["ef"], ef_c)
 
 
-def fedavg_masked_mix(params, updated, idx, mask, n, *, dstage=None, ef_dl=None):
+def fedavg_masked_mix(params, updated, idx, mask, n, *, dstage=None, ef_dl=None, row0=None):
     """Masked Eq. 1: the n-weighted mean of the real cohort uploads
-    (``updated``, (c, d)), broadcast to every row of the ``params`` slab.
+    (``updated``, (c, d)), broadcast to every row of the ``params`` slab
+    (or of the rank's block of it).
 
     ``n`` is the full (m,) dataset sizes: the pad sentinels are clamped
     against it. An all-masked cohort keeps the previous model instead of
@@ -367,20 +564,19 @@ def fedavg_masked_mix(params, updated, idx, mask, n, *, dstage=None, ef_dl=None)
     full-state write of the cohort engine; it returns a new tensor.
 
     With ``dstage``, the downlink stage of a ``delta`` broadcast, the mean
-    is delta-coded against the receivers' shared reference, row 0 of the
-    broadcast-uniform ``params``, with the server's (1, d) EF row
-    ``ef_dl``; the result is then ``(params', ef_dl')``, and an
-    all-masked cohort keeps both as they were.
+    is delta-coded against the receivers' shared reference ``row0``, the
+    broadcast-uniform ``params``' global row 0 (``params[0:1]`` when None),
+    with the server's (1, d) EF row ``ef_dl``; the result is then
+    ``(params', ef_dl')``, and an all-masked cohort keeps both as they were.
     """
     safe = aggregation.safe_gather_index(idx, n.shape[0]).long()
     w = aggregation.masked_fedavg_weights(n[safe], mask)
     mixed = aggregation.user_centric(updated, w)  # (1, d)
     alive = torch.any(mask)
     if dstage is None:
-        return torch.where(alive, mixed.expand_as(params), params)
-    served, new_ef = dstage(params[0:1], mixed, ef_dl)
-    return (torch.where(alive, served.expand_as(params), params),
-            torch.where(alive, new_ef, ef_dl))
+        return mesh_lib.shard_broadcast_rows(params, mixed, alive)
+    served, new_ef = dstage(params[0:1] if row0 is None else row0, mixed, ef_dl)
+    return mesh_lib.shard_broadcast_rows(params, served, alive), torch.where(alive, new_ef, ef_dl)
 
 
 def tiered_fedavg_weights(edge_arr, num_edges, slots, idx, mask, n):
@@ -407,20 +603,21 @@ def tiered_fedavg_weights(edge_arr, num_edges, slots, idx, mask, n):
     return wpe, w2
 
 
-def fedavg_mix_closure(*, dstage=None, topology=None, device=None):
+def fedavg_mix_closure(*, sops, dstage=None, topology=None, device=None):
     """The FedAvg family's mix ``mix(params, updated, idx, mask, n,
-    ef_dl=None)``: masked Eq. 1, broadcast back (:func:`fedavg_masked_mix`).
-    With ``dstage`` (the downlink stage of a ``delta`` broadcast) it returns
-    ``(params', ef_dl')``. ``topology`` (a checked
-    :class:`~repro_torch.federated.topology.Topology`) swaps the single
-    global mean for the two-tier factorization of
-    :func:`tiered_fedavg_weights` with the same broadcast and EF tail;
-    None keeps the flat mix bit for bit."""
+    ef_dl=None)``: masked Eq. 1, broadcast back (:meth:`StateOps.fedavg_mix`
+    in the layout of ``sops``). With ``dstage`` (the
+    downlink stage of a ``delta`` broadcast) it returns ``(params',
+    ef_dl')``. ``topology`` (a checked
+    :class:`~repro_torch.federated.topology.Topology`, never with a
+    row-sharded state) swaps the single global mean for the two-tier
+    factorization of :func:`tiered_fedavg_weights` with the same broadcast
+    and EF tail; None keeps the flat mix bit for bit."""
     if topology is not None:
         return _tiered_fedavg_mix_closure(topology, dstage=dstage, device=device)
 
     def mix(params, updated, idx, mask, n, ef_dl=None):
-        return fedavg_masked_mix(params, updated, idx, mask, n, dstage=dstage, ef_dl=ef_dl)
+        return sops.fedavg_mix(params, updated, idx, mask, n, dstage=dstage, ef_dl=ef_dl)
 
     return mix
 
@@ -449,7 +646,7 @@ def _tiered_fedavg_mix_closure(topology, *, dstage=None, device=None):
     return mix
 
 
-def make_fedavg_masked_round(train, *, dev, epochs, schema, transport, stage=None,
+def make_fedavg_masked_round(train, *, dev, epochs, schema, transport, sops, stage=None,
                              topology=None):
     """The FedAvg family's masked round (FedAvg, FedProx): the gathered
     rows trained by ``train(co, perms) -> (c, dim_aligned)``, ``co`` the
@@ -457,13 +654,13 @@ def make_fedavg_masked_round(train, *, dev, epochs, schema, transport, stage=Non
     or two-tier under ``topology``). Under ``transport`` the uploads pass
     ``schema``'s uplink stage and the mean its downlink stage; then the
     upload ``stage`` (:func:`upload_stage`), whose final mask weighs the
-    mean. Returns ``masked(state, data, gen, idx, mask, perms)`` for
-    :func:`cohort_round`."""
+    mean. ``sops`` is the state's layout. Returns ``masked(state, data,
+    gen, idx, mask, perms)`` for :func:`cohort_round`."""
     up, down = wire_stages(schema, transport)
-    mix = fedavg_mix_closure(dstage=down, topology=topology, device=dev)
+    mix = fedavg_mix_closure(dstage=down, topology=topology, device=dev, sops=sops)
 
     def masked(state, data, gen, idx, mask, perms):
-        co = gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=epochs)
+        co = gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=epochs, sops=sops)
         pc = co.rows["params"]
         post = train(co, perms)
         out = {}
@@ -484,19 +681,22 @@ def make_fedavg_masked_round(train, *, dev, epochs, schema, transport, stage=Non
 # ------------------------------------------------------- buffered-async path
 
 
-def state_async_buffer(state, acfg, m, slots, dim, schema=None, device=None):
+def state_async_buffer(state, acfg, m, slots, dim, schema, device, sops):
     """The state's upload buffer, or a fresh one on ``device``: its slot
     count depends on the cohort's, which the strategy does not know at
-    ``init``, so the first cohort round creates it. A warm-up on
+    ``init``, so the first cohort round creates it, in the layout of
+    ``sops`` (B padded to a shard multiple and ``upd`` cut to the rank's
+    block when row-sharded). A warm-up on
     :func:`repro_torch.federated.simulation.clone_state` creates its own
     and throws it away."""
     buf = state.get("abuf")
     if buf is None:
-        buf = async_buffer.init_buffer(acfg, m, slots, dim, schema=schema, device=device)
+        buf = sops.commit_buffer(async_buffer.init_buffer(
+            acfg, m, slots, dim, schema=schema, device=device, shards=sops.buffer_shards))
     return buf
 
 
-def make_fedavg_async_round(train, acfg, *, dev, epochs, schema, transport, stage=None):
+def make_fedavg_async_round(train, acfg, *, dev, epochs, schema, transport, sops, stage=None):
     """The FedAvg family's buffered-async round (FedAvg, FedProx).
 
     FedBuff's rule in delta form: the buffer banks the cohort's deltas
@@ -512,14 +712,18 @@ def make_fedavg_async_round(train, acfg, *, dev, epochs, schema, transport, stag
     buffer banks what the wire carried and no demoted row; the downlink
     stays raw f32. The flush is a device predicate: the add is
     ``where(flush, θ + step, θ)``, whose weights are 0, never NaN, when
-    nothing is pending. Returns ``body(state, abuf, data, gen, idx, mask,
-    perms) -> (state', abuf', metrics)``."""
+    nothing is pending. ``sops`` is the state's layout: row-sharded, the
+    deposits land in their owner's block of ``upd`` and every round
+    all-gathers the buffer's rows for the predicated flush; the mean is
+    taken over the buffer's own B slots, not the shard padding past them.
+    Returns ``body(state, abuf, data, gen, idx, mask, perms) -> (state',
+    abuf', metrics)``."""
     flush_k = int(acfg.flush_k)
     up, _ = wire_stages(schema, transport)
 
     def body(state, abuf, data, gen, idx, mask, perms):
         m = data.num_clients
-        co = gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=epochs)
+        co = gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=epochs, sops=sops)
         pc = co.rows["params"]
         post = train(co, perms)
         out = {}
@@ -530,15 +734,17 @@ def make_fedavg_async_round(train, acfg, *, dev, epochs, schema, transport, stag
             post, fidx, fmask = upload(stage, co, pc, post)
         # a FedAvg client downloads the current global when sampled
         base_ver = abuf["version"].expand(fidx.shape)
-        abuf = async_buffer.deposit(abuf, post - pc, fidx, fmask, base_ver, m)
+        abuf = async_buffer.deposit(abuf, post - pc, fidx, fmask, base_ver, m,
+                                    scatter=sops.buffer_scatter())
         flush = abuf["count"] >= flush_k
         weights = async_buffer.staleness_weights(abuf, m, acfg.alpha)
         tau = async_buffer.staleness(abuf)
         applied = abuf["count"]
-        bsafe = aggregation.safe_gather_index(abuf["idx"], m).long()
-        w = aggregation.masked_fedavg_weights(data.n[bsafe], async_buffer.valid_mask(abuf, m),
-                                              weights)
-        step = ops.mix_aggregate(w, async_buffer.rows(abuf))  # (1, W)
+        b = acfg.capacity(len(idx))  # the buffer's own slots, before any shard padding
+        bsafe = aggregation.safe_gather_index(abuf["idx"][:b], m).long()
+        w = aggregation.masked_fedavg_weights(data.n[bsafe], async_buffer.valid_mask(abuf, m)[:b],
+                                              weights[:b])
+        step = ops.mix_aggregate(w, sops.buffer_gather(abuf)[:b])  # (1, W)
         params = state["params"]
         params = torch.where(flush, params + step, params)
         abuf = async_buffer.flush_reset(abuf, m, flush)
@@ -550,19 +756,22 @@ def make_fedavg_async_round(train, acfg, *, dev, epochs, schema, transport, stag
     return body
 
 
-def fedavg_async_wrapper(train, acfg, *, dev, epochs, schema, transport, stage=None, dim=None):
+def fedavg_async_wrapper(train, acfg, *, dev, epochs, schema, transport, sops, stage=None,
+                         dim=None):
     """The FedAvg family's buffered cohort body for
     :func:`cohort_round`'s ``async_fn``, or None when ``acfg`` is:
     ``amasked(state, data, gen, idx, mask, perms)`` runs
     :func:`make_fedavg_async_round` on the state's lazily created buffer
-    ``abuf`` (rows at ``schema``'s uplink width)."""
+    ``abuf`` (rows at ``schema``'s uplink width), in the layout of
+    ``sops``."""
     if acfg is None:
         return None
     body = make_fedavg_async_round(train, acfg, dev=dev, epochs=epochs, schema=schema,
-                                   transport=transport, stage=stage)
+                                   transport=transport, stage=stage, sops=sops)
 
     def amasked(state, data, gen, idx, mask, perms):
-        abuf = state_async_buffer(state, acfg, data.num_clients, len(idx), dim, schema, dev)
+        abuf = state_async_buffer(state, acfg, data.num_clients, len(idx), dim, schema, dev,
+                                  sops)
         state, abuf, metrics = body(state, abuf, data, gen, idx, mask, perms)
         return dict(state, abuf=abuf), metrics
 

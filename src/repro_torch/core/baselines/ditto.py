@@ -36,9 +36,11 @@ def make_ditto(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, lam: flo
         "the round interleaves the global FedAvg leg with a client-side personal solver "
         "keyed to the same cohort gather — threading the two-tier mix through both legs "
         "is future work")
+    sops = common.StateOps(cfg.mesh, cfg.shard_state)
     params0, layout, dev = common.prepare(params0, device)
-    local_global = common.local_sgd(apply_stacked, layout, cfg)
-    local_personal = common.local_sgd(apply_stacked, layout, cfg, grad_hook=ditto_hook)
+    local_global = common.local_sgd(apply_stacked, layout, cfg, mesh=sops.mesh)
+    local_personal = common.local_sgd(apply_stacked, layout, cfg, grad_hook=ditto_hook,
+                                      mesh=sops.mesh)
     schema = transport_lib.single_delta_schema(
         "ditto", layout.dim, downlink=(transport_lib.Stream("model", layout.dim),))
     up, down = common.wire_stages(schema, cfg.transport)
@@ -62,7 +64,7 @@ def make_ditto(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, lam: flo
     def masked(state, data, gen, idx, mask, perms):
         perms_g, perms_p = (None, None) if perms is None else perms
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
-                                  slabs=("params", "personal"))
+                                  slabs=("params", "personal"), sops=sops)
         pc = co.rows["params"]
         post = local_global(pc, co.x, co.y, perms=co.keys(perms_g))
         out, gidx, gmask = {}, co.idx, co.mask
@@ -71,17 +73,18 @@ def make_ditto(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, lam: flo
         if ustage is not None:
             post, gidx, gmask = common.upload(ustage, co, pc, post)
         if down is None:
-            new_global = common.fedavg_masked_mix(state["params"], post, gidx, gmask, data.n)
+            new_global = sops.fedavg_mix(state["params"], post, gidx, gmask, data.n)
         else:
-            new_global, out["ef_dl"] = common.fedavg_masked_mix(
+            new_global, out["ef_dl"] = sops.fedavg_mix(
                 state["params"], post, gidx, gmask, data.n, dstage=down, ef_dl=state["ef_dl"])
         new_pc = local_personal(co.rows["personal"], co.x, co.y, pc, perms=co.keys(perms_p))
-        personal = aggregation.scatter_rows(state["personal"], co.idx, new_pc, co.real)
+        personal = co.scatter(state["personal"], new_pc)
         return {"params": new_global, "personal": personal, **out}, {"streams": 1}
 
     return Strategy(f"ditto_lam{lam}", init,
                     common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
-                                        async_cfg=cfg.async_buffer),
+                                        async_cfg=cfg.async_buffer, sops=sops,
+                                        shard_keys=("params", "personal", "ef")),
                     lambda s: layout.unravel(s["personal"]),
                     comm_scheme="broadcast", num_streams=1,
                     injects_faults=cfg.faults is not None, wire_schema=schema)

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import aggregation, similarity
+from repro_torch.core import similarity
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
 from repro_torch.federated import client as fedclient
@@ -87,8 +87,9 @@ def make_fedfomo(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         "client-side first-order mixing downloads every cohort peer's model per "
         "receiver (the m× downlink the paper prices) — there is no PS aggregate for an "
         "edge tier to ship")
+    sops = common.StateOps(cfg.mesh, cfg.shard_state)
     params0, layout, dev = common.prepare(params0, device)
-    local = common.local_sgd(apply_stacked, layout, cfg)
+    local = common.local_sgd(apply_stacked, layout, cfg, mesh=sops.mesh)
     schema = transport_lib.single_delta_schema(
         "fedfomo", layout.dim,
         downlink=(transport_lib.Stream("peer_models", layout.dim, coding="relay"),))
@@ -115,7 +116,8 @@ def make_fedfomo(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         return {"params": mixed(post, x_val, y_val)}, {"streams": data.num_clients}
 
     def masked(state, data, gen, idx, mask, perms):
-        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
+                                  sops=sops)
         x_tr, y_tr, x_val, y_val = split(co.x, co.y)
         pc = co.rows["params"]
         post = local(pc, x_tr, y_tr, perms=co.keys(perms, n=y_tr.shape[1]))
@@ -127,12 +129,12 @@ def make_fedfomo(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             post, _, fmask = common.upload(ustage, co, pc, post)
             final = fmask
         new = common.kept(final, mixed(post, x_val, y_val, fmask.float()), pc)
-        return ({"params": aggregation.scatter_rows(state["params"], co.idx, new, co.real),
-                 **out}, {"streams": co.real})
+        return {"params": co.scatter(state["params"], new), **out}, {"streams": co.real}
 
     return Strategy("fedfomo", init,
                     common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
-                                        async_cfg=cfg.async_buffer),
+                                        async_cfg=cfg.async_buffer, sops=sops,
+                                        shard_keys=("params", "ef")),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="client_mixing", injects_faults=cfg.faults is not None,
                     wire_schema=schema)

@@ -18,9 +18,11 @@ def make_fedprox(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, mu: fl
     def prox_hook(g, p, center):
         return g + mu * (p - center)
 
-    topo = topology_lib.check_composition(cfg.topology, "fedprox", async_buffer=cfg.async_buffer)
+    topo = topology_lib.check_composition(cfg.topology, "fedprox", shard_state=cfg.shard_state,
+                                          async_buffer=cfg.async_buffer)
+    sops = common.StateOps(cfg.mesh, cfg.shard_state)
     params0, layout, dev = common.prepare(params0, device)
-    local = common.local_sgd(apply_stacked, layout, cfg, grad_hook=prox_hook)
+    local = common.local_sgd(apply_stacked, layout, cfg, grad_hook=prox_hook, mesh=sops.mesh)
     schema = transport_lib.single_delta_schema(
         "fedprox", layout.dim, downlink=(transport_lib.Stream("model", layout.dim),))
 
@@ -42,15 +44,17 @@ def make_fedprox(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, mu: fl
 
     ustage = common.upload_stage(cfg, schema)
     masked = common.make_fedavg_masked_round(train, dev=dev, epochs=cfg.epochs, schema=schema,
-                                             transport=cfg.transport, stage=ustage, topology=topo)
+                                             transport=cfg.transport, stage=ustage, topology=topo,
+                                             sops=sops)
     amasked = common.fedavg_async_wrapper(train, cfg.async_buffer, dev=dev, epochs=cfg.epochs,
                                           schema=schema, transport=cfg.transport, stage=ustage,
-                                          dim=layout.dim)
+                                          dim=layout.dim, sops=sops)
 
     return Strategy(f"fedprox_mu{mu}", init,
                     common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
                                         async_fn=amasked, async_cfg=cfg.async_buffer,
-                                        topology=topo),
+                                        topology=topo, sops=sops,
+                                        shard_keys=("params", "ef")),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="broadcast", num_streams=1,
                     injects_faults=cfg.faults is not None, wire_schema=schema)

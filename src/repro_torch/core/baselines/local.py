@@ -7,7 +7,6 @@ upload stage (faults, robust) demoted. No downlink stream. Wire: a
 """
 from __future__ import annotations
 
-from repro_torch.core import aggregation
 from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
 from repro_torch.federated import topology as topology_lib
@@ -20,8 +19,9 @@ def make_local(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=N
         cfg.topology, "local",
         "no collaboration — each participant's upload scatters back to its own row, so "
         "there is no aggregate for an edge tier to form")
+    sops = common.StateOps(cfg.mesh, cfg.shard_state)
     params0, layout, dev = common.prepare(params0, device)
-    local = common.local_sgd(apply_stacked, layout, cfg)
+    local = common.local_sgd(apply_stacked, layout, cfg, mesh=sops.mesh)
     schema = transport_lib.single_delta_schema("local", layout.dim)
     up, _ = common.wire_stages(schema, cfg.transport)
     ustage = common.upload_stage(cfg, schema)
@@ -36,7 +36,8 @@ def make_local(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=N
             {"streams": 0}
 
     def masked(state, data, gen, idx, mask, perms):
-        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
+                                  sops=sops)
         pc = co.rows["params"]
         post = local(pc, co.x, co.y, perms=co.keys(perms))
         out = {}
@@ -45,12 +46,12 @@ def make_local(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=N
         if ustage is not None:
             post, _, fmask = common.upload(ustage, co, pc, post)
             post = common.kept(fmask, post, pc)
-        return dict(state, params=aggregation.scatter_rows(state["params"], co.idx, post,
-                                                           co.real), **out), {"streams": 0}
+        return dict(state, params=co.scatter(state["params"], post), **out), {"streams": 0}
 
     return Strategy("local", init,
                     common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
-                                        async_cfg=cfg.async_buffer),
+                                        async_cfg=cfg.async_buffer, sops=sops,
+                                        shard_keys=("params", "ef")),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="broadcast", num_streams=0,
                     injects_faults=cfg.faults is not None, wire_schema=schema)

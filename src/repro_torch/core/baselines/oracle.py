@@ -28,8 +28,9 @@ def make_oracle(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=
         "per-group FedAvg factorizes over groups, but ground-truth group membership "
         "crosscuts the static edge assignment — a (group × edge) partial-sum layout is "
         "future work")
+    sops = common.StateOps(cfg.mesh, cfg.shard_state)
     params0, layout, dev = common.prepare(params0, device)
-    local = common.local_sgd(apply_stacked, layout, cfg)
+    local = common.local_sgd(apply_stacked, layout, cfg, mesh=sops.mesh)
     schema = transport_lib.single_delta_schema(
         "oracle", layout.dim,
         downlink=(transport_lib.Stream("group_models", layout.dim, coding="raw"),))
@@ -51,7 +52,8 @@ def make_oracle(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=
         return dict(state, params=new), {"streams": state["num_groups"]}
 
     def masked(state, data, gen, idx, mask, perms):
-        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
+                                  sops=sops)
         pc = co.rows["params"]
         post = local(pc, co.x, co.y, perms=co.keys(perms))
         out = {}
@@ -64,12 +66,13 @@ def make_oracle(apply_stacked, params0, cfg: FedConfig = FedConfig(), *, device=
             post, fidx, fmask = common.upload(ustage, co, pc, post)
             streams = common.groups_present(data.group[co.safe], state["num_groups"], fmask)
         rows = aggregation.masked_group_rows(data.group[co.safe], data.n[co.safe], fmask)
-        new = aggregation.mix_scatter_flat(state["params"], post, rows, fidx, fmask)
+        new = sops.mix_scatter_flat(state["params"], post, rows, fidx, fmask)
         return dict(state, params=new, **out), {"streams": streams}
 
     return Strategy("oracle", init,
                     common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
-                                        async_cfg=cfg.async_buffer),
+                                        async_cfg=cfg.async_buffer, sops=sops,
+                                        shard_keys=("params", "ef")),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="groupcast", injects_faults=cfg.faults is not None,
                     wire_schema=schema)

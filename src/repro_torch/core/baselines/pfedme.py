@@ -31,6 +31,7 @@ from repro_torch.core.baselines import common
 from repro_torch.core.strategy import FedConfig, Strategy, register
 from repro_torch.data.loader import draw_permutations
 from repro_torch.federated import client as fedclient
+from repro_torch.federated import mesh as mesh_lib
 from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 
@@ -45,6 +46,7 @@ def make_pfedme(apply_stacked, params0,
         "the β-mix blends each participant's RAW w_i with the cohort average CLIENT-"
         "side — the served value is per-client, not a broadcast aggregate an edge tier "
         "could relay")
+    sops = common.StateOps(cfg.mesh, cfg.shard_state)
     params0, layout, dev = common.prepare(params0, device)
     bsz = cfg.batch_size
     schema = transport_lib.single_delta_schema(
@@ -72,12 +74,21 @@ def make_pfedme(apply_stacked, params0,
                 w = w - cfg.lr * lam * (w - phi)
         return w, phi
 
-    def run_clients(w, x, y, perms):
+    def chunked(w, x, y, perms):
         """:func:`client_update` in chunks of ``cfg.chunk_size`` clients."""
         new_w, phi = torch.empty_like(w), torch.empty_like(w)
         for sl in fedclient.chunks(w.shape[0], cfg.chunk_size):
             new_w[sl], phi[sl] = client_update(w[sl], x[sl], y[sl], perms[sl])
         return new_w, phi
+
+    sharded = chunked if sops.mesh is None else mesh_lib.shard_clients(chunked, sops.mesh)
+
+    def run_clients(w, x, y, perms):
+        """:func:`client_update` over the clients, each rank on its block of
+        them under the mesh (chunked within it)."""
+        if sops.mesh is not None and w.shape[0] % sops.mesh.shards == 0:
+            return sharded(w, x, y, perms)
+        return chunked(w, x, y, perms)
 
     def init(gen, data):
         m = data.num_clients
@@ -93,7 +104,8 @@ def make_pfedme(apply_stacked, params0,
         return {"params": (1 - beta) * new_w + beta * avg, "personal": phi}, {"streams": 1}
 
     def masked(state, data, gen, idx, mask, perms):
-        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
+                                  sops=sops)
         wc = co.rows["params"]
         new_wc, phic = run_clients(wc, co.x, co.y, co.keys(perms))
         out, wire, widx, wmask, final = {}, new_wc, co.idx, co.mask, None
@@ -106,15 +118,14 @@ def make_pfedme(apply_stacked, params0,
                 new_wc = wire
         # the cohort-shaped broadcast: every slot gets the real slots' mean
         avg = common.fedavg_masked_mix(wc, wire, widx, wmask, data.n)
-        w = aggregation.scatter_rows(state["params"], co.idx,
-                                     common.kept(final, (1 - beta) * new_wc + beta * avg, wc),
-                                     co.real)
-        personal = aggregation.scatter_rows(state["personal"], co.idx, phic, co.real)
+        w = co.scatter(state["params"], common.kept(final, (1 - beta) * new_wc + beta * avg, wc))
+        personal = co.scatter(state["personal"], phic)
         return {"params": w, "personal": personal, **out}, {"streams": 1}
 
     return Strategy("pfedme", init,
                     common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
-                                        async_cfg=cfg.async_buffer),
+                                        async_cfg=cfg.async_buffer, sops=sops,
+                                        shard_keys=("params", "personal", "ef")),
                     lambda s: layout.unravel(s["personal"]),
                     comm_scheme="broadcast", num_streams=1,
                     injects_faults=cfg.faults is not None, wire_schema=schema)

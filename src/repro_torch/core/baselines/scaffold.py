@@ -34,11 +34,6 @@ from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 
 
-def _mean_row(slab):
-    """The mean of the rows, one copy a client."""
-    return torch.mean(slab, dim=0).expand_as(slab).clone()
-
-
 @register("scaffold")
 def make_scaffold(apply_stacked, params0,
                   cfg: FedConfig = FedConfig(lr=0.01, momentum=0.0, epochs=5), *, device=None):
@@ -51,8 +46,9 @@ def make_scaffold(apply_stacked, params0,
         "option II couples every client's control variate to ONE global c re-averaged "
         "over all m stored c_i rows each round — per-edge partial means of the cohort's "
         "c_i⁺ are not that update")
+    sops = common.StateOps(cfg.mesh, cfg.shard_state)
     params0, layout, dev = common.prepare(params0, device)
-    local = common.local_sgd(apply_stacked, layout, cfg, grad_hook=control_hook)
+    local = common.local_sgd(apply_stacked, layout, cfg, grad_hook=control_hook, mesh=sops.mesh)
     schema = transport_lib.WireSchema(
         "scaffold",
         uplink=(transport_lib.Stream("delta", layout.dim),
@@ -70,6 +66,11 @@ def make_scaffold(apply_stacked, params0,
                 "c": torch.zeros_like(stacked),
                 **common.wire_state(schema, cfg.transport, m, dev)}
 
+    def mean_row(slab, m):
+        """The mean of all m stored rows (:meth:`common.StateOps.row_mean`),
+        one copy a row of ``slab`` (the rank's block when row-sharded)."""
+        return sops.row_mean(slab, m).expand_as(slab).clone()
+
     def inv_steps(data):
         """1 / (K·η)."""
         return 1.0 / ((data.y.shape[1] // cfg.batch_size) * cfg.epochs * cfg.lr)
@@ -79,11 +80,11 @@ def make_scaffold(apply_stacked, params0,
         post = local(params, data.x, data.y, (c_i, c), gen=gen, perms=perms)
         new_c_i = c_i - c + inv_steps(data) * (params - post)
         return ({"params": aggregation.fedavg(post, data.n), "c_i": new_c_i,
-                 "c": _mean_row(new_c_i)}, {"streams": 1})
+                 "c": mean_row(new_c_i, data.num_clients)}, {"streams": 1})
 
     def masked(state, data, gen, idx, mask, perms):
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
-                                  slabs=("params", "c_i", "c"))
+                                  slabs=("params", "c_i", "c"), sops=sops)
         pc, cic, cc = (co.rows[k] for k in ("params", "c_i", "c"))
         post = local(pc, co.x, co.y, (cic, cc), perms=co.keys(perms))
         new_cic = cic - cc + inv_steps(data) * (pc - post)
@@ -100,16 +101,17 @@ def make_scaffold(apply_stacked, params0,
                 wire, fidx, fmask = common.upload(ustage, co, pre, wire)
                 wire = common.kept(fmask, wire, pre)
             post, new_cic = wire[:, :width], wire[:, width:]
-        c_i = aggregation.scatter_rows(state["c_i"], co.idx, new_cic, co.real)
+        c_i = co.scatter(state["c_i"], new_cic)
         if down is None:
-            params = common.fedavg_masked_mix(state["params"], post, fidx, fmask, data.n)
-            return {"params": params, "c_i": c_i, "c": _mean_row(c_i), **out}, {"streams": 1}
+            params = sops.fedavg_mix(state["params"], post, fidx, fmask, data.n)
+            return ({"params": params, "c_i": c_i, "c": mean_row(c_i, co.m), **out},
+                    {"streams": 1})
         # the downlink: both broadcast rows against the old [global | c]
         params, c = state["params"], state["c"]
         w = aggregation.masked_fedavg_weights(data.n[co.safe], fmask)
         mixed = aggregation.user_centric(post, w)  # (1, width)
-        dl_post = torch.cat([mixed, torch.mean(c_i, dim=0, keepdim=True)], dim=1)
-        served, new_ef_dl = down(torch.cat([params[0:1], c[0:1]], dim=1), dl_post,
+        dl_post = torch.cat([mixed, sops.row_mean(c_i, co.m)], dim=1)
+        served, new_ef_dl = down(torch.cat([sops.row0(params), sops.row0(c)], dim=1), dl_post,
                                  state["ef_dl"])
         alive = torch.any(fmask)
         return {"params": torch.where(alive, served[:, :width].expand_as(params), params),
@@ -120,7 +122,8 @@ def make_scaffold(apply_stacked, params0,
 
     return Strategy("scaffold", init,
                     common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
-                                        async_cfg=cfg.async_buffer),
+                                        async_cfg=cfg.async_buffer, sops=sops,
+                                        shard_keys=("params", "c_i", "c", "ef")),
                     lambda s: layout.unravel(s["params"]),
                     comm_scheme="broadcast", num_streams=1,
                     injects_faults=cfg.faults is not None, wire_schema=schema)

@@ -58,7 +58,7 @@ def register(name):
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
-    """Paper §V-A hyperparameters, as far as this slice of the port runs.
+    """Paper §V-A hyperparameters and the engine knobs.
 
     ``chunk_size`` bounds peak client-axis memory: local SGD and the
     special round train sequential chunks of that many clients (see
@@ -125,9 +125,33 @@ class FedConfig:
     strategy never draws cohorts itself). ``None`` keeps the configured
     sampler untouched.
 
-    Off (``None``), each knob keeps every trajectory bit-identical. The
-    reference's ``mesh`` and ``shard_state`` come with a later slice;
-    naming one here raises ``TypeError`` at construction.
+    ``mesh`` shards the cohort/client axis across the ranks of a
+    ``torch.distributed`` process group (see
+    :mod:`repro_torch.federated.mesh`): a
+    :class:`~repro_torch.federated.mesh.ClientMesh`, an int shard count, or
+    ``"auto"`` for every rank of the default group; 1 needs no group. Every
+    rank runs the same program on the same seeds; local SGD runs on the
+    rank's block of the cohort slots (``chunk_size`` then chunks *within*
+    it) and the cohort dispatcher pads slot counts to a shard multiple
+    with sentinel slots, so every rank trains the same count. The trained
+    rows are all-gathered, and the mix and the fused scatter then run on
+    every rank's copy of the state. Results match ``mesh=None`` within f32
+    round-off (the local batch shape changes the products' algorithms);
+    ``mesh=1`` is bit for bit ``mesh=None``.
+
+    ``shard_state`` row-shards the (m, ·) stacked server state across the
+    ``mesh`` (see the row-sharded section of
+    :mod:`repro_torch.federated.mesh`): rank k holds rows [k·m/s,
+    (k+1)·m/s) of every stacked slab, the cohort gather is a (c, d) SUM
+    all-reduce of the owners' rows, the scatter and the mix-scatter write
+    only the owner's block, and the only model-sized collectives are
+    O(c·d). Requires a mesh with ``m % num_shards == 0`` and cohort rounds;
+    the replicated layout and ``mesh=None`` stay bit-exact. Composes with
+    ``w_refresh``, ``transport``, ``faults``/``robust`` and
+    ``async_buffer``; ``topology`` and ``ucfl_parallel`` raise
+    ``NotImplementedError`` at construction.
+
+    Off (``None``), each knob keeps every trajectory bit-identical.
     """
     lr: float = 0.1
     momentum: float = 0.9
@@ -141,3 +165,5 @@ class FedConfig:
     transport: Any = None
     topology: Any = None
     selection: Any = None
+    mesh: Any = None
+    shard_state: bool = False

@@ -70,6 +70,14 @@ forms per-cluster partial sums of its members' uploads, one
 them and normalizes once; the served centroids are scattered at the
 cohort's slots. It composes with the refresh.
 
+Client mesh (``FedConfig.mesh``, ``shard_state``): the special round's
+per-client gradients and σ² and every round's local SGD run on the rank's
+block of the clients or slots and are all-gathered; W, the labels and the
+(c, c) rules come out the same on every rank. Row-sharded, ``params`` and
+the EF slabs (``ef``, ``ef_dl``) are the rank's blocks; W, ``collab``, the
+refresh buffers and the async buffer's metadata stay whole on every rank,
+and the buffer's ``upd`` rows are row-sharded too.
+
 ``ucfl_parallel`` (:func:`make_ucfl_parallel`) is the §V-E upper bound
 of Fig. 6. The baselines the paper compares against are in
 :mod:`repro_torch.core.baselines`.
@@ -86,42 +94,54 @@ from repro_torch.core.strategy import FedConfig, Strategy, register
 from repro_torch.data.loader import draw_permutations
 from repro_torch.federated import async_buffer
 from repro_torch.federated import client as fedclient
+from repro_torch.federated import mesh as mesh_lib
 from repro_torch.federated import topology as topology_lib
 from repro_torch.federated import transport as transport_lib
 from repro_torch.kernels import ops
 
 
 def compute_collaboration(apply_stacked, params0, data, *, var_batch_size=100,
-                          chunk_size=None, layout=None):
+                          chunk_size=None, layout=None, mesh=None):
     """Run the special pre-training round; returns the dict of §IV-A.
 
     Every (client, minibatch) pair of the fixed partition is one unit of
     the stacked model at θ⁰, so one backward pass gives all K minibatch
     gradients of a chunk of clients. ``chunk_size`` bounds that to
     (chunk·K, d) at a time; the chunk reduces at once to its (chunk, d)
-    full gradients (their mean) and (chunk,) σ².
+    full gradients (their mean) and (chunk,) σ². ``mesh`` (a
+    :mod:`repro_torch.federated.mesh` knob) shards the clients: each rank
+    reduces its block (chunked within it) and the (m, W) full gradients
+    and (m,) σ² are all-gathered before the one gram launch, which every
+    rank then makes on the same rows.
     """
     layout = layout or flat.LayoutTable.build(params0)
+    mesh = mesh_lib.resolve(mesh)
     theta0 = layout.ravel(params0)
     m, n = data.y.shape
     steps = n // var_batch_size
-    fulls, sigs = [], []
-    for sl in fedclient.chunks(m, chunk_size):
-        c = sl.stop - sl.start
-        # each client's fixed partition (loader.fixed_partition), stacked
-        used = steps * var_batch_size
-        xb = data.x[sl, :used].reshape(
-            (c, steps, var_batch_size) + tuple(data.x.shape[2:]))
-        yb = data.y[sl, :used].reshape(c, steps, var_batch_size)
-        # the slab's pad columns never reach the loss: their gradient is 0
-        g = fedclient.minibatch_gradients(apply_stacked, layout, theta0.expand(c, -1), xb, yb)
-        full = torch.mean(g, dim=1)
-        fulls.append(full)
-        sigs.append(similarity.sigma_sq(g[..., : layout.dim], full[:, : layout.dim]))
+    used = steps * var_batch_size
+
+    def stats(x, y):
+        """(U, W) full gradients and (U,) σ² of the U clients of x, y."""
+        fulls, sigs = [], []
+        for sl in fedclient.chunks(y.shape[0], chunk_size):
+            c = sl.stop - sl.start
+            # each client's fixed partition (loader.fixed_partition), stacked
+            xb = x[sl, :used].reshape((c, steps, var_batch_size) + tuple(x.shape[2:]))
+            yb = y[sl, :used].reshape(c, steps, var_batch_size)
+            # the slab's pad columns never reach the loss: their gradient is 0
+            g = fedclient.minibatch_gradients(apply_stacked, layout, theta0.expand(c, -1), xb,
+                                              yb)
+            full = torch.mean(g, dim=1)
+            fulls.append(full)
+            sigs.append(similarity.sigma_sq(g[..., : layout.dim], full[:, : layout.dim]))
+        return torch.cat(fulls).contiguous(), torch.cat(sigs)
+
+    if mesh is not None and m % mesh.shards == 0:
+        stats = mesh_lib.shard_clients(stats, mesh)
     # Δ from the slab-wide rows: 16-byte aligned, so the Gram kernel reads
     # them where they lie, and the zero columns add nothing to any sum
-    full = torch.cat(fulls).contiguous()
-    sig = torch.cat(sigs)
+    full, sig = stats(data.x, data.y)
     delta = similarity.pairwise_delta(full)
     w = similarity.mixing_weights(delta, sig, data.n.float())
     return {"full_grads": full[:, : layout.dim], "sigma_sq": sig, "delta": delta, "W": w}
@@ -160,11 +180,13 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             "rule has no per-edge partial-sum factorization (use the "
             "clustered variant)")
     topo = topology_lib.check_composition(cfg.topology, f"ucfl_k{num_streams}",
+                                          shard_state=cfg.shard_state,
                                           async_buffer=cfg.async_buffer)
     acfg = cfg.async_buffer
+    sops = common.StateOps(cfg.mesh, cfg.shard_state)
     params0, layout, dev = common.prepare(params0, device)
     edge_arr = None if topo is None else topo.edge_array(dev)
-    local = common.local_sgd(apply_stacked, layout, cfg)
+    local = common.local_sgd(apply_stacked, layout, cfg, mesh=sops.mesh)
     refresh = common.w_refresh_hook(cfg.w_refresh)
     if num_streams is None:
         schema = transport_lib.single_delta_schema(
@@ -184,7 +206,7 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             topo.check_clients(m, "ucfl")
         collab = compute_collaboration(
             apply_stacked, params0, data, var_batch_size=var_batch_size,
-            chunk_size=cfg.chunk_size, layout=layout)
+            chunk_size=cfg.chunk_size, layout=layout, mesh=sops.mesh)
         w = collab["W"]
         labels = labels_host = None
         k = num_streams
@@ -256,7 +278,8 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
 
     def masked(state, data, gen, idx, mask, perms):
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
-                                  slabs=("params",) if down is None else ("params", "ef_dl"))
+                                  slabs=("params",) if down is None else ("params", "ef_dl"),
+                                  sops=sops)
         pc = co.rows["params"]
         post = local(pc, co.x, co.y, perms=co.keys(perms))
         out, metrics = {}, {}
@@ -276,19 +299,16 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         metrics["streams"] = count_streams(state, co, fmask, final is not None)
         if topo is not None:  # the fresh rules, if any, feed the same tiered serve
             served = tiered_serve(state, w, post, fidx, fmask)
-            params = aggregation.scatter_rows(state["params"], co.idx,
-                                              common.kept(final, served, pc), co.real)
+            params = co.scatter(state["params"], common.kept(final, served, pc))
             return dict(state, params=params, **out), metrics
         rows = mix_rows(state, w, fidx, fmask)
         if down is None:
-            params = aggregation.mix_scatter_flat(state["params"], post, rows, fidx, fmask)
+            params = sops.mix_scatter_flat(state["params"], post, rows, fidx, fmask)
         else:  # each receiver's mix, delta-coded against its round-start row
             ef_rows = co.rows["ef_dl"]
             served, ef_dl = down(pc, ops.mix_aggregate(rows, post), ef_rows)
-            out["ef_dl"] = aggregation.scatter_rows(state["ef_dl"], co.idx,
-                                                    common.kept(final, ef_dl, ef_rows), co.real)
-            params = aggregation.scatter_rows(state["params"], co.idx,
-                                              common.kept(final, served, pc), co.real)
+            out["ef_dl"] = co.scatter(state["ef_dl"], common.kept(final, ef_dl, ef_rows))
+            params = co.scatter(state["params"], common.kept(final, served, pc))
         return dict(state, params=params, **out), metrics
 
     def amasked(state, data, gen, idx, mask, perms):
@@ -299,8 +319,9 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         weighted by staleness, mix and scatter the buffer in one launch.
         Not a flush: the mask is all False and nothing is written."""
         m = data.num_clients
-        abuf = common.state_async_buffer(state, acfg, m, len(idx), layout.dim, schema, dev)
-        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs)
+        abuf = common.state_async_buffer(state, acfg, m, len(idx), layout.dim, schema, dev, sops)
+        co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
+                                  sops=sops)
         pc = co.rows["params"]
         post = local(pc, co.x, co.y, perms=co.keys(perms))
         out = {}
@@ -311,30 +332,34 @@ def make_ucfl(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
             post, fidx, fmask = common.upload(ustage, co, pc, post)
         # a client trains from its own row, untouched since the flush that last wrote it
         base_ver = abuf["last_sync"][aggregation.safe_gather_index(fidx, m).long()]
-        abuf = async_buffer.deposit(abuf, post, fidx, fmask, base_ver, m)
+        abuf = async_buffer.deposit(abuf, post, fidx, fmask, base_ver, m,
+                                    scatter=sops.buffer_scatter())
         flush = abuf["count"] >= int(acfg.flush_k)
         weights = async_buffer.staleness_weights(abuf, m, acfg.alpha)
         tau = async_buffer.staleness(abuf)
         applied = abuf["count"]
-        bidx, bvalid = abuf["idx"], async_buffer.valid_mask(abuf, m)
-        rows = mix_rows(state, state["W"], bidx, bvalid, weights)
+        b = acfg.capacity(len(idx))  # the buffer's own slots, before any shard padding
+        bidx, bvalid = abuf["idx"][:b], async_buffer.valid_mask(abuf, m)[:b]
+        rows = mix_rows(state, state["W"], bidx, bvalid, weights[:b])
         if state["streams"] is None:
             n_streams = torch.sum(bvalid)
         else:
             bsafe = aggregation.safe_gather_index(bidx, m).long()
             n_streams = common.groups_present(state["labels"][bsafe], state["streams"], bvalid)
-        params = aggregation.mix_scatter_flat(state["params"], async_buffer.rows(abuf), rows,
-                                              bidx, bvalid & flush)
+        params = sops.mix_scatter_flat(state["params"], sops.buffer_gather(abuf)[:b], rows, bidx,
+                                       bvalid & flush)
         abuf = async_buffer.flush_reset(abuf, m, flush)
         metrics = async_buffer.flush_metrics(flush, applied, tau, weights, abuf["count"])
         metrics["streams"] = torch.where(flush, n_streams, torch.zeros_like(n_streams))
         return dict(state, params=params, abuf=abuf, **out), metrics
 
+    shard_keys = ("params", "ef", "ef_dl")  # those the state holds
     return Strategy(
         name="ucfl" if num_streams is None else f"ucfl_k{num_streams}",
         init=init,
         round=common.cohort_round(dense, masked, transport=cfg.transport, stage=ustage,
-                                  async_fn=amasked, async_cfg=acfg, topology=topo),
+                                  async_fn=amasked, async_cfg=acfg, topology=topo,
+                                  sops=sops, shard_keys=shard_keys),
         eval_params=lambda s: layout.unravel(s["params"]),
         comm_scheme="unicast" if num_streams is None else "groupcast",
         num_streams=None if num_streams in (None, "auto") else num_streams,
@@ -367,8 +392,16 @@ def make_ucfl_parallel(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
     each round (every stream's row is rewritten).
 
     Its wire has no single (c, d) upload slab: ``transport`` and
-    ``faults``/``robust`` raise ``NotImplementedError`` at construction.
+    ``faults``/``robust`` raise ``NotImplementedError`` at construction, as
+    ``shard_state`` does (every stream's row is read each round). ``mesh``
+    shards each group's (stream, client) units over the ranks.
     """
+    if cfg.shard_state:
+        raise NotImplementedError(
+            "FedConfig.shard_state is not supported by ucfl_parallel: its "
+            "(m, c) column mix reads every stream's row each round, so "
+            "there is no O(c·d) row-routing to exploit (the m× cost is "
+            "the point of this upper bound)")
     if cfg.faults is not None or cfg.robust is not None:
         raise NotImplementedError(
             "FedConfig.faults/robust are not supported by ucfl_parallel: "
@@ -385,15 +418,16 @@ def make_ucfl_parallel(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         "the §V-E upper bound mixes EVERY stream over every cohort "
         "column with the (m, c) column-sliced W — there are no per-edge "
         "partial aggregates for an edge tier to ship")
+    sops = common.StateOps(cfg.mesh)
     params0, layout, dev = common.prepare(params0, device)
-    local = common.local_sgd(apply_stacked, layout, cfg)
+    local = common.local_sgd(apply_stacked, layout, cfg, mesh=sops.mesh)
     refresh = common.w_refresh_hook(cfg.w_refresh)
 
     def init(gen, data):
         m = data.num_clients
         collab = compute_collaboration(
             apply_stacked, params0, data, var_batch_size=var_batch_size,
-            chunk_size=cfg.chunk_size, layout=layout)
+            chunk_size=cfg.chunk_size, layout=layout, mesh=sops.mesh)
         state = {"params": layout.slab(params0, m), "W": collab["W"]}
         if refresh is not None:
             state["refresh"] = similarity.init_refresh_state(collab, m, width=layout.dim_aligned)
@@ -440,7 +474,7 @@ def make_ucfl_parallel(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
         params = state["params"]
         m, n = data.y.shape
         co = common.gather_cohort(state, data, gen, idx, mask, dev=dev, epochs=cfg.epochs,
-                                  slabs=() if refresh is None else ("params",))
+                                  sops=sops, slabs=() if refresh is None else ("params",))
         perms = stream_perms(gen, perms, m, n)[:, co.safe]
         if refresh is None:
             wc, alive = aggregation.masked_column_mixing(state["W"], co.idx, co.mask)
@@ -460,7 +494,7 @@ def make_ucfl_parallel(apply_stacked, params0, cfg: FedConfig = FedConfig(), *,
 
     return Strategy(
         name="ucfl_parallel", init=init,
-        round=common.cohort_round(dense, masked, async_cfg=cfg.async_buffer),
+        round=common.cohort_round(dense, masked, async_cfg=cfg.async_buffer, sops=sops),
         eval_params=lambda s: layout.unravel(s["params"]),
         comm_scheme="unicast",
         skip_round=None if refresh is None else common.refresh_skip_round,

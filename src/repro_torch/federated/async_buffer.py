@@ -11,7 +11,10 @@ Buffer state (strategy state ``abuf``, tensors on the slab's device):
 
   * ``upd``   — (B + 1, W) f32 pending upload rows: models for the
     user-centric rules, model *deltas* for the FedAvg family.
-    ``B = flush_k − 1 + slots``, with ``slots`` the cohort's slot count:
+    ``B = flush_k − 1 + slots``, with ``slots`` the cohort's slot count
+    (rounded up to a multiple of the shard count when ``upd`` is
+    row-sharded, ``FedConfig.shard_state``; then each rank holds its
+    (B/s, W) block of ``upd`` and a spare row, and the metadata whole):
     a flush clears the buffer whenever it holds ≥ flush_k uploads at round
     end, so at most ``flush_k − 1`` pend across rounds and one round adds
     at most ``slots``. Row B is a spare that the deposits of pad slots
@@ -78,11 +81,15 @@ class AsyncConfig:
         return int(self.flush_k) - 1 + int(slots)
 
 
-def init_buffer(cfg: AsyncConfig, m: int, slots: int, dim: int, *, schema=None,
-                device=None) -> dict:
+def init_buffer(cfg: AsyncConfig, m: int, slots: int, dim: int, *, shards: int = 1,
+                schema=None, device=None) -> dict:
     """An empty buffer (module docstring) on ``device``: rows at the
-    aligned width of ``dim``, or at ``schema``'s uplink wire-slab width."""
+    aligned width of ``dim``, or at ``schema``'s uplink wire-slab width.
+    ``shards`` pads the slot count B up to a multiple, so that a
+    row-sharded ``upd`` partitions evenly; the extra slots stay empty
+    sentinels (no deposit reaches them)."""
     b = cfg.capacity(slots)
+    b = -(-b // int(shards)) * int(shards)
     width = schema.width_aligned("uplink") if schema is not None else ops.aligned_dim(dim)
     return {
         "upd": torch.zeros((b + 1, width), dtype=torch.float32, device=device),
@@ -112,7 +119,7 @@ def _set(values, dest, new, spare):
     return ext.index_copy_(0, dest, new.to(values.dtype))[:n]
 
 
-def deposit(buf, rows_c, idx, mask, base_ver, m: int):
+def deposit(buf, rows_c, idx, mask, base_ver, m: int, *, scatter=None):
     """Land one cohort's (c, ·) uploads ``rows_c`` in the buffer.
 
     ``idx``/``mask`` are the cohort's (final) slot arrays, ``base_ver`` the
@@ -121,6 +128,9 @@ def deposit(buf, rows_c, idx, mask, base_ver, m: int):
     ``count`` onward; pad and demoted slots deposit nothing (they write the
     spare row). ``last_sync`` is left alone: only a flush moves it.
     On the card ``upd`` is written in place; on the CPU it is a copy.
+    ``scatter(upd, dest, rows) -> upd`` writes the rows of a row-sharded
+    ``upd`` (``StateOps.buffer_scatter``), with ``dest`` B, the spare,
+    where nothing lands.
     """
     bcap = buf["idx"].shape[0]
     live = mask.bool()
@@ -137,8 +147,11 @@ def deposit(buf, rows_c, idx, mask, base_ver, m: int):
     width = buf["upd"].shape[1]
     if rows_c.shape[1] < width:
         rows_c = torch.nn.functional.pad(rows_c, (0, width - rows_c.shape[1]))
-    upd = buf["upd"] if buf["upd"].is_cuda else buf["upd"].clone()
-    upd.index_copy_(0, dest, rows_c.to(upd.dtype))
+    if scatter is not None:
+        upd = scatter(buf["upd"], dest, rows_c)
+    else:
+        upd = buf["upd"] if buf["upd"].is_cuda else buf["upd"].clone()
+        upd.index_copy_(0, dest, rows_c.to(upd.dtype))
     return dict(buf, upd=upd,
                 idx=_set(buf["idx"], dest, idx, m),
                 ver=_set(buf["ver"], dest, base_ver, 0),

@@ -18,6 +18,12 @@ a ``torch.Generator`` otherwise.
 Memory knob: ``make_federated_local_sgd(..., chunk_size=C)`` trains the
 client axis in sequential chunks of C clients, so peak activation memory
 is O(C) instead of O(m), with per-client results unchanged.
+
+Parallel knob: ``make_federated_local_sgd(..., mesh=...)`` shards the
+client axis across the ranks of a ``torch.distributed`` group
+(:mod:`repro_torch.federated.mesh`): each rank trains its block of rows
+and the trained rows are all-gathered back. ``chunk_size`` then chunks
+within the rank's block.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import pytree
 from repro_torch.data.loader import draw_permutations
+from repro_torch.federated import mesh as mesh_lib
 from repro_torch.optim import sgd as sgdlib  # the module: optim.sgd imports core.pytree
 
 
@@ -119,13 +126,27 @@ def make_federated_local_sgd(apply_stacked, layout, *, chunk_size=None,
     (:func:`repro_torch.core.baselines.common.cohort_keys`). One of ``gen``
     (a ``torch.Generator`` on the slab's device, drawing U orders) or
     ``perms`` must be given.
+
+    ``mesh`` (the ``FedConfig.mesh`` knob, :mod:`repro_torch.federated.mesh`)
+    shards the U rows across the ranks: each rank trains its contiguous
+    block (chunked within it) and the trained rows are all-gathered back.
+    Every rank draws the orders of all U rows from its identically seeded
+    generator and takes its block's, so the ranks train the streams the
+    unsharded call trains. An axis the shard count does not divide runs
+    unsharded, as the reference's ``client_vmap``; the cohort engine pads
+    its slots to a shard multiple, so a cohort round always shards.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_federated_local_sgd: the mesh knob is not ported yet "
-            "(the mesh over torch.distributed, ROADMAP queue A)")
+    mesh = mesh_lib.resolve(mesh)
     local = make_local_sgd(apply_stacked, layout, **kw)
     epochs = kw.get("epochs", 1)
+
+    def block(slab, x, y, perms, hook_state):
+        out = torch.empty_like(slab)
+        for sl in chunks(slab.shape[0], chunk_size):
+            out[sl] = local(slab[sl], x[sl], y[sl], perms[sl], _rows(hook_state, sl))
+        return out
+
+    sharded = block if mesh is None else mesh_lib.shard_clients(block, mesh)
 
     def fed(slab, x, y, hook_state=None, *, gen=None, perms=None):
         m, n = y.shape
@@ -133,10 +154,9 @@ def make_federated_local_sgd(apply_stacked, layout, *, chunk_size=None,
             if gen is None:
                 raise ValueError("fed local SGD needs gen= or perms=")
             perms = draw_permutations(gen, m, epochs, n, device=slab.device)
-        out = torch.empty_like(slab)
-        for sl in chunks(m, chunk_size):
-            out[sl] = local(slab[sl], x[sl], y[sl], perms[sl], _rows(hook_state, sl))
-        return out
+        if mesh is not None and m % mesh.shards == 0:
+            return sharded(slab, x, y, perms, hook_state)
+        return block(slab, x, y, perms, hook_state)
 
     return fed
 
@@ -163,18 +183,37 @@ def minibatch_gradients(apply_stacked, layout, slab, xb, yb):
 
 
 @torch.no_grad()
-def evaluate(apply_stacked, stacked_params, x_test, y_test, *, batch=None):
+def evaluate(apply_stacked, stacked_params, x_test, y_test, *, batch=None, mesh=None):
     """Per-client test accuracy, (m,) float32.
 
     ``batch`` bounds the client axis: accuracies are computed over
     sequential chunks of that many clients, so peak activation memory is
     O(batch · test set) instead of O(m · test set). ``None`` runs all
     clients at once (identical results).
+
+    ``mesh`` shards the client axis: each rank evaluates its block of the
+    m clients and the (m,) accuracies are all-gathered. Params of m/s rows
+    are a row-sharded state's block (``FedConfig.shard_state``): the rank
+    evaluates them against its block of the test set. Where the shard
+    count does not divide m, the evaluation runs unsharded.
     """
+    mesh = mesh_lib.resolve(mesh)
     m = y_test.shape[0]
-    out = torch.empty((m,), dtype=torch.float32, device=y_test.device)
-    for sl in chunks(m, batch):
-        params = pytree.tree_map(lambda v: v[sl], stacked_params)
-        logits = apply_stacked(params, x_test[sl])
-        out[sl] = (torch.argmax(logits, dim=-1) == y_test[sl]).float().mean(dim=1)
-    return out
+
+    def acc(params, xt, yt):
+        out = torch.empty((yt.shape[0],), dtype=torch.float32, device=yt.device)
+        for sl in chunks(yt.shape[0], batch):
+            logits = apply_stacked(pytree.tree_map(lambda v: v[sl], params), xt[sl])
+            out[sl] = (torch.argmax(logits, dim=-1) == yt[sl]).float().mean(dim=1)
+        return out
+
+    rows = pytree.leaves(stacked_params)[0].shape[0]
+    if mesh is None or m % mesh.shards:
+        return acc(stacked_params, x_test, y_test)
+    lo, hi = mesh.block(m)
+    if rows == m:
+        stacked_params = pytree.tree_map(lambda v: v[lo:hi], stacked_params)
+    elif rows != hi - lo:
+        raise ValueError(f"evaluate: {rows} param rows are neither the {m} clients nor a "
+                         f"{mesh.shards}-shard block of them")
+    return mesh_lib.all_gather_rows(acc(stacked_params, x_test[lo:hi], y_test[lo:hi]), mesh)

@@ -10,8 +10,16 @@ cohort)``. A round whose cohort is all-offline is skipped: the strategy's
 
 In place: on the card the cohort round writes the cohort rows of the
 params slab in place, the port's analogue of the reference's buffer
-donation; :func:`clone_state` is the counterpart of the reference's
-``donation_safe_copy``, and the warm-up runs on such a copy.
+donation; :func:`clone_state` (the reference's name:
+:func:`donation_safe_copy`) copies a state, and the warm-up runs on such a
+copy.
+
+Client mesh: a strategy built with ``FedConfig(mesh=...)`` runs on every
+rank of the process group with the same seed (SPMD); the loop itself is
+the same on each. ``eval_mesh`` shards the evaluation's client axis, and
+a row-sharded state (``FedConfig.shard_state``) has each rank evaluate
+and finite-check its own block of the clients; the (m,) results are
+all-gathered. ``verbose`` prints on rank 0 only.
 
 Randomness: ``run`` takes an integer seed and spawns three independent
 ``torch.Generator`` streams on the device from it (``numpy``'s
@@ -57,9 +65,11 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import pytree
 from repro_torch.device import resolve_device
+from repro_torch.federated import mesh as mesh_lib
 from repro_torch.federated import participation as part
 from repro_torch.federated.client import evaluate
 
@@ -116,6 +126,12 @@ def clone_state(state):
             for k, v in state.items()}
 
 
+def donation_safe_copy(state):
+    """The reference's name for :func:`clone_state`: a copy of the state
+    that a round may write in place while the original stays as it was."""
+    return clone_state(state)
+
+
 def _client_rows_finite(stacked: dict) -> torch.Tensor:
     """(m,) bool: every leaf of client i's eval params is finite."""
     rows = [torch.isfinite(x.float()).reshape(x.shape[0], -1).all(dim=1)
@@ -124,8 +140,13 @@ def _client_rows_finite(stacked: dict) -> torch.Tensor:
 
 
 def _check_finite_state(strategy, state, rnd):
-    """Fail fast on non-finite models instead of training on NaNs."""
-    finite = _client_rows_finite(strategy.eval_params(state)).cpu().numpy()
+    """Fail fast on non-finite models instead of training on NaNs. A
+    row-sharded state checks its rank's block and all-gathers the rows."""
+    finite = _client_rows_finite(strategy.eval_params(state))
+    rows_mesh = mesh_lib.row_mesh(state)
+    if rows_mesh is not None:
+        finite = mesh_lib.all_gather_rows(finite, rows_mesh)
+    finite = finite.cpu().numpy()
     if not finite.all():
         bad = np.nonzero(~finite)[0].tolist()
         raise RuntimeError(
@@ -178,8 +199,8 @@ def _check_selection(selection):
 
 def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: int = 1,
         participation: part.ParticipationConfig | None = None, warmup: bool = True,
-        eval_chunk: int | None = None, device=None, check_finite: bool | None = None,
-        verbose: bool = False, selection=None) -> History:
+        eval_chunk: int | None = None, eval_mesh=None, device=None,
+        check_finite: bool | None = None, verbose: bool = False, selection=None) -> History:
     """Run ``rounds`` rounds; after round ``rnd`` a finite check of the
     clients' models and an evaluation run when ``rnd % eval_every == 0``
     or ``rnd == rounds`` (the reference's rule). ``check_finite`` None
@@ -191,8 +212,10 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: in
     :class:`~repro_torch.federated.participation.SelectionConfig`) turns
     the policy into the ``pareto`` sampler. ``warmup`` runs one discarded
     round before the timer; ``eval_chunk`` bounds the evaluation's client
-    axis. ``data`` must already live on ``device`` (CUDA unless told
-    otherwise).
+    axis and ``eval_mesh`` (a ``FedConfig.mesh`` knob, typically the
+    strategy's) shards it across the ranks; a row-sharded state is
+    evaluated on its own mesh. ``data`` must already live on ``device``
+    (CUDA unless told otherwise).
     """
     if eval_every < 1:
         raise ValueError(f"eval_every must be at least 1, got {eval_every}")
@@ -206,6 +229,8 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: in
     if check_finite is None:
         check_finite = not strategy.injects_faults
     init_gen, warm_gen, round_gen = _generators(seed, dev)
+    eval_mesh = mesh_lib.resolve(eval_mesh)
+    rank0 = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
     hist = History(strategy.name, [], [], [], [])
 
     _sync(dev)
@@ -227,9 +252,11 @@ def run(strategy, apply_stacked, data, seed: int, *, rounds: int, eval_every: in
         te = time.perf_counter()
         if check_finite:
             _check_finite_state(strategy, state, rnd)
+        rows_mesh = mesh_lib.row_mesh(state)
         accs = evaluate(apply_stacked, strategy.eval_params(state), data.x_test,
-                        data.y_test, batch=eval_chunk).cpu().numpy()
-        if verbose:
+                        data.y_test, batch=eval_chunk,
+                        mesh=eval_mesh if rows_mesh is None else rows_mesh).cpu().numpy()
+        if verbose and rank0:
             print(_round_line(strategy.name, rnd, accs, metrics, m), flush=True)
         hist.eval_s += time.perf_counter() - te
         hist.rounds.append(rnd)

@@ -18,9 +18,8 @@ The tiered mixes factorize the flat linear rules: tier-1 aggregates are
 normalized per edge with their weight mass, tier 2 reweights by mass, so
 the result equals the flat mix up to float association. Strategies whose
 PS rule does not factorize over per-edge partial sums refuse the knob at
-construction (:func:`unsupported`). ``shard_state`` does not exist in the
-port yet (ROADMAP queue A), so :func:`check_composition` checks the async
-buffer only.
+construction (:func:`unsupported`), and :func:`check_composition` refuses
+the knob beside ``shard_state`` or ``async_buffer``.
 """
 from __future__ import annotations
 
@@ -126,7 +125,7 @@ def edge_partition(edge_arr, num_edges: int, slots: int, idx, mask):
             place(c, order, torch.int32))
 
 
-def check_composition(topology, strategy: str, *, async_buffer=None):
+def check_composition(topology, strategy: str, *, shard_state=False, async_buffer=None):
     """Construction-time guards of the knob combinations that cannot tier;
     returns ``topology`` (possibly None) when the combination is legal."""
     if topology is None:
@@ -134,6 +133,12 @@ def check_composition(topology, strategy: str, *, async_buffer=None):
     if not isinstance(topology, Topology):
         raise TypeError(f"FedConfig.topology must be a federated.topology.Topology, "
                         f"got {type(topology).__name__}")
+    if shard_state:
+        raise NotImplementedError(
+            f"FedConfig.topology does not compose with shard_state in {strategy}: the "
+            "row-sharded gather/scatter owns the client axis per device while the edge "
+            "partition owns it per edge — a joint edge×shard layout is future work (drop one "
+            "knob)")
     if async_buffer is not None:
         raise NotImplementedError(
             f"FedConfig.topology does not compose with async_buffer in {strategy}: a flush "

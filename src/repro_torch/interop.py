@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.data.synthetic import FederatedData
 from repro_torch.device import resolve_device
+from repro_torch.federated import mesh as mesh_lib
 
 
 def params_from_numpy(tree: dict, *, device=None) -> dict:
@@ -82,7 +83,14 @@ def state_to_reference(state: dict, dim: int) -> dict:
     ``labels_host`` (a host copy of ``labels`` the reference does not
     keep). Saved with :func:`repro_torch.checkpoint.save`, it is the file
     the reference's ``restore`` reads into its own state; as ``like`` of
-    ``restore``, it reads a file the reference wrote."""
+    ``restore``, it reads a file the reference wrote. A row-sharded state
+    (``FedConfig.shard_state``) raises ``ValueError``: it holds one rank's
+    block of each client slab."""
+    if mesh_lib.row_mesh(state) is not None:
+        raise ValueError(
+            "state_to_reference: this state is row-sharded (FedConfig.shard_state) and holds "
+            "only this rank's block of each client slab; gathering it is not ported yet "
+            "(ROADMAP A5)")
     out = dict(state)
     if state.get("refresh") is not None:
         out["refresh"] = dict(state["refresh"], grads=state["refresh"]["grads"][:, :dim])

@@ -56,8 +56,9 @@ def build_train_step(cfg: ModelConfig, *, n_clients: int, agg: str, num_streams:
     its own gradient.
     """
     if mix_gather_shardings is not None:
-        raise TypeError("build_train_step: mix_gather_shardings places the mix on a device mesh; "
-                        "the mesh over torch.distributed is in ROADMAP queue A")
+        raise TypeError("build_train_step: mix_gather_shardings places the mix on a 2-D "
+                        "(data, model) device mesh, which waits for ROADMAP queue A's item A5, "
+                        "the 2-D mesh for expert parallelism")
     if agg not in AGGS:
         raise ValueError(agg)
 

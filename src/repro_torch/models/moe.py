@@ -25,9 +25,11 @@ its weight rounded to x's dtype, and adds them in order in x's dtype, as
 the reference's scatter-add into a zero buffer does (at top-2 bit for bit
 whatever the order of its two adds).
 
-Expert parallelism shards the expert axis over a device mesh, which the
-port does not have yet: ``apply_auto`` takes ``apply`` while no mesh is
-set, and ``set_ep_mesh`` and ``apply_expert_parallel`` raise.
+Expert parallelism shards the expert axis over a 2-D (data, model)
+device mesh with an all-to-all, which the port does not have yet (its
+client mesh, :mod:`repro_torch.federated.mesh`, is 1-D): ``apply_auto``
+takes ``apply`` while no mesh is set, and ``set_ep_mesh`` and
+``apply_expert_parallel`` raise.
 """
 from __future__ import annotations
 
@@ -76,7 +78,8 @@ def saving() -> bool:
 
 def set_ep_mesh(mesh):
     raise NotImplementedError("moe.set_ep_mesh: expert parallelism shards the experts over a "
-                              "device mesh; the mesh over torch.distributed is in ROADMAP queue A")
+                              "2-D (data, model) device mesh, which waits for ROADMAP queue "
+                              "A's item A5, the 2-D mesh for expert parallelism")
 
 
 def init(gen, cfg: MoEConfig, dtype=torch.float32, device=None):
@@ -190,7 +193,8 @@ def apply(p, x, cfg: MoEConfig):
 
 def apply_expert_parallel(p, x, cfg: MoEConfig, *, cf2: float = 1.5):
     raise NotImplementedError("moe.apply_expert_parallel: the all-to-all dispatch runs over a "
-                              "device mesh; the mesh over torch.distributed is in ROADMAP queue A")
+                              "2-D (data, model) device mesh, which waits for ROADMAP queue A's "
+                              "item A5, the 2-D mesh for expert parallelism")
 
 
 def apply_auto(p, x, cfg: MoEConfig):

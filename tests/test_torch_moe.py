@@ -208,11 +208,11 @@ def test_init_matches_reference_shapes_and_dtypes():
 
 def test_expert_parallel_waits_for_the_mesh():
     _, pcfg = cfgs(ep_axis="data")
-    with pytest.raises(NotImplementedError, match="mesh.*ROADMAP queue A"):
+    with pytest.raises(NotImplementedError, match="2-D .*mesh.*ROADMAP queue A's item A5"):
         moe.set_ep_mesh(object())
     p = port(moe_params(pcfg))
     x = t(tokens_x((1, 8), pcfg.d_model))[None]
-    with pytest.raises(NotImplementedError, match="mesh.*ROADMAP queue A"):
+    with pytest.raises(NotImplementedError, match="2-D .*mesh.*ROADMAP queue A's item A5"):
         moe.apply_expert_parallel(p, x, pcfg)
     y, aux = moe.apply_auto(p, x, pcfg)  # no mesh: the sort dispatch
     want_y, want_aux = moe.apply(p, x, pcfg)

@@ -78,8 +78,8 @@ def test_cohort_round_and_unported_knobs_raise():
     assert torch.equal(new["params"][3:], before[3:])
     assert not torch.equal(new["params"][:3], before[:3])
     assert torch.equal(state["params"], before)
-    with pytest.raises(TypeError):
-        FedConfig(mesh=8)  # a knob not ported yet
+    with pytest.raises(ValueError, match="num_shards"):  # no process group of 8 ranks
+        ucfl.make_ucfl(lenet.apply_stacked, tparams, FedConfig(mesh=8), device="cpu")
     with pytest.raises(TypeError, match="RefreshConfig"):  # a knob of the wrong type
         ucfl.make_ucfl(lenet.apply_stacked, tparams, FedConfig(w_refresh=object()),
                        device="cpu")

@@ -147,8 +147,8 @@ def test_refused_knobs_raise_at_construction():
         build(async_buffer=async_buffer.AsyncConfig())
     with pytest.raises(NotImplementedError, match="topology is not supported by ucfl_parallel"):
         build(topology=topology.Topology.contiguous(SMALL["m"], 2))
-    with pytest.raises(TypeError):
-        FedConfig(shard_state=True)  # not ported yet
+    with pytest.raises(NotImplementedError, match="shard_state is not supported by ucfl_parallel"):
+        build(mesh=1, shard_state=True)
     s = build()
     assert (s.name, s.comm_scheme, s.num_streams, s.wire_schema, s.injects_faults) == \
         ("ucfl_parallel", "unicast", None, None, False)

@@ -349,5 +349,5 @@ def test_a_transport_that_is_no_transport_config_raises_at_construction(name):
             else:
                 REGISTRY[name](lenet.apply_stacked, tparams, cfg, device="cpu")
     assert FedConfig().transport is None
-    with pytest.raises(TypeError):  # the reference's mesh knobs are not ported yet
-        FedConfig(mesh=8)
+    with pytest.raises(ValueError, match="num_shards"):  # no process group of 8 ranks
+        ucfl.make_ucfl(lenet.apply_stacked, tparams, FedConfig(mesh=8), device="cpu")

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from parity_arrays import BATCH, SMALL, VAR_BATCH, lenet_params, small_arrays  # noqa: F401
 from repro.data import synthetic as ref_synthetic
 from repro_torch import interop
 
@@ -22,11 +23,6 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 CPU = "cpu"
-
-# the small federated task every slice-level parity test shares
-SMALL = dict(m=6, n=80, n_test=20, num_classes=6, hw=(16, 16))
-BATCH = 20
-VAR_BATCH = 20
 
 
 @pytest.fixture
@@ -40,57 +36,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
-
-
-def _glorot(rng, shape):
-    limit = (6.0 / (int(np.prod(shape[:-1])) + shape[-1])) ** 0.5
-    return rng.uniform(-limit, limit, size=shape).astype(np.float32)
-
-
-def lenet_params(rng, hw, classes, *, bias=0.0):
-    """numpy LeNet-5 weights in the reference's shapes (HWIO convs):
-    Glorot-uniform as ``repro.models.lenet.init``, biases set to ``bias``."""
-    h, w = hw
-    flat = ((h - 4) // 2 - 4) // 2 * (((w - 4) // 2 - 4) // 2) * 16
-    shapes = {"c1_w": (5, 5, 1, 6), "c2_w": (5, 5, 6, 16), "f1_w": (flat, 120),
-              "f2_w": (120, 84), "f3_w": (84, classes)}
-    params = {}
-    for k, shape in shapes.items():
-        params[k] = _glorot(rng, shape)
-        params[k.replace("_w", "_b")] = np.full((shape[-1],), bias, np.float32)
-    return params
-
-
-@functools.lru_cache(maxsize=None)
-def small_arrays(seed=0):
-    """numpy (data arrays, LeNet params) of the SMALL covariate-shift task.
-
-    Built with numpy alone, the way ``repro.data.synthetic`` builds its
-    scenario 2 (class prototypes + noise, Dirichlet labels, 90°·group
-    rotations) and ``repro.models.lenet.init`` its weights, so neither
-    package's generator is under test here.
-    """
-    rng = np.random.default_rng(seed)
-    m, nn, nt, c, (h, w) = (SMALL[k] for k in ("m", "n", "n_test", "num_classes", "hw"))
-    low = rng.normal(size=(c, h // 4, w // 4, 1))
-    proto = np.repeat(np.repeat(low, 4, axis=1), 4, axis=2)
-    proto /= proto.std(axis=(1, 2, 3), keepdims=True)
-
-    def labels(count):
-        props = rng.dirichlet(8.0 * np.ones(c), size=m)
-        return np.stack([rng.choice(c, size=count, p=p) for p in props]).astype(np.int32)
-
-    group = (np.arange(m) % 4).astype(np.int32)
-
-    def render(y):
-        x = proto[y] + 0.8 * rng.normal(size=y.shape + proto.shape[1:])
-        return np.stack([np.rot90(xc, g, axes=(1, 2)) for xc, g in zip(x, group)]
-                        ).astype(np.float32)
-
-    y, y_test = labels(nn), labels(nt)
-    arrays = (render(y), y, render(y_test), y_test, group, np.full((m,), nn, np.int32))
-    params = lenet_params(rng, (h, w), c)
-    return arrays, params
 
 
 def small_task(seed=0):
@@ -234,3 +179,54 @@ def ref_fault_draws(ref_cfg, rkey, m, width):
     return faults.FaultDraws(torch.as_tensor(np.asarray(ref_faults.attacker_mask(ref_cfg, m))),
                              torch.as_tensor(np.asarray(u)),
                              torch.as_tensor(np.asarray(noise)))
+
+
+# the ten strategies of the reference's tests/test_sharded_state.py, at
+# their reference defaults and the shared small batch
+MESH_NAMES = ["cfl", "ditto", "fedavg", "fedfomo", "fedprox", "local", "oracle", "pfedme",
+              "scaffold", "ucfl"]
+_MESH_CFG = {"scaffold": dict(lr=0.01, momentum=0.0, epochs=5),
+             "pfedme": dict(lr=0.01, momentum=0.0, epochs=1)}
+
+
+def mesh_cfg(name):
+    """``name``'s ``FedConfig`` fields in the mesh tests."""
+    return dict(_MESH_CFG.get(name, {}), batch_size=BATCH)
+
+
+def mesh_kw(name):
+    """``name``'s strategy keywords in the mesh tests."""
+    return {"var_batch_size": VAR_BATCH} if name.startswith("ucfl") else {}
+
+
+def round_orders(name, rkey, m, epochs):
+    """The batch orders the reference's round of ``name`` draws under
+    ``rkey`` for m clients, as the port's ``round(perms=)`` takes them:
+    Ditto's two stacked, FedFomo's over its train split, ucfl_parallel's
+    (m streams, m clients, epochs, steps·B)."""
+    nn = SMALL["n"]
+    if name == "ditto":
+        return np.stack([ref_permutations(k, m, epochs, nn, BATCH)
+                         for k in jax.random.split(rkey)])
+    if name == "fedfomo":
+        return ref_permutations(rkey, m, epochs, nn - int(nn * 0.2), BATCH)
+    if name == "ucfl_parallel":
+        return ref_stream_permutations(rkey, m, epochs, nn, BATCH)
+    return ref_permutations(rkey, m, epochs, nn, BATCH)
+
+
+def mesh_run(name, m, members, slots=5):
+    """A run of the mesh tests (``torch_mesh_ranks.play``): ``name``'s
+    config, the cohorts of ``members`` (one tuple a round) padded to
+    ``slots`` slots, and the reference's batch orders from
+    :func:`key_schedule`'s round keys; and those (round key, cohort)."""
+    from repro_torch.federated import participation
+    cohorts = [participation.pad_slots(participation.as_cohort(np.asarray(mem), m), slots, m)
+               for mem in members]
+    _, rounds = key_schedule(cohorts)
+    epochs = mesh_cfg(name).get("epochs", 1)
+    run = dict(name=name, cfg=mesh_cfg(name), kw=mesh_kw(name),
+               cohorts=[(c.indices, c.mask) for _, c in rounds],
+               perms=[round_orders(name, k, m, epochs) for k, _ in rounds])
+    return run, rounds
+
