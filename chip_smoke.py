@@ -141,7 +141,10 @@ Phases, each printed as it ends:
                launches form a row, ``<kernel>_block`` for the row-sharded
                runs (``cohort_gather_block``, ``masked_mix_scatter_block``
                on a rank's block), ``<kernel>_mesh`` for the replicated runs
-               and the runs without a mesh; ``mesh_path`` JSON line;
+               and the runs without a mesh; the row-sharded ucfl state's
+               checkpoint (``checkpoint.save`` on every rank: gathered, rank
+               0 writes) byte for byte the replicated state's at s = 2 and
+               4; ``mesh_path`` JSON line;
   11. serve-agree — reduced qwen2-7b and gemma2-9b in f32 for 2 clients: the
                federated prefill step (the FMA kernel) and teacher-forced
                decode steps (the decode kernel; gemma2 past its window-64
@@ -194,6 +197,46 @@ Phases, each printed as it ends:
                tokens against 512 decode steps (the reference's tolerances,
                y rtol 1e-3 atol 1e-5, h rtol 1e-4 atol 1e-5); ``families_path``
                JSON line;
+  14b. ep    — expert parallelism (``moe.set_ep_mesh``, the rank mesh of
+               ``repro_torch.launch.mesh``): kimi-k2-1t-a32b at its published
+               widths cut to its dense first block and one MoE layer (19.9 B
+               parameters, bf16), one model (the fedsgd_sharded regime), 2 x 2
+               requests of 1,024 tokens: on one rank with the local sort
+               dispatch (``sharding.rank_params`` with no mesh), a prefill
+               step (one warm, 2 timed, 1 profiled: the tile twice a call)
+               and 4 timed + 4 profiled greedy decode steps (the decode
+               kernel twice a step), the dropped share, the routing's
+               busiest experts and how much of each layer's activation all
+               tokens share (``routing_probe``); then over a (data 2,
+               model 2) mesh of gloo ranks sharing the card (``mesh.spawn``),
+               each building only its block of the 384 experts (192
+               experts' d_ff halves) and serving its data rank's 2 requests
+               the same way: per rank init, prefill and decode walls, busy,
+               peak GB, the drops at cap and at cap2, each collective's
+               calls, bytes and ms; the EP layer on the one-rank run's layer
+               input against its output on every token neither run dropped,
+               and at capacity factor 8 on every token against the same
+               arithmetic on one rank without capacities (``ep_plain``;
+               both 2^-6 of the largest |y|), aux within 1e-6;
+               ``serve(mesh=)``, the entry point, on a short prompt; the
+               reduced f32 EP fedsgd step (capacity factor 8) against the
+               one-rank step, each leaf within 1e-5 (L2); then
+               ``build_train_step(mix_gather_shardings=)``: stablelm-1.6b as
+               the train phase runs it, 4 clients over 2 gloo ranks, 2
+               user-centric steps against the unsharded ones (bit for bit,
+               or each leaf's change and the losses within STEP_DELTA_TOL;
+               which holds is printed, with whether the mix's (2, 4) row
+               block is the (4, 4) mix's rows bit for bit), the step walls and
+               the all-gathered bytes; ``ep_path`` JSON line. Every kernel
+               call of the phase is recorded (``recorded_calls``; a rank's
+               inputs copied by rank 0) and each run gets its kernel rows
+               (``recorded_rows``), every shape held against the plain
+               version: ``flash_attention_{prefill,decode}_kimi`` (one
+               rank), ``_kimi_rank`` (a data rank),
+               ``flash_attention_decode_kimi_serve`` (``serve(mesh=)``),
+               ``flash_attention_fma_kimi_train{,_rank}`` (the reduced EP
+               step), ``{flash_attention_prefill,mix_aggregate}_gather`` and
+               ``_gather_rank`` (the stablelm steps);
   15. train  — federated training of stablelm-1.6b at its published widths
                (d_model 2048, 32 x 64 MHA heads, d_ff 5632, vocab 100,352,
                bf16, remat), depth cut to 4 of 24 layers, 4 clients in 2
@@ -289,6 +332,7 @@ from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER  # noqa: E402
 from repro_torch.kernels.mix_aggregate import MIX, MIX_TILES, mix_plan  # noqa: E402
 from repro_torch.kernels.pairwise_delta import GRAM  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
+from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.models import lenet, registry, transformer, whisper  # noqa: E402
@@ -2605,6 +2649,7 @@ def mesh_rank(rank, ref_path, calls_path, untrained, device, task_kw):
                             data.y.shape[1], device=dev)[0, 0],
                         x_sum=data.x.sum().reshape(1))
     want_all = torch.load(ref_path, map_location=dev)
+    ckpt_dir = os.path.dirname(calls_path)
     report, calls = {}, {"mesh": {}, "block": {}}
     mesh_lib.TIMING = True
     for name in MESH_RUNS:
@@ -2618,6 +2663,17 @@ def mesh_rank(rank, ref_path, calls_path, untrained, device, task_kw):
                                                  MESH_UNTOUCHED.get(name, ()) if shard else ())
             merge_calls(calls[mesh_tag(shard)], got)
             stats = {k: dict(v) for k, v in mesh_lib.STATS.items()}
+            if name == "ucfl":  # the gathered checkpoint: every rank saves a row-sharded state
+                if shard or rank == 0:
+                    checkpoint.save(f"{ckpt_dir}/ucfl_{'sharded' if shard else 'replicated'}"
+                                    ".msgpack", state)
+                if shard and rank == 0:
+                    files = [open(f"{ckpt_dir}/ucfl_{lay}.msgpack", "rb").read()
+                             for lay in ("replicated", "sharded")]
+                    if files[0] != files[1]:
+                        raise AssertionError(f"mesh s={cm.shards}: the row-sharded ucfl state's "
+                                             "checkpoint differs from the replicated one's")
+                    report["ucfl_checkpoint_bytes"] = len(files[0])
             if not kept:
                 raise AssertionError(f"{key} rank {rank}: a row outside the cohort moved")
             rows = mesh_lib.row_mesh(state)
@@ -2658,11 +2714,8 @@ def mesh_rank(rank, ref_path, calls_path, untrained, device, task_kw):
                                avg_acc=avg)
             del state
     if rank == 0:
-        torch.save({tag: {key: dict(args=[a.cpu() if isinstance(a, torch.Tensor) else a
-                                          for a in rec["args"]], kw=rec["kw"], live=rec["live"])
-                          for key, rec in tc.items()} for tag, tc in calls.items()}, calls_path)
-    return report, {tag: {key: rec["launches"] for key, rec in tc.items()}
-                    for tag, tc in calls.items()}
+        save_rank_calls(calls_path, calls)
+    return report, rank_launches(calls)
 
 
 def merge_rank_calls(into, per_rank, calls_path, dev):
@@ -2761,6 +2814,9 @@ def mesh_phase(dev, data, params0, untrained, task_kw=None, backend="nccl"):
                                             task_kw or {}))
             merge_rank_calls(calls, per_rank, calls_path, dev)
             reports[s] = [rep for rep, _ in per_rank]
+            ckpt_bytes = reports[s][0].pop("ucfl_checkpoint_bytes")
+            print(f"  s = {s}: the row-sharded ucfl state's gathered checkpoint is the "
+                  f"replicated one's, byte for byte ({ckpt_bytes:,} bytes)", flush=True)
             print(f"  s = {s} gloo ranks on one card: {time.perf_counter() - ts:.1f} s", flush=True)
     for s, per_rank in reports.items():
         for rank, rep in enumerate(per_rank):
@@ -3703,6 +3759,679 @@ def families_phase(dev):
     return out
 
 
+# ------------------------------------------------------------------ ep
+#
+# kimi-k2-1t-a32b at its published widths cut to first_dense + 1 MoE layer
+# (19.9 B parameters, 39.8 GB of bf16): served whole on one rank with the
+# local sort dispatch, then over a (data 2, model 2) mesh of gloo ranks
+# sharing the card with its 384 experts sharded (each rank 192 experts'
+# d_ff halves: 14.4 GB); one model (the fedsgd_sharded regime), 2 x 2
+# requests of 1,024 tokens, 2 a data rank. Then the reduced EP train step
+# and the client-sharded stablelm step.
+EP_ARCH = "kimi-k2-1t-a32b"
+EP_LAYERS = 2
+EP_MESH = (2, 2)
+EP_REQUESTS = 4
+EP_PREFILL_REPS = 2
+EP_DECODE, EP_PROFILED = 4, 4
+EP_SEED = SEED + 11
+# the EP MoE layer against the one-rank local dispatch on the tokens that
+# neither dropped, bf16: the local dispatch rounds the gate and up products
+# to bf16 and adds the k outputs in bf16 (the reference's sort dispatch),
+# the EP path keeps the products and the activation in f32 and adds the k
+# outputs in f32 (the reference's shard_map path), and rounds each
+# F-shard's partial row before their bf16 SUM. Then on every token at
+# capacity factor 8 and cf2 8, over chunks of EP_NODROP_CHUNK positions
+# where nothing drops (a chunk's 2 x 64 tokens a data rank put at most 256
+# rows on an expert, under cap2 344), against ``ep_plain``, the same
+# arithmetic on one rank without capacities. Both within 2^-6 of the
+# largest |y| (four bf16 steps at the top of the range)
+EP_Y_TOL = 2.0 ** -6
+EP_NODROP_CHUNK = 64
+EP_AUX_TOL = 1e-6
+# the reduced f32 EP train step against the one-rank step, each leaf
+# |a - b| / |b| in L2 (capacity factor 8: nothing drops on either side)
+EP_STEP_TOL = 1e-5
+EP_TRAIN_BATCH, EP_TRAIN_SEQ = 8, 12
+# the client-sharded train step: stablelm-1.6b as the train phase runs it,
+# 4 clients over 2 gloo ranks, 2 user-centric steps
+GATHER_SHARDS, GATHER_STEPS = 2, 2
+
+
+def ep_config():
+    """kimi-k2 at its published widths, cut to its dense first block and
+    one MoE layer."""
+    return dataclasses.replace(configs.get(EP_ARCH), num_layers=EP_LAYERS)
+
+
+def ep_train_config():
+    """families-agree's reduced kimi-k2 in f32 at capacity factor 8."""
+    return dataclasses.replace(configs.get(EP_ARCH).reduced(), capacity_factor=8.0)
+
+
+def ep_tokens(cfg, dev):
+    """The EP_REQUESTS prompts of PREFILL_LEN tokens, (1, R, S), the same in
+    every process."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(EP_SEED + 1)
+    return torch.randint(0, cfg.vocab_size, (1, EP_REQUESTS, PREFILL_LEN), generator=gen,
+                         device=dev)
+
+
+def ep_train_batch(cfg, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(EP_SEED + 2)
+    toks = torch.randint(0, cfg.vocab_size, (EP_TRAIN_BATCH, EP_TRAIN_SEQ + 1), generator=gen,
+                         device=dev)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def ep_train_step(cfg, params, batch):
+    step = steps.build_train_step(cfg, n_clients=1, agg="local", lr=TRAIN_LR,
+                                  momentum=cfg.momentum)
+    return step(params, sgd_init(params, momentum=cfg.momentum), batch)
+
+
+@contextlib.contextmanager
+def moe_calls():
+    """Every MoE layer call in the block (``moe.apply_auto``): yields a list
+    of (dropped assignments, dropped at cap2 or None, assignments, the
+    layer's input, output and aux). The drops are counted with the path's
+    own rule: the local dispatch's capacity, or the EP path's cap and cap2
+    on this rank (``moe.ep_dropped``)."""
+    from repro_torch.models import moe
+
+    seen = []
+    real = moe.apply_auto
+
+    def counting(p, x, mcfg):
+        y, aux = real(p, x, mcfg)
+        if moe.ep_mesh() is not None:
+            at_cap, at_cap2, _ = moe.ep_dropped(p, x, mcfg)
+            rec = [int(at_cap.sum()), int(at_cap2.sum())]
+        else:
+            rec = [int(moe.dropped(p, x, mcfg).sum()), None]
+        rec += [x.shape[0] * x.shape[1] * x.shape[2] * mcfg.top_k, x.detach().clone(),
+                y.detach().clone(), aux.detach().clone()]
+        seen.append(rec)
+        return y, aux
+    moe.apply_auto = counting
+    try:
+        yield seen
+    finally:
+        moe.apply_auto = real
+
+
+def common_share(t):
+    """How much of a (m, B, S, D) activation all the first client's tokens
+    share: |mean over tokens|² / mean over tokens of |token|², in f32 (1 /
+    the tokens for independent ones, 1 for one vector repeated)."""
+    f = t[0].detach().float().reshape(-1, t.shape[-1])
+    return float(f.mean(dim=0).square().sum() / f.square().sum(dim=1).mean())
+
+
+@contextlib.contextmanager
+def routing_probe():
+    """The common share (``common_share``) of what each attention + MLP
+    layer adds in the block, in call order: yields a list of {"in": the
+    residual entering the layer, "attn": the attention output, "mlp": the
+    dense MLP's output, "out": the residual leaving it}; an MoE layer has
+    no "mlp" (its input is the ``moe_calls`` record)."""
+    from repro_torch.models import attention
+
+    seen = []
+    real_layer, real_attn, real_mlp = (transformer._apply_attn_layer, attention.forward,
+                                       transformer.mlp_apply)
+
+    def layer(p, h, *args, **kw):
+        rec = {"in": common_share(h)}
+        seen.append(rec)
+        out = real_layer(p, h, *args, **kw)
+        rec["out"] = common_share(out[0])
+        return out
+
+    def attn(*args, **kw):
+        out = real_attn(*args, **kw)
+        seen[-1]["attn"] = common_share(out[0])
+        return out
+
+    def mlp(*args, **kw):
+        out = real_mlp(*args, **kw)
+        seen[-1]["mlp"] = common_share(out)
+        return out
+
+    transformer._apply_attn_layer, attention.forward, transformer.mlp_apply = layer, attn, mlp
+    try:
+        yield seen
+    finally:
+        transformer._apply_attn_layer, attention.forward, transformer.mlp_apply = (
+            real_layer, real_attn, real_mlp)
+
+
+def router_common(router, x, k):
+    """The router's logits over the first client's tokens of x: the share
+    of their variance over the experts that the mean logit row carries, and
+    the share of tokens whose k choices hold that row's first expert."""
+    lg = x[0].float().reshape(-1, x.shape[-1]) @ router[0]
+    mean = lg.mean(dim=0)
+    common, own = float(mean.var()), float((lg - mean).var(dim=1).mean())
+    top = torch.topk(lg, k, dim=-1).indices
+    holds = float((top == torch.argmax(mean)).any(dim=-1).float().mean())
+    return dict(logit_common_share=common / (common + own), hold_mean_top1=holds)
+
+
+def ep_serve_run(dev, cfg, params, tokens, name, copy=True):
+    """A prefill step over ``tokens`` (one warm call that also records the
+    MoE layer's input, output and drops and the routing probe, then
+    EP_PREFILL_REPS timed calls, one profiled), then EP_DECODE timed and
+    EP_PROFILED profiled greedy decode steps on its caches from the
+    prompt's end. Every attention call is one tile launch a prefill and
+    one decode-kernel launch a step, each recorded (``recorded_calls``;
+    inputs copied with ``copy``). Returns (out, the MoE layer's record of
+    the warm call, the routing probe's, the recorded calls)."""
+    prefill = steps.build_prefill_step(cfg, federated=True)
+    out = {}
+    zero_counters()
+    with recorded_calls(copy=copy) as calls:
+        with moe_calls() as seen, routing_probe() as probe:
+            logits, caches = prefill(params, {"tokens": tokens})
+        layer = seen[0]
+        times = []
+        for _ in range(EP_PREFILL_REPS):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            logits, caches = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t)
+        out["prefill_profile"] = profile(lambda: prefill(params, {"tokens": tokens}), dev,
+                                         top=10)
+        n_calls = attention_calls(cfg)
+        out["prefill_launches"] = read_counters(
+            f"{name} prefill", {"flash_attention_prefill": n_calls * (2 + EP_PREFILL_REPS)})
+        if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+            raise AssertionError(f"{name} prefill: non-finite logits")
+        b, s = tokens.shape[1], tokens.shape[2]
+        out.update(prefill_times_s=times, prefill_s=statistics.median(times),
+                   prefill_tok_s=b * s / statistics.median(times),
+                   dropped=layer[0], dropped_cap2=layer[1], assignments=layer[2])
+        first = s
+        last = first + EP_DECODE + EP_PROFILED
+        cache = decode_cache(cfg, caches, 1, b, last, dev)
+        del caches
+        step = steps.build_serve_step(cfg, federated=True)
+        cur = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        for pos in range(first, first + EP_DECODE):
+            logits, cache = step(params, cache, cur, pos)
+            cur = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize(dev)
+        out["decode_step_ms"] = (time.perf_counter() - t) / EP_DECODE * 1e3
+        start = first + EP_DECODE
+        out["decode_profile_4_steps"] = profile(
+            lambda: [step(params, cache, cur, pos) for pos in range(start, last)], dev)
+        decode = {"flash_attention_decode": n_calls * (EP_DECODE + EP_PROFILED)}
+        read_counters(f"{name} decode", dict(out["prefill_launches"], **decode))
+        out["decode_launches"] = decode
+    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError(f"{name} decode: non-finite logits")
+    return out, layer, probe, calls
+
+
+def ep_plain(p, x, mcfg, ranks):
+    """The EP layer's arithmetic with nothing dropped, on one rank, one
+    expert at a time in plain torch (the reference's ``shard_map`` path
+    without capacities, M = 1): the f32 router without softcap, each
+    expert's gate and up products and the SwiGLU in f32, the activation
+    cast to x's dtype and its down product in x's dtype (f32
+    accumulation), each token's k outputs weighted and added in f32 and
+    cast to x's dtype once. The tokens are routed as ``ranks`` data ranks
+    route their slices of the batch in ``ep_nodrop``'s chunks: the
+    router's f32 product at another shape may reorder two near-equal
+    probabilities and so choose another expert. x (1, B, S, D); p one
+    client's leaves."""
+    from repro_torch.models import moe
+
+    _, b, s, d = x.shape
+    k, per = mcfg.top_k, b // ranks
+    top_w = torch.empty((b, s, k), dtype=torch.float32, device=x.device)
+    top_ids = torch.empty((b, s, k), dtype=torch.int64, device=x.device)
+    for r in range(ranks):
+        for c in range(0, s, EP_NODROP_CHUNK):
+            xc = x[:, r * per:(r + 1) * per, c:c + EP_NODROP_CHUNK]
+            _, w, ids = moe._route(p["router"], xc.reshape(1, -1, d), mcfg, softcap=False)
+            top_w[r * per:(r + 1) * per, c:c + EP_NODROP_CHUNK] = w.view(per, -1, k)
+            top_ids[r * per:(r + 1) * per, c:c + EP_NODROP_CHUNK] = ids.view(per, -1, k)
+    top_w, top_ids = top_w.view(b * s, k), top_ids.view(b * s, k)
+    xt = x.reshape(b * s, d)
+    y = torch.zeros(b * s, d, dtype=torch.float32, device=x.device)
+    with torch.no_grad():
+        for e in range(mcfg.num_experts):
+            tok, choice = (top_ids == e).nonzero(as_tuple=True)
+            if tok.numel():
+                h = xt[tok]
+                g = torch.mm(h, p["w_gate"][0, e], out_dtype=torch.float32)
+                u = torch.mm(h, p["w_up"][0, e], out_dtype=torch.float32)
+                out = (torch.nn.functional.silu(g) * u).to(x.dtype) @ p["w_down"][0, e]
+                y.index_add_(0, tok, out.float() * top_w[tok, choice, None])
+    return y.to(x.dtype).view(1, b, s, d)
+
+
+def ep_nodrop(apply, x):
+    """An MoE layer over x (m, B, S, D) in chunks of EP_NODROP_CHUNK
+    positions, no grad: ``apply(chunk)`` -> (y, assignments dropped)."""
+    ys, dropped = [], 0
+    with torch.no_grad():
+        for c in range(0, x.shape[2], EP_NODROP_CHUNK):
+            y, d = apply(x[:, :, c:c + EP_NODROP_CHUNK].contiguous())
+            ys.append(y)
+            dropped += d
+    return torch.cat(ys, dim=2), dropped
+
+
+def ep_one_rank(dev, tmp):
+    """kimi-k2 whole on one rank, the local dispatch: ``ep_serve_run``;
+    the MoE layer's input, output, aux and dropped tokens saved for the
+    ranks, with its output where nothing drops (``ep_nodrop`` at capacity
+    factor E / k: a chunk's every token fits each expert); the routing's
+    common shares. Then the reduced f32 fedsgd step on one rank, its
+    params saved. Returns (out, {tag: recorded calls})."""
+    from repro_torch.models import moe
+
+    cfg = ep_config()
+    mcfg = transformer.moe_config(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = registry.one(sharding.rank_params(cfg, EP_SEED, None, dev))
+    torch.cuda.synchronize(dev)
+    out = dict(init_s=time.perf_counter() - t,
+               params=sum(x.numel() for x in leaves(params)))
+    tokens = ep_tokens(cfg, dev)
+    run, layer, probe, calls = ep_serve_run(dev, cfg, params, tokens, f"{cfg.name} one rank")
+    out.update(run)
+    x, y, aux = layer[3:]
+    p_moe = transformer.tree_map(lambda v: v[:, 0], params["blocks"]["l0"]["moe"])
+    mask = moe.dropped_tokens(p_moe, x, mcfg)
+    load = moe.expert_load(p_moe, x, mcfg)[0]
+    out["busiest_experts"] = sorted(load.tolist(), reverse=True)[:8]
+    out["experts_used"] = int((load > 0).sum())
+    out["routing"] = dict(layers=probe, moe_input=common_share(x),
+                          **router_common(p_moe["router"], x, mcfg.top_k))
+    t = time.perf_counter()
+    y_full = ep_plain(p_moe, x, mcfg, EP_MESH[0])
+    out["plain_layer_s"] = time.perf_counter() - t
+    torch.save({"x": x.cpu(), "y": y.cpu(), "aux": aux.cpu(), "dropped": mask.cpu(),
+                "y_full": y_full.cpu()}, f"{tmp}/layer.pt")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["dropped_tokens"] = int(mask.sum())
+    del params, p_moe, x, y, y_full, layer
+    torch.cuda.empty_cache()
+    tcfg = ep_train_config()
+    tparams = sharding.rank_params(tcfg, EP_SEED, None, dev)
+    with recorded_calls() as train_calls:
+        new, _, met = ep_train_step(tcfg, tparams, ep_train_batch(tcfg, dev))
+    if not call_launches(train_calls).get("flash_attention_fma"):
+        raise AssertionError("ep one rank: the reduced f32 train step launched no FMA kernel")
+    torch.save({"params": transformer.tree_map(lambda v: v.cpu(), new),
+                "loss": float(met["loss"])}, f"{tmp}/train.pt")
+    return out, {"kimi": calls, "kimi_train": train_calls}
+
+
+def save_rank_calls(path, calls):
+    """Rank 0's copies of its recorded calls' inputs ({tag: calls}), on
+    the host, for ``merge_rank_calls``."""
+    torch.save({tag: {key: dict(args=[a.cpu() if isinstance(a, torch.Tensor) else a
+                                      for a in rec["args"]], kw=rec["kw"], live=rec["live"])
+                      for key, rec in tc.items()} for tag, tc in calls.items()}, path)
+
+
+def rank_launches(calls):
+    """{tag: {call: launches}} of a rank's recorded calls."""
+    return {tag: {key: rec["launches"] for key, rec in tc.items()} for tag, tc in calls.items()}
+
+
+def ep_rank(rank, tmp, device):
+    """One gloo rank of the (data 2, model 2) mesh on the card: kimi-k2's
+    experts sharded (its block built alone, ``sharding.rank_params``), its
+    data rank's 2 requests through ``ep_serve_run``; the EP MoE layer on
+    the one-rank run's layer input (its rows) against the one-rank output
+    on the tokens neither run dropped (EP_Y_TOL) and aux (EP_AUX_TOL), and
+    at capacity factor 8 and cf2 8 (``ep_nodrop``: a chunk's rows fit
+    both capacities) against ``ep_plain`` on every token (EP_Y_TOL);
+    ``serve(mesh=)``, the entry point, on a short prompt; then the reduced
+    f32 fedsgd step on its block and batch rows against the one-rank step
+    (EP_STEP_TOL). The serve run, ``serve`` and
+    the train step are recorded under the tags ``kimi_rank``,
+    ``kimi_serve`` and ``kimi_train_rank``; rank 0 saves its copies of
+    their inputs to ``tmp``/ep_calls.pt. Returns (the rank's report,
+    {tag: {call: launches}})."""
+    from repro_torch.launch import mesh as rank_mesh
+    from repro_torch.models import moe
+
+    dev = torch.device(device)
+    mesh = rank_mesh.make_mesh(EP_MESH, ("data", "model"))
+    clients = mesh.clients()
+    cfg = ep_config()
+    mcfg = transformer.moe_config(cfg)
+    mesh_lib.TIMING = True
+    mesh_lib.reset_stats()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = registry.one(sharding.rank_params(cfg, EP_SEED, mesh, dev))
+    torch.cuda.synchronize(dev)
+    out = dict(coords=dict(mesh.coords), init_s=time.perf_counter() - t,
+               params=sum(x.numel() for x in leaves(params)))
+    lo, hi = clients.block(EP_REQUESTS)
+    tokens = ep_tokens(cfg, dev)[:, lo:hi].contiguous()
+    calls = {}
+    moe.set_ep_mesh(mesh)
+    try:
+        t = time.perf_counter()
+        run, _, _, calls["kimi_rank"] = ep_serve_run(dev, cfg, params, tokens,
+                                                     f"{cfg.name} rank {rank}", copy=rank == 0)
+        out["serve_wall_s"] = time.perf_counter() - t
+        out.update(run)
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["collectives"] = {k: dict(v) for k, v in mesh_lib.STATS.items()}
+        # the EP layer on the one-rank run's layer input; only the MoE
+        # block's leaves stay on the card (its view keeps them)
+        p_moe = transformer.tree_map(lambda v: v[:, 0], params["blocks"]["l0"]["moe"])
+        del params
+        torch.cuda.empty_cache()
+        saved = torch.load(f"{tmp}/layer.pt", map_location=dev)
+        x = saved["x"][:, lo:hi].contiguous()
+        with torch.no_grad():
+            y, aux = moe.apply_expert_parallel(p_moe, x, mcfg)
+            at_cap, at_cap2, mine = moe.ep_dropped(p_moe, x, mcfg)
+        want = saved["y"][:, lo:hi]
+        held = ~(mine | saved["dropped"][:, lo:hi])
+        diff = (y.float() - want.float()).abs()[held]
+        largest = float(want.float().abs()[held].max())
+        out["layer"] = dict(max_abs_err=float(diff.max()), largest=largest,
+                            held=int(held.sum()), tokens=held.numel(),
+                            aux_err=float((aux - saved["aux"]).abs().max()),
+                            at_cap=int(at_cap.sum()), at_cap2=int(at_cap2.sum()))
+        err = out["layer"]["max_abs_err"]
+        if not err <= EP_Y_TOL * largest:
+            raise AssertionError(f"ep rank {rank}: the EP layer is {err:.4e} from the local "
+                                 f"dispatch on held tokens (gate {EP_Y_TOL} of {largest:.4f})")
+        if not out["layer"]["aux_err"] <= EP_AUX_TOL:
+            raise AssertionError(f"ep rank {rank}: aux {out['layer']['aux_err']:.3e} from the "
+                                 f"local dispatch's (gate {EP_AUX_TOL})")
+        del y, want, diff
+        # every token, nothing dropped
+        big = dataclasses.replace(mcfg, capacity_factor=8.0)
+
+        def ep_chunk(xc):
+            at_cap8, at_cap28, _ = moe.ep_dropped(p_moe, xc, big, cf2=8.0)
+            return (moe.apply_expert_parallel(p_moe, xc, big, cf2=8.0)[0],
+                    int(at_cap8.sum()) + int(at_cap28.sum()))
+
+        y8, lost = ep_nodrop(ep_chunk, x)
+        want8 = saved["y_full"][:, lo:hi].float()
+        largest8 = float(want8.abs().max())
+        err8 = (y8.float() - want8).abs()
+        out["layer_nodrop"] = dict(max_abs_err=float(err8.max()), largest=largest8,
+                                   tokens=x.shape[1] * x.shape[2], dropped=lost,
+                                   over=int((err8 > EP_Y_TOL * largest8).any(dim=-1).sum()))
+        if lost or not out["layer_nodrop"]["max_abs_err"] <= EP_Y_TOL * largest8:
+            raise AssertionError(f"ep rank {rank}: at cf = cf2 = 8 the EP layer dropped {lost} "
+                                 f"and is {out['layer_nodrop']['max_abs_err']:.4e} from its "
+                                 f"plain version (gate {EP_Y_TOL} of {largest8:.4f}; "
+                                 f"{out['layer_nodrop']['over']} tokens over it)")
+        del p_moe, saved, x, y8, want8
+        torch.cuda.empty_cache()
+    finally:
+        moe.set_ep_mesh(None)
+    # the entry point: serve() on the mesh, a short prompt
+    zero_counters()
+    with recorded_calls(copy=rank == 0) as calls["kimi_serve"]:
+        res = serve_lib.serve(cfg, clients=1, batch=EP_REQUESTS, prompt_len=8, decode_tokens=4,
+                              seed=EP_SEED, device=dev, mesh=mesh)
+    out["serve"] = dict(prefill_s=res.prefill_s, decode_s=res.decode_s,
+                        tokens=res.tokens.cpu().tolist(),
+                        launches={k: c.launches for k, c in COUNTERS.items() if c.launches})
+    if moe.ep_mesh() is not None or not bool(torch.isfinite(res.logits).all()):
+        raise AssertionError(f"ep rank {rank}: serve(mesh=) left the EP mesh set or gave "
+                             "non-finite logits")
+    del res
+    torch.cuda.empty_cache()
+    # the reduced EP train step against the one-rank step
+    tcfg = ep_train_config()
+    tparams = sharding.rank_params(tcfg, EP_SEED, mesh, dev)
+    batch = ep_train_batch(tcfg, dev)
+    rows = EP_TRAIN_BATCH // clients.shards
+    mine = {k: v[clients.rank * rows:(clients.rank + 1) * rows] for k, v in batch.items()}
+    moe.set_ep_mesh(mesh)
+    try:
+        with recorded_calls(copy=rank == 0) as calls["kimi_train_rank"]:
+            new, _, met = ep_train_step(tcfg, tparams, mine)
+    finally:
+        moe.set_ep_mesh(None)
+    one = torch.load(f"{tmp}/train.pt", map_location=dev)
+    want = sharding.rank_block(one["params"], tcfg, mesh)
+    rel = {"/".join(path): float((a - b).norm() / b.norm())
+           for path, a, b in zip(pytree.paths(new), leaves(new), leaves(want))}
+    out["train"] = dict(worst_rel=max(rel.values()), loss=float(met["loss"]),
+                        one_rank_loss=one["loss"], leaves=len(rel))
+    if not max(rel.values()) <= EP_STEP_TOL or not abs(float(met["loss"]) - one["loss"]) <= (
+            EP_STEP_TOL * abs(one["loss"])):
+        raise AssertionError(f"ep rank {rank}: the EP train step is {max(rel.values()):.3e} "
+                             f"(L2) from the one-rank step, loss {float(met['loss'])} against "
+                             f"{one['loss']} (gate {EP_STEP_TOL})")
+    if rank == 0:
+        save_rank_calls(f"{tmp}/ep_calls.pt", calls)
+    return out, rank_launches(calls)
+
+
+def gather_batches(cfg, dev):
+    """params0 of TRAIN_CLIENTS clients, W (two groups of two) and
+    GATHER_STEPS batches, from fixed seeds."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    params0 = train_lib.client_params(cfg, TRAIN_CLIENTS, gen, dev)
+    chains = lm_synthetic.make_group_chains(gen, TRAIN_GROUPS, TRAIN_CHAIN_VOCAB)
+    batches = [lm_synthetic.federated_lm_batch(gen, chains, TRAIN_CLIENTS, TRAIN_BATCH,
+                                               TRAIN_SEQ) for _ in range(GATHER_STEPS)]
+    group = torch.arange(TRAIN_CLIENTS, device=dev) % TRAIN_GROUPS
+    w = (group[:, None] == group[None, :]).float() + 0.1
+    return params0, w / w.sum(dim=1, keepdim=True), batches
+
+
+def gather_launches(cfg, params):
+    """A run's launches: one mix a leaf a step, the tile once a layer a
+    step, twice under remat (it recomputes the forward)."""
+    return {"flash_attention_prefill": GATHER_STEPS * cfg.num_layers * (2 if cfg.remat else 1),
+            "mix_aggregate": GATHER_STEPS * len(leaves(params))}
+
+
+def gather_run(dev, cfg, params, w, batches, placement=None):
+    """GATHER_STEPS user-centric steps; each step's loss and wall."""
+    step = steps.build_train_step(cfg, n_clients=TRAIN_CLIENTS, agg="user_centric", lr=TRAIN_LR,
+                                  momentum=cfg.momentum, mix_gather_shardings=placement)
+    opt = sgd_init(params, momentum=cfg.momentum)
+    losses, walls = [], []
+    for batch in batches:
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        params, opt, met = step(params, opt, w, batch)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t)
+        losses.append(float(met["loss"]))
+    return params, losses, walls
+
+
+def gather_rank(rank, tmp, device):
+    """One of GATHER_SHARDS gloo ranks: its clients' rows of the train
+    phase's stablelm params and batches, GATHER_STEPS user-centric steps
+    with the mix placed over the ranks (``mix_gather_shardings``), against
+    the unsharded steps' rows: bit for bit, or each leaf's change within
+    STEP_DELTA_TOL (L2) and the losses within it. The steps are recorded
+    (tag ``gather_rank``; rank 0 saves its copies of their inputs to
+    ``tmp``/gather_calls.pt). Returns (the report, {tag: {call:
+    launches}})."""
+    dev = torch.device(device)
+    cm = mesh_lib.resolve("auto")
+    cfg = train_config()
+    params0, w, batches = gather_batches(cfg, dev)
+    lo, hi = cm.block(TRAIN_CLIENTS)
+    mine = transformer.tree_map(lambda x: x[lo:hi].clone(), params0)
+    del params0
+    batches = [{k: v[lo:hi] for k, v in b.items()} for b in batches]
+    mesh_lib.reset_stats()
+    zero_counters()
+    with recorded_calls(copy=rank == 0) as calls:
+        new, losses, walls = gather_run(dev, cfg, mine, w, batches, cm)
+    launches = read_counters(f"gather rank {rank}", gather_launches(cfg, mine))
+    if rank == 0:
+        save_rank_calls(f"{tmp}/gather_calls.pt", {"gather_rank": calls})
+    stats = {k: dict(v) for k, v in mesh_lib.STATS.items()}
+    # does a row block of the mix give the whole mix's rows' bits (k = 2 against 4)?
+    theta = torch.randn(TRAIN_CLIENTS, 1 << 20, generator=torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    mix_rows_equal = torch.equal(ops.mix_aggregate(w[lo:hi], theta),
+                                 ops.mix_aggregate(w, theta)[lo:hi])
+    zero_counters()
+    want = torch.load(f"{tmp}/gather.pt", map_location="cpu", mmap=True)
+    rows = [b[lo:hi].to(dev) for b in leaves(want["params"])]
+    same = all(torch.equal(a, b) for a, b in zip(leaves(new), rows))
+    rel = {}
+    for path, a, b, p0 in zip(pytree.paths(new), leaves(new), rows, leaves(mine)):
+        b = b.float()
+        rel["/".join(path)] = float((a.float() - b).norm() / (b - p0.float()).norm())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))
+    if not (max(rel.values()) <= STEP_DELTA_TOL and loss_rel <= STEP_DELTA_TOL):
+        raise AssertionError(f"gather rank {rank}: a leaf's change is {max(rel.values()):.3e} "
+                             f"(L2) from the unsharded step's, losses {losses} against "
+                             f"{want['losses']} (gate {STEP_DELTA_TOL})")
+    return dict(bit_for_bit=same, mix_rows_bit_equal=mix_rows_equal,
+                worst_rel=max(rel.values()), loss_rel=loss_rel, losses=losses, walls_s=walls,
+                launches=launches, collectives=stats), rank_launches({"gather_rank": calls})
+
+
+def ep_phase(dev):
+    """kimi-k2 served on one rank and under expert parallelism over (data
+    2, model 2) gloo ranks sharing the card, the reduced EP train step, and
+    the client-sharded stablelm step over 2 ranks; see the module
+    docstring. Every kernel call of the phase is recorded, and each run
+    gets its kernel rows (``recorded_rows``): tags ``kimi`` (one rank's
+    serve run), ``kimi_rank`` (a data rank's), ``kimi_serve``
+    (``serve(mesh=)``), ``kimi_train`` and ``kimi_train_rank`` (the reduced
+    EP train step on one rank and on a rank), ``gather`` and
+    ``gather_rank`` (the stablelm steps unsharded and on a rank), each
+    shape held against the plain version, the launches of all ranks
+    summed. Returns (the rows, {row: launches})."""
+    t0 = time.perf_counter()
+    cfg = ep_config()
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    with tempfile.TemporaryDirectory() as tmp:
+        one, calls = ep_one_rank(dev, tmp)
+        rt = one["routing"]
+        print(f"  {cfg.name} ({EP_LAYERS} layers) on one rank: {one['params'] / 1e9:.3f} B "
+              f"parameters, init {one['init_s']:.2f} s, peak {one['peak_gb']:.2f} GB; prefill "
+              f"{EP_REQUESTS} x {PREFILL_LEN} tokens {one['prefill_s'] * 1e3:.1f} ms (median of "
+              f"{EP_PREFILL_REPS}), {one['prefill_tok_s']:.0f} tokens/s; decode "
+              f"{one['decode_step_ms']:.2f} ms a step; dropped {one['dropped']} of "
+              f"{one['assignments']} assignments ({one['dropped'] / one['assignments']:.4f}), "
+              f"{one['dropped_tokens']} tokens (the busiest experts take "
+              f"{one['busiest_experts']} of {EP_REQUESTS * PREFILL_LEN} tokens, "
+              f"{one['experts_used']} experts get any)", flush=True)
+        print(f"  routing: the share of a token's activation common to all tokens (1/N for "
+              f"independent ones, N = {EP_REQUESTS * PREFILL_LEN}) by layer "
+              f"{json.dumps([{k: round(v, 4) for k, v in r.items()} for r in rt['layers']])}; "
+              f"the MoE layer's input {rt['moe_input']:.4f}; the mean logit row carries "
+              f"{rt['logit_common_share']:.4f} of the logits' variance over the experts, and "
+              f"{rt['hold_mean_top1']:.4f} of the tokens choose its first expert", flush=True)
+        print_profiles(f"{cfg.name} one rank", {"prefill step": one["prefill_profile"],
+                                                f"{EP_PROFILED} decode steps":
+                                                one["decode_profile_4_steps"]})
+        torch.cuda.empty_cache()
+        ts = time.perf_counter()
+        per_rank = mesh_lib.spawn(ep_rank, int(np.prod(EP_MESH)), backend="gloo",
+                                  device=device, store_path=f"{tmp}/store_ep", timeout=600,
+                                  args=(tmp, device))
+        spawn_s = time.perf_counter() - ts
+        calls.update(kimi_rank={}, kimi_serve={}, kimi_train_rank={})
+        merge_rank_calls(calls, per_rank, f"{tmp}/ep_calls.pt", dev)
+        ranks = [rep for rep, _ in per_rank]
+        for rank, r in enumerate(ranks):
+            coll = {k: f"{v['calls']} calls {v['bytes'] / 1e6:.1f} MB {v['ms']:.1f} ms"
+                    for k, v in r["collectives"].items()}
+            print(f"  rank {rank} {r['coords']}: {r['params'] / 1e9:.3f} B parameters, init "
+                  f"{r['init_s']:.2f} s, peak {r['peak_gb']:.2f} GB; prefill 2 x "
+                  f"{PREFILL_LEN} tokens {r['prefill_s'] * 1e3:.1f} ms (busy "
+                  f"{r['prefill_profile']['device_busy_ms']:.1f} ms), decode "
+                  f"{r['decode_step_ms']:.2f} ms a step (busy over {EP_PROFILED} "
+                  f"{r['decode_profile_4_steps']['device_busy_ms']:.1f} ms); dropped at cap "
+                  f"{r['dropped']}, at cap2 {r['dropped_cap2']} of {r['assignments']}; "
+                  f"collectives {coll}", flush=True)
+            ly, nd, tr, sv = r["layer"], r["layer_nodrop"], r["train"], r["serve"]
+            print(f"    EP layer against the local dispatch: {ly['max_abs_err']:.4e} on "
+                  f"{ly['held']} of {ly['tokens']} tokens held (largest |y| "
+                  f"{ly['largest']:.4f}, gate {EP_Y_TOL}), aux {ly['aux_err']:.2e}; at cf = cf2 "
+                  f"= 8 in chunks of {EP_NODROP_CHUNK} positions, nothing dropped "
+                  f"({nd['dropped']}), {nd['max_abs_err']:.4e} from its plain version "
+                  f"(ep_plain) on all {nd['tokens']} tokens (largest |y| "
+                  f"{nd['largest']:.4f}); serve(mesh=) prefill "
+                  f"{sv['prefill_s']:.2f} s decode {sv['decode_s']:.2f} s {sv['launches']}; "
+                  f"reduced EP train step {tr['worst_rel']:.3e} (L2) from the one-rank step, "
+                  f"loss {tr['loss']:.6f} / {tr['one_rank_loss']:.6f}", flush=True)
+        # the client-sharded train step
+        gcfg = train_config()
+        params0, w, batches = gather_batches(gcfg, dev)
+        zero_counters()
+        with recorded_calls() as calls["gather"]:
+            new, losses, walls = gather_run(dev, gcfg, params0, w, batches)
+        read_counters("gather, unsharded", gather_launches(gcfg, params0))
+        torch.save({"params": transformer.tree_map(lambda x: x.cpu(), new), "losses": losses},
+                   f"{tmp}/gather.pt")
+        del params0, new
+        torch.cuda.empty_cache()
+        ts = time.perf_counter()
+        per_gather = mesh_lib.spawn(gather_rank, GATHER_SHARDS, backend="gloo", device=device,
+                                    store_path=f"{tmp}/store_gather", timeout=600,
+                                    args=(tmp, device))
+        gather_s = time.perf_counter() - ts
+        calls["gather_rank"] = {}
+        merge_rank_calls(calls, per_gather, f"{tmp}/gather_calls.pt", dev)
+        gathered = [rep for rep, _ in per_gather]
+    for rank, g in enumerate(gathered):
+        coll = {k: f"{v['calls']} calls {v['bytes'] / 1e9:.3f} GB" for k, v in
+                g["collectives"].items()}
+        print(f"  {gcfg.name} client-sharded, rank {rank}: steps "
+              f"{[f'{x * 1e3:.1f}' for x in g['walls_s']]} ms (unsharded "
+              f"{[f'{x * 1e3:.1f}' for x in walls]}), losses {g['losses']} / {losses}; "
+              f"{'bit for bit' if g['bit_for_bit'] else 'not bit for bit'} the unsharded rows "
+              f"(worst change {g['worst_rel']:.3e} L2, loss {g['loss_rel']:.2e}; the mix's "
+              f"(2, 4) row block {'is' if g['mix_rows_bit_equal'] else 'is not'} bit for bit "
+              f"the (4, 4) mix's rows); launches "
+              f"{g['launches']}; collectives {coll}", flush=True)
+    per_serve = attention_calls(cfg) * (8 + 4)
+    if any(r["serve"]["launches"] != {"flash_attention_decode": per_serve} for r in ranks):
+        raise AssertionError(f"ep: serve(mesh=) launched {[r['serve']['launches'] for r in ranks]}"
+                             f", not {per_serve} decode-kernel launches a rank")
+    rows, launches = {}, {}
+    for tag, tc in calls.items():
+        got_rows, got_launches = recorded_rows(tag, tc, dev)
+        rows.update(got_rows)
+        launches.update(got_launches)
+    del calls
+    for name, r in rows.items():
+        finish_row(name, r)
+    summary = dict(one_rank={k: v for k, v in one.items() if "profile" not in k},
+                   ranks=[{k: v for k, v in r.items() if "profile" not in k and k != "serve"}
+                          | {"prefill_busy_ms": r["prefill_profile"]["device_busy_ms"],
+                             "decode_busy_ms": r["decode_profile_4_steps"]["device_busy_ms"]}
+                          for r in ranks],
+                   spawn_s=spawn_s, gather=dict(ranks=gathered, unsharded_losses=losses,
+                                                unsharded_walls_s=walls, spawn_s=gather_s),
+                   row_launches=launches)
+    print("ep_path " + json.dumps(summary))
+    phase("ep", t0, f"{cfg.name} ({EP_LAYERS} layers) whole on one rank and over "
+          f"{EP_MESH} gloo ranks; the reduced EP train step; {gcfg.name} client-sharded; "
+          f"{len(rows)} kernel rows held on the path's inputs")
+    return rows, launches
+
+
 RECORDED_OPS = ("gram", "mix_aggregate", "kmeans_assign", "cohort_gather", "masked_mix_scatter",
                 "flash_attention")
 
@@ -4340,6 +5069,8 @@ def main():
     family_rows, family_launches = families_agree_phase(dev)
     rows.update(family_rows)
     fam = families_phase(dev)
+    ep_rows, ep_counts = ep_phase(dev)
+    rows.update(ep_rows)
     trained, train_rows, lm_client = train_phase(dev)
     rows.update(train_rows)
     checkpoint_phase(dev, lm_client)
@@ -4380,7 +5111,7 @@ def main():
     # the knobs, engine, train and families phases' launches, each under the
     # row of its shape
     for phase_rows in (knobs, engine, mesh_counts, trained["row_launches"], family_launches,
-                       *(f["row_launches"] for f in fam.values())):
+                       ep_counts, *(f["row_launches"] for f in fam.values())):
         for row, count in phase_rows.items():
             counts[row] = counts.get(row, 0) + count
     # one kernel for both gram rows: the main path runs it at m = 100

@@ -52,11 +52,24 @@ def _record(leaf) -> dict:
 
 
 def save(path: str, tree) -> None:
-    if mesh_lib.row_mesh(tree) is not None:
-        raise ValueError(
-            "checkpoint.save: this state is row-sharded (FedConfig.shard_state): it holds only "
-            "this rank's block of each client slab; saving the gathered state is not ported "
-            "yet (ROADMAP A5)")
+    """Write ``tree`` to ``path`` atomically. A row-sharded state
+    (``FedConfig.shard_state``, marked ``mesh.ROW_KEY``) is gathered first
+    (every rank of its mesh calls ``save``): its slabs' blocks are
+    all-gathered in rank order, rank 0 writes the whole state without the
+    mark, the file the replicated run writes, and every rank waits for it
+    on a barrier."""
+    rows = mesh_lib.row_mesh(tree)
+    if rows is not None:
+        whole = mesh_lib.gather_state(tree)
+        if rows.rank == 0:
+            _write(path, whole)
+        del whole
+        mesh_lib.barrier(rows)
+        return
+    _write(path, tree)
+
+
+def _write(path: str, tree) -> None:
     # the structure, "*" for a leaf (neither package reads it back)
     flat = pytree.leaves(tree)
     treedef = f"PyTreeDef({pytree.unflatten(tree, ['*'] * len(flat))!r})"
@@ -118,7 +131,12 @@ def _leaf(record, like):
 def restore(path: str, like):
     """Restore into the structure of ``like``: its leaf count and every
     leaf's shape must match the file (ValueError), and each leaf comes
-    back as ``like``'s does (a tensor on its device in its dtype)."""
+    back as ``like``'s does (a tensor on its device in its dtype). A
+    row-sharded ``like`` reads the whole state's file and keeps this
+    rank's block of each of its slabs (``mesh.commit_state``), marked as
+    ``like``."""
+    if mesh_lib.row_mesh(like) is not None:
+        return mesh_lib.commit_state(restore(path, mesh_lib.whole_like(like)), like)
     with open(path, "rb") as f:
         payload = _msgpack.unpackb(f.read(), object_hook=_decode)
     want = pytree.leaves(like)

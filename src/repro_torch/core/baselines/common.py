@@ -234,7 +234,7 @@ class StateOps:
                 out[k] = mesh_lib.commit_rows(state[k], self.mesh, m)
         if state.get("abuf") is not None:
             out["abuf"] = self.commit_buffer(state["abuf"])
-        out[mesh_lib.ROW_KEY] = self.mesh
+        out[mesh_lib.ROW_KEY] = mesh_lib.row_mark(self.mesh, out, shard_keys)
         return out
 
     # ---- the buffered-async buffer
@@ -371,7 +371,8 @@ def cohort_round(dense_fn, masked_fn, *, transport=None, stage=None, async_fn=No
             if stage is not None:
                 state = dict(state, fault_round=rnd + 1)
             if sharded:  # a body that builds a new dict keeps the mark
-                state = dict(state, **{mesh_lib.ROW_KEY: sops.mesh})
+                state = dict(state, **{mesh_lib.ROW_KEY: mesh_lib.row_mark(sops.mesh, state,
+                                                                             shard_keys)})
             size = len(cohort)
         return state, {**metrics, "cohort_size": size}
 

@@ -74,7 +74,11 @@ def tree_map(fn, tree, *rest):
 
 
 def stack(trees, dim: int = 0):
-    """Trees of one structure, stacked leaf by leaf on a new axis ``dim``."""
+    """Trees of one structure, stacked leaf by leaf on a new axis ``dim``.
+    One tree is viewed with the new axis, not copied (a model's one layer
+    group keeps a single copy of its weights)."""
+    if len(trees) == 1:
+        return tree_map(lambda x: x.unsqueeze(dim), trees[0])
     return tree_map(lambda *xs: torch.stack(xs, dim=dim), *trees)
 
 

@@ -28,13 +28,17 @@ s > 1, or ``"auto"``, needs an initialized default group of s ranks;
 :func:`spawn` starts s ranks in this host for the tests (gloo, on the CPU
 or sharing one card).
 
-Collectives: two, a SUM all-reduce and a row all-gather
-(``all_gather_into_tensor``), on the tensors where they lie. NCCL takes
-CUDA tensors; gloo takes CPU tensors and, in the torch 2.11 build for
-CUDA 12.8, CUDA tensors too (it copies them through the host itself), so
-no collective is staged here. :data:`STATS` counts each collective's
-calls, bytes and, with :data:`TIMING` on, its milliseconds (the device
-synchronized around it).
+Collectives: a SUM all-reduce and a row all-gather
+(``all_gather_into_tensor``) for the client mesh; for the expert-parallel
+MoE on one axis of a 2-D mesh (:mod:`repro_torch.launch.mesh`), an
+all-to-all of a leading rank axis (``all_to_all_single``) and the SUM and
+mean over the axis, each differentiable as the reference's ``shard_map``
+collectives are. All run on the tensors where they lie. NCCL takes CUDA
+tensors; gloo takes CPU tensors and, in the torch 2.11 build for CUDA
+12.8, CUDA tensors too (it copies them through the host itself; the
+all-to-all and bf16 sums as well), so no collective is staged here.
+:data:`STATS` counts each collective's calls, bytes and, with
+:data:`TIMING` on, its milliseconds (the device synchronized around it).
 
 The reference's XLA placement helpers (``slot_sharding``,
 ``replicated_sharding``, ``row_sharding``, ``constrain_rows``,
@@ -180,6 +184,103 @@ def all_gather_rows(x, mesh):
     return out
 
 
+def _all_to_all(x, mesh):
+    x = x.contiguous()
+    t0 = _start(x)
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=mesh.group)
+    _record("all_to_all", out, t0)
+    return out
+
+
+def _reduce(x, mesh, name):
+    x = x.clone()
+    t0 = _start(x)
+    dist.all_reduce(x, group=mesh.group)
+    _record(name, x, t0)
+    return x
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_to_all(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.mesh), None  # the reverse exchange
+
+
+class _AxisSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _reduce(x, mesh, "axis_sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None  # the axis's ranks hold the same downstream: no second SUM
+
+
+class _AxisCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.mesh, "axis_sum"), None
+
+
+class _AxisMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _reduce(x, mesh, "axis_mean") / mesh.shards
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.mesh, "axis_mean") / ctx.mesh.shards, None
+
+
+def all_to_all(x, mesh):
+    """The all-to-all of ``x``'s leading axis, one slice a rank: out[j] is
+    what rank j of the mesh sent as its x[this rank] (``x.shape[0]`` must be
+    the shard count). Differentiable: the backward is the reverse exchange.
+    The identity on one shard."""
+    if mesh.group is None:
+        return x
+    if x.shape[0] != mesh.shards:
+        raise ValueError(f"all_to_all: the leading axis is {x.shape[0]}, the mesh has "
+                         f"{mesh.shards} ranks")
+    return _AllToAll.apply(x, mesh)
+
+
+def axis_sum(x, mesh):
+    """The SUM of ``x`` over the mesh's ranks (a new tensor). Differentiable
+    as the reference's ``psum`` of an output replicated over the axis is
+    under ``shard_map``: each rank gets the cotangent unchanged (the ranks
+    hold replicas of everything after the sum; a second SUM would count the
+    cotangent once a rank). The identity on one shard."""
+    return x if mesh.group is None else _AxisSum.apply(x, mesh)
+
+
+def axis_copy(x, mesh):
+    """``x`` itself, entering work that each rank does on its shard (the
+    experts' d_ff): the backward SUMs the ranks' cotangents, as the
+    reference sums the cotangent of an input replicated over the axis. The
+    identity on one shard."""
+    return x if mesh.group is None else _AxisCopy.apply(x, mesh)
+
+
+def axis_mean(x, mesh):
+    """The mean of ``x`` over the mesh's ranks (SUM, then divided by the
+    shard count). Differentiable as the reference's ``pmean``: the
+    backward is the mean of the cotangents. The identity on one shard."""
+    return x if mesh.group is None else _AxisMean.apply(x, mesh)
+
+
 def check_spmd(mesh, **tensors):
     """Raise ``RuntimeError`` unless every rank holds the same values in each
     named tensor: the cheap check of SPMD drift (the cohort's slots, a
@@ -238,14 +339,96 @@ def shard_clients(fn, mesh):
 # model-sized collectives are O(c·W) (and the async buffer's flush, an
 # all-gather of its (B, W) rows); never O(m·W).
 
-# the state key that marks a row-sharded state: the ClientMesh its
+# the state key that marks a row-sharded state: the RowMesh its
 # ``shard_keys`` slabs are row-sharded over
 ROW_KEY = "row_mesh"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowMesh(ClientMesh):
+    """The mark of a row-sharded state (under :data:`ROW_KEY`): the client
+    mesh its slabs are row-sharded over, and the state keys of those slabs
+    (``keys``; "abuf" for the async buffer's ``upd``)."""
+
+    keys: tuple = ()
+
+
+def row_mark(mesh, state, shard_keys) -> RowMesh:
+    """The :class:`RowMesh` of ``state`` row-sharded over ``mesh``: the
+    ``shard_keys`` it holds, and "abuf" where it has a buffer."""
+    keys = tuple(k for k in shard_keys if isinstance(state.get(k), torch.Tensor))
+    if state.get("abuf") is not None:
+        keys += ("abuf",)
+    return RowMesh(mesh.group, mesh.rank, mesh.shards, keys)
 
 
 def row_mesh(state):
     """The mesh a row-sharded ``state`` is sharded over, or None."""
     return state.get(ROW_KEY) if isinstance(state, dict) else None
+
+
+def gather_state(state):
+    """The whole state of a row-sharded ``state``, on every rank: each
+    marked slab's blocks all-gathered in rank order, the async buffer's
+    ``upd`` blocks without their spare rows and one zero spare row after
+    them (a row nothing reads), and no :data:`ROW_KEY`. Bit for bit the
+    replicated run's slabs. A state that is not row-sharded comes back as
+    it is."""
+    mark = row_mesh(state)
+    if mark is None:
+        return state
+    out = {k: v for k, v in state.items() if k != ROW_KEY}
+    for k in mark.keys:
+        if k == "abuf":
+            upd = all_gather_rows(state["abuf"]["upd"][:-1], mark)
+            out["abuf"] = dict(state["abuf"], upd=torch.cat([upd, upd.new_zeros((1,) + tuple(
+                upd.shape[1:]))]))
+        else:
+            out[k] = all_gather_rows(state[k], mark)
+    return out
+
+
+def whole_like(state):
+    """Empty tensors shaped as :func:`gather_state` of ``state`` would be
+    (on each marked slab), for a restore's shapes: the state itself when
+    it is not row-sharded."""
+    mark = row_mesh(state)
+    if mark is None:
+        return state
+    out = {k: v for k, v in state.items() if k != ROW_KEY}
+    for k in mark.keys:
+        x = state["abuf"]["upd"] if k == "abuf" else state[k]
+        rows = (x.shape[0] - 1) * mark.shards + 1 if k == "abuf" else x.shape[0] * mark.shards
+        full = x.new_empty((rows,) + tuple(x.shape[1:]))
+        out[k] = dict(state["abuf"], upd=full) if k == "abuf" else full
+    return out
+
+
+def commit_state(whole, like):
+    """This rank's state from a whole one: each slab ``like``'s mark names
+    cut to the rank's block (the async buffer's ``upd`` with a zero spare
+    row), marked as ``like`` is. ``whole`` itself when ``like`` is not
+    row-sharded."""
+    mark = row_mesh(like)
+    if mark is None:
+        return whole
+    out = dict(whole)
+    for k in mark.keys:
+        if k == "abuf":
+            upd = whole["abuf"]["upd"]
+            lo, hi = mark.block(upd.shape[0] - 1)
+            out["abuf"] = dict(whole["abuf"], upd=torch.cat([upd[lo:hi],
+                                                              upd.new_zeros((1, upd.shape[1]))]))
+        else:
+            out[k] = commit_rows(whole[k], mark, whole[k].shape[0])
+    out[ROW_KEY] = mark
+    return out
+
+
+def barrier(mesh):
+    """Wait for every rank of the mesh (nothing on one shard)."""
+    if mesh.group is not None:
+        dist.barrier(group=mesh.group)
 
 
 def commit_rows(x, mesh, m):

@@ -84,13 +84,10 @@ def state_to_reference(state: dict, dim: int) -> dict:
     keep). Saved with :func:`repro_torch.checkpoint.save`, it is the file
     the reference's ``restore`` reads into its own state; as ``like`` of
     ``restore``, it reads a file the reference wrote. A row-sharded state
-    (``FedConfig.shard_state``) raises ``ValueError``: it holds one rank's
-    block of each client slab."""
-    if mesh_lib.row_mesh(state) is not None:
-        raise ValueError(
-            "state_to_reference: this state is row-sharded (FedConfig.shard_state) and holds "
-            "only this rank's block of each client slab; gathering it is not ported yet "
-            "(ROADMAP A5)")
+    (``FedConfig.shard_state``) is gathered first, on every rank of its
+    mesh (``mesh.gather_state``): the whole state, as the replicated run
+    holds it."""
+    state = mesh_lib.gather_state(state)
     out = dict(state)
     if state.get("refresh") is not None:
         out["refresh"] = dict(state["refresh"], grads=state["refresh"]["grads"][:, :dim])

@@ -18,6 +18,13 @@ encoder output, so its cross K/V is zero.
 ``--smoke`` (the default) serves ``cfg.reduced(vocab_size=128)``;
 ``--no-smoke`` serves the configuration at full width and depth. Runs on
 CUDA unless ``--device cpu``.
+
+:func:`serve` also runs on a rank mesh (``mesh=``, a
+:class:`repro_torch.launch.mesh.RankMesh`; every rank calls it): each
+rank serves its slice of the requests (split over the client axes) on
+one shared model, and a config with an expert axis shards its experts
+over the mesh (``moe.set_ep_mesh`` for the call), each rank building only
+its block (:func:`repro_torch.launch.sharding.rank_params`).
 """
 from __future__ import annotations
 
@@ -29,8 +36,10 @@ import torch
 
 from repro_torch import configs
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding
 from repro_torch.launch import steps as steplib
-from repro_torch.models import registry, transformer
+from repro_torch.launch.mesh import num_clients
+from repro_torch.models import moe, registry, transformer
 
 NOISE = 0.01  # scale of each client's perturbation of the shared init
 
@@ -70,21 +79,49 @@ def personalized_params(cfg, clients: int, seed: int, device):
     return personalize(shared, clients, gen)
 
 
-def serve(cfg, *, clients, batch, prompt_len, decode_tokens, seed, device=None) -> ServeResult:
+def serve(cfg, *, clients, batch, prompt_len, decode_tokens, seed, device=None,
+          mesh=None) -> ServeResult:
     """Serve ``clients`` personalized models, ``batch`` requests each: a
     random prompt of ``prompt_len`` tokens through teacher-forced decode
     steps, then ``decode_tokens`` greedy tokens. Times end in a device
-    synchronize."""
+    synchronize.
+
+    With ``mesh`` (every rank of it calls ``serve``), one shared model
+    (``clients`` must be 1; no personalization noise) serves the ``batch``
+    requests split over the mesh's client axes: this rank's slice of the
+    prompt, drawn whole from ``seed + 2`` on every rank; the model comes
+    from ``sharding.rank_params(cfg, seed, mesh)``, its experts sharded
+    over the mesh where the config names an expert axis. The result holds
+    this rank's requests."""
     dev = resolve_device(device)
-    params = personalized_params(cfg, clients, seed, dev)
+    lo, hi = 0, batch
+    if mesh is None:
+        params = personalized_params(cfg, clients, seed, dev)
+    else:
+        if clients != 1 or batch % num_clients(mesh):
+            raise ValueError(f"serve on a mesh serves one shared model (clients=1, got "
+                             f"{clients}) and splits the {batch} requests over its "
+                             f"{num_clients(mesh)} client ranks")
+        params = registry.one(sharding.rank_params(cfg, seed, mesh, dev))
+        lo, hi = mesh.clients().block(batch)
     max_len = prompt_len + decode_tokens
     serve_step = steplib.build_serve_step(cfg, federated=True)
-    caches = registry.module(cfg).init_cache(cfg, clients, batch, max_len, dev)
+    caches = registry.module(cfg).init_cache(cfg, clients, hi - lo, max_len, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 2)
     prompt = torch.randint(0, cfg.vocab_size, (clients, batch, prompt_len), generator=gen,
-                           device=dev)
+                           device=dev)[:, lo:hi]
+    before = moe.ep_mesh()
+    moe.set_ep_mesh(mesh if mesh is not None and cfg.expert_axis else before)
+    try:
+        return _serve_loop(serve_step, params, caches, prompt, prompt_len, max_len, dev)
+    finally:
+        moe.set_ep_mesh(before)
 
+
+def _serve_loop(serve_step, params, caches, prompt, prompt_len, max_len, dev):
+    """The prompt through teacher-forced decode steps, then greedy ones up
+    to ``max_len``: the :class:`ServeResult`."""
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

@@ -19,6 +19,27 @@ params' dtype first, as the reference rounds them. Momentum buffers stay
 client-local and are never mixed. ``federated=False`` serves one model
 with the reference's shapes. The ``abstract_*``/``input_specs`` helpers
 read XLA lowerings and come with the analysis tooling (ROADMAP queue A).
+
+On a mesh (SPMD ranks over ``torch.distributed``):
+
+  * ``mix_gather_shardings`` (the reference's gather placement) takes the
+    mesh whose ranks hold the clients: a
+    :class:`repro_torch.federated.mesh.ClientMesh`, or a
+    :class:`repro_torch.launch.mesh.RankMesh` (its client axes). A rank
+    passes its m/s clients' rows of params, opt and batch, and the whole W
+    (or the centroid rules and labels); each leaf's rows are all-gathered
+    in the leaf's storage dtype and mixed on the mix kernel into the
+    rank's rows (``user_centric``: W[lo:hi]; ``clustered``: the centroid
+    mixes, then the rank's labels; ``fedavg``: the f32 mean of all m).
+    The loss is the mean over all m clients.
+  * the ``fedsgd_sharded`` step under expert parallelism
+    (``moe.set_ep_mesh``, a config with an expert axis) takes the rank's
+    batch slice and params (:mod:`repro_torch.launch.sharding`). The expert
+    leaves' gradients stay local (divided by the expert axis's size: the
+    exchange already summed every rank's tokens into them; averaged over
+    the pod axis, whose ranks hold replicas); every other leaf's gradient
+    is averaged over the client axes, not over "model", whose ranks hold
+    the same tokens. The loss metric is the client axes' mean.
 """
 from __future__ import annotations
 
@@ -27,7 +48,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import aggregation
 from repro_torch.core.pytree import leaves, tree_map, unflatten
-from repro_torch.models import registry
+from repro_torch.federated import mesh as mesh_lib
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import RankMesh
+from repro_torch.models import moe, registry
 from repro_torch.models.registry import one, unone
 from repro_torch.optim import sgd_update
 
@@ -37,6 +61,36 @@ AGGS = ("user_centric", "clustered", "fedavg", "local")
 def _tracked(params):
     """Detached leaves that autograd will differentiate."""
     return tree_map(lambda x: x.detach().requires_grad_(True), params)
+
+
+def _gather_view(placement):
+    """The client mesh of ``mix_gather_shardings``: a ClientMesh, or a
+    RankMesh's client axes; None for None; ``TypeError`` otherwise."""
+    if placement is None or isinstance(placement, mesh_lib.ClientMesh):
+        return placement
+    if isinstance(placement, RankMesh):
+        return placement.clients()
+    raise TypeError("build_train_step: mix_gather_shardings takes the mesh that holds the "
+                    "clients (a repro_torch.federated.mesh.ClientMesh or a "
+                    f"repro_torch.launch.mesh.RankMesh), got {type(placement).__name__}")
+
+
+def _ep_grads(grads, cfg: ModelConfig, mesh):
+    """The fedsgd gradients of a rank under expert parallelism, as the
+    whole-batch step's: expert leaves divided by the expert axis's size
+    (and averaged over the pods), every other leaf averaged over the client
+    axes."""
+    r = mesh.shape[cfg.expert_axis]
+    pods = mesh.axis("pod") if "pod" in mesh.axis_names else None
+    clients = mesh.clients()
+
+    def fix(path, g):
+        if sharding.is_expert_leaf(path):
+            g = g / r
+            return g if pods is None else mesh_lib.axis_mean(g, pods)
+        return mesh_lib.axis_mean(g, clients)
+
+    return sharding.map_with_path(fix, grads)
 
 
 # ------------------------------------------------------------------ train
@@ -55,10 +109,7 @@ def build_train_step(cfg: ModelConfig, *, n_clients: int, agg: str, num_streams:
     backward pass over the sum of the clients' losses gives each client
     its own gradient.
     """
-    if mix_gather_shardings is not None:
-        raise TypeError("build_train_step: mix_gather_shardings places the mix on a 2-D "
-                        "(data, model) device mesh, which waits for ROADMAP queue A's item A5, "
-                        "the 2-D mesh for expert parallelism")
+    gather = _gather_view(mix_gather_shardings)
     if agg not in AGGS:
         raise ValueError(agg)
 
@@ -69,10 +120,15 @@ def build_train_step(cfg: ModelConfig, *, n_clients: int, agg: str, num_streams:
             p = _tracked(params)
             loss = model.loss(p, batch)
             grads = unflatten(p, torch.autograd.grad(loss, leaves(p), materialize_grads=True))
+            loss = loss.detach()
             with torch.no_grad():
+                mesh = moe.ep_mesh() if cfg.expert_axis else None
+                if mesh is not None:
+                    grads = _ep_grads(grads, cfg, mesh)
+                    loss = mesh_lib.axis_mean(loss, mesh.clients())
                 params, opt = sgd_update(grads, opt, tree_map(torch.detach, p), lr=lr,
                                          momentum=momentum)
-            return params, opt, {"loss": loss.detach()}
+            return params, opt, {"loss": loss}
         return fedsgd_step
 
     def rounded(w):  # the reference's w.astype(x.dtype), in f32
@@ -88,6 +144,10 @@ def build_train_step(cfg: ModelConfig, *, n_clients: int, agg: str, num_streams:
             params, opt = sgd_update(grads, opt, tree_map(torch.detach, p), lr=lr,
                                      momentum=momentum)
             del grads, p
+            if gather is not None:
+                params = gathered_mix(params, mix)
+                return params, opt, {"loss": mesh_lib.all_gather_rows(loss.detach(),
+                                                                      gather).mean()}
             if agg == "user_centric":
                 params = aggregation.user_centric(params, rounded(mix))
             elif agg == "clustered":
@@ -95,6 +155,27 @@ def build_train_step(cfg: ModelConfig, *, n_clients: int, agg: str, num_streams:
             elif agg == "fedavg":  # the mean, in f32
                 params = aggregation.fedavg(params, torch.ones(n_clients, device=loss.device))
         return params, opt, {"loss": loss.detach().mean()}
+
+    def gathered_mix(params, mix):
+        """The rank's rows of the mix: each leaf's m rows all-gathered in
+        its storage dtype (one leaf at a time), mixed into the rank's."""
+        lo, hi = gather.block(n_clients)
+        if any(x.shape[0] != hi - lo for x in leaves(params)):
+            raise ValueError(f"build_train_step: a rank of the {gather.shards}-rank client mesh "
+                             f"holds {hi - lo} of the {n_clients} clients' rows")
+        if agg == "user_centric":
+            w = rounded(mix)[lo:hi]
+            return tree_map(lambda x: aggregation.user_centric(
+                mesh_lib.all_gather_rows(x, gather), w), params)
+        if agg == "clustered":
+            rules, labels = rounded(mix[0]), mix[1][lo:hi]
+            return tree_map(lambda x: aggregation.mix_centroids(
+                mesh_lib.all_gather_rows(x, gather), rules, labels), params)
+        if agg == "fedavg":
+            n = torch.ones(n_clients, device=leaves(params)[0].device)
+            return tree_map(lambda x: aggregation.fedavg(
+                mesh_lib.all_gather_rows(x, gather), n)[:hi - lo], params)
+        return params
 
     return train_step
 

@@ -122,7 +122,7 @@ def _window(cfg: ModelConfig, kind: str):
 
 
 # --------------------------------------------------------------- init
-def _init_attn_layer(gen, cfg: ModelConfig, dtype, device, *, moe_mlp: bool):
+def _init_attn_layer(gen, cfg: ModelConfig, dtype, device, *, moe_mlp: bool, block=None):
     ninit, _ = make_norm(cfg.norm)
     p = {
         "ln_attn": ninit(cfg.d_model, dtype, device),
@@ -130,7 +130,7 @@ def _init_attn_layer(gen, cfg: ModelConfig, dtype, device, *, moe_mlp: bool):
         "ln_mlp": ninit(cfg.d_model, dtype, device),
     }
     if moe_mlp:
-        p["moe"] = moe.init(gen, moe_config(cfg), dtype, device)
+        p["moe"] = moe.init(gen, moe_config(cfg), dtype, device, block=block)
     else:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device)
     if cfg.post_norms:
@@ -139,7 +139,7 @@ def _init_attn_layer(gen, cfg: ModelConfig, dtype, device, *, moe_mlp: bool):
     return p
 
 
-def _init_group(gen, cfg: ModelConfig, dtype, device):
+def _init_group(gen, cfg: ModelConfig, dtype, device, block=None):
     ninit, _ = make_norm(cfg.norm)
     p = {}
     for i, slot in enumerate(_group_slots(cfg)):
@@ -149,15 +149,22 @@ def _init_group(gen, cfg: ModelConfig, dtype, device):
         elif slot == "shared_attn":
             p[f"l{i}"] = {"ln": ninit(cfg.d_model, dtype, device)}  # weights shared
         else:
-            p[f"l{i}"] = _init_attn_layer(gen, cfg, dtype, device, moe_mlp=cfg.family == "moe")
+            p[f"l{i}"] = _init_attn_layer(
+                gen, cfg, dtype, device, moe_mlp=cfg.family == "moe", block=block)
     return p
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device=None):
+def init(gen: torch.Generator, cfg: ModelConfig, device=None, *, expert_block=None):
     """One model's params in ``cfg.param_dtype`` (the MoE router and the
     SSM's A_log, D and dt_bias in f32) on ``device`` (CUDA when None),
     drawn from ``gen``, a generator on that device (``ValueError``
-    otherwise). Matches the reference in distribution only."""
+    otherwise). Matches the reference in distribution only.
+
+    ``expert_block`` (a :class:`repro_torch.models.moe.ExpertBlock`) builds
+    only those experts and d_ff columns of every MoE layer
+    (:func:`repro_torch.models.moe.init`): the rank's block under expert
+    parallelism (:func:`repro_torch.launch.sharding.rank_params`). Every
+    leaf it builds is the one-rank model's, whatever the block."""
     _check(cfg)
     device = resolve_device(device)
     if gen.device.type != device.type or (device.index is not None
@@ -173,7 +180,7 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": fan_in_init(gen, (cfg.d_model, cfg.padded_vocab), dtype,
                                               device)}
-    params["blocks"] = stack([_init_group(gen, cfg, dtype, device)
+    params["blocks"] = stack([_init_group(gen, cfg, dtype, device, expert_block)
                               for _ in range(cfg.num_groups)])
     if cfg.first_dense:
         params["first_block"] = _init_attn_layer(gen, cfg, dtype, device, moe_mlp=False)

@@ -205,22 +205,29 @@ def test_refusals_match_reference():
 
 
 def test_row_sharded_state_refuses_checkpoint_and_reference_state(tmp_path):
+    """A row-sharded state no longer refuses a checkpoint or the state
+    converter: on one shard (``mesh=1``) its file is the replicated run's
+    byte for byte, restore into it gives its bits back with the mark, and
+    ``state_to_reference`` drops the mark. (The gathered save over 2 and 4
+    ranks: ``tests/test_torch_sharded_state.py``.)"""
     data, params0 = ranks.task(SEED, M)
     s = REGISTRY["local"](lenet.apply_stacked, params0,
                           FedConfig(batch_size=BATCH, mesh=1, shard_state=True), device="cpu")
     cohort = participation.pad_slots(participation.as_cohort(np.arange(3), M), 4, M)
     state, _ = s.round(s.init(None, data), data, torch.Generator().manual_seed(0), cohort)
-    assert mesh.row_mesh(state) is not None
-    with pytest.raises(ValueError, match="row-sharded"):
-        checkpoint.save(str(tmp_path / "s.ckpt"), state)
-    with pytest.raises(ValueError, match="row-sharded"):
-        interop.state_to_reference(state, 10)
-    # the replicated layout keeps both
+    assert mesh.row_mesh(state) is not None and mesh.row_mesh(state).keys == ("params",)
+    checkpoint.save(str(tmp_path / "s.ckpt"), state)
+    back = checkpoint.restore(str(tmp_path / "s.ckpt"), state)
+    assert torch.equal(back["params"], state["params"]) and mesh.row_mesh(back) is not None
+    conv = interop.state_to_reference(state, 10)
+    assert mesh.ROW_KEY not in conv and torch.equal(conv["params"], state["params"])
+    # the replicated layout writes the same file
     rep = REGISTRY["local"](lenet.apply_stacked, params0,
                             FedConfig(batch_size=BATCH, mesh=1), device="cpu")
     rstate, _ = rep.round(rep.init(None, data), data, torch.Generator().manual_seed(0), cohort)
     assert mesh.row_mesh(rstate) is None
     checkpoint.save(str(tmp_path / "r.ckpt"), rstate)
+    assert (tmp_path / "r.ckpt").read_bytes() == (tmp_path / "s.ckpt").read_bytes()
 
 
 def test_state_ops_replicated_is_the_plain_helpers():

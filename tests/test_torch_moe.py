@@ -207,13 +207,35 @@ def test_init_matches_reference_shapes_and_dtypes():
 
 
 def test_expert_parallel_waits_for_the_mesh():
-    _, pcfg = cfgs(ep_axis="data")
-    with pytest.raises(NotImplementedError, match="2-D .*mesh.*ROADMAP queue A's item A5"):
-        moe.set_ep_mesh(object())
-    p = port(moe_params(pcfg))
-    x = t(tokens_x((1, 8), pcfg.d_model))[None]
-    with pytest.raises(NotImplementedError, match="2-D .*mesh.*ROADMAP queue A's item A5"):
-        moe.apply_expert_parallel(p, x, pcfg)
-    y, aux = moe.apply_auto(p, x, pcfg)  # no mesh: the sort dispatch
-    want_y, want_aux = moe.apply(p, x, pcfg)
+    """Expert parallelism no longer waits for a mesh: on a one-rank (1, 1)
+    rank mesh (no process group) the port's ``apply_expert_parallel``
+    equals the reference's on a (1, 1) jax mesh; ``apply_auto`` takes it exactly when a mesh is set and the config names
+    an expert axis, and the sort dispatch otherwise. (Meshes of several
+    ranks: ``tests/test_torch_ep.py``.)"""
+    from jax.sharding import AxisType
+    from repro_torch.launch import mesh as rank_mesh
+    rcfg, pcfg = cfgs(ep_axis="data")
+    p = moe_params(pcfg)
+    x = tokens_x((2, 16), pcfg.d_model)
+    jmesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    ref_moe.set_ep_mesh(jmesh)
+    try:
+        want_y, want_aux = jax.jit(lambda p, x: ref_moe.apply_expert_parallel(p, x, rcfg))(
+            jax_tree(p), jnp.asarray(x))
+    finally:
+        ref_moe.set_ep_mesh(None)
+    tp, tx = port(p), t(x)[None]
+    moe.set_ep_mesh(rank_mesh.make_host_mesh())
+    try:
+        y, aux = moe.apply_auto(tp, tx, pcfg)
+        plain_cfg = moe.MoEConfig(**{**pcfg.__dict__, "ep_axis": None})
+        y_plain, _ = moe.apply_auto(tp, tx, plain_cfg)  # no expert axis: the sort dispatch
+    finally:
+        moe.set_ep_mesh(None)
+    np.testing.assert_allclose(n(y[0]), np.asarray(want_y), **Y_TOL)
+    np.testing.assert_allclose(float(aux[0]), float(want_aux), **AUX_TOL)
+    want_plain, _ = moe.apply(tp, tx, pcfg)
+    assert torch.equal(y_plain, want_plain)
+    y, aux = moe.apply_auto(tp, tx, pcfg)  # no mesh: the sort dispatch
+    want_y, want_aux = moe.apply(tp, tx, pcfg)
     assert torch.equal(y, want_y) and torch.equal(aux, want_aux)

@@ -57,6 +57,11 @@ def _schedule(name, members=MEMBERS):
     return mesh_run(name, M, members)
 
 
+# the runs whose final state every rank saves (checkpoint.save, gathered
+# when row-sharded), restores and converts (interop.state_to_reference)
+SAVED = ("ucfl", "ditto", "scaffold")
+
+
 def _run(key, name, shard, *, members=MEMBERS, **extra):
     return dict(_schedule(name, members)[0], key=key, shard=shard, **extra)
 
@@ -65,7 +70,9 @@ def _runs():
     out = []
     for shard in (False, True):
         lay = "sharded" if shard else "replicated"
-        out += [_run(f"{name}/{lay}", name, shard) for name in NAMES]
+        out += [_run(f"{name}/{lay}", name, shard,
+                     **({"ckpt": f"{name}_{lay}.msgpack"} if name in SAVED else {}))
+                for name in NAMES]
         out += [_run(f"async_{name}/{lay}", name, shard, members=ASYNC_MEMBERS, flush_k=2)
                 for name in ("ucfl", "fedavg")]
         out.append(_run(f"refresh_ucfl/{lay}", "ucfl", shard, refresh=True))
@@ -88,12 +95,15 @@ def _sims():
 
 @functools.lru_cache(maxsize=None)
 def spawned(s):
-    """Every run over s gloo ranks: {key: [each rank's report]}."""
+    """Every run over s gloo ranks: {key: [each rank's report]}, and under
+    "files" the bytes of each saved checkpoint file."""
     small_arrays(SEED, M)  # warm the cache the ranks rebuild from the seed
     with tempfile.TemporaryDirectory() as tmp:
         reports = mesh.spawn(ranks.run_all, s, backend="gloo", store_path=f"{tmp}/store",
-                             timeout=240, args=(SEED, M, _runs(), _sims()))
-    return {key: [r[key] for r in reports] for key in reports[0]}
+                             timeout=240, args=(SEED, M, _runs(), _sims(), tmp))
+        files = {run["ckpt"]: open(f"{tmp}/{run['ckpt']}", "rb").read()
+                 for run in _runs() if run.get("ckpt")}
+    return {key: [r[key] for r in reports] for key in reports[0]} | {"files": files}
 
 
 def assembled(s, key):
@@ -192,6 +202,22 @@ def test_row_sharded_equals_replicated_bit_for_bit(name, s):
     for a, b in zip(reps[f"{name}/replicated"], reps[f"{name}/sharded"]):
         np.testing.assert_array_equal(a["accs"], b["accs"])
         assert a["metrics"] == b["metrics"]
+
+
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("name", SAVED)
+def test_row_sharded_checkpoint_is_the_replicated_file(name, s):
+    """checkpoint.save of a row-sharded state (every rank calls it, rank 0
+    writes the gathered state) writes the replicated run's file byte for
+    byte; restore into the row-sharded state gives each rank its block's
+    bits back, marked; state_to_reference gathers the same whole slab on
+    every rank."""
+    files = spawned(s)["files"]
+    assert files[f"{name}_sharded.msgpack"] == files[f"{name}_replicated.msgpack"]
+    rep, sh = spawned(s)[f"{name}/replicated"], spawned(s)[f"{name}/sharded"]
+    for r in rep + sh:
+        assert r["saved"]["restored"]
+        np.testing.assert_array_equal(r["saved"]["converted"], rep[0]["saved"]["converted"])
 
 
 @pytest.mark.parametrize("s", [2, 4])

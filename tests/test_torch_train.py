@@ -31,6 +31,7 @@ from repro.launch import steps as ref_steps
 from repro.models import transformer as ref_transformer
 from repro.optim import sgd_init as ref_sgd_init
 from repro_torch import configs, interop
+from repro_torch.federated import mesh as mesh_lib
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import steps, train
@@ -235,11 +236,28 @@ def test_train_step_mixes_on_the_mix_op_one_launch_a_leaf(monkeypatch):
 
 
 def test_train_step_refusals():
+    """An unknown agg raises ValueError and a mix placement that is no mesh
+    TypeError; a one-rank client mesh as ``mix_gather_shardings`` places
+    the mix on the rank itself and gives the unsharded step's bits for
+    each agg (the placement over 2 ranks: ``tests/test_torch_ep.py``)."""
     _, pcfg = cfgs("stablelm-1.6b")
-    with pytest.raises(TypeError, match="ROADMAP queue A"):
+    with pytest.raises(TypeError, match="mesh that holds the clients"):
         steps.build_train_step(pcfg, n_clients=2, agg="fedavg", mix_gather_shardings=object())
     with pytest.raises(ValueError):
         steps.build_train_step(pcfg, n_clients=2, agg="mean")
+    rcfg = ref_configs.get("stablelm-1.6b").reduced()
+    tp = interop.transformer_params_from_numpy(client_params("stablelm-1.6b"), device=CPU)
+    b = torch_batch(lm_batch(rcfg, (M, 1)))
+    for agg in steps.AGGS:
+        (_,), (mix,) = _mix_inputs(agg)
+        plain = steps.build_train_step(pcfg, n_clients=M, agg=agg)(
+            tp, sgd_init(tp, momentum=0.9), mix, b)
+        placed = steps.build_train_step(pcfg, n_clients=M, agg=agg,
+                                        mix_gather_shardings=mesh_lib.resolve(1))(
+            tp, sgd_init(tp, momentum=0.9), mix, b)
+        assert torch.equal(placed[2]["loss"], plain[2]["loss"]), agg
+        assert all(torch.equal(x, y) for x, y in zip(transformer.leaves(placed[0]),
+                                                      transformer.leaves(plain[0]))), agg
 
 
 # --------------------------------------------------- the flash Function
