@@ -277,7 +277,21 @@ Phases, each printed as it ends:
                ``RefreshConfig()`` and a buffered ``fedavg`` state
                (``AsyncConfig(flush_k=60)``), each after a cohort round on
                scenario 2, and one client's trained LM params (1.23 GB of
-               bf16), with their times; ``checkpoint_path`` JSON line.
+               bf16), with their times; ``checkpoint_path`` JSON line;
+  17. dryrun   — three steps counted on the meta device
+               (``repro_torch.launch.dryrun.make_step`` + ``count_step``):
+               the train phase's stablelm-1.6b user-centric step, the serve
+               phase's qwen2-7b prefill (2 x 2 x 1,024) and one decode step
+               over those positions; then each run on the card with random
+               arguments of the counted shapes: its kernel launches equal
+               the counted calls, ``FlopCounterMode``'s FLOPs the counted
+               aten FLOPs and the arguments' bytes the counted ones,
+               exactly; the predicted peak over ``max_memory_allocated``'s
+               in [0.8, 1.25]; the roofline's largest term at most the
+               median wall, so each ``<kind>_mfu`` (counted FLOPs over the
+               wall times each dtype's peak) at most 1; every kernel call
+               recorded and held against its plain version (rows
+               ``<kernel>_dry_<cell>``); ``dryrun_path`` JSON line.
 Then one ``{"kernels": [...]}`` JSON line and, last, the ``{"ok": true, ...}``
 line. Any failure raises: the script exits non-zero and prints no result.
 Imports nothing of jax or of the reference package.
@@ -305,11 +319,13 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils.flop_counter import FlopCounterMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import checkpoint, configs  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.core import REGISTRY, FedConfig, ParticipationConfig, clustering, flat, ucfl  # noqa: E402
 from repro_torch.core import aggregation, comm_model, pytree  # noqa: E402
 from repro_torch.core.pytree import leaves  # noqa: E402
@@ -331,6 +347,7 @@ from repro_torch.kernels.kmeans_assign import ASSIGN  # noqa: E402
 from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER  # noqa: E402
 from repro_torch.kernels.mix_aggregate import MIX, MIX_TILES, mix_plan  # noqa: E402
 from repro_torch.kernels.pairwise_delta import GRAM  # noqa: E402
+from repro_torch.launch import dryrun, op_analysis, roofline  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -338,12 +355,6 @@ from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.models import lenet, registry, transformer, whisper  # noqa: E402
 from repro_torch.optim import sgd_init  # noqa: E402
 
-# H100 SXM data sheet: HBM3 rate, f32 CUDA-core peak (no tensor cores) and
-# the dense TF32 and bf16 tensor-core peaks
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12
-BF16_FLOP_PER_S = 989e12
 ROUNDS = 5
 SEED = 0
 # the baselines phase: the nine in Table 1's order, 2 timed rounds each
@@ -484,16 +495,19 @@ FAMILY_DECODE, FAMILY_PROFILED = 16, 4
 # oracle on MOE_TOKENS tokens in f32
 SSD_TOKENS = 512
 MOE_TOKENS = 1024
+# the dryrun phase: three steps counted on the meta device
+# (repro_torch.launch.dryrun), then run on the card and held against the
+# counts: the train phase's stablelm-1.6b cell (4 of 24 layers, 4 clients,
+# 4 x 256 tokens, user_centric), the serve phase's qwen2-7b prefill (2 x 2 x
+# 1,024) and one decode step over those 1,024 positions. The predicted
+# peak over the measured one must lie in DRY_PEAK_RATIO; walls: the median
+# of DRY_WALLS synchronized calls after the counted ones
+DRY_PEAK_RATIO = (0.8, 1.25)
+DRY_WALLS = 3
 
 
 def phase(name, t0, msg):
     print(f"[{name}] {msg} ({time.perf_counter() - t0:.1f} s)", flush=True)
-
-
-def bound_ms(bytes_moved, flops, flop_rate=F32_FLOP_PER_S):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / flop_rate
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_ms(fn, dev, reps=30, flush="write"):
@@ -596,7 +610,7 @@ def kernel_phase(dev):
             ms=time_ms(lambda w=w, th=th: ops.mix_aggregate(w, th, impl="cuda"), dev),
             plain_ms=time_ms(lambda w=w, th=th: ref.mix_aggregate(w, th), dev),
             library_ms=time_ms(lambda w=w, th=th: w @ th, dev),
-            bytes=4 * (k * mm + mm * d_al + k * d_al), flops=2 * k * mm * d_al)
+            work=roofline.mix_aggregate_work(k, mm, d_al))
     mix_sweep(gen, dev)
 
     # kmeans_assign: W's 100 rows against 4 centroids, plus an exact tie
@@ -619,7 +633,7 @@ def kernel_phase(dev):
         ms=time_ms(lambda: ops.kmeans_assign(pts, cents, impl="cuda"), dev),
         plain_ms=time_ms(lambda: ref.kmeans_assign(pts, cents), dev),
         library_ms=time_ms(lambda: torch.cdist(pts, cents).argmin(dim=1), dev),
-        bytes=4 * (m * f + k * f + 2 * m), flops=2 * m * k * f + 2 * (m + k) * f)
+        work=roofline.kmeans_assign_work(m, k, f))
     rows["kmeans_assign"]["k99"] = kmeans_k99(gen, dev, pts)
 
     rows.update(cohort_kernel_rows(gen, dev, m, d_al))
@@ -640,9 +654,9 @@ def kernel_phase(dev):
 
 
 def finish_row(name, r):
-    """Turn a kernel row's bytes and FLOP into its bound, and print it."""
-    r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"),
-                                            r.pop("flop_rate", F32_FLOP_PER_S))
+    """Turn a kernel row's work (``roofline``'s work function of its shape)
+    into its bound, and print it."""
+    r["bound_ms"], r["bound_by"] = r.pop("work").bound()
     extra = ((f"  read_ms {r['read_ms']:.4f} ms" if "read_ms" in r else "")
              + (f"  library read {r['library_read_ms']:.4f} ms"
                 if "library_read_ms" in r else "")
@@ -739,8 +753,7 @@ def gram_row(name, g, d, dev, *, against_f64=False):
     else:
         # f32 sums of 47,571 products in another order: 1e-5 of the largest entry
         err = check(name, got, want, 1e-5 * float(want.abs().max()))
-    flops = mm * (mm + 1) * d
-    nbytes = 4 * (mm * d_al + mm * mm)
+    work = roofline.gram_work(mm, d_al, useful_width=d)
     return dict(
         source="src/repro_torch/kernels/csrc/gram.cu",
         replaces="src/repro/kernels/pairwise_delta.py:41", max_abs_err=err,
@@ -749,9 +762,9 @@ def gram_row(name, g, d, dev, *, against_f64=False):
         plain_ms=time_ms(lambda: ref.gram(g), dev),
         library_ms=time_ms(lambda: g @ g.T, dev),
         library_read_ms=time_ms(lambda: g @ g.T, dev, flush="read"),
-        bound_f32_ms=bound_ms(nbytes, flops)[0],
+        bound_f32_ms=roofline.Work(work.bytes, work.flops).bound()[0],
         route_detail=f"wgmma 3xTF32, TMA ring; {regs} registers, {spills} bytes spilled",
-        bytes=nbytes, flops=3 * flops, flop_rate=TF32_FLOP_PER_S)
+        work=work)
 
 
 def delta_errors(g):
@@ -840,8 +853,7 @@ def kmeans_k99(gen, dev, pts):
                ms=time_ms(lambda: ops.kmeans_assign(pts, cents, impl="cuda"), dev),
                plain_ms=time_ms(lambda: ref.kmeans_assign(pts, cents), dev),
                library_ms=time_ms(lambda: torch.cdist(pts, cents).argmin(dim=1), dev))
-    out["bound_ms"], out["bound_by"] = bound_ms(4 * (m * f + k * f + 2 * m),
-                                                2 * m * k * f + 2 * (m + k) * f)
+    out["bound_ms"], out["bound_by"] = roofline.kmeans_assign_work(m, k, f).bound()
     print(f"  kmeans_assign k=99 (100 points of width 100): kernel {out['ms']:.4f} ms, plain "
           f"{out['plain_ms']:.4f} ms, cdist + argmin {out['library_ms']:.4f} ms, bound "
           f"{out['bound_ms']:.6f} ms ({out['bound_by']}); labels equal, tie at 3 and 40 to 3")
@@ -896,7 +908,7 @@ def cohort_kernel_rows(gen, dev, m, d_al, c=50, real=42):
                             flush="read"),
             plain_ms=time_ms(lambda slab=slab: ref.cohort_gather(slab, idx), dev),
             library_ms=time_ms(lambda slab=slab: slab.index_select(0, safe), dev),
-            bytes=2 * 4 * c * slab.shape[1] + 4 * c, flops=0)
+            work=roofline.cohort_gather_work(c, slab.shape[1]))
 
     # masked_mix_scatter: rules over the real columns only (pad columns 0)
     w, theta = scatter_rules(gen, dev, c, real, d_al)
@@ -934,7 +946,7 @@ def cohort_kernel_rows(gen, dev, m, d_al, c=50, real=42):
         library_ms=time_ms(lambda: scratch.index_copy_(0, live, w_live @ theta), dev),
         plan=f"tile {plan.tile} ({MIX_TILES[plan.tile].rows} rows), {plan.blocks} blocks of "
              f"{plan.threads} threads, {'16-byte' if plan.vec else 'scalar'} path",
-        bytes=4 * (c * c + c * d_al + real * d_al), flops=2 * c * c * d_al)
+        work=roofline.masked_mix_scatter_work(c, d_al, real))
     return rows
 
 
@@ -1043,7 +1055,7 @@ def buffer_scatter_row(gen, dev, m, d_al):
                                                        impl="cuda"), dev, flush="read"),
         plain_ms=time_ms(lambda: ref.masked_mix_scatter(rules, theta, bidx, valid, full), dev),
         library_ms=time_ms(lambda: scratch.index_copy_(0, rows_live, w_live @ theta), dev),
-        bytes=4 * (nl * nl + 2 * nl * d_al), flops=2 * nl * nl * d_al)
+        work=roofline.masked_mix_scatter_work(nl, d_al, nl))
 
 
 def check_scatter_unsorted(name, w, theta, idx, mask, full):
@@ -1121,13 +1133,13 @@ def mean_err(got, want):
     return float((got.float() - want.float()).abs().mean())
 
 
-def flash_bytes_flops(case, dtype):
-    """Bytes (q, k, v read once, out written once) and the FLOP of the
-    (row, col) pairs the mask keeps (top-left causal keeps col <= row)."""
+def flash_work(case, dtype):
+    """``roofline.flash_attention_work`` of a case: q, k, v read once, out
+    written once, the FLOP of the (row, col) pairs the mask keeps (top-left
+    causal keeps col <= row) at the dtype's peak."""
     b, hq, hkv, sq, sk, dh, causal, _, _ = case
-    pairs = sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
     size = torch.tensor([], dtype=dtype).element_size()
-    return size * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh), 4 * b * hq * pairs * dh
+    return roofline.flash_attention_work(b, hq, hkv, sq, sk, dh, causal, size)
 
 
 def decode_splits_of(case, dev):
@@ -1203,29 +1215,24 @@ def flash_rows(dev):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     bf16 = torch.bfloat16
-    for name, case, dtype, route, rate in (
-            ("flash_attention_prefill", FLASH_CASES[0], bf16, "tc", BF16_FLOP_PER_S),
-            ("flash_attention_decode", FLASH_CASES[1], bf16, "decode", BF16_FLOP_PER_S),
-            ("flash_attention_fma", FMA_CASE, torch.float32, "fma", F32_FLOP_PER_S),
-            ("flash_attention_prefill_mixtral", MIXTRAL_PREFILL, bf16, "tc", BF16_FLOP_PER_S),
-            ("flash_attention_decode_mixtral", MIXTRAL_DECODE, bf16, "decode", BF16_FLOP_PER_S),
-            ("flash_attention_prefill_zamba2", ZAMBA2_PREFILL, bf16, "tc", BF16_FLOP_PER_S),
-            ("flash_attention_decode_zamba2", ZAMBA2_DECODE, bf16, "decode", BF16_FLOP_PER_S),
-            ("flash_attention_prefill_whisper_encoder", WHISPER_ENCODER, bf16, "tc",
-             BF16_FLOP_PER_S),
-            ("flash_attention_prefill_whisper_self", WHISPER_SELF, bf16, "tc", BF16_FLOP_PER_S),
-            ("flash_attention_prefill_whisper_cross", WHISPER_CROSS, bf16, "tc", BF16_FLOP_PER_S),
-            ("flash_attention_decode_whisper_self", WHISPER_DECODE_SELF, bf16, "decode",
-             BF16_FLOP_PER_S),
-            ("flash_attention_decode_whisper_cross", WHISPER_DECODE_CROSS, bf16, "decode",
-             BF16_FLOP_PER_S),
-            ("flash_attention_prefill_internvl2", INTERNVL2_PREFILL, bf16, "tc", BF16_FLOP_PER_S),
-            ("flash_attention_decode_internvl2", INTERNVL2_DECODE, bf16, "decode",
-             BF16_FLOP_PER_S),
-            ("flash_attention_prefill_gemma2", GEMMA2_PREFILL, bf16, "tc", BF16_FLOP_PER_S),
-            ("flash_attention_prefill_gemma2_window", GEMMA2_PREFILL_WINDOW, bf16, "tc",
-             BF16_FLOP_PER_S),
-            ("flash_attention_decode_gemma2", GEMMA2_DECODE, bf16, "decode", BF16_FLOP_PER_S)):
+    for name, case, dtype, route in (
+            ("flash_attention_prefill", FLASH_CASES[0], bf16, "tc"),
+            ("flash_attention_decode", FLASH_CASES[1], bf16, "decode"),
+            ("flash_attention_fma", FMA_CASE, torch.float32, "fma"),
+            ("flash_attention_prefill_mixtral", MIXTRAL_PREFILL, bf16, "tc"),
+            ("flash_attention_decode_mixtral", MIXTRAL_DECODE, bf16, "decode"),
+            ("flash_attention_prefill_zamba2", ZAMBA2_PREFILL, bf16, "tc"),
+            ("flash_attention_decode_zamba2", ZAMBA2_DECODE, bf16, "decode"),
+            ("flash_attention_prefill_whisper_encoder", WHISPER_ENCODER, bf16, "tc"),
+            ("flash_attention_prefill_whisper_self", WHISPER_SELF, bf16, "tc"),
+            ("flash_attention_prefill_whisper_cross", WHISPER_CROSS, bf16, "tc"),
+            ("flash_attention_decode_whisper_self", WHISPER_DECODE_SELF, bf16, "decode"),
+            ("flash_attention_decode_whisper_cross", WHISPER_DECODE_CROSS, bf16, "decode"),
+            ("flash_attention_prefill_internvl2", INTERNVL2_PREFILL, bf16, "tc"),
+            ("flash_attention_decode_internvl2", INTERNVL2_DECODE, bf16, "decode"),
+            ("flash_attention_prefill_gemma2", GEMMA2_PREFILL, bf16, "tc"),
+            ("flash_attention_prefill_gemma2_window", GEMMA2_PREFILL_WINDOW, bf16, "tc"),
+            ("flash_attention_decode_gemma2", GEMMA2_DECODE, bf16, "decode")):
         b, hq, hkv, sq, sk, dh, causal, window, cap = case
         q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev)
         kw = dict(causal=causal, window=window, softcap=cap)
@@ -1235,7 +1242,6 @@ def flash_rows(dev):
         err = errs.get((case, dtype))
         if err is None:  # the FMA row's shape is not in the sweep
             err = check(name, got, ref.flash_attention(q, k, v, **kw), 2e-5)
-        nbytes, flops = flash_bytes_flops(case, dtype)
         library = sdpa_library(name, q, k, v, **kw)
         rows[name] = dict(
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1245,7 +1251,7 @@ def flash_rows(dev):
             plain_ms=time_ms(lambda q=q, k=k, v=v, kw=kw: ref.flash_attention(q, k, v, **kw),
                              dev),
             library_ms=None if library is None else time_ms(library, dev),
-            bytes=nbytes, flops=flops, flop_rate=rate)
+            work=flash_work(case, dtype))
         if library is None:
             rows[name]["library_none"] = "SDPA takes no softcap"
         if route == "decode":
@@ -1294,16 +1300,16 @@ def decode_long(dev, sdpa):
     dec = ops.flash_attention(q, k, v, causal=False, impl="cuda")
     check_each("flash decode over 4,096 keys, the FMA kernel against the decode kernel",
                fma_direct(q, k, v), dec)
-    nbytes, flops = flash_bytes_flops(case, torch.bfloat16)
+    work = flash_work(case, torch.bfloat16)
     out = dict(ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=False, impl="cuda"), dev),
                fma_ms=time_ms(lambda: fma_direct(q, k, v), dev),
                library_ms=time_ms(lambda: sdpa(q, k, v, enable_gqa=True), dev),
                splits=decode_splits_of(case, dev))
-    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    out["bound_ms"], out["bound_by"] = work.bound()
     print(f"  flash decode (4, 28, 1, 128) over 4,096 keys, bf16, {out['splits']} splits: decode "
           f"kernel {out['ms']:.4f} ms, FMA kernel {out['fma_ms']:.4f} ms, SDPA "
           f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms ({out['bound_by']}, "
-          f"{nbytes / 1e6:.1f} MB)")
+          f"{work.bytes / 1e6:.1f} MB)")
     return out
 
 
@@ -4499,7 +4505,8 @@ def hold_call(name, args, kw, dev):
     bit; k-means labels equal and distances within 1e-5 of the largest;
     attention f32 within 2e-5, bf16 within one bf16 step element by
     element (``check_each``). Returns the error, the kernel's, the plain
-    version's and the library call's timing closures, bytes, FLOP and rate."""
+    version's and the library call's timing closures, and the call's work
+    (``roofline``'s work function of its shape)."""
     label = f"{name} {[tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]}"
     size = args[0].element_size()
     if name == "mix_aggregate":
@@ -4510,8 +4517,7 @@ def hold_call(name, args, kw, dev):
                     1e-5 * float(want.abs().max()))
         return (err, lambda: ops.mix_aggregate(w, theta, impl="cuda"),
                 lambda: ref.mix_aggregate(w, theta), lambda: w @ theta,
-                4 * k * mm + theta.element_size() * mm * width + 4 * k * width, 2 * k * mm * width,
-                F32_FLOP_PER_S)
+                roofline.mix_aggregate_work(k, mm, width, theta.element_size()))
     if name == "masked_mix_scatter":
         w, theta, idx, mask, full = args
         c, width = theta.shape
@@ -4525,8 +4531,7 @@ def hold_call(name, args, kw, dev):
         return (err, lambda: ops.masked_mix_scatter(w, theta, idx, mask, scratch, impl="cuda"),
                 lambda: ref.masked_mix_scatter(w, theta, idx, mask, full),
                 lambda: scratch.index_copy_(0, live, w_live @ theta),
-                4 * real * c + size * (c * width + real * width), 2 * real * c * width,
-                F32_FLOP_PER_S)
+                roofline.masked_mix_scatter_work(c, width, real, size))
     if name == "cohort_gather":
         full, idx = args
         safe = idx.long().clamp(max=full.shape[0] - 1)
@@ -4534,15 +4539,14 @@ def hold_call(name, args, kw, dev):
             raise AssertionError(f"{label}: differs from the plain version")
         return (0.0, lambda: ops.cohort_gather(full, idx, impl="cuda"),
                 lambda: ref.cohort_gather(full, idx), lambda: full.index_select(0, safe),
-                2 * size * idx.numel() * full.shape[1] + idx.element_size() * idx.numel(), 0,
-                F32_FLOP_PER_S)
+                roofline.cohort_gather_work(idx.numel(), full.shape[1], size, idx.element_size()))
     if name == "gram":
         g, = args
         mm, width = g.shape
         want = ref.gram(g)
         err = check(label, ops.gram(g, impl="cuda"), want, 1e-5 * float(want.abs().max()))
         return (err, lambda: ops.gram(g, impl="cuda"), lambda: ref.gram(g), lambda: g @ g.T,
-                size * mm * width + 4 * mm * mm, 3 * mm * (mm + 1) * width, TF32_FLOP_PER_S)
+                roofline.gram_work(mm, width, size))
     if name == "kmeans_assign":
         pts, cents = args
         (mm, f), k = pts.shape, cents.shape[0]
@@ -4554,7 +4558,7 @@ def hold_call(name, args, kw, dev):
         return (err, lambda: ops.kmeans_assign(pts, cents, impl="cuda"),
                 lambda: ref.kmeans_assign(pts, cents),
                 lambda: torch.cdist(pts, cents).argmin(dim=1),
-                4 * (mm * f + k * f + 2 * mm), 2 * mm * k * f + 2 * (mm + k) * f, F32_FLOP_PER_S)
+                roofline.kmeans_assign_work(mm, k, f))
     if name == "flash_attention":
         q, k, v = args
         opts = {o: kw.get(o) for o in ("window", "softcap")} | {"causal": kw.get("causal", True)}
@@ -4568,14 +4572,13 @@ def hold_call(name, args, kw, dev):
             err = check(label, got, want, 2.0 ** -6 * float(want.float().abs().max()))
         case = tuple(q.shape[:2]) + (k.shape[1], q.shape[2], k.shape[2], q.shape[3],
                                      opts["causal"], opts["window"], opts["softcap"])
-        nbytes, flops = flash_bytes_flops(case, q.dtype)
         library = sdpa_library(label, q, k, v, **opts)
 
         def kernel():
             with torch.no_grad():
                 return ops.flash_attention(q, k, v, impl="cuda", **opts)
-        return (err, kernel, lambda: ref.flash_attention(q, k, v, **opts), library, nbytes, flops,
-                F32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S)
+        return (err, kernel, lambda: ref.flash_attention(q, k, v, **opts), library,
+                flash_work(case, q.dtype))
     raise ValueError(f"no plain version to hold {name} against")
 
 
@@ -4604,7 +4607,7 @@ def recorded_rows(tag, calls, dev):
     for counter, group in groups.items():
         held = [(name, rec) + hold_call(name, rec["args"], rec["kw"], dev)
                 for name, rec, _ in group]
-        name, rec, _, kernel, plain, library, nbytes, flops, rate = max(held, key=lambda h: h[6])
+        name, rec, _, kernel, plain, library, work = max(held, key=lambda h: h[6].bytes)
         source, replaces = SOURCES[name]
         row = f"{counter}_{tag}"
         rows[row] = dict(
@@ -4614,7 +4617,7 @@ def recorded_rows(tag, calls, dev):
             library_ms=None if library is None else time_ms(library, dev),
             shape=f"{[list(a.shape) for a in rec['args'] if isinstance(a, torch.Tensor)]}"
                   f" {rec['args'][0].dtype}, {len(held)} shape(s) held",
-            bytes=nbytes, flops=flops, flop_rate=rate)
+            work=work)
         if library is None:
             rows[row]["library_none"] = "SDPA takes no softcap"
         launches[row] = sum(n for _, _, n in group)
@@ -4655,7 +4658,6 @@ def flash_train_check(dev, cfg):
     print(f"  flash (16, 32, 256, 64) bf16 causal through FlashAttentionFn: forward element/"
           f"allowance {worst:.2f}; grads max_abs_err q {errs[0]:.3e}, k {errs[1]:.3e}, "
           f"v {errs[2]:.3e} against autograd through the plain version")
-    nbytes, flops = flash_bytes_flops(case, torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:88",
@@ -4663,7 +4665,7 @@ def flash_train_check(dev, cfg):
                 ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=True, impl="cuda"), dev),
                 plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, causal=True), dev),
                 library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True), dev),
-                bytes=nbytes, flops=flops, flop_rate=BF16_FLOP_PER_S,
+                work=flash_work(case, torch.bfloat16),
                 grad_max_abs_err=max(errs))
 
 
@@ -4828,7 +4830,7 @@ def mix_lm_rows(dev, params, w, centroid_w):
             plain_ms=time_ms(lambda r=rule: ref.mix_aggregate(r, theta), dev, reps=10),
             library_ms=time_ms(lambda r=rule: r @ theta, dev, reps=10),
             shape=f"[[{k}, {mm}], [{mm}, {width}]] torch.float32, {len(by_width)} leaf widths held",
-            bytes=4 * (k * mm + mm * width + k * width), flops=2 * k * mm * width)
+            work=roofline.mix_aggregate_work(k, mm, width))
     del theta
     mixed = aggregation.user_centric(params, w.to(torch.bfloat16).float())
     worst = 0.0
@@ -4995,6 +4997,167 @@ def train_phase(dev):
     return out, rows, keep
 
 
+def dry_cells():
+    """(name, config, shape, clients) of the dryrun phase's three steps."""
+    serve = configs.get(SERVE_ARCH)
+    m, b = SERVE_CLIENTS, SERVE_BATCH
+    return [("train", train_config(),
+             InputShape("train_dry", TRAIN_SEQ, TRAIN_CLIENTS * TRAIN_BATCH, "train"),
+             TRAIN_CLIENTS),
+            ("prefill", serve, InputShape("prefill_dry", PREFILL_LEN, m * b, "prefill"), m),
+            ("decode", serve, InputShape("decode_dry", PREFILL_LEN, m * b, "decode"), m)]
+
+
+def dry_materialize(parts, args, dev, gen, vocab):
+    """Real tensors on ``dev`` for the meta argument trees of
+    ``dryrun.make_step``, each leaf a storage of its own: floats N(0, 0.02²)
+    in the leaf's dtype, W softmax rows, momentum zeros, token ids below
+    ``vocab``, a cache's positions 0..L−1. Returns (parts, args), the
+    same objects where the meta ones were shared."""
+    memo = {}
+
+    def real(x, part, key=None):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if id(x) in memo:
+            return memo[id(x)]
+        if part == "mix" and x.dtype == torch.float32:
+            t = torch.softmax(torch.randn(x.shape, generator=gen, device=dev), dim=-1)
+        elif part == "opt":
+            t = torch.zeros(x.shape, dtype=x.dtype, device=dev)
+        elif key == "pos":
+            t = torch.arange(x.shape[-1], dtype=x.dtype, device=dev).expand(x.shape).contiguous()
+        elif x.dtype.is_floating_point:
+            t = torch.empty(x.shape, dtype=x.dtype, device=dev).normal_(0.0, 0.02, generator=gen)
+        else:
+            t = torch.randint(0, vocab if part != "mix" else x.shape[0], x.shape, generator=gen,
+                              device=dev, dtype=x.dtype)
+        memo[id(x)] = t
+        return t
+
+    def walk(tree, part, key=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, part, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, part, key) for v in tree)
+        return real(tree, part, key)
+
+    real_parts = {name: walk(tree, name) for name, tree in parts.items()}
+    real_args = tuple(walk(a, "args") if isinstance(a, (dict, tuple, list))
+                      else real(a, "args") for a in args)
+    return real_parts, real_args
+
+
+def dry_cell(dev, name, cfg, shape, m):
+    """One dryrun cell: the step counted on meta, then on the card: its
+    kernel launches (a recorded run) equal to the counted calls, its aten
+    matmul FLOPs under FlopCounterMode equal to the counted ones, the
+    arguments' bytes equal, the predicted peak over the measured one in
+    DRY_PEAK_RATIO, the roofline's largest term at most the wall, the
+    counted FLOPs over the wall times each kind's peak (the mfu) at most 1.
+    Returns (readings, the recorded calls)."""
+    t = time.perf_counter()
+    fn, parts, args = dryrun.make_step(cfg, shape, agg="user_centric", n_clients=m, rows=m)
+    ana = dryrun.count_step(fn, parts, args)
+    roof = roofline.analyze(ana, cfg, shape, mesh_name="card", chips=1, agg="user_centric",
+                            abs_params_one=steps.abstract_params(cfg))
+    count_s = time.perf_counter() - t
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    real_parts, real_args = dry_materialize(parts, args, dev, gen, cfg.vocab_size)
+    del parts, args
+    arg_bytes = sum(x.untyped_storage().nbytes() for x in {
+        id(x.untyped_storage()): x for x in op_analysis.tensors(real_parts)}.values())
+    if arg_bytes != ana.argument_bytes:
+        raise AssertionError(f"dryrun {name}: the arguments hold {arg_bytes} bytes on the card, "
+                             f"{ana.argument_bytes} counted")
+    torch.cuda.synchronize(dev)
+    zero_counters()
+    with recorded_calls() as calls:
+        out = fn(*real_args)
+        torch.cuda.synchronize(dev)
+    del out
+    launches = {k: c.launches for k, c in COUNTERS.items() if c.launches}
+    if launches != ana.kernel_calls:
+        raise AssertionError(f"dryrun {name}: the card launched {launches}, the meta run "
+                             f"counted {ana.kernel_calls}")
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*real_args)
+    del out
+    card_flops = fc.get_total_flops()
+    if card_flops != int(ana.aten_flops):
+        raise AssertionError(f"dryrun {name}: FlopCounterMode counted {card_flops} FLOPs on the "
+                             f"card, the meta run {int(ana.aten_flops)}")
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn(*real_args)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - before + arg_bytes
+    del out
+    ratio = ana.peak_bytes / peak
+    walls = []
+    for _ in range(DRY_WALLS):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn(*real_args)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t)
+        del out
+    wall = statistics.median(walls)
+    mfu = roof.mfu(wall)
+    r = dict(cell=name, arch=cfg.name, shape=[shape.global_batch, shape.seq_len],
+             clients=m, count_s=count_s, dot_flops=ana.dot_flops, aten_flops=ana.aten_flops,
+             card_aten_flops=card_flops, flops_by_kind=ana.flops_by_kind,
+             hbm_bytes=ana.hbm_bytes, kernel_calls=ana.kernel_calls, launches=launches,
+             argument_bytes=arg_bytes, predicted_peak_bytes=ana.peak_bytes,
+             measured_peak_bytes=peak, peak_ratio=ratio, compute_s=roof.compute_s,
+             memory_s=roof.memory_s, collective_s=roof.collective_s, dominant=roof.dominant,
+             useful_flops_ratio=roof.useful_flops_ratio, walls_s=walls, wall_s=wall,
+             **{f"{shape.kind}_mfu": mfu})
+    print(f"  dryrun {name} ({cfg.name}, {m} clients, {shape.global_batch} x {shape.seq_len}): "
+          f"counted {ana.dot_flops:.4e} FLOPs ({ana.aten_flops:.4e} aten, FlopCounterMode on the "
+          f"card {card_flops:.4e}; kernels {ana.kernel_flops:.4e}), {ana.hbm_bytes:.4e} bytes "
+          f"(unfused), kernel calls {ana.kernel_calls} = launches; arguments {arg_bytes} bytes; "
+          f"peak predicted {ana.peak_bytes / 1e9:.3f} GB, measured {peak / 1e9:.3f} GB, ratio "
+          f"{ratio:.4f}; compute {roof.compute_s * 1e3:.3f} ms, memory {roof.memory_s * 1e3:.3f} "
+          f"ms, dominant {roof.dominant}, useful {roof.useful_flops_ratio:.4f}; wall "
+          f"{wall * 1e3:.2f} ms (median of {DRY_WALLS}), {shape.kind}_mfu {mfu:.4f} "
+          f"(counted in {count_s:.1f} s)")
+    lo, hi = DRY_PEAK_RATIO
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"dryrun {name}: predicted peak / measured peak {ratio:.4f} outside "
+                             f"[{lo}, {hi}]")
+    if not roof.bound_s <= wall:
+        raise AssertionError(f"dryrun {name}: the roofline's largest term {roof.bound_s:.4e} s "
+                             f"exceeds the wall {wall:.4e} s")
+    if not mfu <= 1.0:
+        raise AssertionError(f"dryrun {name}: {shape.kind}_mfu {mfu:.4f} over 1")
+    del real_parts, real_args
+    torch.cuda.empty_cache()
+    return r, calls
+
+
+def dryrun_phase(dev):
+    """The three dryrun cells (:func:`dry_cell`); the kernel rows of their
+    recorded card runs, ``<counter>_dry_<cell>``, each shape held against
+    its plain version."""
+    t0 = time.perf_counter()
+    out, rows, row_launches = {}, {}, {}
+    for name, cfg, shape, m in dry_cells():
+        out[name], calls = dry_cell(dev, name, cfg, shape, m)
+        got, launches = recorded_rows(f"dry_{name}", calls, dev)
+        del calls
+        rows.update(got)
+        row_launches.update(launches)
+    for row, r in rows.items():
+        finish_row(row, r)
+    phase("dryrun", t0, "the train, prefill and decode steps counted on the meta device: kernel "
+          "calls, matmul FLOPs and argument bytes exact on the card, peaks within "
+          f"{DRY_PEAK_RATIO}, every roofline bound under its wall")
+    print("dryrun_path " + json.dumps(out))
+    return rows, row_launches
+
+
 def same_leaf(a, b):
     """Bit for bit: a tensor's values, dtype and device, or a host value."""
     if isinstance(a, torch.Tensor):
@@ -5075,6 +5238,9 @@ def main():
     rows.update(train_rows)
     checkpoint_phase(dev, lm_client)
     del lm_client
+    torch.cuda.empty_cache()
+    dry_rows, dry_launches = dryrun_phase(dev)
+    rows.update(dry_rows)
     full, k4 = launches["ucfl"], launches["ucfl_k4"]
     # each launch counts under the row of its shape: a dense round mixes
     # over the 100-row slab, a cohort round over its 50 slots' uploads
@@ -5111,7 +5277,7 @@ def main():
     # the knobs, engine, train and families phases' launches, each under the
     # row of its shape
     for phase_rows in (knobs, engine, mesh_counts, trained["row_launches"], family_launches,
-                       ep_counts, *(f["row_launches"] for f in fam.values())):
+                       ep_counts, dry_launches, *(f["row_launches"] for f in fam.values())):
         for row, count in phase_rows.items():
             counts[row] = counts.get(row, 0) + count
     # one kernel for both gram rows: the main path runs it at m = 100

@@ -16,3 +16,13 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch: CUDA is not available; pass device='cpu' to run "
             "the plain torch path on the CPU")
     return dev
+
+
+def check_generator(who: str, gen, device: torch.device):
+    """Raise ``ValueError`` unless ``gen`` lives on ``device``; the ``meta``
+    device, which draws nothing, also takes None."""
+    if gen is None and device.type == "meta":
+        return
+    if gen.device.type != device.type or (device.index is not None
+                                          and gen.device.index != device.index):
+        raise ValueError(f"{who}: the generator lives on {gen.device}, the params on {device}")

@@ -39,6 +39,9 @@ tensors; gloo takes CPU tensors and, in the torch 2.11 build for CUDA
 all-to-all and bf16 sums as well), so no collective is staged here.
 :data:`STATS` counts each collective's calls, bytes and, with
 :data:`TIMING` on, its milliseconds (the device synchronized around it).
+On a dry mesh (a :class:`DryGroup` in place of the process group) each
+collective returns a meta tensor of its result's shape and records itself
+in :mod:`repro_torch.launch.op_analysis`'s counter.
 
 The reference's XLA placement helpers (``slot_sharding``,
 ``replicated_sharding``, ``row_sharding``, ``constrain_rows``,
@@ -158,10 +161,30 @@ def _record(name, t, t0):
         st["ms"] += (time.perf_counter() - t0) * 1e3
 
 
+@dataclasses.dataclass(frozen=True)
+class DryGroup:
+    """The group of a dry mesh (:func:`repro_torch.launch.mesh.make_dry_mesh`):
+    its size, and no processes. A collective over it returns meta tensors
+    of the shapes the real one returns and records itself in the active
+    :func:`repro_torch.launch.op_analysis.counting` (``RuntimeError``
+    outside one, or on tensors that are not meta)."""
+
+    size: int
+
+
+def _dry(kind, out, mesh):
+    """Record a collective of a dry mesh; True when ``mesh`` is one."""
+    if not isinstance(mesh.group, DryGroup):
+        return False
+    from repro_torch.launch import op_analysis
+    op_analysis.record_collective(kind, out, mesh.shards)
+    return True
+
+
 def all_reduce_sum(t, mesh):
     """SUM all-reduce of ``t`` over the mesh, in place; returns ``t``. The
     identity on one shard."""
-    if mesh.group is None:
+    if mesh.group is None or _dry("all-reduce", t, mesh):
         return t
     t0 = _start(t)
     dist.all_reduce(t, group=mesh.group)
@@ -177,8 +200,10 @@ def all_gather_rows(x, mesh):
     if x.dtype == torch.bool:
         return all_gather_rows(x.to(torch.uint8), mesh).bool()
     x = x.contiguous()
-    t0 = _start(x)
     out = x.new_empty((mesh.shards * x.shape[0],) + tuple(x.shape[1:]))
+    if _dry("all-gather", out, mesh):
+        return out
+    t0 = _start(x)
     dist.all_gather_into_tensor(out, x, group=mesh.group)
     _record("all_gather", out, t0)
     return out
@@ -186,8 +211,10 @@ def all_gather_rows(x, mesh):
 
 def _all_to_all(x, mesh):
     x = x.contiguous()
-    t0 = _start(x)
     out = torch.empty_like(x)
+    if _dry("all-to-all", out, mesh):
+        return out
+    t0 = _start(x)
     dist.all_to_all_single(out, x, group=mesh.group)
     _record("all_to_all", out, t0)
     return out
@@ -195,6 +222,8 @@ def _all_to_all(x, mesh):
 
 def _reduce(x, mesh, name):
     x = x.clone()
+    if _dry("all-reduce", x, mesh):
+        return x
     t0 = _start(x)
     dist.all_reduce(x, group=mesh.group)
     _record(name, x, t0)

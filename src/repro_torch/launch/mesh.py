@@ -20,7 +20,9 @@ collectives (``all_to_all``, ``axis_sum``, ``axis_mean``,
 one rank creates one ``dist.new_group`` per axis slice, which every rank
 of the default group calls in the same order. A mesh of one rank needs no
 process group: its collectives are the identity. An axis of size 1 has no
-group either.
+group either. :func:`make_dry_mesh` gives a rank's view of a mesh with no
+process group at all, for counting a step on the meta device
+(:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import math
 
 import torch.distributed as dist
 
-from repro_torch.federated.mesh import ClientMesh
+from repro_torch.federated.mesh import ClientMesh, DryGroup
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -77,13 +79,16 @@ def _slices(shape, names, strides, along):
                for cs in itertools.product(*(range(n) for n in along_sizes))]
 
 
-def _view(shape, names, strides, along, rank, coords):
+def _view(shape, names, strides, along, rank, coords, dry=False):
     """The ClientMesh of this rank's slice along ``along``: one
     ``dist.new_group`` per slice, created in the same order on every rank
-    (None where the slice holds one rank)."""
+    (None where the slice holds one rank; a :class:`DryGroup` of the
+    slice's size on a dry mesh)."""
     size = math.prod(shape[names.index(nm)] for nm in along)
     group = None
-    if size > 1:
+    if size > 1 and dry:
+        group = DryGroup(size)
+    elif size > 1:
         for ranks in _slices(shape, names, strides, along):
             g = dist.new_group(ranks)
             if rank in ranks:
@@ -114,6 +119,26 @@ def make_mesh(shape, axis_names) -> RankMesh:
     if size != world:
         raise ValueError(f"a {' x '.join(map(str, shape))} mesh has {size} ranks, the process "
                          f"group {world}: every rank of the group must be one mesh position")
+    return _mesh(shape, names, rank)
+
+
+def make_dry_mesh(shape, axis_names, rank: int = 0) -> RankMesh:
+    """Rank ``rank``'s view of a mesh of ``shape`` with no process group:
+    every axis slice of more than one rank holds a
+    :class:`repro_torch.federated.mesh.DryGroup`, whose collectives return
+    meta tensors of the real results' shapes and record themselves in the
+    active :func:`repro_torch.launch.op_analysis.counting`. For counting one
+    rank's step on the meta device (:mod:`repro_torch.launch.dryrun`)."""
+    shape = tuple(int(s) for s in shape)
+    names = tuple(axis_names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and axes {names} differ in length")
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} is outside a {' x '.join(map(str, shape))} mesh")
+    return _mesh(shape, names, rank, dry=True)
+
+
+def _mesh(shape, names, rank, dry=False) -> RankMesh:
     coords = {}
     rest = rank
     for name, n in reversed(list(zip(names, shape))):
@@ -121,19 +146,21 @@ def make_mesh(shape, axis_names) -> RankMesh:
         rest //= n
     coords = {name: coords[name] for name in names}
     strides = {name: math.prod(shape[i + 1:]) for i, name in enumerate(names)}
-    axes = {name: _view(shape, names, strides, (name,), rank, coords) for name in names}
+    axes = {name: _view(shape, names, strides, (name,), rank, coords, dry) for name in names}
     along = tuple(a for a in ("pod", "data") if a in names)
-    axes[_CLIENTS] = (_view(shape, names, strides, along, rank, coords) if len(along) > 1
+    axes[_CLIENTS] = (_view(shape, names, strides, along, rank, coords, dry) if len(along) > 1
                       else axes[along[0]] if along else ClientMesh(None, 0, 1))
     return RankMesh(names, dict(zip(names, shape)), coords, axes, rank)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> RankMesh:
+def make_production_mesh(*, multi_pod: bool = False, dry: bool = False) -> RankMesh:
     """(16, 16) ("data", "model"), or (2, 16, 16) ("pod", "data", "model"):
-    needs a process group of 256 or 512 ranks (``ValueError`` otherwise)."""
+    needs a process group of 256 or 512 ranks (``ValueError`` otherwise);
+    ``dry`` gives rank 0's view with no process group
+    (:func:`make_dry_mesh`)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_dry_mesh(shape, axes) if dry else make_mesh(shape, axes)
 
 
 def make_host_mesh(*, data: int = 1, model: int = 1) -> RankMesh:

@@ -17,8 +17,11 @@ leaf by leaf on the mix kernel over the leaf's (m, numel) f32 view, cast
 back to the leaf's dtype, with W and the centroid rules rounded to the
 params' dtype first, as the reference rounds them. Momentum buffers stay
 client-local and are never mixed. ``federated=False`` serves one model
-with the reference's shapes. The ``abstract_*``/``input_specs`` helpers
-read XLA lowerings and come with the analysis tooling (ROADMAP queue A).
+with the reference's shapes. ``abstract_params``, ``abstract_opt``,
+``input_specs`` and ``abstract_cache`` build the steps' arguments as
+tensors on the ``meta`` device, with the reference's shapes and dtypes
+and nothing drawn or allocated, for the dry run
+(:mod:`repro_torch.launch.dryrun`).
 
 On a mesh (SPMD ranks over ``torch.distributed``):
 
@@ -45,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import aggregation
 from repro_torch.core.pytree import leaves, tree_map, unflatten
 from repro_torch.federated import mesh as mesh_lib
@@ -53,9 +56,10 @@ from repro_torch.launch import sharding
 from repro_torch.launch.mesh import RankMesh
 from repro_torch.models import moe, registry
 from repro_torch.models.registry import one, unone
-from repro_torch.optim import sgd_update
+from repro_torch.optim import sgd_init, sgd_update
 
 AGGS = ("user_centric", "clustered", "fedavg", "local")
+META = torch.device("meta")
 
 
 def _tracked(params):
@@ -216,3 +220,66 @@ def build_serve_step(cfg: ModelConfig, *, federated: bool):
         return decode_step(params, caches, tokens, pos, cfg)
 
     return serve_clients if federated else registry.build(cfg).decode_step
+
+
+# ------------------------------------------------------------------ specs
+def _lead(tree, n_clients):
+    """Every leaf of a meta tree with a leading (n_clients,) axis."""
+    return tree_map(lambda x: torch.empty((n_clients,) + tuple(x.shape), dtype=x.dtype,
+                                          device=META), tree)
+
+
+def abstract_params(cfg: ModelConfig, *, n_clients: int | None = None):
+    """The model's params as ``meta`` tensors (no draw, no allocation): one
+    model's tree, or with a leading (n_clients,) axis on every leaf."""
+    one = registry.module(cfg).init(None, cfg, META)
+    return one if n_clients is None else _lead(one, n_clients)
+
+
+def abstract_opt(abs_params, *, momentum: float):
+    """The momentum buffers of :func:`repro_torch.optim.sgd_init` on meta
+    (``()`` when momentum is 0)."""
+    return sgd_init(abs_params, momentum=momentum)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, *, n_clients: int | None):
+    """Meta stand-ins for every model input of this shape, the reference's
+    shapes and dtypes: int32 tokens (and labels), the VLM's patch_embeds
+    and whisper's frames in the activation dtype.
+
+    n_clients=None -> no client axis (fedsgd / single-request serving);
+    otherwise the leading (m, per_client_batch, ...) layout."""
+    if n_clients is not None:
+        if shape.global_batch % n_clients:
+            raise ValueError(f"{shape}: global batch {shape.global_batch} is not a multiple "
+                             f"of {n_clients} clients")
+        lead = (n_clients, shape.global_batch // n_clients)
+    else:
+        lead = (shape.global_batch,)
+
+    def sds(*dims, dtype=torch.int32):
+        return torch.empty(lead + dims, dtype=dtype, device=META)
+
+    act = cfg.act_tdtype
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": sds(shape.seq_len)}
+        if shape.kind == "train":
+            batch["labels"] = sds(shape.seq_len)
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = sds(cfg.num_patches, cfg.patch_embed_dim, dtype=act)
+        if cfg.family == "audio":
+            batch["frames"] = sds(cfg.encoder_seq, cfg.d_model, dtype=act)
+        return batch
+    if shape.kind == "decode":
+        return {"tokens": sds(1)}
+    raise ValueError(shape.kind)
+
+
+def abstract_cache(cfg: ModelConfig, shape: InputShape, *, n_clients: int | None):
+    """The serve step's KV/SSM caches (and whisper's cross K/V) on meta for
+    a batch of ``shape.global_batch`` requests (per client with
+    ``n_clients``) of ``shape.seq_len`` positions."""
+    b = shape.global_batch if n_clients is None else shape.global_batch // n_clients
+    caches = registry.module(cfg).init_cache(cfg, 1 if n_clients is None else n_clients, b,
+                                             shape.seq_len, META)
+    return unone(caches) if n_clients is None else caches

@@ -125,12 +125,20 @@ def init(gen, cfg: MoEConfig, dtype=torch.float32, device=None, *, block: Expert
     cut to ``block`` (the whole stack when None), so w_gate and w_up are
     (e_hi − e_lo, D, f_hi − f_lo) and w_down (e_hi − e_lo, f_hi − f_lo, D),
     and the blocks of any mesh make up the one-rank model. ``gen`` is
-    drawn from the same way whatever the block."""
+    drawn from the same way whatever the block. On the ``meta`` device
+    nothing is drawn (``gen`` may be None): the leaves are empty meta
+    tensors of those shapes."""
     device = resolve_device(device)
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    block = block or ExpertBlock(0, e, 0, f)
+    if device.type == "meta":
+        eb, fb = block.e_hi - block.e_lo, block.f_hi - block.f_lo
+        return {"router": torch.empty((d, e), dtype=torch.float32, device=device),
+                **{k: torch.empty((eb,) + shape, dtype=dtype, device=device)
+                   for k, shape in (("w_gate", (d, fb)), ("w_up", (d, fb)),
+                                    ("w_down", (fb, d)))}}
     router = normal_init(gen, (d, e), 0.02, torch.float32, device)
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen, device=gen.device))
-    block = block or ExpertBlock(0, e, 0, f)
     cols = slice(block.f_lo, block.f_hi)
 
     def experts(name, scale, down=False):

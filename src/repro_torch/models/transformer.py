@@ -46,7 +46,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import layer_views, leaves, stack, tree_map
-from repro_torch.device import resolve_device
+from repro_torch.device import check_generator, resolve_device
 from repro_torch.models import attention, moe, ssm
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.layers import (
@@ -158,7 +158,10 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None, *, expert_block=No
     """One model's params in ``cfg.param_dtype`` (the MoE router and the
     SSM's A_log, D and dt_bias in f32) on ``device`` (CUDA when None),
     drawn from ``gen``, a generator on that device (``ValueError``
-    otherwise). Matches the reference in distribution only.
+    otherwise). Matches the reference in distribution only. On the
+    ``meta`` device ``gen`` may be None: nothing is drawn or allocated,
+    and the leaves carry the shapes and dtypes alone
+    (:func:`repro_torch.launch.steps.abstract_params`).
 
     ``expert_block`` (a :class:`repro_torch.models.moe.ExpertBlock`) builds
     only those experts and d_ff columns of every MoE layer
@@ -167,10 +170,7 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None, *, expert_block=No
     leaf it builds is the one-rank model's, whatever the block."""
     _check(cfg)
     device = resolve_device(device)
-    if gen.device.type != device.type or (device.index is not None
-                                          and gen.device.index != device.index):
-        raise ValueError(f"transformer.init: the generator lives on {gen.device}, "
-                         f"the params on {device}")
+    check_generator("transformer.init", gen, device)
     dtype = cfg.param_tdtype
     ninit, _ = make_norm(cfg.norm)
     params = {
@@ -398,7 +398,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, aux_weight=0.01):
     family without MoE layers), as in the reference. The VLM's labels
     cover its token positions, the last S of its logits."""
     logits, aux, _ = _forward(params, batch, cfg, return_cache=False, last_only=False)
-    labels = batch["labels"]
+    labels = batch["labels"].long()  # the reference's int32 labels too
     if cfg.family == "vlm":
         logits = logits[:, :, -labels.shape[-1]:]
     m = labels.shape[0]

@@ -29,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import layer_views, stack, tree_map
-from repro_torch.device import resolve_device
+from repro_torch.device import check_generator, resolve_device
 from repro_torch.models import attention, transformer
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.layers import (
@@ -81,12 +81,10 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None):
     """One model's params in ``cfg.param_dtype`` on ``device`` (CUDA when
     None), drawn from ``gen``, a generator on that device (``ValueError``
     otherwise); layers stacked on their layer axis as the reference's
-    ``vmap`` stacks them. Matches the reference in distribution only."""
+    ``vmap`` stacks them. Matches the reference in distribution only. On
+    the ``meta`` device ``gen`` may be None and nothing is drawn."""
     device = resolve_device(device)
-    if gen.device.type != device.type or (device.index is not None
-                                          and gen.device.index != device.index):
-        raise ValueError(f"whisper.init: the generator lives on {gen.device}, "
-                         f"the params on {device}")
+    check_generator("whisper.init", gen, device)
     dtype = cfg.param_tdtype
     return {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device),
@@ -200,7 +198,7 @@ def forward(params, batch, cfg: ModelConfig, *, return_cache: bool = False,
 def loss_fn(params, batch, cfg: ModelConfig):
     """(m,) f32: each model's mean NLL of ``batch["labels"]`` (m, B, S)."""
     logits = forward(params, batch, cfg)
-    labels = batch["labels"]
+    labels = batch["labels"].long()  # the reference's int32 labels too
     nll = F.cross_entropy(logits.flatten(0, -2), labels.flatten(), reduction="none")
     return nll.view(labels.shape[0], -1).mean(dim=1)
 
