@@ -179,15 +179,17 @@ Phases, each printed as it ends:
   14. families — mixtral-8x7b at its published widths cut to 4 of 32
                layers, mamba2-1.3b (48 layers), zamba2-2.7b (54),
                whisper-large-v3 (32 encoder + 32 decoder layers),
-               internvl2-1b (24) and gemma2-9b (42) at full width and
-               depth, bf16, 2 personalized clients x 2 requests: the
+               internvl2-1b (24), gemma2-9b (42) and phi3-medium-14b (40)
+               at full width and depth, bf16, 2 personalized clients x 2
+               requests: the
                federated prefill step over 1024 tokens (mixtral 4 tile
                launches a call, zamba2 9 at Dh 80, mamba2 none), whisper's
                over 1,500 stub frames and a 256-token prompt (96: 32
                encoder, 32 self, 32 cross over 1,500 keys), internvl2's over
                256 patches and 768 tokens (24, GQA 7 at Dh 64) and gemma2's
                over 4,096 tokens (42 at Dh 256, softcap 50, window 4096 on
-               the local layers); 16 timed greedy decode steps on its caches
+               the local layers), phi3's over 1024 (40, GQA 4 at Dh 128); 16
+               timed greedy decode steps on its caches
                from the prompt's end and 4 profiled ones (one decode-kernel
                launch an attention call a step: whisper 64, gemma2's local
                caches wrapping), each profiled; mixtral's dropped share at capacity factor 1.25;
@@ -278,6 +280,49 @@ Phases, each printed as it ends:
                (``AsyncConfig(flush_k=60)``), each after a cohort round on
                scenario 2, and one client's trained LM params (1.23 GB of
                bf16), with their times; ``checkpoint_path`` JSON line;
+  16b. family_train — federated training of five more families at their
+               published widths, bf16, remat on, seed 0, 2 groups, chains
+               over 512 tokens (``FAMILY_TRAIN``): mamba2-1.3b at 32 of 48
+               layers and zamba2-2.7b at 24 of 54 slots (4 clients x 2 x
+               512 tokens, two SSD chunks), mixtral-8x7b at 1 of 32 layers
+               under ``remat_policy="save_moe"`` (2 clients x 4 x 256),
+               whisper-large-v3 (4 x 256 decoder tokens over 1,500 stub
+               frames) and internvl2-1b (4 x 256 tokens after 256 patches)
+               whole, 4 clients; each built, run and freed before the next
+               (a counted or measured peak past 76 GB, or a refused
+               allocation, fails the phase). Each cell:
+               its user-centric step counted on meta (peak, kernel calls);
+               the collaboration round through ``launch.train.collaboration``
+               (mamba2, zamba2, mixtral: one gram launch, no padded copy,
+               W finite and row-stochastic with its within-group mass, the
+               gram row held against an f64 Gram within F64_GRAM_TOL,
+               scaled by its splits' length, the round's peak beside its 16
+               bytes a parameter a client; the
+               others take their groups' block W); K-means on W (51
+               launches); one user-centric step with the kernels against
+               the same step on the plain attention and mix
+               (``train_step_agree``: each leaf within STEP_DELTA_TOL, or
+               twice the bf16-P control's reading up to STEP_DELTA_CAP; a
+               leaf the control reads at 1 or more, its plain change being
+               rounding noise, by its size; its launches equal to the meta
+               count's calls); 4 user_centric steps (losses finite
+               and falling), one clustered and one fedavg step, one
+               profiled user-centric step; exact launches a step (one mix a
+               leaf, the tile twice an attention call, no FMA launch); the
+               step's peak beside the count. The recorded step's attention
+               calls are held with their q, k, v gradients against
+               autograd through the plain version (``flash_grad_row``), the
+               mixes at every leaf width for W, the centroid rules and the
+               mean (``mix_lm_rows``, every width the step mixed), the
+               K-means calls by ``recorded_rows``: rows ``gram_<family>``,
+               ``mix_aggregate_<family>_k<k>``,
+               ``flash_attention_train_<family>`` (whisper's ``_encoder``,
+               ``_self``, ``_cross``), ``kmeans_assign_family_train``; then
+               ``launch.train.main`` on the reference's usage line (``--arch
+               mamba2-1.3b --smoke --clients 4 --groups 2 --rounds 30``, at
+               ``--lr 0.1``), its loss falling (rows
+               ``<kernel>_smoke_mamba2``);
+               ``family_train_path`` JSON line;
   17. dryrun   — three steps counted on the meta device
                (``repro_torch.launch.dryrun.make_step`` + ``count_step``):
                the train phase's stablelm-1.6b user-centric step, the serve
@@ -302,6 +347,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
 import inspect
 import io
 import itertools
@@ -315,6 +361,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -346,7 +393,7 @@ from repro_torch.kernels.flash_attention import flash_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ASSIGN  # noqa: E402
 from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER  # noqa: E402
 from repro_torch.kernels.mix_aggregate import MIX, MIX_TILES, mix_plan  # noqa: E402
-from repro_torch.kernels.pairwise_delta import GRAM  # noqa: E402
+from repro_torch.kernels.pairwise_delta import GRAM, gram_plan  # noqa: E402
 from repro_torch.launch import dryrun, op_analysis, roofline  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
@@ -433,6 +480,12 @@ GEMMA2_DECODE = (4, 16, 8, 1, 4096, 256, False, None, 50.0)  # in the sweep alre
 FLASH_CASES += [WHISPER_ENCODER, WHISPER_SELF, WHISPER_CROSS, WHISPER_DECODE_SELF,
                 WHISPER_DECODE_CROSS, INTERNVL2_PREFILL, INTERNVL2_DECODE, GEMMA2_PREFILL,
                 GEMMA2_PREFILL_WINDOW]
+# phi3-medium-14b whole at full width, 2 clients x 2 requests: GQA 4 (40
+# query heads over 10) at Dh 128, causal over the 1,024-token prompt, then
+# decode over 1,025-1,040 keys
+PHI3_PREFILL = (4, 40, 10, 1024, 1024, 128, True, None, None)
+PHI3_DECODE = (4, 40, 10, 1, 1040, 128, False, None, None)
+FLASH_CASES += [PHI3_PREFILL, PHI3_DECODE]
 # the FMA kernel's row: the reduced f32 prefill step of the serve-agree
 # phase (2 clients x 2 requests x 40 tokens, reduced qwen2-7b's heads)
 FMA_CASE = (4, 4, 2, 40, 40, 32, True, None, None)
@@ -459,12 +512,62 @@ TRAIN_CHAIN_VOCAB = 512
 TRAIN_STEPS = 8
 TRAIN_LR = 0.1
 # gram_lm against an f64 Gram of its (4, 616.6 M) rows: 5e-4 of the largest
-# entry, about 4.6 times the kernel's error there (8.69e-4 of 8.06)
+# entry, about 4.6 times the kernel's error there (8.69e-4 of 8.06), where
+# a block sums F64_GRAM_SPLIT columns (132 splits); rows whose splits are
+# longer get F64_GRAM_TOL x their split's columns / F64_GRAM_SPLIT, as an
+# f32 sum's worst rounding grows with its length (mixtral-8x7b's 1,713 M
+# columns: 12,980,448 a split, 1.39e-3; a split left out would err about
+# 1/132 = 7.6e-3 of the largest entry)
 F64_GRAM_TOL = 5e-4
+F64_GRAM_SPLIT = 4_671_232
 # a train step's change of a leaf, kernels against the plain attention and
 # mix on the card, |Δ - Δ_plain| / |Δ_plain| in L2: twice the largest
-# reading (0.125, the query projection's)
+# reading (0.125, the query projection's), or twice the reading of the
+# bf16-P control on that leaf where larger (zamba2-2.7b's conv weights read
+# 0.27 on an H100: their gradients are small sums of large terms), but
+# never past STEP_DELTA_CAP (a lost gradient reads 1, two unrelated changes
+# of one size about 1.41)
 STEP_DELTA_TOL = 0.25
+STEP_DELTA_CAP = 0.75
+# the family_train phase: five more families trained at their published
+# widths, bf16, remat on, 2 groups, chains over TRAIN_CHAIN_VOCAB tokens.
+# Depth and clients are cut where one card forces it (the collaboration
+# round holds about 16 bytes a parameter a client: the params, the (m, 4,
+# d) bf16 partition gradients, the f32 full gradients, one partition's
+# gradients): mamba2-1.3b at 32 of 48 layers and zamba2-2.7b at 24 of 54
+# slots (4 of 9 hybrid groups), 4 clients x 2 x 512 tokens (two SSD chunks
+# of 256, so the inter-chunk recurrence and its backward run);
+# mixtral-8x7b at 1 of 32 layers under remat_policy="save_moe", 2 clients
+# (its step at 4 counts 79.8 GB) x 4 x 256; whisper-large-v3 (4 x 256
+# decoder tokens over 1,500 stub frames) and internvl2-1b (4 x 256 tokens
+# after 256 patches) whole, 4 clients, with no collaboration round (the
+# reference's launch/train.py takes token batches only): their W is the two
+# groups' block, uniform within a group. A cell whose counted step or round
+# reckoning passes FAMILY_TRAIN_PEAK_GB fails before it runs, and one whose
+# measured peak passes it, or that the card refuses, fails the phase.
+class TrainCell(NamedTuple):
+    arch: str
+    layers: int | None  # None: the published depth
+    clients: int
+    batch: int
+    seq: int
+    remat_policy: str = "full"
+    collaborate: bool = True
+
+
+FAMILY_TRAIN = (TrainCell("mamba2-1.3b", 32, 4, 2, 512),
+                TrainCell("zamba2-2.7b", 24, 4, 2, 512),
+                TrainCell("mixtral-8x7b", 1, 2, 4, 256, "save_moe"),
+                TrainCell("whisper-large-v3", None, 4, 4, 256, collaborate=False),
+                TrainCell("internvl2-1b", None, 4, 4, 256, collaborate=False))
+FAMILY_TRAIN_STEPS = 4
+FAMILY_TRAIN_PEAK_GB = 76.0
+# the reference's usage line of its train entry point (src/repro/launch/
+# train.py), at the paper's learning rate 0.1: at the entry point's default 0.3
+# the reduced mamba2 spikes in both packages (the reference on a CPU: 0.86 at round 9,
+# 3.10 at 15; the port on an H100: 0.53 at round 24, 5.48 at 30)
+FAMILY_ENTRY = ("--arch", "mamba2-1.3b", "--smoke", "--clients", "4", "--groups", "2",
+                "--rounds", "30", "--lr", "0.1")
 # the families phases: reduced mixtral-8x7b, kimi-k2 (first_dense), mamba2-1.3b
 # and zamba2-2.7b at 12 layers (two hybrid groups) held against the CPU;
 # then mixtral-8x7b cut to 4 of 32 layers, mamba2-1.3b and zamba2-2.7b at
@@ -481,7 +584,8 @@ AGREE_TRAIN = ("mixtral-8x7b", "whisper-large-v3", "internvl2-1b")
 # and more
 FAMILY_STEP_TOL = 1e-4
 FAMILY_LAYERS = {"mixtral-8x7b": 4, "mamba2-1.3b": None, "zamba2-2.7b": None,
-                 "whisper-large-v3": None, "internvl2-1b": None, "gemma2-9b": None}
+                 "whisper-large-v3": None, "internvl2-1b": None, "gemma2-9b": None,
+                 "phi3-medium-14b": None}
 # the prompt's tokens where a family's is not PREFILL_LEN: whisper's decoder
 # prompt (beside its 1,500 frames; the 20 decode steps stay inside its
 # 448-position decoder), internvl2's tokens after its 256 patches (1,024
@@ -699,6 +803,7 @@ def gram_rows(gen, dev, m, d, d_al):
         g[:, :d] = 1e-2 * torch.randn(mm, d, generator=gen, device=dev)
         rows[name] = gram_row(name, g, d, dev)
     rows["gram"]["delta"] = gram_delta_check(dev, m, d, d_al)
+    rows["gram"]["wide"] = gram_wide_check(dev)
     return rows
 
 
@@ -711,14 +816,60 @@ def gram_f64(g, chunk=2**24):
     return out
 
 
-def gram_row(name, g, d, dev, *, against_f64=False):
+def f64_gram_gate(m, d, dev):
+    """(the share of the largest entry that gram on (m, d) rows may err
+    against an f64 Gram, the columns its plan's longest split sums):
+    F64_GRAM_TOL, times the split's columns over F64_GRAM_SPLIT where
+    more."""
+    split = max(t.chunk for t in gram_plan(m, d, flash._sm_count(dev.index)).tiles)
+    return F64_GRAM_TOL * max(1.0, split / F64_GRAM_SPLIT), split
+
+
+def gram_wide_check(dev, m=2, d=3 * 2**30 + 1_004):
+    """gram on (m, d) rows past 2^31 columns, where the kernel reads each
+    split through the TMA map of its 2^30-column window (three windows and
+    a tail of 1,004 columns here): one launch, no padded copy, exactly
+    symmetric, within ``f64_gram_gate`` of an f64 Gram. The columns from
+    2^31 on are 4 times the others, so a split read through the wrong
+    window, or a coordinate that wrapped (TMA fills zeros), is off by a
+    large share of the diagonal. Timed over 3 calls beside its bound."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    g = 1e-2 * torch.randn(m, d, generator=gen, device=dev)
+    g[:, 2**31:] *= 4.0
+    launches, copies = GRAM.launches, GRAM.padded
+    got = ops.gram(g, impl="cuda")
+    torch.cuda.synchronize()
+    if GRAM.launches - launches != 1 or GRAM.padded != copies or not torch.equal(got, got.T):
+        raise AssertionError(f"gram at {d} columns: {GRAM.launches - launches} launches, "
+                             f"{GRAM.padded - copies} padded copies, symmetric "
+                             f"{torch.equal(got, got.T)}")
+    exact = gram_f64(g)
+    err, largest = float((got.double() - exact).abs().max()), float(exact.abs().max())
+    tol, split = f64_gram_gate(m, d, dev)
+    if not err <= tol * largest:
+        raise AssertionError(f"gram at {d} columns: error {err:.3e} against an f64 Gram is over "
+                             f"{tol:.3e} of its largest entry {largest:.3e}")
+    ms = time_ms(lambda: ops.gram(g, impl="cuda"), dev, 3)
+    bound = roofline.gram_work(m, d).bound()[0]
+    del g
+    torch.cuda.empty_cache()
+    print(f"  gram at ({m}, {d}) past 2^31 columns: against an f64 Gram it errs {err:.3e} = "
+          f"{err / largest:.2e} of the largest entry {largest:.4e} (gate {tol:.2e}, {split} "
+          f"columns a split); {ms:.3f} ms a call (3 calls), bound {bound:.3f} ms")
+    return dict(m=m, d=d, err=err, largest=largest, tol=tol, ms=ms, bound_ms=bound)
+
+
+def gram_row(name, g, d, dev, *, against_f64=False, reps=30, reads=True):
     """gram on the (m, d_al) rows ``g`` (true width d): the checks and the
-    times of :func:`gram_rows`; returns the kernel row. With
+    times of :func:`gram_rows` (``reps`` timed calls; the times after a
+    read flush only with ``reads``); returns the kernel row. With
     ``against_f64`` (rows far wider than the slab's 47,616, where f32 sums
     of d products in any order drift past 1e-5 of the largest entry) the
     kernel is held instead against an f64 Gram of the same rows, within
-    F64_GRAM_TOL of its largest entry; the plain f32 version's error
-    against it is printed beside the kernel's."""
+    F64_GRAM_TOL of its largest entry, scaled by the columns a split of
+    the launch's plan sums over F64_GRAM_SPLIT where that is more; the
+    plain f32 version's (``g @ g.T``) error is printed beside the
+    kernel's."""
     regs, spills = ptxas_info("gram.cu")
     mm, d_al = g.shape
     want = ref.gram(g)
@@ -743,28 +894,33 @@ def gram_row(name, g, d, dev, *, against_f64=False):
         mine = float((got.double() - exact).abs().max())
         plain = float((want.double() - exact).abs().max())
         largest = float(exact.abs().max())
-        if not mine <= F64_GRAM_TOL * largest:
+        tol, split = f64_gram_gate(mm, d_al, dev)
+        if not mine <= tol * largest:
             raise AssertionError(f"{name}: error {mine:.3e} against an f64 Gram is over "
-                                 f"{F64_GRAM_TOL:g} of its largest entry {largest:.3e} (the plain "
-                                 f"f32 version errs {plain:.3e})")
+                                 f"{tol:.3e} of its largest entry {largest:.3e} ({split} "
+                                 f"columns a split)")
         err = float((got - want).abs().max())
-        print(f"  {name}: against an f64 Gram the kernel errs {mine:.3e}, the plain f32 "
-              f"version {plain:.3e} (largest entry {largest:.4e}); kernel - plain {err:.3e}")
+        print(f"  {name}: against an f64 Gram the kernel errs {mine:.3e} = "
+              f"{mine / largest:.2e} of the largest entry {largest:.4e} (gate {tol:.2e}, "
+              f"{split} columns a split), the plain f32 version {plain:.3e}; kernel - plain "
+              f"{err:.3e}")
     else:
         # f32 sums of 47,571 products in another order: 1e-5 of the largest entry
         err = check(name, got, want, 1e-5 * float(want.abs().max()))
     work = roofline.gram_work(mm, d_al, useful_width=d)
-    return dict(
+    row = dict(
         source="src/repro_torch/kernels/csrc/gram.cu",
         replaces="src/repro/kernels/pairwise_delta.py:41", max_abs_err=err,
-        ms=time_ms(lambda: ops.gram(g, impl="cuda"), dev),
-        read_ms=time_ms(lambda: ops.gram(g, impl="cuda"), dev, flush="read"),
-        plain_ms=time_ms(lambda: ref.gram(g), dev),
-        library_ms=time_ms(lambda: g @ g.T, dev),
-        library_read_ms=time_ms(lambda: g @ g.T, dev, flush="read"),
+        ms=time_ms(lambda: ops.gram(g, impl="cuda"), dev, reps),
+        plain_ms=time_ms(lambda: ref.gram(g), dev, reps),
+        library_ms=time_ms(lambda: g @ g.T, dev, reps),
         bound_f32_ms=roofline.Work(work.bytes, work.flops).bound()[0],
         route_detail=f"wgmma 3xTF32, TMA ring; {regs} registers, {spills} bytes spilled",
         work=work)
+    if reads:
+        row.update(read_ms=time_ms(lambda: ops.gram(g, impl="cuda"), dev, reps, flush="read"),
+                   library_read_ms=time_ms(lambda: g @ g.T, dev, reps, flush="read"))
+    return row
 
 
 def delta_errors(g):
@@ -1232,7 +1388,9 @@ def flash_rows(dev):
             ("flash_attention_decode_internvl2", INTERNVL2_DECODE, bf16, "decode"),
             ("flash_attention_prefill_gemma2", GEMMA2_PREFILL, bf16, "tc"),
             ("flash_attention_prefill_gemma2_window", GEMMA2_PREFILL_WINDOW, bf16, "tc"),
-            ("flash_attention_decode_gemma2", GEMMA2_DECODE, bf16, "decode")):
+            ("flash_attention_decode_gemma2", GEMMA2_DECODE, bf16, "decode"),
+            ("flash_attention_prefill_phi3", PHI3_PREFILL, bf16, "tc"),
+            ("flash_attention_decode_phi3", PHI3_DECODE, bf16, "decode")):
         b, hq, hkv, sq, sk, dh, causal, window, cap = case
         q, k, v = flash_inputs(b, hq, hkv, sq, sk, dh, dtype, dev)
         kw = dict(causal=causal, window=window, softcap=cap)
@@ -3497,6 +3655,14 @@ def family_rows(cfg):
     return prefill, {f"flash_attention_decode_{tag}": calls}
 
 
+def audio_part(cfg, q, k, opts):
+    """Which of whisper's attentions a call of q, k shapes is: its
+    encoder's (non-causal over the frames), its cross-attention's (fewer
+    queries over the frames) or its decoder's self-attention."""
+    over_frames = not opts["causal"] and k[2] == cfg.encoder_seq
+    return "_self" if not over_frames else "_encoder" if q[2] == k[2] else "_cross"
+
+
 def family_row_launches(cfg, *blocks):
     """The launches of a full-width family's recorded attention calls
     (``recorded_calls`` blocks), each under its kernel row (``family_rows``'
@@ -3515,9 +3681,7 @@ def family_row_launches(cfg, *blocks):
             for counter, n in rec["launches"].items():
                 row = f"{counter}_{tag}"
                 if cfg.family == "audio":
-                    over_frames = not opts["causal"] and k[2] == cfg.encoder_seq
-                    row += ("_self" if not over_frames
-                            else "_encoder" if q[2] == k[2] else "_cross")
+                    row += audio_part(cfg, q, k, opts)
                 elif opts.get("window") is not None and len(set(cfg.attn_pattern)) > 1:
                     row += "_window"
                 rows[row] = rows.get(row, 0) + n
@@ -3745,8 +3909,8 @@ def ssd_layer_check(dev, cfg):
 
 def families_phase(dev):
     """mixtral-8x7b (4 of 32 layers), mamba2-1.3b, zamba2-2.7b,
-    whisper-large-v3, internvl2-1b and gemma2-9b at full depth, all at full
-    width in bf16, served to 2 clients x 2 requests (``family_serve``);
+    whisper-large-v3, internvl2-1b, gemma2-9b and phi3-medium-14b at full
+    depth, all at full width in bf16, served to 2 clients x 2 requests (``family_serve``);
     mixtral's MoE layer and mamba2's SSD block also in f32 at full width
     against their plain forms."""
     t0 = time.perf_counter()
@@ -3759,8 +3923,8 @@ def families_phase(dev):
         if cfg.family == "ssm":
             out[arch]["ssd_layer_f32"] = ssd_layer_check(dev, cfg)
     phase("families", t0, "mixtral-8x7b (4 layers), mamba2-1.3b (48), zamba2-2.7b (54), "
-          "whisper-large-v3 (32 + 32), internvl2-1b (24) and gemma2-9b (42) served "
-          f"{SERVE_CLIENTS} clients x {SERVE_BATCH} requests at full width")
+          "whisper-large-v3 (32 + 32), internvl2-1b (24), gemma2-9b (42) and phi3-medium-14b "
+          f"(40) served {SERVE_CLIENTS} clients x {SERVE_BATCH} requests at full width")
     print("families_path " + json.dumps(out))
     return out
 
@@ -4453,14 +4617,16 @@ def recorded_calls(copy=True):
     {"args", "kw", "launches", "live"}}, where "args" are copies of the
     first such call's inputs, taken before the call (the mix-scatter writes
     into ``full``; None without ``copy``, for a run whose calls are only
-    counted), and "launches" the launches of each counter over all such
-    calls. A mix-scatter whose mask has no live slot (a buffered round
+    counted, and for the ops that ``copy`` does not name where it is a
+    tuple of op names), and "launches" the launches of each counter over
+    all such calls. A mix-scatter whose mask has no live slot (a buffered round
     that does not flush) writes nothing, so its copy ("live" False) gives
     way to the first later call of that shape with a live slot. On
     leaving, the launches summed over the calls must equal the counters'
     rise over the block: every launch came from a recorded call."""
     calls, ops_before = {}, {n: getattr(ops, n) for n in RECORDED_OPS}
     start = {k: c.launches for k, c in COUNTERS.items()}
+    copied = copy if isinstance(copy, tuple) else RECORDED_OPS if copy else ()
 
     def wrap(name, fn):
         def call(*args, **kw):
@@ -4468,7 +4634,7 @@ def recorded_calls(copy=True):
             rec = calls.get(key)
             if rec is None:
                 rec = calls[key] = dict(args=None, kw=dict(kw), launches={}, live=False)
-            if copy and not rec["live"]:
+            if name in copied and not rec["live"]:
                 live = name != "masked_mix_scatter" or bool(args[3].any())
                 if rec["args"] is None or live:
                     rec["args"] = [a.detach().clone() if isinstance(a, torch.Tensor) else a
@@ -4630,43 +4796,56 @@ def train_config():
 
 
 def flash_train_check(dev, cfg):
-    """The tile at the train step's shape through ``FlashAttentionFn`` (the
-    path autograd records): the output within one bf16 step of the plain
-    version's, element by element, and the gradients of q, k and v, from
-    the Function's backward, against autograd through the plain version
-    (P in f32) on the same inputs: bf16 gradients computed from the same
-    f32 graph, so within 2^-7 of the largest of each (a rounding of the
-    forward output may flip an input's gradient by a step). Returns the
-    kernel row ``flash_attention_train``."""
+    """The tile at the train step's shape through ``FlashAttentionFn`` on
+    random inputs (:func:`flash_grad_row`). Returns the kernel row
+    ``flash_attention_train``."""
     m, b, s = TRAIN_CLIENTS, TRAIN_BATCH, TRAIN_SEQ
-    case = (m * b, cfg.num_heads, cfg.num_kv_heads, s, s, cfg.resolved_head_dim, True, None, None)
-    q, k, v = flash_inputs(*case[:6], torch.bfloat16, dev, seed=11)
+    case = (m * b, cfg.num_heads, cfg.num_kv_heads, s, s, cfg.resolved_head_dim)
+    q, k, v = flash_inputs(*case, torch.bfloat16, dev, seed=11)
+    return flash_grad_row(dev, f"flash {tuple(q.shape)} bf16 causal", q, k, v, causal=True)
+
+
+def flash_grad_row(dev, label, q, k, v, *, causal, window=None, softcap=None):
+    """The tile on (q, k, v) through ``FlashAttentionFn`` (the path
+    autograd records): one tile launch, the output within one bf16 step of
+    the plain version's, element by element, and the gradients of q, k and
+    v, from the Function's backward, against autograd through the plain
+    version (P in f32) on the same inputs: bf16 gradients computed from
+    the same f32 graph, so within 2^-7 of the largest of each (a rounding
+    of the forward output may flip an input's gradient by a step). Timed
+    beside the plain version and SDPA; returns the kernel row."""
+    opts = dict(causal=causal, window=window, softcap=softcap)
     ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
     before = FLASH_TC.launches
-    out = ops.flash_attention(*ins, causal=True)
+    out = ops.flash_attention(*ins, **opts)
     if FLASH_TC.launches - before != 1 or out.grad_fn is None:
-        raise AssertionError("flash train: the tile did not run inside FlashAttentionFn")
+        raise AssertionError(f"{label}: the tile did not run inside FlashAttentionFn")
     plain_in = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    want = ref.flash_attention(*plain_in, causal=True)
-    worst = check_each("flash train forward", out.detach(), want.detach())
+    want = ref.flash_attention(*plain_in, **opts)
+    worst = check_each(f"{label} forward", out.detach(), want.detach())
     g = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(12),
-                    device=dev).to(torch.bfloat16)
+                    device=dev).to(q.dtype)
     got = torch.autograd.grad(out, ins, g)
     exp = torch.autograd.grad(want, plain_in, g)
-    errs = [check(f"flash train d{name}", a, e, 2.0 ** -7 * float(e.float().abs().max()))
+    errs = [check(f"{label} d{name}", a, e, 2.0 ** -7 * float(e.float().abs().max()))
             for name, a, e in zip("qkv", got, exp)]
-    print(f"  flash (16, 32, 256, 64) bf16 causal through FlashAttentionFn: forward element/"
-          f"allowance {worst:.2f}; grads max_abs_err q {errs[0]:.3e}, k {errs[1]:.3e}, "
-          f"v {errs[2]:.3e} against autograd through the plain version")
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    return dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:88",
-                max_abs_err=float((out.detach().float() - want.detach().float()).abs().max()),
-                ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=True, impl="cuda"), dev),
-                plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, causal=True), dev),
-                library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True), dev),
-                work=flash_work(case, torch.bfloat16),
-                grad_max_abs_err=max(errs))
+    err = float((out.detach().float() - want.detach().float()).abs().max())
+    del ins, plain_in, out, want, g, got, exp
+    print(f"  {label} through FlashAttentionFn: forward element/allowance {worst:.2f}; grads "
+          f"max_abs_err q {errs[0]:.3e}, k {errs[1]:.3e}, v {errs[2]:.3e} against autograd "
+          f"through the plain version")
+    case = tuple(q.shape[:2]) + (k.shape[1], q.shape[2], k.shape[2], q.shape[3], causal, window,
+                                 softcap)
+    library = sdpa_library(label, q, k, v, **opts)
+    row = dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:88", max_abs_err=err,
+               ms=time_ms(lambda: ops.flash_attention(q, k, v, impl="cuda", **opts), dev),
+               plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, **opts), dev),
+               library_ms=None if library is None else time_ms(library, dev),
+               work=flash_work(case, q.dtype), grad_max_abs_err=max(errs))
+    if library is None:
+        row["library_none"] = "SDPA takes no softcap"
+    return row
 
 
 def within_group_mass(w, groups):
@@ -4679,48 +4858,55 @@ def within_group_mass(w, groups):
     return within, 1.0 - within
 
 
-def train_collaboration(dev, cfg, params, gen, chains):
+def train_collaboration(dev, cfg, params, gen, chains, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        row="gram_lm", reps=30, reads=True):
     """The collaboration round on real LM gradients at full width: the
     (m, K, d_aligned) bf16 gradients, full gradients (m, d_aligned) f32 and
-    σ² in column chunks, Δ by one gram launch on the rows where they lie."""
+    σ² in column chunks, Δ by one gram launch on the rows where they lie;
+    the tile twice an attention call a partition (remat). Then the gram
+    row ``row`` on those rows (``gram_row``: ``reps``, ``reads``)."""
     zero_counters()
     box = {}
     prof = profile(lambda: box.update(collab=train_lib.collaboration(
-        cfg, params, gen, chains, batch=TRAIN_BATCH, seq=TRAIN_SEQ)), dev, top=10)
+        cfg, params, gen, chains, batch=batch, seq=seq)), dev, top=10)
     collab, secs = box["collab"], prof["wall_ms"] / 1e3
     print_profiles(f"{cfg.name} collaboration round", {"(profiled)": prof})
-    got = read_counters("train collaboration", {
-        "gram": 1, "flash_attention_prefill": train_lib.PARTS * cfg.num_layers * 2})
+    got = read_counters(f"{cfg.name} collaboration", {
+        "gram": 1, "flash_attention_prefill": train_lib.PARTS * attention_calls(cfg) * 2})
     full, w = collab["full_grads"], collab["W"]
+    m = w.shape[0]
     d = sum(x[0].numel() for x in leaves(params))
-    if GRAM.padded != 0 or tuple(full.shape) != (TRAIN_CLIENTS, ops.aligned_dim(d)) \
+    if GRAM.padded != 0 or tuple(full.shape) != (m, ops.aligned_dim(d)) \
             or full.dtype != torch.float32:
-        raise AssertionError(f"train collaboration: {GRAM.padded} padded copies, full_grads "
-                             f"{tuple(full.shape)} {full.dtype}")
+        raise AssertionError(f"{cfg.name} collaboration: {GRAM.padded} padded copies, "
+                             f"full_grads {tuple(full.shape)} {full.dtype}")
     if not (bool(torch.isfinite(w).all()) and float((w.sum(dim=1) - 1).abs().max()) < 1e-5
             and bool((w >= 0).all())):
-        raise AssertionError(f"train collaboration: W is not finite and row-stochastic: {w}")
+        raise AssertionError(f"{cfg.name} collaboration: W is not finite and row-stochastic: {w}")
     within, cross = within_group_mass(w, TRAIN_GROUPS)
-    print(f"  collaboration round: K = {train_lib.PARTS} partitions of {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} tokens a client, {secs:.2f} s; full_grads {tuple(full.shape)} f32, "
+    print(f"  collaboration round: K = {train_lib.PARTS} partitions of {batch} x "
+          f"{seq} tokens a client, {secs:.2f} s; full_grads {tuple(full.shape)} f32, "
           f"sigma^2 {[round(float(x), 4) for x in collab['sigma_sq']]}; gram launches "
           f"{got['gram']}, padded copies {GRAM.padded}; W within-group mass {within:.3f}, "
           f"cross-group {cross:.3f}")
     print("  W = " + json.dumps([[round(float(x), 4) for x in row] for row in w]))
-    row = gram_row("gram_lm", full, d, dev, against_f64=True)
+    gram = gram_row(row, full, d, dev, against_f64=True, reps=reps, reads=reads)
     return collab, dict(seconds=secs, device_busy_ms=prof["device_busy_ms"],
                         idle_share=prof["idle_share"], within_group=within, cross_group=cross,
                         sigma_sq=collab["sigma_sq"].tolist(), W=w.tolist(),
-                        launches=got), row
+                        launches=got), gram
 
 
-def train_run(dev, cfg, agg, params0, mix, batches):
-    """TRAIN_STEPS steps of ``agg`` from ``params0``, each step's wall time
+def train_run(dev, cfg, agg, params, mix, batches):
+    """A step of ``agg`` from ``params`` on each batch (the step writes none
+    of its inputs, so ``params`` stays as it was), each step's wall time
     synchronized, with its exact launches: one mix a leaf for a mixing agg,
-    none for local; the tile twice a layer (remat recomputes the forward)."""
-    step = steps.build_train_step(cfg, n_clients=TRAIN_CLIENTS, agg=agg, lr=TRAIN_LR,
+    none for local; the tile twice an attention call (remat recomputes the
+    forward), no other kernel. Over more than one step the last loss must
+    be below the first."""
+    m = leaves(params)[0].shape[0]
+    step = steps.build_train_step(cfg, n_clients=m, agg=agg, lr=TRAIN_LR,
                                   momentum=cfg.momentum)
-    params = transformer.tree_map(torch.clone, params0)
     opt = sgd_init(params, momentum=cfg.momentum)
     nleaves = len(leaves(params))
     losses, walls = [], []
@@ -4732,16 +4918,17 @@ def train_run(dev, cfg, agg, params0, mix, batches):
         torch.cuda.synchronize(dev)
         walls.append(time.perf_counter() - t)
         losses.append(float(met["loss"]))
-    expect = {"flash_attention_prefill": TRAIN_STEPS * cfg.num_layers * 2}
+    expect = {"flash_attention_prefill": len(batches) * attention_calls(cfg) * 2}
     if agg != "local":
-        expect["mix_aggregate"] = TRAIN_STEPS * nleaves
-    got = read_counters(f"train {agg}", expect)
-    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"train {agg}: losses {losses} are not finite and falling")
+        expect["mix_aggregate"] = len(batches) * nleaves
+    got = read_counters(f"{cfg.name} train {agg}", expect)
+    if not (all(np.isfinite(losses)) and (len(losses) == 1 or losses[-1] < losses[0])):
+        raise AssertionError(f"{cfg.name} train {agg}: losses {losses} are not finite and "
+                             f"falling")
     return params, opt, step, dict(losses=losses, step_walls_s=walls, launches=got)
 
 
-def train_step_agree(dev, cfg, params0, w, batch):
+def train_step_agree(dev, cfg, params0, w, batch, *, host=False):
     """One user-centric step with the kernels against the same step with
     the plain attention and the plain mix on the card, from the same
     params, W and batch; the plain step must launch no kernel. Both sides
@@ -4752,62 +4939,131 @@ def train_step_agree(dev, cfg, params0, w, batch):
     step. Held on what the step changed, Δ = params - params0: the loss
     within 1e-3 of itself, and each leaf's |Δ - Δ_plain| (L2) within
     STEP_DELTA_TOL of |Δ_plain| (a wrong rule, a leaf mixed with another's
-    or a lost attention gradient is off by about 1). Returns the readings
-    and the kernel step's launches."""
-    step = steps.build_train_step(cfg, n_clients=TRAIN_CLIENTS, agg="user_centric",
-                                  lr=TRAIN_LR, momentum=cfg.momentum)
+    or a lost attention gradient is off by about 1), or within twice the
+    control's reading on that leaf where that is larger, up to
+    STEP_DELTA_CAP. The control is the plain step with P rounded to bf16
+    before P·V (``probs_dtype``, the flash phase's control of the tile):
+    another rounding of the attention outputs as legitimate as the tile's.
+    Where a leaf's gradient is a small sum of large cancelling terms
+    (zamba2's conv weights behind its shared attention) any such rounding
+    moves it by tens of per cent, and the control's reading says how far.
+    Where the control reads 1 or more, the plain change itself is rounding
+    noise (whisper's key biases: with no rotary positions a key bias
+    shifts all of a query's scores alike, which softmax ignores, so their
+    gradient is zero but for rounding): there the kernel step's |Δ| is held
+    within twice the larger of |Δ_plain| and the control's |Δ|. With
+    ``host`` the kernel step's and the plain step's params wait on the host
+    while the next step runs (a step whose peak leaves no room for a second
+    set of params). Returns the
+    readings, the kernel step's launches and its recorded calls
+    (``recorded_calls``; the attention calls' inputs copied)."""
+    step = steps.build_train_step(cfg, n_clients=w.shape[0], agg="user_centric", lr=TRAIN_LR,
+                                  momentum=cfg.momentum)
     opt = sgd_init(params0, momentum=cfg.momentum)
+
+    def park(tree):
+        return transformer.tree_map(lambda x: x.to("cpu"), tree) if host else tree
+
+    def changes(got, want, chunk=2**25):
+        """Each leaf's |Δ_got - Δ_want| / |Δ_want| and (|Δ_got|, |Δ_want|)
+        (L2), and the elements that differ, over f32 chunks of ``chunk``
+        elements (a leaf's f32 copies would not fit beside a step's)."""
+        rel, size, differ = {}, {}, 0
+        for name, a, b, p0 in zip(pytree.paths(got), leaves(got), leaves(want), leaves(params0)):
+            sums = torch.zeros(4, dtype=torch.float64, device=dev)
+            a, b, p0 = a.reshape(-1), b.reshape(-1), p0.reshape(-1)
+            for c0 in range(0, a.numel(), chunk):
+                x, y, z = (t[c0: c0 + chunk].to(dev).float() for t in (a, b, p0))
+                sums += torch.stack([(x - y).square().sum().double(),
+                                     (y - z).square().sum().double(),
+                                     (x - z).square().sum().double(), (x != y).sum().double()])
+            num, den, mine, n = sums.tolist()
+            num, den, mine = num ** 0.5, den ** 0.5, mine ** 0.5
+            key = "/".join(name)
+            rel[key] = num / den if den else (0.0 if num == 0 else float("inf"))
+            size[key] = (mine, den)
+            differ += int(n)
+        return rel, size, differ
+
     zero_counters()
-    got, _, gm = step(params0, opt, w, batch)
-    launches = read_counters("train step", {"flash_attention_prefill": cfg.num_layers * 2,
-                                            "mix_aggregate": len(leaves(params0))})
-    zero_counters()
+    with recorded_calls(copy=("flash_attention",)) as calls:
+        got, _, gm = step(params0, opt, w, batch)
+    del _
+    launches = read_counters(f"{cfg.name} train step",
+                             {"flash_attention_prefill": attention_calls(cfg) * 2,
+                              "mix_aggregate": len(leaves(params0))})
+    got = park(got)
     kernel = ops.flash_attention, ops.mix_aggregate
-    ops.flash_attention = functools.partial(kernel[0], impl="ref")
-    ops.mix_aggregate = functools.partial(kernel[1], impl="ref")
-    try:
-        want, _, wm = step(params0, opt, w, batch)
-    finally:
-        ops.flash_attention, ops.mix_aggregate = kernel
-    read_counters("train step, the plain side", {})
-    loss_err = abs(float(gm["loss"]) - float(wm["loss"]))
+    plain_mix = functools.partial(kernel[1], impl="ref")
+    sides = {"plain": functools.partial(kernel[0], impl="ref"),
+             "control": functools.partial(ref.flash_attention, probs_dtype=torch.bfloat16)}
+    want = None
+    for side, attend in sides.items():
+        torch.cuda.empty_cache()
+        zero_counters()
+        ops.flash_attention, ops.mix_aggregate = attend, plain_mix
+        try:
+            res, _, met = step(params0, opt, w, batch)
+        finally:
+            ops.flash_attention, ops.mix_aggregate = kernel
+        del _
+        read_counters(f"{cfg.name} train step, the {side} side", {})
+        if side == "plain":
+            want, wm = park(res), met
+            loss_err = abs(float(gm["loss"]) - float(wm["loss"]))
+            rel, size, differ = changes(got, want)
+            del got
+        else:
+            control, control_size, _ = changes(res, want)
+        del res
+    del opt, want
     if not loss_err <= 1e-3 * abs(float(wm["loss"])):
-        raise AssertionError(f"train step: loss {float(gm['loss'])} against the plain path's "
-                             f"{float(wm['loss'])}")
-    rel, differ, total = {}, 0, 0
-    for name, a, b, p0 in zip(pytree.paths(got), leaves(got), leaves(want), leaves(params0)):
-        a, b, p0 = a.float(), b.float(), p0.float()
-        num, den = float((a - b).norm()), float((b - p0).norm())
-        rel["/".join(name)] = num / den if den else (0.0 if num == 0 else float("inf"))
-        differ += int((a != b).sum())
-        total += a.numel()
+        raise AssertionError(f"{cfg.name} train step: loss {float(gm['loss'])} against the "
+                             f"plain path's {float(wm['loss'])}")
+    total = sum(x.numel() for x in leaves(params0))
     print("  train step, kernels against the plain path: each leaf's change off the plain "
           "change (L2) " + json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()}))
-    worst = max(rel.values())
-    if not worst <= STEP_DELTA_TOL:
-        raise AssertionError(f"train step: a leaf's change is {worst:.3e} (L2) off the plain "
-                             f"path's, over {STEP_DELTA_TOL}")
+    print("  the control (the plain step, P rounded to bf16) against the plain path "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in control.items()}))
+    noise = {k: size[k][0] / max(size[k][1], control_size[k][0])
+             for k in rel if control[k] >= 1.0}
+    gate = {k: min(max(STEP_DELTA_TOL, 2.0 * control[k]), STEP_DELTA_CAP)
+            for k in rel if k not in noise}
+    over = {k: (rel[k], g) for k, g in gate.items() if not rel[k] <= g}
+    over |= {k: (v, 2.0) for k, v in noise.items() if not v <= 2.0}
+    if over:
+        raise AssertionError(f"{cfg.name} train step: leaves whose change is off the plain "
+                             f"path's past their gate (reading, gate): {over}")
+    worst = max(gate, key=lambda k: rel[k])
     print(f"  one user-centric step against the plain attention and mix (which launched no "
           f"kernel): loss {float(gm['loss']):.5f} / {float(wm['loss']):.5f}; the change of a "
-          f"leaf at most {worst:.3e} (L2) off the plain change (gate {STEP_DELTA_TOL}); "
-          f"{differ / total:.2e} of the elements differ")
-    return dict(loss_err=loss_err, delta_rel=rel, differ_share=differ / total), launches
+          f"leaf at most {rel[worst]:.3e} (L2) off the plain change ({worst}: gate "
+          f"{gate[worst]:.3e}, the control {control[worst]:.3e}; STEP_DELTA_TOL "
+          f"{STEP_DELTA_TOL}, STEP_DELTA_CAP {STEP_DELTA_CAP}); {differ / total:.2e} of the "
+          f"elements differ")
+    if noise:
+        print("  leaves whose plain change is rounding noise (the control reads 1 or more): "
+              "|Δ| over the larger of |Δ_plain| and the control's |Δ|, gate 2: "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in noise.items()}))
+    return dict(loss_err=loss_err, delta_rel=rel, control_rel=control, noise_leaves=noise,
+                differ_share=differ / total), launches, calls
 
 
-def mix_lm_rows(dev, params, w, centroid_w):
+def mix_lm_rows(dev, params, w, centroid_w, *, tag="lm"):
     """The train step's mixes on every leaf width of the trained params:
-    the kernel against the plain mix on the leaf's (4, numel) f32 view,
-    within 1e-5 of the largest output (f32 sums of 4 products), for W
-    (k = 4), the 2 centroid rules and the mean (k = 1), each W rounded to
-    bf16 as the step rounds it; each rule timed at the widest leaf (the
-    205.5 M-wide embedding and head). Also every leaf of one user-centric
-    mix (``steps._mix_user_centric``) against the plain mix rounded to
-    bf16: equal or one bf16 step apart."""
-    mm = TRAIN_CLIENTS
-    rules = [(name, rule.to(torch.bfloat16).float() if rule.shape[0] > 1 else rule)
-             for name, rule in (("mix_aggregate_lm_k4", w), ("mix_aggregate_lm_k2", centroid_w),
-                                ("mix_aggregate_lm_k1",
-                                 torch.full((1, mm), 1.0 / mm, device=dev)))]
+    the kernel against the plain mix on the leaf's (m, numel) f32 view,
+    within 1e-5 of the largest output (f32 sums of m products), for W
+    (k = m), the 2 centroid rules and the mean (k = 1), each W rounded to
+    bf16 as the step rounds it; the rows ``mix_aggregate_<tag>_k<k>``
+    (one row for W and the centroid rules where both have k = 2), each
+    timed over 10 calls at the widest leaf (stablelm's 205.5 M-wide
+    embedding and head). Also every leaf of one user-centric mix
+    (``steps._mix_user_centric``) against the plain mix rounded to bf16:
+    equal or one bf16 step apart. Returns (rows, the leaf widths held)."""
+    mm = w.shape[0]
+    rules = [(f"mix_aggregate_{tag}_k{rule.shape[0]}",
+              rule.to(torch.bfloat16).float() if rule.shape[0] > 1 else rule)
+             for rule in (w, centroid_w, torch.full((1, mm), 1.0 / mm, device=dev))]
     by_width = {x[0].numel(): x for x in leaves(params)}
     errs = dict.fromkeys((name for name, _ in rules), 0.0)
     for width, x in sorted(by_width.items()):
@@ -4817,11 +5073,14 @@ def mix_lm_rows(dev, params, w, centroid_w):
             errs[name] = max(errs[name], check(f"{name} d={width}",
                                                ops.mix_aggregate(rule, theta, impl="cuda"), want,
                                                1e-5 * float(want.abs().max())))
+            del want
         del theta
     theta = by_width[max(by_width)].reshape(mm, -1).float()
     width = theta.shape[1]
     rows = {}
     for name, rule in rules:
+        if name in rows:  # the centroid rules beside W at k = 2: held above, timed once
+            continue
         k = rule.shape[0]
         rows[name] = dict(
             source="src/repro_torch/kernels/csrc/mix_aggregate.cu",
@@ -4839,29 +5098,31 @@ def mix_lm_rows(dev, params, w, centroid_w):
         plain = plain.to(torch.bfloat16).reshape(got.shape)
         step = 2.0 ** -7 * plain.float().abs()
         worst = max(worst, float(((got.float() - plain.float()).abs() - step).max()))
+        del plain, step
     if worst > 0:
-        raise AssertionError(f"train mix: a leaf is more than one bf16 step off the plain mix "
+        raise AssertionError(f"{tag} mix: a leaf is more than one bf16 step off the plain mix "
                              f"({worst:.3e} past it)")
     print(f"  one user-centric mix: all {len(leaves(params))} leaves within one bf16 step of "
           f"the plain mix")
-    return rows
+    return rows, set(by_width)
 
 
-def entry_point_run(dev):
-    """``launch.train.main`` as a user calls it (the reduced smoke config,
-    20 rounds) on the card: its final loss below its first. Its kernel
-    calls are recorded and held as rows ``<kernel>_smoke``."""
+def entry_point_run(dev, argv=("--arch", TRAIN_ARCH, "--smoke", "--rounds", "20"), tag="smoke"):
+    """``launch.train.main`` as a user calls it (by default the reduced
+    stablelm smoke config, 20 rounds) on the card: its final loss below its
+    first. Its kernel calls are recorded and held as rows
+    ``<kernel>_<tag>``."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf), recorded_calls() as calls:
-        final = train_lib.main(["--arch", TRAIN_ARCH, "--smoke", "--rounds", "20"])
+        final = train_lib.main(list(argv))
     text = buf.getvalue()
     first = float(re.search(r"round\s+1 loss=([0-9.]+)", text).group(1))
     if not (np.isfinite(final) and final < first):
         raise AssertionError(f"launch.train.main: final loss {final} is not below the first "
                              f"{first}:\n{text}")
-    rows, launches = recorded_rows("smoke", calls, dev)
-    print(f"  launch.train.main([--arch {TRAIN_ARCH} --smoke --rounds 20]): loss {first:.4f} -> "
-          f"{final:.4f}; launches {launches}")
+    rows, launches = recorded_rows(tag, calls, dev)
+    print(f"  launch.train.main([{' '.join(argv)}]): loss {first:.4f} -> {final:.4f}; launches "
+          f"{launches}")
     return dict(first_loss=first, final_loss=final, launches=launches), rows
 
 
@@ -4944,7 +5205,7 @@ def train_phase(dev):
     batches = [lm_synthetic.federated_lm_batch(gen, chains, TRAIN_CLIENTS, TRAIN_BATCH,
                                                TRAIN_SEQ) for _ in range(TRAIN_STEPS)]
     out["kmeans"] = dict(labels=km.labels.tolist(), launches=kmeans)
-    out["step_agree"], agree = train_step_agree(dev, cfg, params0, w, batches[0])
+    out["step_agree"], agree, _ = train_step_agree(dev, cfg, params0, w, batches[0])
     out["runs"] = {}
     flash_launches = out["launches"]["flash_attention_prefill"] + agree["flash_attention_prefill"]
     # every mix of an agg's steps, at every leaf width, counts under its k's row
@@ -4964,7 +5225,7 @@ def train_phase(dev):
             mix_launches[agg] += MIX.launches
             run["profile"] = prof
             print_profiles(f"{cfg.name} train {agg}", {"step": prof})
-            rows.update(mix_lm_rows(dev, params, w, centroid_w))
+            rows.update(mix_lm_rows(dev, params, w, centroid_w)[0])
             keep = transformer.tree_map(lambda x: x[0].clone(), params)
         del params, opt, step
         torch.cuda.empty_cache()
@@ -5212,6 +5473,245 @@ def checkpoint_phase(dev, lm_params):
     return out
 
 
+# ------------------------------------------------------------------ family_train
+def train_cell_config(cell, layers):
+    """The cell's configuration at its published widths, ``layers`` deep
+    (None: the published depth; whisper's ``layers`` cuts its decoder and
+    its encoder alike), remat on under the cell's policy."""
+    cfg = configs.get(cell.arch)
+    over = dict(remat=True, remat_policy=cell.remat_policy)
+    if layers is not None:
+        over["num_layers"] = layers
+        if cfg.family == "audio":
+            over["encoder_layers"] = layers
+    return dataclasses.replace(cfg, **over)
+
+
+def block_w(m, groups, dev):
+    """The two groups' W of the cells without a collaboration round: client
+    i in group i % groups, uniform within its group, zero across."""
+    g = torch.arange(m, device=dev) % groups
+    same = (g[:, None] == g[None, :]).float()
+    return same / same.sum(dim=1, keepdim=True)
+
+
+def train_count(cfg, cell):
+    """The cell's user-centric step counted on the meta device
+    (``dryrun.make_step`` + ``count_step``)."""
+    shape = InputShape("family_train", cell.seq, cell.clients * cell.batch, "train")
+    fn, parts, args = dryrun.make_step(cfg, shape, agg="user_centric", n_clients=cell.clients,
+                                       rows=cell.clients)
+    return dryrun.count_step(fn, parts, args)
+
+
+def family_batch(cfg, gen, chains, cell, seed):
+    """A step's batch: tokens and labels on the groups' chains
+    (``lm_synthetic.federated_lm_batch``), with whisper's stub frames or
+    the VLM's patch embeddings beside them (``family_inputs``)."""
+    b = lm_synthetic.federated_lm_batch(gen, chains, cell.clients, cell.batch, cell.seq)
+    return dict(family_inputs(cfg, b["tokens"], seed), labels=b["labels"])
+
+
+def train_flash_row(cfg, key):
+    """The kernel row of a recorded train-step attention call:
+    ``flash_attention_train_<family>``, whisper's split by ``audio_part``."""
+    (q, _), (k, _), opts = key[1], key[2], dict(key[4:])
+    row = f"flash_attention_train_{cfg.name.split('-')[0]}"
+    return row + audio_part(cfg, q, k, opts) if cfg.family == "audio" else row
+
+
+def family_train_cell(dev, cfg, cell):
+    """One family_train cell (see the module docstring, phase 16b). Returns
+    (readings, kernel rows, {row: launches}, the K-means' recorded calls)."""
+    tag = cfg.name.split("-")[0]
+    m, b, s = cell.clients, cell.batch, cell.seq
+    published = configs.get(cell.arch)
+    t0 = time.perf_counter()
+    count = train_count(cfg, cell)
+    count_s = time.perf_counter() - t0
+    param_gen = torch.Generator(device=dev)
+
+    def fresh():  # the clients' start, one init copied to m clients, the same every call
+        return train_lib.client_params(cfg, m, param_gen.manual_seed(SEED), dev)
+
+    data = torch.Generator(device=dev).manual_seed(SEED + 1)
+    chains = lm_synthetic.make_group_chains(data, TRAIN_GROUPS, TRAIN_CHAIN_VOCAB)
+    per_client = sum(x.numel() for x in leaves(steps.abstract_params(cfg)))
+    out = dict(arch=cfg.name, layers=cfg.num_layers, published_layers=published.num_layers,
+               clients=m, batch=b, seq=s, params_per_client=per_client,
+               remat_policy=cfg.remat_policy, counted_step_peak_gb=count.peak_bytes / 1e9,
+               counted_kernel_calls=count.kernel_calls, count_s=count_s)
+    reckoned = 16 * per_client * m if cell.collaborate else 0
+    print(f"  {cfg.name}: {cfg.num_layers} of {published.num_layers} layers at the published "
+          f"widths{' (encoder ' + str(cfg.encoder_layers) + ')' if cfg.family == 'audio' else ''}, "
+          f"{per_client / 1e9:.3f} B parameters a client ({cfg.param_dtype}, remat "
+          f"{cfg.remat_policy}), {m} clients in {TRAIN_GROUPS} groups, {b} x {s} tokens a client "
+          f"a step; the step counted on meta: peak {count.peak_bytes / 1e9:.2f} GB, kernel calls "
+          f"{count.kernel_calls} ({count_s:.1f} s)")
+    if max(count.peak_bytes, reckoned) > FAMILY_TRAIN_PEAK_GB * 1e9:
+        raise AssertionError(f"{cfg.name}: the counted step ({count.peak_bytes / 1e9:.2f} GB) or "
+                             f"the round's reckoning ({reckoned / 1e9:.2f} GB) passes "
+                             f"{FAMILY_TRAIN_PEAK_GB} GB at {cfg.num_layers} layers")
+    rows, passes, tile = {}, 0, 0
+    parts = out["seconds_by_part"] = {"count": count_s}
+    t = time.perf_counter()
+    if cell.collaborate:
+        torch.cuda.reset_peak_memory_stats(dev)
+        collab, out["collaboration"], rows[f"gram_{tag}"] = train_collaboration(
+            dev, cfg, fresh(), data, chains, batch=b, seq=s, row=f"gram_{tag}", reps=10,
+            reads=False)
+        w = collab["W"]
+        del collab
+        torch.cuda.empty_cache()
+        out["collaboration"]["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["collaboration"]["reckoned_gb"] = reckoned / 1e9
+        print(f"  collaboration round peak {out['collaboration']['peak_gb']:.2f} GB (gram row "
+              f"included), reckoned 16 bytes a parameter a client: "
+              f"{out['collaboration']['reckoned_gb']:.2f} GB")
+        passes += train_lib.PARTS
+        tile += out["collaboration"]["launches"]["flash_attention_prefill"]
+    else:
+        w = block_w(m, TRAIN_GROUPS, dev)
+        within, cross = within_group_mass(w, TRAIN_GROUPS)
+        out["W"] = dict(W=w.tolist(), within_group=within, cross_group=cross)
+        print(f"  no collaboration round (the reference's launch/train.py takes token batches "
+              f"only): W is the groups' block, within-group mass {within:.3f}")
+    zero_counters()
+    with recorded_calls() as km_calls:
+        km = clustering.kmeans(data, w, 2)  # 50 iterations and a last assignment
+    out["kmeans"] = dict(labels=km.labels.tolist(), launches=read_counters(
+        f"{cfg.name} k-means", {"kmeans_assign": 51})["kmeans_assign"])
+    centroid_w = aggregation.centroid_rules(w, km.labels, 2)
+    batches = [family_batch(cfg, data, chains, cell, SEED + 9 + i)
+               for i in range(FAMILY_TRAIN_STEPS)]
+    parts["round_kmeans_batches"], t = time.perf_counter() - t, time.perf_counter()
+
+    # the kernels' step against the plain step; its attention calls recorded
+    torch.cuda.reset_peak_memory_stats(dev)
+    host = count.peak_bytes + 2 * per_client * m > FAMILY_TRAIN_PEAK_GB * 1e9
+    out["step_agree"], agree, step_calls = train_step_agree(dev, cfg, fresh(), w, batches[0],
+                                                            host=host)
+    out["step_agree"]["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["step_agree"]["kernel_params_on_host"] = host
+    if {k: n for k, n in agree.items() if n} != count.kernel_calls:
+        raise AssertionError(f"{cfg.name}: the step launched {agree}, the meta count has "
+                             f"{count.kernel_calls}")
+    passes += 1
+    tile += agree["flash_attention_prefill"]
+    mix_launches = {f"mix_aggregate_{tag}_k{m}": agree["mix_aggregate"]}
+    shapes = {key[2][0][1] for key in step_calls if key[0] == "mix_aggregate"}
+    parts["step_agree"], t = time.perf_counter() - t, time.perf_counter()
+
+    out["runs"] = {}
+    tokens = m * b * s
+    torch.cuda.reset_peak_memory_stats(dev)
+    for agg, mix, n in (("user_centric", w, FAMILY_TRAIN_STEPS),
+                        ("clustered", (centroid_w, km.labels), 1), ("fedavg", (), 1)):
+        params, opt, step, run = train_run(dev, cfg, agg, fresh(), mix, batches[:n])
+        k = {"user_centric": m, "clustered": 2, "fedavg": 1}[agg]
+        row = f"mix_aggregate_{tag}_k{k}"
+        mix_launches[row] = mix_launches.get(row, 0) + run["launches"]["mix_aggregate"]
+        passes += n
+        tile += run["launches"]["flash_attention_prefill"]
+        run["step_s"] = statistics.median(run["step_walls_s"][1:] or run["step_walls_s"])
+        run["tokens_per_s"] = tokens / run["step_s"]
+        if agg == "user_centric":
+            zero_counters()
+            prof = profile(lambda: step(params, opt, mix, batches[0]), dev, top=10)
+            mix_launches[row] += MIX.launches
+            passes += 1
+            tile += FLASH_TC.launches
+            run["profile"] = prof
+            out["step_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            print_profiles(f"{cfg.name} train {agg}", {"step": prof})
+            mix_rows, widths = mix_lm_rows(dev, params, w, centroid_w, tag=tag)
+            if widths != shapes:
+                raise AssertionError(f"{cfg.name}: the step mixed widths {sorted(shapes)}, the "
+                                     f"rows held {sorted(widths)}")
+            rows.update(mix_rows)
+        del params, opt, step
+        torch.cuda.empty_cache()
+        out["runs"][agg] = run
+        print(f"  {agg}: losses {' '.join(f'{x:.4f}' for x in run['losses'])}; step "
+              f"{run['step_s'] * 1e3:.1f} ms (median of {max(n - 1, 1)}), "
+              f"{run['tokens_per_s']:.0f} tokens/s; launches a step: mix_aggregate "
+              f"{run['launches']['mix_aggregate'] // n}, tile "
+              f"{run['launches']['flash_attention_prefill'] // n}")
+    parts["runs_mix_rows"], t = time.perf_counter() - t, time.perf_counter()
+    out["cell_peak_gb"] = max(out["step_peak_gb"], out["step_agree"]["peak_gb"],
+                              out.get("collaboration", {}).get("peak_gb", 0.0))
+    print(f"  {cfg.name} peaks: step {out['step_peak_gb']:.2f} GB (counted on meta "
+          f"{out['counted_step_peak_gb']:.2f} GB), agreement step "
+          f"{out['step_agree']['peak_gb']:.2f} GB, cell {out['cell_peak_gb']:.2f} GB")
+    if out["cell_peak_gb"] > FAMILY_TRAIN_PEAK_GB:
+        raise AssertionError(f"{cfg.name}: the cell's peak {out['cell_peak_gb']:.2f} GB passed "
+                             f"{FAMILY_TRAIN_PEAK_GB} GB")
+
+    # the attention calls of the recorded step, each shape with its gradients
+    per_pass = {}
+    for key, rec in step_calls.items():
+        if key[0] == "flash_attention":
+            row = train_flash_row(cfg, key)
+            per_pass[row] = per_pass.get(row, 0) + rec["launches"]["flash_attention_prefill"]
+            q, k, v = rec["args"]
+            opts = {o: dict(key[4:]).get(o) for o in ("causal", "window", "softcap")}
+            rows[row] = flash_grad_row(dev, f"{row} {tuple(q.shape)} over {k.shape[2]} keys",
+                                       q, k, v, **opts)
+    parts["flash_rows"] = time.perf_counter() - t
+    print(f"  {cfg.name} seconds by part: "
+          + json.dumps({k: round(v, 1) for k, v in parts.items()}))
+    launches = {row: n * passes for row, n in per_pass.items()}
+    if sum(launches.values()) != tile:
+        raise AssertionError(f"{cfg.name}: {tile} tile launches, the recorded step's "
+                             f"{per_pass} a pass over {passes} passes give {launches}")
+    launches.update(mix_launches)
+    if cell.collaborate:
+        launches[f"gram_{tag}"] = 1
+    out["row_launches"] = launches
+    return out, rows, launches, km_calls
+
+
+def family_train_phase(dev):
+    """Federated training of mamba2-1.3b, zamba2-2.7b, mixtral-8x7b,
+    whisper-large-v3 and internvl2-1b at their published widths
+    (FAMILY_TRAIN), each built, run and freed before the next; then
+    ``launch.train.main`` on the reference's usage line (FAMILY_ENTRY).
+    Returns (rows, {row: launches})."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"  family_train starts with {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+    out, rows, launches, km_calls = {}, {}, {}, {}
+    for cell in FAMILY_TRAIN:
+        t = time.perf_counter()
+        cfg = train_cell_config(cell, cell.layers)
+        cell_out, cell_rows, cell_launches, calls = family_train_cell(dev, cfg, cell)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cell_out["seconds"] = time.perf_counter() - t
+        out[cell.arch] = cell_out
+        rows.update(cell_rows)
+        launches.update(cell_launches)
+        merge_calls(km_calls, calls)
+        print(f"  {cfg.name} cell: {cell_out['seconds']:.1f} s")
+    km_rows, km_launches = recorded_rows("family_train", km_calls, dev)
+    rows.update(km_rows)
+    launches.update(km_launches)
+    out["entry_point"], entry_rows = entry_point_run(dev, FAMILY_ENTRY, "smoke_mamba2")
+    rows.update(entry_rows)
+    launches.update(out["entry_point"]["launches"])
+    for name, r in rows.items():
+        finish_row(name, r)
+    phase("family_train", t0, "mamba2-1.3b, zamba2-2.7b, mixtral-8x7b, whisper-large-v3 and "
+          "internvl2-1b trained at their published widths: collaboration rounds, K-means, "
+          "losses falling, exact launches, the kernel step against the plain step")
+    print("family_train_path " + json.dumps(
+        {a: ({k: v for k, v in r.items() if k != "runs"}
+             | {"runs": {g: {k: v for k, v in x.items() if k != "profile"}
+                         for g, x in r["runs"].items()}}) if "runs" in r else r
+         for a, r in out.items()}))
+    return rows, launches
+
+
 def main():
     dev = device_phase()
     build_phase()
@@ -5239,6 +5739,8 @@ def main():
     checkpoint_phase(dev, lm_client)
     del lm_client
     torch.cuda.empty_cache()
+    ft_rows, ft_launches = family_train_phase(dev)
+    rows.update(ft_rows)
     dry_rows, dry_launches = dryrun_phase(dev)
     rows.update(dry_rows)
     full, k4 = launches["ucfl"], launches["ucfl_k4"]
@@ -5277,7 +5779,8 @@ def main():
     # the knobs, engine, train and families phases' launches, each under the
     # row of its shape
     for phase_rows in (knobs, engine, mesh_counts, trained["row_launches"], family_launches,
-                       ep_counts, dry_launches, *(f["row_launches"] for f in fam.values())):
+                       ep_counts, dry_launches, ft_launches,
+                       *(f["row_launches"] for f in fam.values())):
         for row, count in phase_rows.items():
             counts[row] = counts.get(row, 0) + count
     # one kernel for both gram rows: the main path runs it at m = 100

@@ -47,7 +47,12 @@
 //     as zeros), each signalled by an mbarrier, and refills a slot as soon
 //     as the block's barrier after a stage shows that every thread has
 //     read it. A diagonal tile loads each slice once for both operands; an
-//     off-diagonal tile loads its row and column slices. No producer warp:
+//     off-diagonal tile loads its row and column slices. A TMA coordinate
+//     is a signed 32-bit int, so the host encodes one map a window of
+//     2^31 columns, the windows' bases 2^30 columns apart, and a split (at
+//     most 2^30 columns) reads through the window of its first column, its
+//     coordinates counted from that base: d up to 2^33 columns (kMaxWindows
+//     maps; two such f32 rows alone would fill 64 GiB). No producer warp:
 //     wgmma kernels get registers by the warpgroup, and a ninth warp would
 //     cap the two consumer warpgroups at 168 registers (they use ~200);
 //   * software-pipelined: stage i's products run while stage i + 1's slice
@@ -89,6 +94,14 @@ constexpr int kMaxStages = 6;
 constexpr int kRuns = 8;                     // most runs of splits an element's merge takes
 constexpr int kPlanHead = 7;                 // m, d, tiles, blocks, stages, slices, smem
 constexpr int kPlanTile = 7;                 // bi, bj, jobs, splits, chunk, first, part
+constexpr long long kWindow = 1LL << 30;     // columns between two maps' bases; a split's most
+constexpr int kMaxWindows = 8;               // maps: d <= kMaxWindows * kWindow
+
+// One TMA map of G a window: map j starts at column j * kWindow and spans
+// up to 2 * kWindow columns (to d in the last).
+struct Maps {
+  CUtensorMap map[kMaxWindows];
+};
 
 struct Plan {
   int m, row_tiles, tiles, stages, slices;
@@ -259,7 +272,8 @@ __device__ __forceinline__ float sum_splits(const float* __restrict__ p, long lo
 }
 
 // Stage i's slice (one or two 128 x 32 boxes) into ring slot i % S, by one
-// thread; the slot's barrier completes when the bytes have landed.
+// thread; the slot's barrier completes when the bytes have landed. k0 is
+// the split's first column counted from `map`'s base (below kWindow).
 __device__ __forceinline__ void load_stage(int i, const CUtensorMap* map, uint32_t ring,
                                            uint32_t stage_bytes, int S, bool diag, int bi, int bj,
                                            long long k0, uint64_t* full_bar) {
@@ -399,7 +413,7 @@ __device__ __forceinline__ void stage_loop(int steps, const CUtensorMap* map, ui
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-gram_kernel(const __grid_constant__ CUtensorMap map, const __grid_constant__ Plan plan,
+gram_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Plan plan,
             float* __restrict__ partial, int* __restrict__ counters, float* __restrict__ out) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kMaxStages];
@@ -420,6 +434,9 @@ gram_kernel(const __grid_constant__ CUtensorMap map, const __grid_constant__ Pla
   const long long k0 = static_cast<long long>(split_id) * plan.chunk[t];
   const long long k1 = k0 + plan.chunk[t] < plan.d ? k0 + plan.chunk[t] : plan.d;
   const int steps = k1 > k0 ? static_cast<int>((k1 - k0 + kDepth - 1) / kDepth) : 0;
+  // the split's map and its first column in it (below kWindow)
+  const CUtensorMap* map = &maps.map[k0 / kWindow];
+  const long long kw = k0 % kWindow;
   // warp-uniform as far as the compiler can see (a shuffle from lane 0), so
   // that the branches on the warp's role and jobs do not serialize wgmma
   const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
@@ -429,7 +446,7 @@ gram_kernel(const __grid_constant__ CUtensorMap map, const __grid_constant__ Pla
     for (int s = 0; s < S; ++s) mbar_init(smem_u32(&full_bar[s]), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int i = 0; i < S && i < steps; ++i)
-      load_stage(i, &map, ring, stage_bytes, S, diag, bi, bj, k0, full_bar);
+      load_stage(i, map, ring, stage_bytes, S, diag, bi, bj, kw, full_bar);
   }
   __syncthreads();
 
@@ -448,13 +465,13 @@ gram_kernel(const __grid_constant__ CUtensorMap map, const __grid_constant__ Pla
       for (int r = 0; r < 32; ++r) sums[j][r] = 0.f;
 
     if (jobs == 2)
-      stage_loop<2>(steps, &map, ring, ring_p, stage_bytes, split_off, S, diag, bi, bj, k0, c_lo,
+      stage_loop<2>(steps, map, ring, ring_p, stage_bytes, split_off, S, diag, bi, bj, kw, c_lo,
                     a_row, a_hi, sw, full_bar, sums);
     else if (jobs == 1)
-      stage_loop<1>(steps, &map, ring, ring_p, stage_bytes, split_off, S, diag, bi, bj, k0, c_lo,
+      stage_loop<1>(steps, map, ring, ring_p, stage_bytes, split_off, S, diag, bi, bj, kw, c_lo,
                     a_row, a_hi, sw, full_bar, sums);
     else
-      stage_loop<0>(steps, &map, ring, ring_p, stage_bytes, split_off, S, diag, bi, bj, k0, c_lo,
+      stage_loop<0>(steps, map, ring, ring_p, stage_bytes, split_off, S, diag, bi, bj, kw, c_lo,
                     a_row, a_hi, sw, full_bar, sums);
 
     // this split's partial tile, rows and columns of the tile, where they
@@ -573,8 +590,8 @@ bool read_plan(const long long* a, int len, int m, long long d, long long partia
                Plan* plan, int* blocks, int* smem) {
   if (len < kPlanHead) return false;
   const int tiles = static_cast<int>(a[2]);
-  if (a[0] != m || a[1] != d || m < 1 || d < 1 || tiles < 1 || tiles > kMaxTiles ||
-      len != kPlanHead + kPlanTile * tiles)
+  if (a[0] != m || a[1] != d || m < 1 || d < 1 || d > kMaxWindows * kWindow || tiles < 1 ||
+      tiles > kMaxTiles || len != kPlanHead + kPlanTile * tiles)
     return false;
   const int row_tiles = (m + kTile - 1) / kTile;
   if (tiles != row_tiles * (row_tiles + 1) / 2) return false;
@@ -593,8 +610,9 @@ bool read_plan(const long long* a, int len, int m, long long d, long long partia
     for (int bj = bi; bj < row_tiles; ++bj, ++t) {
       const long long* r = a + kPlanHead + kPlanTile * t;
       const long long splits = r[3], chunk = r[4];
+      // a split's columns lie in its window: chunk <= kWindow
       if (r[0] != bi || r[1] != bj || r[2] != tile_jobs(m, bi, bj) || chunk < kDepth ||
-          chunk % kDepth != 0 || splits < 1 || splits * chunk < d ||
+          chunk > kWindow || chunk % kDepth != 0 || splits < 1 || splits * chunk < d ||
           (splits - 1) * chunk >= d || r[5] != first || r[6] != part)
         return false;
       plan->bi[t] = bi;
@@ -636,15 +654,20 @@ extern "C" int gram_f32(const float* g, long long row_stride, int m, long long d
     return cudaErrorInvalidValue;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  CUtensorMap map;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(m)};
+  Maps maps = {};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_stride) * 4};
   const cuuint32_t box[2] = {kDepth, kTile};
   const cuuint32_t unit[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(g), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
+  for (long long j = 0; j * kWindow < d; ++j) {
+    const long long base = j * kWindow;
+    const long long width = d - base < 2 * kWindow ? d - base : 2 * kWindow;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(m)};
+    if (encode(&maps.map[j], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(g + base),
+               dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
   static int smem_set[64] = {};  // the attribute's value on each device
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -655,7 +678,7 @@ extern "C" int gram_f32(const float* g, long long row_stride, int m, long long d
     if (err != cudaSuccess) return err;
     smem_set[device] = smem;
   }
-  void* args[] = {&map, &plan, &partial, &counters, &out};
+  void* args[] = {&maps, &plan, &partial, &counters, &out};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gram_kernel), dim3(blocks),
                                     dim3(kThreads), args, static_cast<size_t>(smem),
                                     static_cast<cudaStream_t>(stream));

@@ -28,6 +28,8 @@ TILE = 128        # rows (and columns) of a block tile in csrc/gram.cu
 HALF = 64         # rows and columns of a job (one wgmma m64n64 accumulator)
 DEPTH = 32        # columns of G a ring stage (128 bytes a row)
 MAX_TILES = 64    # tiles a plan: m <= 10 x 128
+WINDOW = 2**30    # columns between two TMA maps' bases in csrc/gram.cu; a split's most
+MAX_WIDTH = 2**33  # most columns: 8 maps (a TMA coordinate is a signed 32-bit int)
 STAGES = 4        # slices in flight a block
 SLICE_BYTES = TILE * DEPTH * 4
 SPLIT_SLICES = 4  # two buffers of the column operand's split, a big and a small slice each
@@ -96,9 +98,14 @@ def gram_plan(m: int, d: int, sm_count: int) -> GramPlan:
     Each gets splits of d in proportion to its jobs, at least one, so that
     the blocks' work is even and all of them fit one block an SM; each
     split's chunk is a multiple of DEPTH. Raises ValueError past MAX_TILES
-    tiles or when the tiles outnumber the SMs."""
+    tiles, when the tiles outnumber the SMs, past MAX_WIDTH columns or
+    where a split would pass WINDOW columns (the kernel reads a split
+    through one TMA map of 2 x WINDOW columns, whose coordinates are
+    signed 32-bit ints)."""
     if m <= 0 or d <= 0 or sm_count <= 0:
         raise ValueError(f"gram_plan: m, d and sm_count must be positive, got {(m, d, sm_count)}")
+    if d > MAX_WIDTH:
+        raise ValueError(f"gram_plan: d = {d} columns, past the kernel's {MAX_WIDTH} (2^33)")
     row_tiles = -(-m // TILE)
     pairs = [(bi, bj) for bi in range(row_tiles) for bj in range(bi, row_tiles)]
     if len(pairs) > min(MAX_TILES, sm_count):
@@ -110,6 +117,9 @@ def gram_plan(m: int, d: int, sm_count: int) -> GramPlan:
         want = max(1, sm_count * n // sum(jobs))
         chunk = -(-(-(-d // want)) // DEPTH) * DEPTH
         splits = -(-d // chunk)
+        if chunk > WINDOW:
+            raise ValueError(f"gram_plan: tile ({bi}, {bj}) would sum {chunk} columns a split, "
+                             f"past the kernel's {WINDOW} (2^30)")
         tiles.append(GramTile(bi, bj, n, splits, chunk, first, part))
         first += splits
         part += splits * TILE * TILE

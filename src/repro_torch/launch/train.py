@@ -27,15 +27,16 @@ from repro_torch.data import lm_synthetic
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as steplib
-from repro_torch.models import transformer
+from repro_torch.models import registry
 from repro_torch.optim import sgd_init
 
 PARTS = 4  # K, the minibatch partition of the collaboration round
 
 
 def client_params(cfg, m: int, gen: torch.Generator, device):
-    """One init from ``gen``, copied to m clients: leaves (m, ...)."""
-    one = transformer.init(gen, cfg, device)
+    """One init from ``gen`` (the family's module: whisper's for the audio
+    family), copied to m clients: leaves (m, ...)."""
+    one = registry.module(cfg).init(gen, cfg, device)
     return tree_map(lambda x: x[None].repeat((m,) + (1,) * x.dim()), one)
 
 
@@ -48,11 +49,12 @@ def partition_grads(cfg, params, gen, chains, *, batch: int, seq: int, parts: in
     ls = leaves(params)
     m = ls[0].shape[0]
     d = tree_count_params(params) // m
+    loss_fn = registry.module(cfg).loss_fn
     g = torch.zeros((m, parts, ops.aligned_dim(d)), dtype=ls[0].dtype, device=ls[0].device)
     p = tree_map(lambda x: x.detach().requires_grad_(True), params)
     for k in range(parts):
         b = lm_synthetic.federated_lm_batch(gen, chains, m, batch, seq)
-        loss = transformer.loss_fn(p, b, cfg)
+        loss = loss_fn(p, b, cfg)
         grads = torch.autograd.grad(loss.sum(), leaves(p), materialize_grads=True)
         stacked_ravel(unflatten(p, grads), out=g[:, k])
         del grads, loss

@@ -24,8 +24,8 @@ import pytest
 from repro_torch.kernels.kmeans_assign import (MAX_SMEM_BYTES, SMEM_BYTES, WARPS, kmeans_plan,
                                                row_stride)
 from repro_torch.kernels.mix_aggregate import BK, MIX_TILES, mix_plan
-from repro_torch.kernels.pairwise_delta import (DEPTH, HALF, TILE, gram_aligned, gram_plan,
-                                                tile_jobs)
+from repro_torch.kernels.pairwise_delta import (DEPTH, HALF, MAX_WIDTH, TILE, WINDOW,
+                                                gram_aligned, gram_plan, tile_jobs)
 
 ALIGNED = (0x7F0000000000, 0x7F0000100000)  # two 256-byte aligned base pointers
 BLOCK_SMEM = 232_448  # a block's most dynamic shared memory on an H100
@@ -288,6 +288,29 @@ def test_gram_plan_at_512_clients():
     assert {(t.jobs, t.splits, t.chunk) for t in diag} == {(3, 11, 4352)}
     assert {(t.jobs, t.splits, t.chunk) for t in off} == {(4, 14, 3424)}
     assert (plan.blocks, plan.slices, plan.smem_bytes) == (128, 2, 197_632)
+
+
+def test_gram_plan_at_the_widest_collaboration_rows():
+    """mixtral-8x7b's collaboration rows at its published widths, 1 of 32
+    layers, 2 clients: 1,713,418,240 columns. One diagonal tile in 132
+    splits of 12,980,448 columns. Past 2^31 columns the kernel reads a
+    split through the TMA map of the 2^30-column window that holds its
+    first column, so each stage's coordinate, counted from that window's
+    base, stays a signed 32-bit int up to MAX_WIDTH = 2^33 columns."""
+    d = 1_713_418_240
+    (t,) = gram_plan(2, d, SMS).tiles
+    assert (t.jobs, t.splits, t.chunk) == (1, 132, 12_980_448)
+    for d in (d, 2**31, 3 * 2**30 + 1_004, MAX_WIDTH):
+        for t in gram_plan(2, d, SMS).tiles:
+            assert t.chunk <= WINDOW and t.splits * t.chunk >= d
+            for k0 in range(0, d, t.chunk):
+                j = k0 // WINDOW
+                last = min(k0 + t.chunk, d) - 1  # the split's last column
+                assert j < MAX_WIDTH // WINDOW and last // DEPTH * DEPTH - j * WINDOW < 2**31 - DEPTH
+    with pytest.raises(ValueError, match="2\\^33"):
+        gram_plan(2, MAX_WIDTH + 1, SMS)
+    with pytest.raises(ValueError, match="2\\^30"):
+        gram_plan(TILE + 1, 2**31, 3)  # 3 tiles on 3 SMs: a split of 2^31 columns
 
 
 def test_gram_plan_rejects():
