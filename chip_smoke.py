@@ -8,10 +8,13 @@ Phases, each printed as it ends:
                ``src/repro_torch/kernels/csrc/`` with nvcc (all at once);
   3. kernels — holds each kernel against its plain torch version on the card
                at the main path's shapes (gram at the special round's
-               slab-wide (100, 47,616) rows and at 512 clients: exactly
-               symmetric, two calls bit-equal, one launch and no
-               synchronizing call a call, and Δ on clustered rows within
-               2x the error of ``g @ g.T`` in f32; mix_aggregate also at leaf widths,
+               slab-wide (100, 47,616) rows, at 512 and 50 clients (the
+               tensor-core route) and at 4 (``gram_m4``, the few-row
+               route), each row naming its route: exactly symmetric, two
+               calls bit-equal, one launch and no synchronizing call a
+               call, and Δ on clustered rows within 2x the error of
+               ``g @ g.T`` in f32; gram past 2^31 columns on the few-row
+               route within F64_GRAM_TOL of an f64 Gram; mix_aggregate also at leaf widths,
                a second row tile, one rule and an offset view, with two calls
                bit-equal and 28 zero columns of W bit-invisible;
                mix_aggregate also at k = 1 (the FedAvg family's mean) and
@@ -295,8 +298,8 @@ Phases, each printed as it ends:
                the collaboration round through ``launch.train.collaboration``
                (mamba2, zamba2, mixtral: one gram launch, no padded copy,
                W finite and row-stochastic with its within-group mass, the
-               gram row held against an f64 Gram within F64_GRAM_TOL,
-               scaled by its splits' length, the round's peak beside its 16
+               gram row held against an f64 Gram within F64_GRAM_TOL (the
+               few-row route's, unscaled), the round's peak beside its 16
                bytes a parameter a client; the
                others take their groups' block W); K-means on W (51
                launches); one user-centric step with the kernels against
@@ -512,12 +515,15 @@ TRAIN_CHAIN_VOCAB = 512
 TRAIN_STEPS = 8
 TRAIN_LR = 0.1
 # gram_lm against an f64 Gram of its (4, 616.6 M) rows: 5e-4 of the largest
-# entry, about 4.6 times the kernel's error there (8.69e-4 of 8.06), where
-# a block sums F64_GRAM_SPLIT columns (132 splits); rows whose splits are
-# longer get F64_GRAM_TOL x their split's columns / F64_GRAM_SPLIT, as an
-# f32 sum's worst rounding grows with its length (mixtral-8x7b's 1,713 M
-# columns: 12,980,448 a split, 1.39e-3; a split left out would err about
-# 1/132 = 7.6e-3 of the largest entry)
+# entry, about 4.6 times the tensor-core route's error there (8.69e-4 of
+# 8.06), where a block sums F64_GRAM_SPLIT columns (132 splits); on that
+# route rows whose splits are longer get F64_GRAM_TOL x their split's
+# columns / F64_GRAM_SPLIT, as an f32 sum's worst rounding grows with its
+# length (mixtral-8x7b's 1,713 M columns: 12,980,448 a split, 1.39e-3; a
+# split left out would err about 1/132 = 7.6e-3 of the largest entry).
+# The few-row route, which takes every such shape (m <= M_ROWS), is
+# held to F64_GRAM_TOL unscaled: a thread's f32 sums run over some
+# d / 33,792 columns, not a block's split
 F64_GRAM_TOL = 5e-4
 F64_GRAM_SPLIT = 4_671_232
 # a train step's change of a leaf, kernels against the plain attention and
@@ -776,18 +782,29 @@ def finish_row(name, r):
           f"{library}{extra}")
 
 
-def ptxas_info(source):
-    """(registers, spill store bytes) of ``source``'s kernel from its build log."""
-    text = _build.target(source).with_suffix(".log").read_text()
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+def ptxas_info(source, entry=""):
+    """(registers, spill store bytes) of ``source``'s kernels from its
+    build log: the most over the entry functions whose mangled name holds
+    ``entry`` (all of them by default)."""
+    regs, spills, name = [], [], ""
+    for line in _build.target(source).with_suffix(".log").read_text().splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?([\w.$]+)", line)
+        if found:
+            name = found.group(1)
+        if entry not in name:
+            continue
+        regs += [int(x) for x in re.findall(r"Used (\d+) registers", line)]
+        spills += [int(x) for x in re.findall(r"(\d+) bytes spill stores", line)]
+    if not regs:
+        raise AssertionError(f"{source}: no ptxas report of an entry function holding '{entry}'")
     return max(regs), max(spills)
 
 
 def gram_rows(gen, dev, m, d, d_al):
     """gram at the special round's slab-wide rows (m, 47,616) with the 45
-    columns past d zero, at 512 clients, and at FedFomo's 50-slot cohort
-    (``gram_m50``, the one-job tile): exactly symmetric, within
+    columns past d zero, at 512 clients, at FedFomo's 50-slot cohort
+    (``gram_m50``, the one-job tile) and at 4 rows (``gram_m4``, the
+    few-row route at the slab's width): exactly symmetric, within
     1e-5 of the plain version's largest entry, two calls bit-equal, one
     launch and no synchronizing call a call, no padded copy; Δ on
     clustered rows (4 groups, each row its group's gradient plus noise at
@@ -795,10 +812,11 @@ def gram_rows(gen, dev, m, d, d_al):
     Δ from ``g @ g.T`` in full f32 and within 1e-5 of the largest
     diagonal. Timed after a write and a read flush, beside the plain
     version and ``g @ g.T``; bound_ms is the route's (bytes, or 3xTF32
-    tensor work: 3 x FLOP at 495 TFLOP/s), bound_f32_ms the f32 CUDA
-    cores' (FLOP at 67 TFLOP/s), FLOP counted as m(m+1)d."""
+    tensor work: 3 x FLOP at 495 TFLOP/s, or the few-row route's f32 FLOP
+    at 67), bound_f32_ms the f32 CUDA cores' (FLOP at 67 TFLOP/s), FLOP
+    counted as m(m+1)d."""
     rows = {}
-    for name, mm in (("gram", m), ("gram_m512", 512), ("gram_m50", 50)):
+    for name, mm in (("gram", m), ("gram_m512", 512), ("gram_m50", 50), ("gram_m4", 4)):
         g = torch.zeros(mm, d_al, device=dev)
         g[:, :d] = 1e-2 * torch.randn(mm, d, generator=gen, device=dev)
         rows[name] = gram_row(name, g, d, dev)
@@ -818,21 +836,39 @@ def gram_f64(g, chunk=2**24):
 
 def f64_gram_gate(m, d, dev):
     """(the share of the largest entry that gram on (m, d) rows may err
-    against an f64 Gram, the columns its plan's longest split sums):
-    F64_GRAM_TOL, times the split's columns over F64_GRAM_SPLIT where
-    more."""
-    split = max(t.chunk for t in gram_plan(m, d, flash._sm_count(dev.index)).tiles)
+    against an f64 Gram, the columns a block of its plan sums): on the
+    few-row route F64_GRAM_TOL; on the tensor-core route F64_GRAM_TOL
+    times its longest split's columns over F64_GRAM_SPLIT where more."""
+    plan = gram_plan(m, d, flash._sm_count(dev.index))
+    if plan.route == "rows":
+        return F64_GRAM_TOL, plan.run
+    split = max(t.chunk for t in plan.tiles)
     return F64_GRAM_TOL * max(1.0, split / F64_GRAM_SPLIT), split
 
 
+def gram_route(m, d, dev):
+    """The route gram's plan takes on (m, d) rows and what it launches, for
+    the kernel rows: the few-row route's blocks and runs and its
+    instance's registers, or the tensor-core route's."""
+    plan = gram_plan(m, d, flash._sm_count(dev.index))
+    if plan.route == "rows":
+        regs, spills = ptxas_info("gram.cu", f"gram_rows_kernelILi{m}E")
+        return plan.route, (f"few-row route (CUDA cores, f32 sums), {plan.blocks} blocks of "
+                            f"{plan.run} columns; {regs} registers, {spills} bytes spilled")
+    regs, spills = ptxas_info("gram.cu", "gram_kernel")
+    return plan.route, (f"tensor-core route (wgmma 3xTF32, TMA ring), {plan.blocks} blocks; "
+                        f"{regs} registers, {spills} bytes spilled")
+
+
 def gram_wide_check(dev, m=2, d=3 * 2**30 + 1_004):
-    """gram on (m, d) rows past 2^31 columns, where the kernel reads each
-    split through the TMA map of its 2^30-column window (three windows and
-    a tail of 1,004 columns here): one launch, no padded copy, exactly
-    symmetric, within ``f64_gram_gate`` of an f64 Gram. The columns from
-    2^31 on are 4 times the others, so a split read through the wrong
-    window, or a coordinate that wrapped (TMA fills zeros), is off by a
-    large share of the diagonal. Timed over 3 calls beside its bound."""
+    """gram on (m, d) rows past 2^31 columns on the few-row route (m <=
+    M_ROWS), which addresses its blocks' runs with 64-bit offsets (132 runs
+    of 24,403,232 columns here, 44 of them starting past 2^31, the last
+    one shorter): one launch, no padded copy, exactly
+    symmetric, within ``f64_gram_gate`` of an f64 Gram (F64_GRAM_TOL). The
+    columns from 2^31 on are 4 times the others, so a run read at a
+    wrapped 32-bit offset is off by a large share of the diagonal. Timed
+    over 3 calls beside its bound."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     g = 1e-2 * torch.randn(m, d, generator=gen, device=dev)
     g[:, 2**31:] *= 4.0
@@ -851,12 +887,13 @@ def gram_wide_check(dev, m=2, d=3 * 2**30 + 1_004):
                              f"{tol:.3e} of its largest entry {largest:.3e}")
     ms = time_ms(lambda: ops.gram(g, impl="cuda"), dev, 3)
     bound = roofline.gram_work(m, d).bound()[0]
+    route, detail = gram_route(m, d, dev)
     del g
     torch.cuda.empty_cache()
-    print(f"  gram at ({m}, {d}) past 2^31 columns: against an f64 Gram it errs {err:.3e} = "
-          f"{err / largest:.2e} of the largest entry {largest:.4e} (gate {tol:.2e}, {split} "
-          f"columns a split); {ms:.3f} ms a call (3 calls), bound {bound:.3f} ms")
-    return dict(m=m, d=d, err=err, largest=largest, tol=tol, ms=ms, bound_ms=bound)
+    print(f"  gram at ({m}, {d}) past 2^31 columns, {detail}: against an f64 Gram it errs "
+          f"{err:.3e} = {err / largest:.2e} of the largest entry {largest:.4e} (gate {tol:.2e}, "
+          f"{split} columns a block); {ms:.3f} ms a call (3 calls), bound {bound:.3f} ms")
+    return dict(m=m, d=d, err=err, largest=largest, tol=tol, ms=ms, bound_ms=bound, route=route)
 
 
 def gram_row(name, g, d, dev, *, against_f64=False, reps=30, reads=True):
@@ -866,12 +903,13 @@ def gram_row(name, g, d, dev, *, against_f64=False, reps=30, reads=True):
     ``against_f64`` (rows far wider than the slab's 47,616, where f32 sums
     of d products in any order drift past 1e-5 of the largest entry) the
     kernel is held instead against an f64 Gram of the same rows, within
-    F64_GRAM_TOL of its largest entry, scaled by the columns a split of
-    the launch's plan sums over F64_GRAM_SPLIT where that is more; the
-    plain f32 version's (``g @ g.T``) error is printed beside the
-    kernel's."""
-    regs, spills = ptxas_info("gram.cu")
+    F64_GRAM_TOL of its largest entry (``f64_gram_gate``: scaled on the
+    tensor-core route by the columns a split of the launch's plan sums
+    over F64_GRAM_SPLIT where that is more); the plain f32 version's
+    (``g @ g.T``) error is printed beside the kernel's. The row names the
+    route the plan took (``gram_route``)."""
     mm, d_al = g.shape
+    route, detail = gram_route(mm, d_al, dev)
     want = ref.gram(g)
     launches, copies = GRAM.launches, GRAM.padded
     got = ops.gram(g, impl="cuda")
@@ -902,7 +940,7 @@ def gram_row(name, g, d, dev, *, against_f64=False, reps=30, reads=True):
         err = float((got - want).abs().max())
         print(f"  {name}: against an f64 Gram the kernel errs {mine:.3e} = "
               f"{mine / largest:.2e} of the largest entry {largest:.4e} (gate {tol:.2e}, "
-              f"{split} columns a split), the plain f32 version {plain:.3e}; kernel - plain "
+              f"{split} columns a block), the plain f32 version {plain:.3e}; kernel - plain "
               f"{err:.3e}")
     else:
         # f32 sums of 47,571 products in another order: 1e-5 of the largest entry
@@ -915,8 +953,7 @@ def gram_row(name, g, d, dev, *, against_f64=False, reps=30, reads=True):
         plain_ms=time_ms(lambda: ref.gram(g), dev, reps),
         library_ms=time_ms(lambda: g @ g.T, dev, reps),
         bound_f32_ms=roofline.Work(work.bytes, work.flops).bound()[0],
-        route_detail=f"wgmma 3xTF32, TMA ring; {regs} registers, {spills} bytes spilled",
-        work=work)
+        route_detail=detail, gram_route=route, work=work)
     if reads:
         row.update(read_ms=time_ms(lambda: ops.gram(g, impl="cuda"), dev, reps, flush="read"),
                    library_read_ms=time_ms(lambda: g @ g.T, dev, reps, flush="read"))
@@ -4786,6 +4823,9 @@ def recorded_rows(tag, calls, dev):
             work=work)
         if library is None:
             rows[row]["library_none"] = "SDPA takes no softcap"
+        if counter == "gram":
+            rows[row]["gram_route"], rows[row]["route_detail"] = gram_route(
+                *rec["args"][0].shape, dev)
         launches[row] = sum(n for _, _, n in group)
     return rows, launches
 
@@ -5785,10 +5825,16 @@ def main():
             counts[row] = counts.get(row, 0) + count
     # one kernel for both gram rows: the main path runs it at m = 100
     counts["gram_m512"] = counts["gram"]
+    # gram_m4 times the few-row route at the slab's width: it counts the
+    # main path's launches of that route, those of every other gram row on it
+    counts["gram_m4"] = sum(counts[name] for name, r in rows.items()
+                            if r.get("gram_route") == "rows" and name != "gram_m4")
     # the cohort and gram rows also carry read_ms, their time after a read
-    # flush; the gram rows library_read_ms and the f32 CUDA-core bound; the
-    # rows of a recorded run the shape they were timed at
-    extras = ("read_ms", "library_read_ms", "bound_f32_ms", "shape", "library_none")
+    # flush; the gram rows library_read_ms, the f32 CUDA-core bound and the
+    # route their plan took; the rows of a recorded run the shape they were
+    # timed at
+    extras = ("read_ms", "library_read_ms", "bound_f32_ms", "shape", "library_none",
+              "gram_route")
     kernels = [{"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
                 "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

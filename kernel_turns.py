@@ -20,13 +20,19 @@ members, 8 pads) of the (100, 47,616) slab, for masked_mix_scatter
 (softmax rows, as W's) against 4 and 99 centroids drawn from them; gram
 of the special round's slab-wide rows, (100, 47,616) with the 45 columns
 past 47,571 zero, and of (512, 47,616), beside ``g @ g.T`` in full f32,
-both after either flush; and a one-element ``zero_()``, the launch floor.
-Each turn also hashes (sha256) the outputs of the mix, the mix-scatter and
-the gather on these fixed inputs, and keeps the ``ptxas`` lines of its
-mix, mix-scatter and gram builds. Gram's bits may differ between trees (a
-new summation order changes them), so a turn holds its own gram to the
-plain version (within 1e-5 of the largest entry, exactly symmetric) and
-to itself (two calls bit-equal) instead of hashing it.
+both after either flush; gram at the collaboration round's few rows,
+(4, 616,599,552) (stablelm-1.6b's) and (4, 427,136), 1e-2-normal, beside
+``g @ g.T``, each tree's error against an f64 Gram printed; and a
+one-element ``zero_()``, the launch floor. A tree whose gram has the
+few-row route (``pairwise_delta.rows_plan``) also times its two routes
+against each other at m = 4, 8, 12 and 16 (the crossover behind M_ROWS)
+over 47,616 and 2^27 columns. Each turn also hashes (sha256) the outputs
+of the mix, the mix-scatter, the gather and gram at m = 100 and 512 (the
+tensor-core route) on these fixed inputs, and keeps the ``ptxas`` lines of
+its mix, mix-scatter and gram builds. Every gram output is also held to
+the plain version (within 1e-5 of the largest entry; at the few rows'
+LLM width within 5e-4 of an f64 Gram's), exactly symmetric, and to itself
+(two calls bit-equal).
 Prints one line a turn and, last, one JSON object with every turn and
 whether each hash agrees across the trees; ``--out`` also writes it to a
 file. Exits non-zero if a hash differs. Needs CUDA; imports nothing of
@@ -125,27 +131,103 @@ def cohort_turn(out, dev, gen, m, d, c=50, real=42):
                                                  flush=flush)
 
 
+def gram_f64(g, chunk=2**24):
+    """G Gᵀ in f64, summed over column chunks of ``g`` (chip_smoke's)."""
+    import torch
+    out = torch.zeros(g.shape[0], g.shape[0], dtype=torch.float64, device=g.device)
+    for c0 in range(0, g.shape[1], chunk):
+        x = g[:, c0: c0 + chunk].double()
+        out += x @ x.T
+    return out
+
+
+def gram_check(g, got, tag, against_f64=False):
+    """gram's output ``got`` on ``g``: exactly symmetric, within 1e-5 of
+    the plain version's largest entry (with ``against_f64``, within 5e-4
+    of an f64 Gram's; returns that share)."""
+    import torch
+    from repro_torch.kernels import ref
+    if not torch.equal(got, got.T):
+        raise AssertionError(f"gram {tag}: not exactly symmetric")
+    want = gram_f64(g) if against_f64 else ref.gram(g)
+    err = float((got.double() - want.double()).abs().max()) / float(want.abs().max())
+    if not err <= (5e-4 if against_f64 else 1e-5):
+        raise AssertionError(f"gram {tag}: error {err:.3e} of the largest entry")
+    return err
+
+
 def gram_turn(out, dev, gen):
     """gram at the special round's (100, 47,616) rows and at 512 clients:
-    checked against the plain version and against a second call, then
-    timed beside ``g @ g.T`` after either flush."""
+    checked against the plain version and against a second call, hashed,
+    then timed beside ``g @ g.T`` after either flush; then at the few
+    rows, (4, 616,599,552) and (4, 427,136), checked likewise (the wide
+    one against an f64 Gram) and timed beside ``g @ g.T``."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     for m in (100, 512):
         g = 1e-2 * torch.randn(m, 47616, generator=gen, device=dev)
         if m == 100:
             g[:, 47571:] = 0.0  # the slab's pad columns
         got = ops.gram(g, impl="cuda")
-        want = ref.gram(g)
-        err = float((got - want).abs().max())
-        if not (err <= 1e-5 * float(want.abs().max()) and torch.equal(got, got.T)):
-            raise AssertionError(f"gram m={m}: max_abs_err {err:.3e} or not symmetric")
+        gram_check(g, got, f"m={m}")
         if not torch.equal(got, ops.gram(g, impl="cuda")):
             raise AssertionError(f"gram m={m}: two calls gave different bits")
+        out[f"gram_m{m}_sha256"] = sha256(got)
         for flush, tag in (("write", ""), ("read", "_read_flush")):
             out[f"gram_m{m}{tag}_ms"] = time_ms(lambda g=g: ops.gram(g, impl="cuda"), dev,
                                                 flush=flush)
             out[f"gram_m{m}_library{tag}_ms"] = time_ms(lambda g=g: g @ g.T, dev, flush=flush)
+    for d, reps in ((616_599_552, 10), (427_136, 30)):
+        g = 1e-2 * torch.randn(4, d, generator=gen, device=dev)
+        got = ops.gram(g, impl="cuda")
+        err = gram_check(g, got, f"(4, {d})", against_f64=d > 2**24)
+        if not torch.equal(got, ops.gram(g, impl="cuda")):
+            raise AssertionError(f"gram (4, {d}): two calls gave different bits")
+        out[f"gram_m4_d{d}_err"] = err
+        out[f"gram_m4_d{d}_ms"] = time_ms(lambda g=g: ops.gram(g, impl="cuda"), dev, reps)
+        out[f"gram_m4_d{d}_library_ms"] = time_ms(lambda g=g: g @ g.T, dev, reps)
+        del g, got
+        torch.cuda.empty_cache()
+
+
+def forced_gram(pd, g, plan):
+    """gram of the aligned rows ``g`` launched on ``plan``, a route's plan
+    for their shape (``pd``: the tree's ``pairwise_delta``), through its
+    C entry as ``gram_cuda`` launches ``gram_plan``'s."""
+    import ctypes
+    import torch
+    m, d = g.shape
+    out = torch.empty((m, m), dtype=torch.float32, device=g.device)
+    vals = plan.values()
+    values = (ctypes.c_longlong * len(vals))(*vals)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    counters, partial = pd._workspace(g.device, stream, plan.partial_floats)
+    pd.GRAM.launch(g.device, stream, g.data_ptr(), g.stride(0), m, d,
+                   ctypes.cast(values, ctypes.c_void_p), len(vals), partial.data_ptr(),
+                   partial.numel(), counters.data_ptr(), out.data_ptr())
+    return out
+
+
+def crossover_turn(out, dev, gen):
+    """Both routes of gram at one m, each launched on its own plan, where
+    the tree has the few-row route: m = 4, 8, 12, 16 over 47,616 and 2^27
+    columns, each output held to the plain version or an f64 Gram."""
+    import torch
+    from repro_torch.kernels import pairwise_delta as pd
+    if not hasattr(pd, "rows_plan"):
+        return
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for d, reps in ((47616, 30), (2**27, 10)):
+        for m in (4, 8, 12, 16):
+            g = 1e-2 * torch.randn(m, d, generator=gen, device=dev)
+            plans = (("rows", pd.rows_plan(m, d, sms)), ("tiles", pd.tile_plan(m, d, sms)))
+            for route, plan in plans:
+                gram_check(g, forced_gram(pd, g, plan), f"({m}, {d}) {route}",
+                           against_f64=d > 2**24)
+                out[f"crossover_{route}_m{m}_d{d}_ms"] = time_ms(
+                    lambda g=g, plan=plan: forced_gram(pd, g, plan), dev, reps)
+            del g
+            torch.cuda.empty_cache()
 
 
 def one_turn(tree: Path) -> dict:
@@ -184,6 +266,7 @@ def one_turn(tree: Path) -> dict:
         out[f"kmeans_k{k}_ms"] = time_ms(
             lambda c=cents: ops.kmeans_assign(pts, c, impl="cuda"), dev)
     gram_turn(out, dev, gen)
+    crossover_turn(out, dev, gen)
     one = torch.empty(1, device=dev)
     out["zero_1_ms"] = time_ms(lambda: one.zero_(), dev)
     out["device"] = torch.cuda.get_device_name(0)

@@ -4,6 +4,59 @@
 // which streams G once over d on the TPU while the (m, m) sum stays in VMEM
 // from one sequential grid step to the next.
 //
+// Two routes, one C entry (gram_f32), one launch a call. The host plan
+// (pairwise_delta.gram_plan) picks the route from m alone and names it in
+// its first value:
+//   * the few-row route (m <= M_ROWS, below): a streaming kernel on the
+//     CUDA cores for the collaboration round's 2-4 rows at LLM width;
+//   * the tensor-core route (m > M_ROWS, after it): wgmma 3xTF32 tiles.
+//
+// The few-row route (gram_rows_kernel). What bounds it: bytes, m·d·4 at
+// 3.35 TB/s (2.945 ms at stablelm-1.6b's (4, 616,599,552) rows). A column
+// carries m(m+1)/2 multiply-adds for 4m bytes: at m = 16, 136 FMA a 64
+// bytes, 7.1 T FMA/s at the HBM rate, a quarter of the f32 CUDA cores'.
+// So no tensor core: the tensor-core route's 128-row box carries 124 rows
+// of zeros at m = 4, 512 useful bytes a stage, about 90 GB/s.
+//   * loads: a block owns one run of columns (a multiple of 4 long, so
+//     16-byte aligned on aligned rows; 64-bit offsets, so d up to 2^33
+//     needs no windows); its 256 threads walk the run in float4 quads,
+//     neighbouring threads on neighbouring quads of each of the m rows,
+//     and each loads U quads of every row (row_unroll: about 32 loads,
+//     512 bytes, as far as registers allow) before it multiplies, so an
+//     SM keeps 48-128 KB in flight (Little's law wants about 32 KB at
+//     3.35 TB/s over ~1.3 us and 132 SMs). The last run masks d % 4;
+//   * sums: each thread keeps the m(m+1)/2 upper-triangle sums in f32
+//     registers (136 at m = 16: the route's most rows, kRowsMax). A thread
+//     sums about d / 33,792 columns in order (18,248 at stablelm's rows),
+//     so its f32 rounding grows as 2^-24 · sqrt(n): measured 2e-6 to 3e-5
+//     of the largest entry against an f64 Gram over 0.6-3.2 G columns,
+//     17x or more under chip_smoke's gate (F64_GRAM_TOL, 5e-4); f64 sums
+//     would cost registers and the conversion pipe for nothing it holds;
+//   * a deterministic merge in the same launch: shuffles within a warp
+//     (a fixed tree), the 8 warps in order, each block's triangle to the
+//     workspace; the last block through an atomic ticket (release by
+//     __threadfence, acquire likewise) sums the blocks' triangles in block
+//     order (up to 8 contiguous runs a sum, the runs in order), writes
+//     G_ij and G_ji from one sum, and puts the ticket back to zero. No
+//     atomics on the sums: two calls give the same bits;
+//   * the threshold, M_ROWS = kRowsMax = 16 (pairwise_delta.py): the route
+//     is faster than the tensor-core route at every m it holds, so it
+//     takes all of them. kernel_turns.py's crossover on the H100 (80GB
+//     HBM3, 700 W): at 47,616 columns 8.35 / 9.66 / 11.47 / 14.18 us at
+//     m = 4 / 8 / 12 / 16 against 20.3-20.8 us (about 0.49 us more a row:
+//     the two would meet near 28 rows); at 2^27 columns 0.718 / 1.455 /
+//     2.194 / 2.920 ms against 23.8 ms (near 130 rows). Past 16 rows the
+//     sums and one quad of each row no longer fit a thread's 255
+//     registers (m = 16 takes 215, m = 14 all 255, no spills), and the
+//     pairs would have to be split over lanes; m >= 50 (FedFomo's cohort,
+//     the special round's 100) stays on the tensor-core route.
+// Measured on three H100s (80GB HBM3, 700 W; PERF.md, the gram findings):
+// 3.23-3.40 ms at (4, 616,599,552), 87-91 % of the bytes bound and 12x
+// under `g @ g.T`; 83-92 % of it at 0.93-1.71 G columns; at 47,616
+// columns 8.5-8.8 us, the launch and the ticket's merge (a one-element
+// zero_() takes 5.0 us).
+//
+// The tensor-core route (gram_kernel).
 // What bounds it on an H100 (the function's own work: G read once, the
 // (m, m) result written once, m(m+1)/2 dot products of length d):
 //   * m = 100, d = 47,616 (the special round's aligned rows): 19 MB, 0.48
@@ -560,6 +613,192 @@ gram_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Plan plan
   }
 }
 
+// ------------------------------------------------------ the few-row route
+
+constexpr int kRouteTiles = 0;      // a plan's first value: the tensor-core route
+constexpr int kRouteRows = 1;       // the few-row route
+constexpr int kRowsMax = 16;        // most rows the few-row route takes
+constexpr int kRowThreads = 256;
+constexpr int kRowsPlanLen = 6;     // route, m, d, blocks, run, partial floats
+constexpr int kMaxRowBlocks = 1024; // more than any card's SMs (the plan: one block an SM)
+
+// Quads (float4) of each row a thread loads before it multiplies: about 32
+// loads, as far as they and the m(m+1)/2 sums fit 160 registers; at least 1.
+template <int M>
+__host__ __device__ constexpr int row_unroll() {
+  constexpr int by_loads = 32 / M, by_regs = (160 - M * (M + 1) / 2) / (4 * M);
+  constexpr int u = by_loads < by_regs ? by_loads : by_regs;
+  return u < 1 ? 1 : u;
+}
+
+// A float4 through the read-only path, asking L2 for the whole 256-byte
+// block. gram_variants.py at (4, 616.6 M) columns on an H100 (80GB HBM3,
+// 700 W): 90.5 % of the HBM rate, against 90.0 % without the prefetch
+// size, 87.6 % evict-first (ld.cs) and 77.9 % with L1::no_allocate;
+// g.sum() reads the same bytes at 91.8 %.
+__device__ __forceinline__ float4 ld_quad(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// One quad of each of the M rows at p, rows `stride` floats apart.
+template <int M>
+__device__ __forceinline__ void load_quads(float4 (&x)[M], const float* __restrict__ p,
+                                           long long stride) {
+#pragma unroll
+  for (int r = 0; r < M; ++r) x[r] = ld_quad(p + r * stride);
+}
+
+// sums[p] += x_i · x_j over the quad, p the row-major index of (i, j),
+// i <= j, in the upper triangle.
+template <int M>
+__device__ __forceinline__ void add_products(float (&sums)[M * (M + 1) / 2],
+                                             const float4 (&x)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = i; j < M; ++j) {
+      const int p = i * M - i * (i - 1) / 2 + (j - i);
+      float s = sums[p];
+      s = fmaf(x[i].x, x[j].x, s);
+      s = fmaf(x[i].y, x[j].y, s);
+      s = fmaf(x[i].z, x[j].z, s);
+      s = fmaf(x[i].w, x[j].w, s);
+      sums[p] = s;
+    }
+}
+
+// G Gᵀ for M rows: block b sums columns [b run, min((b + 1) run, d)) into
+// its triangle (partial[b P, (b + 1) P)); the last block to finish sums
+// the blocks' triangles in block order into out. counters[0] is the
+// ticket: zero on entry and on exit.
+template <int M>
+__global__ void __launch_bounds__(kRowThreads, 1)
+gram_rows_kernel(const float* __restrict__ g, long long stride, long long d, long long run,
+                 float* __restrict__ partial, int* __restrict__ counters,
+                 float* __restrict__ out) {
+  constexpr int P = M * (M + 1) / 2;
+  constexpr int U = row_unroll<M>();
+  constexpr int kWarps = kRowThreads / 32;
+  constexpr int kRuns = kRowThreads / P < 8 ? kRowThreads / P : 8;
+  __shared__ float warp_sums[kWarps][P];
+  __shared__ float run_sums[kRuns][P];
+  __shared__ int last;
+  float sums[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) sums[p] = 0.f;
+
+  const long long c0 = static_cast<long long>(blockIdx.x) * run;
+  const long long width = (c0 + run < d ? c0 + run : d) - c0;  // at least 1 (the plan)
+  const long long quads = width >> 2;
+  const float* base = g + c0;
+  long long q = threadIdx.x;
+  for (; q + (U - 1) * kRowThreads < quads; q += U * kRowThreads) {
+    float4 x[U][M];
+#pragma unroll
+    for (int u = 0; u < U; ++u) load_quads<M>(x[u], base + 4 * (q + u * kRowThreads), stride);
+#pragma unroll
+    for (int u = 0; u < U; ++u) add_products<M>(sums, x[u]);
+  }
+  for (; q < quads; q += kRowThreads) {
+    float4 x[M];
+    load_quads<M>(x, base + 4 * q, stride);
+    add_products<M>(sums, x);
+  }
+  // the last run's d % 4 columns past its whole quads
+  const int tail = static_cast<int>(width & 3);
+  if (tail > 0 && threadIdx.x == 0) {
+    float4 x[M];
+    const float* p = base + 4 * quads;
+#pragma unroll
+    for (int r = 0; r < M; ++r) {
+      const float* pr = p + r * stride;
+      x[r] = make_float4(pr[0], tail > 1 ? pr[1] : 0.f, tail > 2 ? pr[2] : 0.f, 0.f);
+    }
+    add_products<M>(sums, x);
+  }
+
+  // the block's triangle: each warp's by a fixed shuffle tree, then the
+  // warps in order
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    float v = sums[p];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_sums[warp][p] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < P) {
+    float s = warp_sums[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += warp_sums[w][threadIdx.x];
+    partial[static_cast<long long>(blockIdx.x) * P + threadIdx.x] = s;
+  }
+  // publish the triangle, then take a ticket; the last block merges
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&counters[0], 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // element p over the blocks in nr contiguous runs (a thread a run), the
+  // runs then added in order
+  const int blocks = static_cast<int>(gridDim.x);
+  const int nr = kRuns < blocks ? kRuns : blocks;
+  const int r = threadIdx.x / P, p = threadIdx.x % P;
+  if (r < nr) run_sums[r][p] = sum_splits(partial + p, P, blocks * r / nr, blocks * (r + 1) / nr);
+  __syncthreads();
+  if (threadIdx.x < P) {
+    float s = run_sums[0][p];
+    for (int k = 1; k < nr; ++k) s += run_sums[k][p];
+    int i = 0, rest = p;  // (i, j) of the row-major index p
+    while (rest >= M - i) {
+      rest -= M - i;
+      ++i;
+    }
+    const int j = i + rest;
+    out[i * M + j] = s;
+    out[j * M + i] = s;
+  }
+  if (threadIdx.x == 0) counters[0] = 0;
+}
+
+// Launch the instance for m rows (M up to kRowsMax).
+template <int M>
+int launch_rows(int m, const float* g, long long stride, long long d, long long run, int blocks,
+                float* partial, int* counters, float* out, cudaStream_t stream) {
+  if (m == M) {
+    gram_rows_kernel<M><<<blocks, kRowThreads, 0, stream>>>(g, stride, d, run, partial,
+                                                            counters, out);
+    return cudaGetLastError();
+  }
+  if constexpr (M < kRowsMax)
+    return launch_rows<M + 1>(m, g, stride, d, run, blocks, partial, counters, out, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Check a few-row plan (route, m, d, blocks, run, partial floats): runs a
+// positive multiple of 4 columns, the blocks covering d with none empty,
+// the partials within the workspace.
+bool read_rows_plan(const long long* a, int len, int m, long long d, long long partial_len,
+                    int* blocks, long long* run) {
+  if (len != kRowsPlanLen || a[0] != kRouteRows || a[1] != m || a[2] != d || m < 1 ||
+      m > kRowsMax || d < 1 || d > kMaxWindows * kWindow)
+    return false;
+  const long long b = a[3], r = a[4], floats = a[5];
+  if (r < 4 || r % 4 != 0 || b < 1 || b > kMaxRowBlocks || b * r < d || (b - 1) * r >= d ||
+      floats != b * m * (m + 1) / 2 || floats > partial_len)
+    return false;
+  *blocks = static_cast<int>(b);
+  *run = r;
+  return true;
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -583,9 +822,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Read the plan (kPlanHead values, then kPlanTile a tile) into `plan` and
-// check it against the tiles this kernel computes. Returns false if the
-// kernel cannot take it.
+// Read the tensor-core plan (after its route: kPlanHead values, then
+// kPlanTile a tile) into `plan` and check it against the tiles this kernel
+// computes. Returns false if the kernel cannot take it.
 bool read_plan(const long long* a, int len, int m, long long d, long long partial_len,
                Plan* plan, int* blocks, int* smem) {
   if (len < kPlanHead) return false;
@@ -640,17 +879,28 @@ extern "C" const char* cuda_error_string(int err) {
 }
 
 // g: (m, d) f32 rows `row_stride` floats apart, g and the stride 16-byte
-// aligned; plan: gram_plan's values (see read_plan); partial: at least the
-// plan's partial floats; counters: two ints, zero on entry and on exit;
-// out: (m, m) f32. One cooperative launch on `stream`.
+// aligned; plan: gram_plan's values, the route first (see read_rows_plan
+// and read_plan); partial: at least the plan's partial floats; counters:
+// two ints, zero on entry and on exit; out: (m, m) f32. One launch on
+// `stream`: the few-row kernel, or the tensor-core kernel (cooperative).
 extern "C" int gram_f32(const float* g, long long row_stride, int m, long long d,
                         const long long* plan_values, int plan_len, float* partial,
                         long long partial_len, int* counters, float* out, void* stream) {
+  if (plan_len < 1 || reinterpret_cast<uintptr_t>(g) % 16 != 0 || (row_stride * 4) % 16 != 0 ||
+      (m > 1 && row_stride < d))
+    return cudaErrorInvalidValue;
+  if (plan_values[0] == kRouteRows) {
+    int blocks = 0;
+    long long run = 0;
+    if (!read_rows_plan(plan_values, plan_len, m, d, partial_len, &blocks, &run))
+      return cudaErrorInvalidValue;
+    return launch_rows<1>(m, g, row_stride, d, run, blocks, partial, counters, out,
+                          static_cast<cudaStream_t>(stream));
+  }
   Plan plan;  // copied into the launch's parameters
   int blocks = 0, smem = 0;
-  if (!read_plan(plan_values, plan_len, m, d, partial_len, &plan, &blocks, &smem) ||
-      reinterpret_cast<uintptr_t>(g) % 16 != 0 || (row_stride * 4) % 16 != 0 ||
-      (m > 1 && row_stride < d))
+  if (plan_values[0] != kRouteTiles ||
+      !read_plan(plan_values + 1, plan_len - 1, m, d, partial_len, &plan, &blocks, &smem))
     return cudaErrorInvalidValue;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;

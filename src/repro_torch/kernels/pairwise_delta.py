@@ -1,18 +1,28 @@
 """Wrapper of the Hopper Gram kernel (``csrc/gram.cu``).
 
-Replaces ``repro.kernels.pairwise_delta.gram_pallas``. The kernel computes
-the upper triangle of ``G Gᵀ`` of the (m, d) stacked gradients in 3xTF32
-on the tensor cores (wgmma), split over d in one wave of blocks that then
-merge their partial triangles in the same launch, and mirrors it; Δ is formed
+Replaces ``repro.kernels.pairwise_delta.gram_pallas``. One C entry, one
+launch a call, two routes, which the plan picks from m alone:
+
+* m <= M_ROWS, the few-row route (the collaboration round's 2-4 rows at
+  LLM width): a streaming kernel on the CUDA cores, bound by the bytes of
+  G. Each block sums a run of d into its triangle in f32 registers, and the
+  last block to finish sums the blocks' triangles in block order;
+* m > M_ROWS, the tensor-core route: the upper triangle of ``G Gᵀ`` in
+  3xTF32 on the tensor cores (wgmma), split over d in one wave of blocks
+  that then merge their partial triangles in the same launch.
+
+Both mirror the triangle, so the result is exactly symmetric; Δ is formed
 from it in plain torch by :func:`repro_torch.kernels.ops.pairwise_delta`,
 as the reference does.
 
-:func:`gram_plan` is the launch plan, a function of shapes alone: the
-tiles of the triangle, each tile's splits of d and their chunk, the ring's
-stages, the grid and the workspace. :func:`gram_aligned` says whether the
-kernel can read a tensor where it lies (TMA needs a 16-byte aligned base
-and row stride); any other input is first copied into a zero-padded
-scratch of width ``round_up(d, 4)``, counted by ``GRAM.padded``.
+:func:`gram_plan` is the launch plan, a function of shapes alone: for the
+few-row route the blocks and their runs of columns, for the tensor-core
+route the tiles of the triangle, each tile's splits of d and their chunk,
+the ring's stages, the grid and the workspace. :func:`gram_aligned` says
+whether the kernel can read a tensor where it lies (a 16-byte aligned base
+and row stride: TMA's rule, and the few-row route's float4 loads); any
+other input is first copied into a zero-padded scratch of width
+``round_up(d, 4)``, counted by ``GRAM.padded``.
 """
 from __future__ import annotations
 
@@ -33,6 +43,14 @@ MAX_WIDTH = 2**33  # most columns: 8 maps (a TMA coordinate is a signed 32-bit i
 STAGES = 4        # slices in flight a block
 SLICE_BYTES = TILE * DEPTH * 4
 SPLIT_SLICES = 4  # two buffers of the column operand's split, a big and a small slice each
+# the plan takes the few-row route for m <= M_ROWS: csrc/gram.cu's
+# gram_rows_kernel holds up to 16 rows (its triangle's sums in registers),
+# and it is faster than the tensor-core route at every m it holds
+# (PERF.md, the gram findings)
+M_ROWS = 16
+ROW_THREADS = 256  # threads a block of gram_rows_kernel
+RUN_MIN = 4 * ROW_THREADS  # a block's fewest columns: a quad (float4) a thread
+ROUTE_TILES, ROUTE_ROWS = 0, 1  # a plan's first value
 
 
 class GramKernel(_build.Kernel):
@@ -70,12 +88,29 @@ class GramPlan(NamedTuple):
     smem_bytes: int
     partial_floats: int
 
+    route = "tiles"
+
     def values(self) -> list:
-        """The plan as the kernel reads it: m, d, tiles, blocks, stages,
-        slices, shared memory, then 7 values a tile."""
-        head = [self.m, self.d, len(self.tiles), self.blocks, self.stages, self.slices,
-                self.smem_bytes]
+        """The plan as the kernel reads it: the route, m, d, tiles, blocks,
+        stages, slices, shared memory, then 7 values a tile."""
+        head = [ROUTE_TILES, self.m, self.d, len(self.tiles), self.blocks, self.stages,
+                self.slices, self.smem_bytes]
         return head + [v for t in self.tiles for v in t]
+
+
+class GramRowsPlan(NamedTuple):
+    m: int
+    d: int
+    blocks: int          # the grid, at most one block an SM
+    run: int             # columns a block, a multiple of 4; the last block's run ends at d
+    partial_floats: int  # a block's m(m+1)/2 triangle sums each
+
+    route = "rows"
+
+    def values(self) -> list:
+        """The plan as the kernel reads it: the route, m, d, blocks, run,
+        partial floats."""
+        return [ROUTE_ROWS, self.m, self.d, self.blocks, self.run, self.partial_floats]
 
 
 def halves(m: int, b: int) -> int:
@@ -91,8 +126,32 @@ def tile_jobs(m: int, bi: int, bj: int) -> list:
             if bi != bj or c >= h]
 
 
-def gram_plan(m: int, d: int, sm_count: int) -> GramPlan:
-    """The launch of ``G Gᵀ`` for G (m, d), m, d > 0, on ``sm_count`` SMs.
+def gram_plan(m: int, d: int, sm_count: int):
+    """The launch of ``G Gᵀ`` for G (m, d), m, d > 0, on ``sm_count`` SMs:
+    :func:`rows_plan` for m <= M_ROWS, else :func:`tile_plan`. Raises
+    ValueError past MAX_WIDTH columns."""
+    if m <= 0 or d <= 0 or sm_count <= 0:
+        raise ValueError(f"gram_plan: m, d and sm_count must be positive, got {(m, d, sm_count)}")
+    if d > MAX_WIDTH:
+        raise ValueError(f"gram_plan: d = {d} columns, past the kernel's {MAX_WIDTH} (2^33)")
+    return rows_plan(m, d, sm_count) if m <= M_ROWS else tile_plan(m, d, sm_count)
+
+
+def rows_plan(m: int, d: int, sm_count: int) -> GramRowsPlan:
+    """The few-row route's launch (m <= M_ROWS): runs of
+    ``max(RUN_MIN, round_up(ceil(d / sm_count), 4))`` columns, a block each,
+    so at most one block an SM and every run 16-byte aligned on aligned
+    rows; the workspace holds a triangle a block."""
+    if not 0 < m <= M_ROWS or d <= 0 or sm_count <= 0:
+        raise ValueError(f"rows_plan: needs 0 < m <= {M_ROWS} and positive d and sm_count, "
+                         f"got {(m, d, sm_count)}")
+    run = max(RUN_MIN, -(-(-(-d // sm_count)) // 4) * 4)
+    blocks = -(-d // run)
+    return GramRowsPlan(m, d, blocks, run, blocks * m * (m + 1) // 2)
+
+
+def tile_plan(m: int, d: int, sm_count: int) -> GramPlan:
+    """The tensor-core route's launch.
 
     The tiles (bi, bj), bi <= bj, of 128 rows cover the upper triangle.
     Each gets splits of d in proportion to its jobs, at least one, so that
@@ -131,7 +190,8 @@ def gram_plan(m: int, d: int, sm_count: int) -> GramPlan:
 def gram_aligned(ptr: int, row_stride: int, d: int, col_stride: int = 1) -> bool:
     """Whether the kernel reads G (rows ``row_stride`` floats apart, from
     ``ptr``) where it lies: unit column stride, a 16-byte aligned base and
-    row stride (TMA's rule), and rows that do not overlap."""
+    row stride (TMA's rule, and the few-row route's float4 loads), and
+    rows that do not overlap."""
     return col_stride == 1 and ptr % 16 == 0 and row_stride % 4 == 0 and row_stride >= d
 
 
@@ -148,8 +208,9 @@ def _plan_values(m: int, d: int, sms: int):
     return plan, (ctypes.c_longlong * len(vals))(*vals)
 
 
-# (device index, stream) -> the grid barrier's two counters (zeroed once,
-# left at zero by every launch) and the partials, as (tensor, tensor).
+# (device index, stream) -> the grid barrier's two counters (the few-row
+# route's ticket is the first; zeroed once, left at zero by every launch)
+# and the partials, as (tensor, tensor).
 # Launches on one stream run in order, so they share the buffers; the
 # partials grow when a launch needs more.
 _WORKSPACE: dict[tuple[int, int], tuple] = {}

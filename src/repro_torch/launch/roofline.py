@@ -18,7 +18,8 @@ The constants are data-sheet figures of the NVIDIA H100 SXM5 80GB HBM3
 989 TFLOP/s, TF32 495 TFLOP/s, f32 on the CUDA cores 67 TFLOP/s; NVLink 4
 at 900 GB/s both ways, counted as 450 GB/s a direction for the collective
 term. The port runs with TF32 off (ROADMAP C2), so an f32 product counts
-at the CUDA cores' 67 TFLOP/s, and gram's 3xTF32 products at 495 / 3.
+at the CUDA cores' 67 TFLOP/s, and gram's 3xTF32 products at 495 / 3
+(its few-row route's f32 products at 67).
 
 MODEL_FLOPS is the textbook 6·N·D (train) / 2·N·D (forward only), with N
 replaced by N_active for MoE; the ratio MODEL_FLOPS / counted FLOPs exposes
@@ -32,6 +33,7 @@ from typing import Dict
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core.pytree import leaves
+from repro_torch.kernels.pairwise_delta import M_ROWS
 
 # NVIDIA H100 SXM5 80GB HBM3 (700 W) data sheet
 HBM_BW = 3.35e12  # bytes/s
@@ -71,10 +73,13 @@ class Work:
 def gram_work(m: int, width: int, elem: int = 4, useful_width: int | None = None) -> Work:
     """G Gᵀ of (m, width) rows -> (m, m) f32: the upper triangle's
     m(m + 1)/2 dot products of ``useful_width`` columns (the rows' true
-    width; ``width`` where None), each multiply-add three TF32 products
-    (kind ``tf32x3``: a third of the TF32 peak)."""
+    width; ``width`` where None), in the arithmetic of the route the
+    kernel's plan takes at m: f32 on the CUDA cores (kind ``float32``) at
+    m <= M_ROWS, else three TF32 products a multiply-add (kind ``tf32x3``:
+    a third of the TF32 peak)."""
     d = width if useful_width is None else useful_width
-    return Work(elem * m * width + 4 * m * m, m * (m + 1) * d, "tf32x3")
+    return Work(elem * m * width + 4 * m * m, m * (m + 1) * d,
+                "float32" if m <= M_ROWS else "tf32x3")
 
 
 def mix_aggregate_work(k: int, m: int, d: int, elem: int = 4) -> Work:

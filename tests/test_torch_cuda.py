@@ -7,11 +7,13 @@ only torch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 sums in another order, so 1e-5 of the largest output; the
-k-means labels (ties included) are exact. gram (3xTF32 on the tensor
-cores) is also exactly symmetric, two calls give the same bits, each call
-is one launch with no synchronizing call, it copies only rows TMA cannot
-read, and on clustered rows its Δ is within 2x the error of ``g @ g.T``
-in full f32 against an f64 Gram; a plan it cannot take is refused. The mix and the masked
+k-means labels (ties included) are exact. gram (the few-row route's f32
+CUDA-core sums at m <= M_ROWS, else 3xTF32 on the tensor cores) is also
+exactly symmetric, two calls give the same bits, each call with d > 0 is
+one launch with no synchronizing call, it copies only rows it cannot read
+where they lie (a 16-byte base and row stride), and on clustered rows its
+Δ is within 2x the error of ``g @ g.T`` in full f32 against an f64 Gram;
+a plan it cannot take is refused. The mix and the masked
 mix-scatter run one register-tiled core (``csrc/mix_tile.cuh``) whose sums
 run in order, so their bits are exact where the order is the same: two
 calls, W with zero pad columns against the unpadded W, and the identity
@@ -51,7 +53,7 @@ from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER
 from repro_torch.kernels.mix_aggregate import MIX, mix_plan
 from repro_torch.kernels import pairwise_delta
 from repro_torch.kernels.cohort_gather import GATHER
-from repro_torch.kernels.pairwise_delta import GRAM
+from repro_torch.kernels.pairwise_delta import GRAM, M_ROWS
 
 
 def cuda_device():
@@ -72,6 +74,18 @@ GRAM_CASES = [  # (m, d, row stride or None for contiguous, padded copy)
     (130, 1000, None, False),    # a second row tile of 2 rows
     (100, 1000, 1040, False),    # a row-strided view: read where it lies
     (100, 1000, 1001, True),     # a row stride TMA cannot take
+    # the few-row route (m <= M_ROWS)
+    (2, 47616, None, False),     # the collaboration round's widest rows have 2 clients
+    (3, 47616, None, False),
+    (4, 47616, None, False),     # gram_m4
+    (4, 47571, 47616, False),    # d % 4 = 3 on aligned rows: the kernel masks the tail
+    (2, 1003, 1004, False),
+    (3, 1001, None, True),       # d % 4 = 1, contiguous: rows 4 bytes apart, the padded copy
+    (4, 1000, 1001, True),       # a row stride float4 loads cannot take
+    (4, 0, None, False),         # no columns: zeros, no launch
+    (1, 5, None, True),
+    (M_ROWS, 47616, None, False),
+    (M_ROWS + 1, 47616, None, False),  # the tensor-core route's fewest rows
 ]
 
 
@@ -89,13 +103,13 @@ def gram_input(m, d, stride, dev, seed=0):
 @pytest.mark.parametrize("m,d,stride,padded", GRAM_CASES)
 def test_cuda_gram_matches_plain(m, d, stride, padded):
     """Exactly symmetric, within 1e-5 of the largest entry of the plain
-    version, one launch a call, a padded copy only where TMA cannot read
-    the rows, and two calls bit-equal."""
+    version, one launch a call with columns (none without), a padded copy
+    only where the kernel cannot read the rows, and two calls bit-equal."""
     dev = cuda_device()
     g = gram_input(m, d, stride, dev)
     launches, copies = GRAM.launches, GRAM.padded
     got = ops.gram(g, impl="cuda")
-    assert GRAM.launches - launches == 1 and GRAM.padded - copies == int(padded)
+    assert GRAM.launches - launches == int(d > 0) and GRAM.padded - copies == int(padded)
     want = ref.gram(g)
     torch.cuda.synchronize()
     assert torch.equal(got, got.T)
@@ -162,25 +176,73 @@ def test_cuda_gram_makes_no_synchronizing_call():
     torch.cuda.synchronize()
 
 
-@pytest.mark.cuda
-def test_cuda_gram_refuses_a_plan_it_cannot_take():
-    """A plan whose chunk is not a whole number of ring stages, or whose
-    tile list is short, is refused before any launch; the counters stay
-    at zero, so the next call runs."""
+def assert_plans_refused(m, bads, partial_floats):
+    """Each plan in ``bads`` is refused before any launch; the counters
+    stay at zero, so the next call runs."""
     dev = cuda_device()
-    g = gram_input(100, 1000, None, dev)
-    plan = pairwise_delta.gram_plan(100, 1000, 132)
-    for bad in (plan.values()[:-1], plan.values()[:11] + [plan.values()[11] + 1]
-                + plan.values()[12:]):
+    g = gram_input(m, 1000, None, dev)
+    for bad in bads:
         vals = (ctypes.c_longlong * len(bad))(*bad)
         counters = torch.zeros(2, dtype=torch.int32, device=dev)
-        partial = torch.empty(plan.partial_floats, device=dev)
-        out = torch.empty(100, 100, device=dev)
+        partial = torch.empty(partial_floats, device=dev)
+        out = torch.empty(m, m, device=dev)
         with pytest.raises(RuntimeError, match="invalid argument"):
-            GRAM(dev, g.data_ptr(), 1000, 100, 1000, ctypes.cast(vals, ctypes.c_void_p),
+            GRAM(dev, g.data_ptr(), 1000, m, 1000, ctypes.cast(vals, ctypes.c_void_p),
                  len(bad), partial.data_ptr(), partial.numel(), counters.data_ptr(),
                  out.data_ptr())
     assert torch.equal(ops.gram(g, impl="cuda"), ops.gram(g, impl="cuda"))
+
+
+@pytest.mark.cuda
+def test_cuda_gram_refuses_a_plan_it_cannot_take():
+    """A plan whose chunk is not a whole number of ring stages, whose tile
+    list is short, or whose route is unknown, is refused before any
+    launch; the counters stay at zero, so the next call runs."""
+    plan = pairwise_delta.gram_plan(100, 1000, 132)
+    v = plan.values()
+    assert_plans_refused(100, (v[:-1], v[:12] + [v[12] + 1] + v[13:], [7] + v[1:]),
+                         plan.partial_floats)
+
+
+@pytest.mark.cuda
+def test_cuda_gram_few_rows_refuse_a_plan_they_cannot_take():
+    """A few-row plan whose run is not a multiple of 4 columns, whose
+    blocks leave columns out, whose partials are miscounted or past the
+    workspace, or whose values are short or long, is refused before any
+    launch."""
+    plan = pairwise_delta.gram_plan(4, 1000, 132)
+    route, m, d, blocks, run, floats = v = plan.values()
+    assert route == pairwise_delta.ROUTE_ROWS
+    assert_plans_refused(4, ([route, m, d, blocks, run + 2, floats],
+                             [route, m, d, blocks, 4, floats],
+                             [route, m, d, blocks, run, floats - 1],
+                             [route, m, d, blocks, run, 2**21], v[:-1], v + [0]), 2**20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+def test_cuda_gram_few_rows_against_f64(m):
+    """The few-row route on clustered rows (2 groups, noise 1e-3 of the
+    norm) at 4,194,307 columns: within 1e-6 of the largest entry of an f64
+    Gram (its f32 sums run over ~124 columns a thread), Δ no worse than
+    from ``g @ g.T`` in full f32, one launch and no synchronizing call."""
+    dev = cuda_device()
+    g = clustered_rows(m, 4_194_307, 2, 1e-3, dev).float()
+    launches = GRAM.launches
+    got = ops.gram(g, impl="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.gram(g, impl="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert GRAM.launches - launches == 2
+    exact = g.double() @ g.double().T
+    assert float((got.double() - exact).abs().max()) <= 1e-6 * float(exact.abs().max())
+    kernel = ref.delta_from_gram(got.double())
+    plain = ref.delta_from_gram((g @ g.T).double())
+    want = ref.delta_from_gram(exact)
+    assert float((kernel - want).abs().max()) <= float((plain - want).abs().max())
 
 
 @pytest.mark.cuda

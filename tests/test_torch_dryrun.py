@@ -141,6 +141,22 @@ def test_work_functions_give_the_kernel_table_bounds():
         assert float(f"{ms:.3g}") == want and got_by == by, (work, ms, got_by)
 
 
+@pytest.mark.parametrize("m,d,want", [(4, 616_599_552, 2.945), (2, 1_713_418_240, 4.09),
+                                      (2, 3 * 2**30 + 1_004, 7.69), (4, 47_616, 0.000227)])
+def test_gram_work_takes_the_route_kind(m, d, want):
+    """At m <= M_ROWS gram's few-row route multiplies in f32 on the CUDA
+    cores (kind ``float32``), above it in 3xTF32 (``tf32x3``); at the
+    collaboration rounds' few rows the bytes set the bound either way
+    (PERF.md rows 1b, 1f and the wide check)."""
+    from repro_torch.kernels.pairwise_delta import M_ROWS
+    work = roofline.gram_work(m, d)
+    ms, by = work.bound()
+    assert work.kind == "float32" and by == "bytes" and abs(ms - want) <= 2e-3 * want
+    assert roofline.gram_work(M_ROWS, d).kind == "float32"
+    assert roofline.gram_work(M_ROWS + 1, d).kind == "tf32x3"
+    assert roofline.gram_work(512, 47_616).kind == "tf32x3"
+
+
 def test_h100_constants_are_the_data_sheet_figures():
     assert roofline.HBM_BW == 3.35e12 and roofline.PEAK_BF16 == 989e12
     assert roofline.PEAK_TF32 == 495e12 and roofline.PEAK_F32 == 67e12

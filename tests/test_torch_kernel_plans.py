@@ -11,12 +11,17 @@ need: every row, column and point covered once, rows 16-byte aligned on
 the 16-byte path only, shared memory within a block's 227 KB, and, on the
 main path, θ read once (one row tile at k <= 128), a 50-slot cohort in one
 wave of blocks, and the centroids staged in one round trip. ``gram_plan``
-is held to the triangle: its tiles' 64 x 64 jobs cover every element
-with row <= col < m once and no job lies wholly below the diagonal, each
+picks its route from m alone: at m <= M_ROWS the few-row route, whose
+m(m+1)/2 sums cover the triangle once, whose blocks' runs cover d once,
+each 16-byte aligned, in one wave of one block an SM (up to 2^33 columns,
+the values exact), with a triangle a block in the workspace; above it the
+tensor-core route, whose tiles' 64 x 64 jobs cover every element with
+row <= col < m once and no job lies wholly below the diagonal, each
 tile's splits cover d in chunks of whole ring stages, and the grid is one
-wave of one block an SM; ``gram_aligned`` picks the path that TMA can
-read (16-byte base and row stride) or the padded copy.
+wave of one block an SM; ``gram_aligned`` picks the path that both routes
+can read (16-byte base and row stride) or the padded copy.
 """
+import ctypes
 import itertools
 
 import pytest
@@ -24,8 +29,9 @@ import pytest
 from repro_torch.kernels.kmeans_assign import (MAX_SMEM_BYTES, SMEM_BYTES, WARPS, kmeans_plan,
                                                row_stride)
 from repro_torch.kernels.mix_aggregate import BK, MIX_TILES, mix_plan
-from repro_torch.kernels.pairwise_delta import (DEPTH, HALF, MAX_WIDTH, TILE, WINDOW,
-                                                gram_aligned, gram_plan, tile_jobs)
+from repro_torch.kernels.pairwise_delta import (DEPTH, HALF, M_ROWS, MAX_WIDTH, ROW_THREADS,
+                                                RUN_MIN, TILE, WINDOW, gram_aligned, gram_plan,
+                                                rows_plan, tile_jobs, tile_plan)
 
 ALIGNED = (0x7F0000000000, 0x7F0000100000)  # two 256-byte aligned base pointers
 BLOCK_SMEM = 232_448  # a block's most dynamic shared memory on an H100
@@ -211,16 +217,43 @@ def test_kmeans_plan_wide_rows():
     assert (empty.stride, empty.chunk, empty.vec) == (4, 3, True)
 
 
-GRAM_SHAPES = list(itertools.product((1, 7, 16, 64, 65, 100, 128, 129, 130, 300, 512),
-                                      (1, 33, 1000, 47_616)))
+GRAM_SHAPES = list(itertools.product((1, 2, 3, 4, 7, 16, 17, 64, 65, 100, 128, 129, 130, 300,
+                                       512), (1, 33, 1000, 47_616)))
+
+
+def runs(plan):
+    """The few-row plan's blocks' columns [c0, c1), as the kernel reads them."""
+    return [(b * plan.run, min((b + 1) * plan.run, plan.d)) for b in range(plan.blocks)]
+
+
+def check_rows_plan(plan, m, d):
+    """The few-row plan covers [0, d) once in 16-byte aligned runs, one
+    block an SM, with a triangle a block in the workspace."""
+    assert plan.route == "rows" and (plan.m, plan.d) == (m, d)
+    runs_ = runs(plan)
+    assert len(runs_) == plan.blocks <= SMS
+    assert runs_[0][0] == 0 and runs_[-1][1] == d
+    assert all(c1 == n0 for (_, c1), (n0, _) in zip(runs_, runs_[1:]))
+    assert all(c0 % 4 == 0 and c1 > c0 for c0, c1 in runs_)
+    assert plan.run % 4 == 0 and plan.run >= RUN_MIN
+    assert plan.partial_floats == plan.blocks * m * (m + 1) // 2
+    assert plan.values() == [1, m, d, plan.blocks, plan.run, plan.partial_floats]
 
 
 @pytest.mark.parametrize("m,d", GRAM_SHAPES)
 def test_gram_plan_tiles_cover_the_upper_triangle_once(m, d):
-    """Every (row, col) with row <= col < m lies in exactly one 64 x 64 job
-    of one tile, and every job holds at least one such element (a diagonal
-    tile has no job below its diagonal)."""
+    """Every (row, col) with row <= col < m is summed exactly once: by the
+    few-row route's m(m+1)/2 sums at m <= M_ROWS, else by exactly one 64 x
+    64 job of one tile, and every job holds at least one such element (a
+    diagonal tile has no job below its diagonal)."""
     plan = gram_plan(m, d, SMS)
+    if m <= M_ROWS:
+        # the kernel's sums, row-major: p = i m - i (i - 1) / 2 + (j - i)
+        pairs = {i * m - i * (i - 1) // 2 + (j - i): (i, j) for i in range(m) for j in range(i, m)}
+        assert plan.route == "rows" and sorted(pairs) == list(range(m * (m + 1) // 2))
+        pairs = list(pairs.values())
+        assert set(pairs) == {(r, c) for r in range(m) for c in range(r, m)}
+        return
     row_tiles = -(-m // TILE)
     assert [(t.bi, t.bj) for t in plan.tiles] == [
         (bi, bj) for bi in range(row_tiles) for bj in range(bi, row_tiles)]
@@ -241,6 +274,9 @@ def test_gram_plan_tiles_cover_the_upper_triangle_once(m, d):
 @pytest.mark.parametrize("m,d", GRAM_SHAPES)
 def test_gram_plan_splits_cover_d(m, d):
     plan = gram_plan(m, d, SMS)
+    if m <= M_ROWS:
+        check_rows_plan(plan, m, d)
+        return
     for t in plan.tiles:
         assert t.chunk % DEPTH == 0 and t.chunk >= DEPTH
         assert t.splits * t.chunk >= d > (t.splits - 1) * t.chunk
@@ -249,8 +285,13 @@ def test_gram_plan_splits_cover_d(m, d):
 @pytest.mark.parametrize("m,d", GRAM_SHAPES)
 def test_gram_plan_is_one_wave(m, d):
     """One block an SM at most, the offsets consecutive, and the ring plus
-    the split copies within a block's most shared memory."""
+    the split copies within a block's most shared memory (the few-row
+    route's blocks hold their sums in registers)."""
     plan = gram_plan(m, d, SMS)
+    if m <= M_ROWS:
+        assert plan.blocks <= SMS and plan.blocks == -(-d // plan.run)
+        assert len(plan.values()) == 6
+        return
     first = part = 0
     for t in plan.tiles:
         assert (t.first_block, t.part_offset) == (first, part)
@@ -260,7 +301,40 @@ def test_gram_plan_is_one_wave(m, d):
     assert plan.slices == (2 if len(plan.tiles) > 1 else 1)
     assert plan.smem_bytes == 1024 + (plan.stages * plan.slices + 4) * TILE * DEPTH * 4
     assert plan.smem_bytes <= BLOCK_SMEM
-    assert len(plan.values()) == 7 + 7 * len(plan.tiles)
+    assert len(plan.values()) == 8 + 7 * len(plan.tiles) and plan.values()[0] == 0
+
+
+@pytest.mark.parametrize("d", [1, 33, 1000, 47_616, 616_599_552, 2**31 + 4, MAX_WIDTH])
+def test_gram_route_is_chosen_by_m_alone(d):
+    """The few-row route up to M_ROWS rows, the tensor-core route from
+    M_ROWS + 1, at 50 (FedFomo's cohort) and at 512 clients, whatever d."""
+    assert 4 <= M_ROWS <= 49
+    for m in (1, 2, 3, 4, M_ROWS):
+        assert gram_plan(m, d, SMS).route == "rows"
+    for m in (M_ROWS + 1, 50, 100, 512):
+        if m > TILE and d > 2**32:
+            continue  # 10 tiles' splits would pass 2^30 columns: the plan refuses it
+        assert gram_plan(m, d, SMS).route == "tiles"
+
+
+@pytest.mark.parametrize("m,d", [(4, 47_616), (4, 616_599_552), (2, 1_713_418_240),
+                                 (4, 930_152_448), (4, 984_560_384), (2, 3 * 2**30 + 1_004),
+                                 (M_ROWS, 2**31 + 1), (1, MAX_WIDTH), (3, 5), (4, 47_571)])
+def test_gram_rows_plan_covers_d_once(m, d):
+    """The few-row plan at the collaboration rounds' shapes, past 2^31
+    columns and up to MAX_WIDTH: runs cover [0, d) once, each starting on
+    a multiple of 4 columns (16 bytes), their offsets exact as 64-bit
+    values (a run start past 2^31 is no wrapped 32-bit int), one block an
+    SM, and the workspace holds the blocks' triangles (the wrapper's
+    workspace is at least 2^20 floats)."""
+    plan = rows_plan(m, d, SMS)
+    check_rows_plan(plan, m, d)
+    if d > 2**31:
+        assert runs(plan)[-1][1] > 2**31  # the last run reaches past a 32-bit offset
+    vals = plan.values()
+    assert list((ctypes.c_longlong * len(vals))(*vals)) == vals  # exact as the kernel's int64s
+    assert plan.partial_floats <= SMS * M_ROWS * (M_ROWS + 1) // 2 <= 2**20
+    assert ROW_THREADS * 4 == RUN_MIN
 
 
 def test_gram_plan_at_the_main_path():
@@ -292,16 +366,19 @@ def test_gram_plan_at_512_clients():
 
 def test_gram_plan_at_the_widest_collaboration_rows():
     """mixtral-8x7b's collaboration rows at its published widths, 1 of 32
-    layers, 2 clients: 1,713,418,240 columns. One diagonal tile in 132
-    splits of 12,980,448 columns. Past 2^31 columns the kernel reads a
-    split through the TMA map of the 2^30-column window that holds its
-    first column, so each stage's coordinate, counted from that window's
-    base, stays a signed 32-bit int up to MAX_WIDTH = 2^33 columns."""
+    layers, 2 clients: 1,713,418,240 columns, the few-row route: 132 runs
+    of 12,980,444 columns, a block each. Past 2^31 columns the kernel
+    addresses a run with 64-bit offsets, up to MAX_WIDTH = 2^33 columns.
+    The tensor-core route (at m > M_ROWS) reads a split through the TMA
+    map of the 2^30-column window that holds its first column, so each
+    stage's coordinate, counted from that window's base, stays a signed
+    32-bit int."""
     d = 1_713_418_240
-    (t,) = gram_plan(2, d, SMS).tiles
-    assert (t.jobs, t.splits, t.chunk) == (1, 132, 12_980_448)
+    plan = gram_plan(2, d, SMS)
+    assert (plan.route, plan.blocks, plan.run) == ("rows", 132, 12_980_444)
     for d in (d, 2**31, 3 * 2**30 + 1_004, MAX_WIDTH):
-        for t in gram_plan(2, d, SMS).tiles:
+        check_rows_plan(gram_plan(2, d, SMS), 2, d)
+        for t in tile_plan(M_ROWS + 1, d, SMS).tiles:
             assert t.chunk <= WINDOW and t.splits * t.chunk >= d
             for k0 in range(0, d, t.chunk):
                 j = k0 // WINDOW
@@ -321,6 +398,8 @@ def test_gram_plan_rejects():
         gram_plan(11 * TILE, 100, SMS)  # 66 tiles
     with pytest.raises(ValueError, match="tiles"):
         gram_plan(512, 100, 8)  # 10 tiles on 8 SMs
+    with pytest.raises(ValueError, match="m <= 16"):
+        rows_plan(M_ROWS + 1, 100, SMS)  # more rows than the route's registers hold
 
 
 @pytest.mark.parametrize("off,stride,d,col,aligned", [

@@ -28,7 +28,8 @@ def test_mix_aggregate_matches_reference(k, m, d):
     np.testing.assert_allclose(n(got), n(want), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("m,d", [(3, 64), (7, 300), (12, 1111)])
+@pytest.mark.parametrize("m,d", [(3, 64), (7, 300), (12, 1111),
+                                 (2, 1001), (4, 4099)])  # the collaboration round's few rows
 def test_gram_and_delta_match_reference(m, d):
     rng = np.random.default_rng(m + d)
     g = rng.normal(size=(m, d)).astype(np.float32)
