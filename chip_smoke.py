@@ -14,13 +14,18 @@ Phases, each printed as it ends:
                calls bit-equal, one launch and no synchronizing call a
                call, and Δ on clustered rows within 2x the error of
                ``g @ g.T`` in f32; gram past 2^31 columns on the few-row
-               route within F64_GRAM_TOL of an f64 Gram; mix_aggregate also at leaf widths,
+               route within F64_GRAM_TOL of an f64 Gram, timed beside
+               ``g @ g.T`` (or its refusal); mix_aggregate also at leaf widths,
                a second row tile, one rule and an offset view, with two calls
                bit-equal and 28 zero columns of W bit-invisible;
                mix_aggregate also at k = 1 (the FedAvg family's mean) and
                at the engine's shapes (k = 1 over the 109 buffer rows, the
                4 edge aggregates, ucfl_k4's 16 tiered partial rules and the
-               tier-2 combine over 4 edges);
+               tier-2 combine over 4 edges), each mix row naming its
+               route (the few-row route at k, m <= 16, else the tiles) and
+               a few-row call also timed on the tile route (``tiles_ms``)
+               and held bit for bit to it; the few-row route also in f32 and
+               bf16 at aligned and odd widths and on offset views;
                kmeans_assign also at k = 99 with a tie across lanes, timed;
                the cohort kernels also with pad
                slots, an all-pad cohort and an odd width, the gather also at
@@ -265,8 +270,11 @@ Phases, each printed as it ends:
                twice a layer), the step's wall, tokens/s, a profiled step
                and peak memory; one user-centric mix against the plain mix
                on every leaf, and the mix for k = 4, 2 and 1 against the
-               plain mix at every leaf width, timed at the widest (rows
-               ``mix_aggregate_lm_k*``); then
+               plain mix at every leaf width in the leaves' bf16 and in f32,
+               each few-row call bit for bit the tile route's (f32) or its
+               f32 output cast to bf16, timed at the widest (rows
+               ``mix_aggregate_lm_k*`` and ``mix_aggregate_lm_k*_bf16``, the
+               latter counting the steps' launches); then
                ``launch.train.main([--arch stablelm-1.6b --smoke --rounds
                20])``, its loss falling; then ``make_ucfl`` over reduced
                qwen2-7b's slab with last-token class logits, 3 cohort
@@ -294,7 +302,8 @@ Phases, each printed as it ends:
                whole, 4 clients; each built, run and freed before the next
                (a counted or measured peak past 76 GB, or a refused
                allocation, fails the phase). Each cell:
-               its user-centric step counted on meta (peak, kernel calls);
+               its user-centric step counted on meta (peak, kernel calls;
+               mixtral's also at 4 clients, printed only);
                the collaboration round through ``launch.train.collaboration``
                (mamba2, zamba2, mixtral: one gram launch, no padded copy,
                W finite and row-stochastic with its within-group mass, the
@@ -318,7 +327,7 @@ Phases, each printed as it ends:
                mixes at every leaf width for W, the centroid rules and the
                mean (``mix_lm_rows``, every width the step mixed), the
                K-means calls by ``recorded_rows``: rows ``gram_<family>``,
-               ``mix_aggregate_<family>_k<k>``,
+               ``mix_aggregate_<family>_k<k>`` and ``..._k<k>_bf16``,
                ``flash_attention_train_<family>`` (whisper's ``_encoder``,
                ``_self``, ``_cross``), ``kmeans_assign_family_train``; then
                ``launch.train.main`` on the reference's usage line (``--arch
@@ -395,7 +404,8 @@ from repro_torch.kernels.flash_attention import FLASH_DEC, FLASH_FMA, FLASH_TC  
 from repro_torch.kernels.flash_attention import flash_route  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ASSIGN  # noqa: E402
 from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER  # noqa: E402
-from repro_torch.kernels.mix_aggregate import MIX, MIX_TILES, mix_plan  # noqa: E402
+from repro_torch.kernels.mix_aggregate import (MIX, MIX_TILES, mix_aggregate_cuda,  # noqa: E402
+                                               mix_plan, tile_plan)
 from repro_torch.kernels.pairwise_delta import GRAM, gram_plan  # noqa: E402
 from repro_torch.launch import dryrun, op_analysis, roofline  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
@@ -544,7 +554,8 @@ STEP_DELTA_CAP = 0.75
 # slots (4 of 9 hybrid groups), 4 clients x 2 x 512 tokens (two SSD chunks
 # of 256, so the inter-chunk recurrence and its backward run);
 # mixtral-8x7b at 1 of 32 layers under remat_policy="save_moe", 2 clients
-# (its step at 4 counts 79.8 GB) x 4 x 256; whisper-large-v3 (4 x 256
+# (its step at 4 counted 79.8 GB with the mixes' f32 copies; the phase
+# prints today's count) x 4 x 256; whisper-large-v3 (4 x 256
 # decoder tokens over 1,500 stub frames) and internvl2-1b (4 x 256 tokens
 # after 256 patches) whole, 4 clients, with no collaboration round (the
 # reference's launch/train.py takes token batches only): their W is the two
@@ -684,6 +695,87 @@ def check(name, got, want, tol):
     return err
 
 
+def check_mix(name, got, want, chunk=2**24):
+    """A mix's output against the plain version's, in θ's dtype: f32 within
+    1e-5 of the largest output (f32 sums of m products in another order);
+    bf16 each element within one bf16 step of itself (2^-7 of it) plus that
+    allowance, since the two f32 sums may round to neighbouring bf16 values
+    and, where the terms cancel, differ by more than a step of the small
+    result (compared over column chunks: a leaf's f32 copies are large).
+    Returns the largest |got - want|."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} against the plain "
+                             f"version's {want.dtype} {tuple(want.shape)}")
+    top = float(want.abs().max()) if want.numel() else 0.0
+    if got.dtype == torch.float32:
+        return check(name, got, want, 1e-5 * top)
+    err = 0.0
+    for c0 in range(0, got.shape[1], chunk):
+        g, w = got[:, c0: c0 + chunk].float(), want[:, c0: c0 + chunk].float()
+        diff = (g - w).abs()
+        if not bool((diff <= 2.0 ** -7 * w.abs() + 1e-5 * top).all()):
+            raise AssertionError(f"{name}: an element is more than one bf16 step of itself plus "
+                                 f"1e-5 of the largest output off the plain version")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def mix_route(w, theta):
+    """(route, detail) of the launch ``ops.mix_aggregate(w, theta)`` makes
+    (``mix_plan``): "rows", the few-row route at k, m <= 16, or "tiles"."""
+    (k, mm), d = w.shape, theta.shape[1]
+    elem = theta.element_size()
+    plan = mix_plan(k, mm, d, theta.data_ptr(), theta.data_ptr(), elem=elem,
+                    sm_count=flash._sm_count(theta.device.index))
+    if plan.route == "rows":
+        return "rows", (f"few-row route, {str(theta.dtype)[6:]}: {plan.blocks} blocks of "
+                        f"{plan.run} columns, {'16-byte packs' if plan.vec else 'scalar path'}")
+    copy = "" if theta.dtype == torch.float32 else f", through an f32 copy of {theta.dtype}"
+    return "tiles", (f"tile route: tile {plan.tile} ({MIX_TILES[plan.tile].rows} rows), "
+                     f"{plan.blocks} blocks{copy}")
+
+
+def hold_mix_bits(name, w, theta, got):
+    """A few-row mix's output ``got`` bit for bit against the tile route:
+    f32 its output, bf16 its f32 output on the widened θ cast to bf16 (the
+    path before the few-row route). A tile-route call is not held. Returns
+    whether the call was held."""
+    if mix_route(w, theta)[0] != "rows":
+        return False
+    tiles = mix_aggregate_cuda(w, theta.float(), route="tiles")
+    if not torch.equal(got, tiles.to(theta.dtype)):
+        raise AssertionError(f"{name}: the few-row route's {theta.dtype} output differs from "
+                             f"the tile route's f32 output cast to {theta.dtype}")
+    return True
+
+
+def mix_row(name, w, theta, dev, reps=30, work=None):
+    """A kernel row of the mix on (w, θ): the kernel against the plain
+    version (``check_mix``), a few-row call against the tile route
+    (``hold_mix_bits``); timed beside the plain version, the library call
+    ``w.to(θ.dtype) @ θ`` and, for a few-row call, the tile route
+    (``tiles_ms``: for bf16 θ the f32 copy, the tile route and the cast
+    back). ``work`` defaults to the call's own."""
+    (k, mm), width = w.shape, theta.shape[1]
+    got = ops.mix_aggregate(w, theta, impl="cuda")
+    want = ref.mix_aggregate(w, theta)
+    err = check_mix(name, got, want)
+    del want
+    route, detail = mix_route(w, theta)
+    held = hold_mix_bits(name, w, theta, got)
+    del got
+    r = dict(source="src/repro_torch/kernels/csrc/mix_aggregate.cu",
+             replaces="src/repro/kernels/mix_aggregate.py:40", max_abs_err=err,
+             ms=time_ms(lambda: ops.mix_aggregate(w, theta, impl="cuda"), dev, reps),
+             plain_ms=time_ms(lambda: ref.mix_aggregate(w, theta), dev, reps),
+             library_ms=time_ms(lambda: w.to(theta.dtype) @ theta, dev, reps),
+             mix_route=route, route_detail=detail, tile_bits=int(held),
+             work=work or roofline.mix_aggregate_work(k, mm, width, theta.element_size()))
+    if route == "rows":
+        r["tiles_ms"] = time_ms(lambda: mix_aggregate_cuda(w, theta, route="tiles"), dev, reps)
+    return r
+
+
 def kernel_phase(dev):
     """Each kernel against its plain version at main-path shapes."""
     t0 = time.perf_counter()
@@ -710,17 +802,7 @@ def kernel_phase(dev):
                         ("mix_aggregate_k16_m50", EDGES * 4, 50),
                         ("mix_aggregate_k1_m4", 1, EDGES)):
         w = torch.softmax(torch.randn(k, mm, generator=gen, device=dev), dim=1)
-        th = theta[:mm]
-        want = ref.mix_aggregate(w, th)
-        err = check(f"mix k={k} m={mm}", ops.mix_aggregate(w, th, impl="cuda"), want,
-                    1e-5 * float(want.abs().max()))
-        rows[name] = dict(
-            source="src/repro_torch/kernels/csrc/mix_aggregate.cu",
-            replaces="src/repro/kernels/mix_aggregate.py:40", max_abs_err=err,
-            ms=time_ms(lambda w=w, th=th: ops.mix_aggregate(w, th, impl="cuda"), dev),
-            plain_ms=time_ms(lambda w=w, th=th: ref.mix_aggregate(w, th), dev),
-            library_ms=time_ms(lambda w=w, th=th: w @ th, dev),
-            work=roofline.mix_aggregate_work(k, mm, d_al))
+        rows[name] = mix_row(f"mix k={k} m={mm}", w, theta[:mm], dev)
     mix_sweep(gen, dev)
 
     # kmeans_assign: W's 100 rows against 4 centroids, plus an exact tie
@@ -772,6 +854,7 @@ def finish_row(name, r):
                 if "library_read_ms" in r else "")
              + (f"  f32 CUDA-core bound {r['bound_f32_ms']:.5f} ms"
                 if "bound_f32_ms" in r else "")
+             + (f"  tile route {r['tiles_ms']:.4f} ms" if "tiles_ms" in r else "")
              + (f"  [{r['plan']}]" if "plan" in r else "")
              + (f"  [{r['route_detail']}]" if "route_detail" in r else "")
              + (f"  [{r['shape']}]" if "shape" in r else ""))
@@ -868,7 +951,8 @@ def gram_wide_check(dev, m=2, d=3 * 2**30 + 1_004):
     symmetric, within ``f64_gram_gate`` of an f64 Gram (F64_GRAM_TOL). The
     columns from 2^31 on are 4 times the others, so a run read at a
     wrapped 32-bit offset is off by a large share of the diagonal. Timed
-    over 3 calls beside its bound."""
+    over 3 calls beside its bound and the library call ``g @ g.T`` (or the
+    error with which the library refuses it)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     g = 1e-2 * torch.randn(m, d, generator=gen, device=dev)
     g[:, 2**31:] *= 4.0
@@ -886,14 +970,21 @@ def gram_wide_check(dev, m=2, d=3 * 2**30 + 1_004):
         raise AssertionError(f"gram at {d} columns: error {err:.3e} against an f64 Gram is over "
                              f"{tol:.3e} of its largest entry {largest:.3e}")
     ms = time_ms(lambda: ops.gram(g, impl="cuda"), dev, 3)
+    try:  # the library call at this shape: cuBLAS's product over 2^31-plus columns
+        library = time_ms(lambda: g @ g.T, dev, 3)
+        library_note = f"{library:.3f} ms"
+    except RuntimeError as exc:  # a refusal is recorded, not a failure of the kernel's check
+        library, library_note = None, f"refused ({str(exc).splitlines()[0][:160]})"
     bound = roofline.gram_work(m, d).bound()[0]
     route, detail = gram_route(m, d, dev)
     del g
     torch.cuda.empty_cache()
     print(f"  gram at ({m}, {d}) past 2^31 columns, {detail}: against an f64 Gram it errs "
           f"{err:.3e} = {err / largest:.2e} of the largest entry {largest:.4e} (gate {tol:.2e}, "
-          f"{split} columns a block); {ms:.3f} ms a call (3 calls), bound {bound:.3f} ms")
-    return dict(m=m, d=d, err=err, largest=largest, tol=tol, ms=ms, bound_ms=bound, route=route)
+          f"{split} columns a block); {ms:.3f} ms a call (3 calls), bound {bound:.3f} ms; "
+          f"g @ g.T {library_note}")
+    return dict(m=m, d=d, err=err, largest=largest, tol=tol, ms=ms, bound_ms=bound, route=route,
+                library_ms=library, library_note=library_note)
 
 
 def gram_row(name, g, d, dev, *, against_f64=False, reps=30, reads=True):
@@ -1026,8 +1117,26 @@ def mix_sweep(gen, dev):
         th_pad = torch.cat([th, torch.randn(28, width, generator=gen, device=dev)], dim=0)
         if not torch.equal(first, ops.mix_aggregate(w_pad, th_pad, impl="cuda")):
             raise AssertionError(f"mix k={k} d={width}: 28 zero columns changed the bits")
-    print("  mix: 6 more shapes within 1e-5 of the largest output; two calls equal and 28 "
-          "zero columns bit-invisible at 3 shapes")
+    # the few-row route (k, m <= 16) in f32 and bf16: aligned and odd widths,
+    # narrower than a pack, θ one element into its buffer (the scalar path),
+    # each against the plain version and bit for bit the tile route
+    held = 0
+    for k, mm, width in ((4, 4, 65_536), (2, 4, 4_099), (1, 2, 5), (16, 16, 1_000),
+                         (3, 7, 2_056)):
+        for dtype in (torch.float32, torch.bfloat16):
+            w = torch.softmax(torch.randn(k, mm, generator=gen, device=dev), dim=1)
+            th = torch.randn(mm, width, generator=gen, device=dev).to(dtype)
+            buf = torch.empty(mm * width + 1, dtype=dtype, device=dev)
+            view = buf[1:].view(mm, width)
+            view.copy_(th)
+            for label, x in (("", th), (" offset view", view)):
+                name = f"mix k={k} m={mm} d={width} {dtype}{label}"
+                got = ops.mix_aggregate(w, x, impl="cuda")
+                check_mix(name, got, ref.mix_aggregate(w, x))
+                held += hold_mix_bits(name, w, x, got)
+    print(f"  mix: 6 more shapes within 1e-5 of the largest output; two calls equal and 28 "
+          f"zero columns bit-invisible at 3 shapes; the few-row route at {held} calls (f32, "
+          f"bf16, odd widths, offset views) bit for bit the tile route")
 
 
 def kmeans_k99(gen, dev, pts):
@@ -1119,13 +1228,13 @@ def cohort_kernel_rows(gen, dev, m, d_al, c=50, real=42):
         i2, m2 = padded_cohort(gen, dev, m, cc, rr)
         w2, th2 = scatter_rules(gen, dev, cc, rr, d_al)
         check_scatter(f"masked_mix_scatter c={cc}", w2, th2, i2, m2, full, rr)
-        plan = mix_plan(cc, cc, d_al, th2.data_ptr(), full.data_ptr())
+        plan = tile_plan(cc, cc, d_al, th2.data_ptr(), full.data_ptr())
         print(f"  masked_mix_scatter c={cc} ({rr} members): within 1e-5, pads bit-invisible, "
               f"tile {plan.tile} ({MIX_TILES[plan.tile].rows} rows), {plan.blocks} blocks")
     scratch = full.clone()
     live = idx[:real].long()
     w_live = w[:real].contiguous()
-    plan = mix_plan(c, c, d_al, theta.data_ptr(), scratch.data_ptr())
+    plan = tile_plan(c, c, d_al, theta.data_ptr(), scratch.data_ptr())
     rows["masked_mix_scatter"] = dict(
         source="src/repro_torch/kernels/csrc/masked_mix_scatter.cu",
         replaces="src/repro/kernels/masked_mix_scatter.py:132, "
@@ -4704,7 +4813,9 @@ def recorded_calls(copy=True):
 def hold_call(name, args, kw, dev):
     """One recorded call's inputs through the kernel and through its plain
     version, each at the tolerance of the kernel phase's row of that
-    kernel: a mix within 1e-5 of the largest output; the gather bit for
+    kernel: a mix by ``check_mix`` (f32 within 1e-5 of the largest output,
+    bf16 within a step of each output more), and a few-row mix bit for bit
+    the tile route (``hold_mix_bits``); the gather bit for
     bit; k-means labels equal and distances within 1e-5 of the largest;
     attention f32 within 2e-5, bf16 within one bf16 step element by
     element (``check_each``). Returns the error, the kernel's, the plain
@@ -4715,11 +4826,12 @@ def hold_call(name, args, kw, dev):
     if name == "mix_aggregate":
         w, theta = args
         (k, mm), width = w.shape, theta.shape[1]
-        want = ref.mix_aggregate(w, theta)
-        err = check(label, ops.mix_aggregate(w, theta, impl="cuda"), want,
-                    1e-5 * float(want.abs().max()))
+        got = ops.mix_aggregate(w, theta, impl="cuda")
+        err = check_mix(label, got, ref.mix_aggregate(w, theta))
+        hold_mix_bits(label, w, theta, got)
+        del got
         return (err, lambda: ops.mix_aggregate(w, theta, impl="cuda"),
-                lambda: ref.mix_aggregate(w, theta), lambda: w @ theta,
+                lambda: ref.mix_aggregate(w, theta), lambda: w.to(theta.dtype) @ theta,
                 roofline.mix_aggregate_work(k, mm, width, theta.element_size()))
     if name == "masked_mix_scatter":
         w, theta, idx, mask, full = args
@@ -4813,19 +4925,24 @@ def recorded_rows(tag, calls, dev):
         name, rec, _, kernel, plain, library, work = max(held, key=lambda h: h[6].bytes)
         source, replaces = SOURCES[name]
         row = f"{counter}_{tag}"
+        tensors = [a for a in rec["args"] if isinstance(a, torch.Tensor)]
         rows[row] = dict(
             source=f"src/repro_torch/kernels/csrc/{source}",
             replaces=f"src/repro/kernels/{replaces}", max_abs_err=max(h[2] for h in held),
             ms=time_ms(kernel, dev), plain_ms=time_ms(plain, dev),
             library_ms=None if library is None else time_ms(library, dev),
-            shape=f"{[list(a.shape) for a in rec['args'] if isinstance(a, torch.Tensor)]}"
-                  f" {rec['args'][0].dtype}, {len(held)} shape(s) held",
+            # the dtype of the largest argument: the data the kernel streams (θ, not W)
+            shape=f"{[list(a.shape) for a in tensors]} "
+                  f"{max(tensors, key=lambda a: a.numel()).dtype}, {len(held)} shape(s) held",
             work=work)
         if library is None:
             rows[row]["library_none"] = "SDPA takes no softcap"
         if counter == "gram":
             rows[row]["gram_route"], rows[row]["route_detail"] = gram_route(
                 *rec["args"][0].shape, dev)
+        if counter == "mix_aggregate":  # every few-row shape was held to the tile route's bits
+            rows[row]["mix_route"], rows[row]["route_detail"] = mix_route(*rec["args"])
+            rows[row]["tile_bits"] = sum(mix_route(*r["args"])[0] == "rows" for _, r, _ in group)
         launches[row] = sum(n for _, _, n in group)
     return rows, launches
 
@@ -5090,47 +5207,53 @@ def train_step_agree(dev, cfg, params0, w, batch, *, host=False):
 
 
 def mix_lm_rows(dev, params, w, centroid_w, *, tag="lm"):
-    """The train step's mixes on every leaf width of the trained params:
-    the kernel against the plain mix on the leaf's (m, numel) f32 view,
-    within 1e-5 of the largest output (f32 sums of m products), for W
-    (k = m), the 2 centroid rules and the mean (k = 1), each W rounded to
-    bf16 as the step rounds it; the rows ``mix_aggregate_<tag>_k<k>``
-    (one row for W and the centroid rules where both have k = 2), each
-    timed over 10 calls at the widest leaf (stablelm's 205.5 M-wide
-    embedding and head). Also every leaf of one user-centric mix
-    (``steps._mix_user_centric``) against the plain mix rounded to bf16:
+    """The train step's mixes on every leaf width of the trained params, in
+    the leaves' storage dtype (the step's own calls: bf16) and on each
+    leaf's f32 widening: the kernel against the plain mix (``check_mix``)
+    and each few-row call bit for bit against the tile route
+    (``hold_mix_bits``), for W (k = m), the 2 centroid rules and the mean
+    (k = 1), each W rounded to bf16 as the step rounds it; the rows
+    ``mix_aggregate_<tag>_k<k>`` (f32) and ``..._k<k>_bf16`` (one row for
+    W and the centroid rules where both have k = 2), each timed over 10
+    calls at the widest leaf (stablelm's 205.5 M-wide embedding and head)
+    by ``mix_row``. Also every leaf of one user-centric mix
+    (``aggregation.user_centric``) against the plain mix rounded to bf16:
     equal or one bf16 step apart. Returns (rows, the leaf widths held)."""
     mm = w.shape[0]
-    rules = [(f"mix_aggregate_{tag}_k{rule.shape[0]}",
-              rule.to(torch.bfloat16).float() if rule.shape[0] > 1 else rule)
+    rules = [rule.to(torch.bfloat16).float() if rule.shape[0] > 1 else rule
              for rule in (w, centroid_w, torch.full((1, mm), 1.0 / mm, device=dev))]
     by_width = {x[0].numel(): x for x in leaves(params)}
-    errs = dict.fromkeys((name for name, _ in rules), 0.0)
+    dtypes = list(dict.fromkeys((torch.float32, leaves(params)[0].dtype)))
+
+    def row_name(k, dtype):
+        return f"mix_aggregate_{tag}_k{k}" + ("" if dtype == torch.float32 else "_bf16")
+
+    errs, held = {}, 0
     for width, x in sorted(by_width.items()):
-        theta = x.reshape(mm, -1).float()
-        for name, rule in rules:
-            want = ref.mix_aggregate(rule, theta)
-            errs[name] = max(errs[name], check(f"{name} d={width}",
-                                               ops.mix_aggregate(rule, theta, impl="cuda"), want,
-                                               1e-5 * float(want.abs().max())))
-            del want
-        del theta
-    theta = by_width[max(by_width)].reshape(mm, -1).float()
-    width = theta.shape[1]
+        for dtype in dtypes:
+            theta = x.reshape(mm, -1).to(dtype)
+            for rule in rules:
+                name = row_name(rule.shape[0], dtype)
+                got = ops.mix_aggregate(rule, theta, impl="cuda")
+                err = check_mix(f"{name} d={width}", got, ref.mix_aggregate(rule, theta))
+                errs[name] = max(errs.get(name, 0.0), err)
+                held += hold_mix_bits(f"{name} d={width}", rule, theta, got)
+                del got
+            del theta
     rows = {}
-    for name, rule in rules:
-        if name in rows:  # the centroid rules beside W at k = 2: held above, timed once
-            continue
-        k = rule.shape[0]
-        rows[name] = dict(
-            source="src/repro_torch/kernels/csrc/mix_aggregate.cu",
-            replaces="src/repro/kernels/mix_aggregate.py:40", max_abs_err=errs[name],
-            ms=time_ms(lambda r=rule: ops.mix_aggregate(r, theta, impl="cuda"), dev, reps=10),
-            plain_ms=time_ms(lambda r=rule: ref.mix_aggregate(r, theta), dev, reps=10),
-            library_ms=time_ms(lambda r=rule: r @ theta, dev, reps=10),
-            shape=f"[[{k}, {mm}], [{mm}, {width}]] torch.float32, {len(by_width)} leaf widths held",
-            work=roofline.mix_aggregate_work(k, mm, width))
-    del theta
+    for dtype in dtypes:
+        theta = by_width[max(by_width)].reshape(mm, -1).to(dtype)
+        for rule in rules:
+            name = row_name(rule.shape[0], dtype)
+            if name in rows:  # the centroid rules beside W at k = 2: held above, timed once
+                continue
+            rows[name] = mix_row(name, rule, theta, dev, reps=10)
+            rows[name]["max_abs_err"] = errs[name]
+            rows[name]["shape"] = (f"[[{rule.shape[0]}, {mm}], [{mm}, {theta.shape[1]}]] "
+                                   f"{dtype}, {len(by_width)} leaf widths held")
+        del theta
+    print(f"  {tag} mixes: {held} few-row calls over {len(by_width)} leaf widths, "
+          f"{', '.join(str(t)[6:] for t in dtypes)}, bit for bit the tile route")
     mixed = aggregation.user_centric(params, w.to(torch.bfloat16).float())
     worst = 0.0
     for got, x in zip(leaves(mixed), leaves(params)):
@@ -5145,6 +5268,20 @@ def mix_lm_rows(dev, params, w, centroid_w, *, tag="lm"):
     print(f"  one user-centric mix: all {len(leaves(params))} leaves within one bf16 step of "
           f"the plain mix")
     return rows, set(by_width)
+
+
+def mix_row_launches(launches, rows):
+    """The train steps' mix launches by row (``mix_aggregate_<tag>_k<k>``):
+    the step mixes its leaves in their storage dtype, so where the leaves
+    are bf16 their row (``..._bf16``) counts the launches, and the f32 row
+    of that k (the same route on the widened leaves, for comparison) none."""
+    out = {}
+    for name, n in launches.items():
+        if f"{name}_bf16" in rows:
+            out[f"{name}_bf16"], out[name] = n, 0
+        else:
+            out[name] = n
+    return out
 
 
 def entry_point_run(dev, argv=("--arch", TRAIN_ARCH, "--smoke", "--rounds", "20"), tag="smoke"):
@@ -5286,10 +5423,10 @@ def train_phase(dev):
     for name, r in rows.items():
         finish_row(name, r)
     out["row_launches"] = row_launches | {
-        "gram_lm": 1, "flash_attention_train": flash_launches,
-        "mix_aggregate_lm_k4": mix_launches["user_centric"],
-        "mix_aggregate_lm_k2": mix_launches["clustered"],
-        "mix_aggregate_lm_k1": mix_launches["fedavg"]}
+        "gram_lm": 1, "flash_attention_train": flash_launches} | mix_row_launches({
+            "mix_aggregate_lm_k4": mix_launches["user_centric"],
+            "mix_aggregate_lm_k2": mix_launches["clustered"],
+            "mix_aggregate_lm_k1": mix_launches["fedavg"]}, rows)
     phase("train", t0, f"{cfg.name} at full width ({cfg.num_layers} layers): the collaboration "
           f"round and {TRAIN_STEPS} steps of each agg, losses falling")
     print("train_path " + json.dumps({k: v for k, v in out.items() if k != "runs"}
@@ -5588,6 +5725,10 @@ def family_train_cell(dev, cfg, cell):
           f"{cfg.remat_policy}), {m} clients in {TRAIN_GROUPS} groups, {b} x {s} tokens a client "
           f"a step; the step counted on meta: peak {count.peak_bytes / 1e9:.2f} GB, kernel calls "
           f"{count.kernel_calls} ({count_s:.1f} s)")
+    if m < 4:  # the step the cell was cut from, counted only (mixtral-8x7b at 4 clients)
+        full = train_count(cfg, cell._replace(clients=4))
+        out["counted_step_peak_gb_4_clients"] = full.peak_bytes / 1e9
+        print(f"  at 4 clients the step counts {full.peak_bytes / 1e9:.2f} GB on meta (not run)")
     if max(count.peak_bytes, reckoned) > FAMILY_TRAIN_PEAK_GB * 1e9:
         raise AssertionError(f"{cfg.name}: the counted step ({count.peak_bytes / 1e9:.2f} GB) or "
                              f"the round's reckoning ({reckoned / 1e9:.2f} GB) passes "
@@ -5704,7 +5845,7 @@ def family_train_cell(dev, cfg, cell):
     if sum(launches.values()) != tile:
         raise AssertionError(f"{cfg.name}: {tile} tile launches, the recorded step's "
                              f"{per_pass} a pass over {passes} passes give {launches}")
-    launches.update(mix_launches)
+    launches.update(mix_row_launches(mix_launches, rows))
     if cell.collaborate:
         launches[f"gram_{tag}"] = 1
     out["row_launches"] = launches
@@ -5831,10 +5972,11 @@ def main():
                             if r.get("gram_route") == "rows" and name != "gram_m4")
     # the cohort and gram rows also carry read_ms, their time after a read
     # flush; the gram rows library_read_ms, the f32 CUDA-core bound and the
-    # route their plan took; the rows of a recorded run the shape they were
-    # timed at
+    # route their plan took; the mix rows their route, the tile route's time
+    # beside a few-row call's and the few-row shapes held to its bits; the
+    # rows of a recorded run the shape they were timed at
     extras = ("read_ms", "library_read_ms", "bound_f32_ms", "shape", "library_none",
-              "gram_route")
+              "gram_route", "mix_route", "tiles_ms", "tile_bits")
     kernels = [{"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
                 "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

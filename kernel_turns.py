@@ -13,7 +13,13 @@ output, gather and k-means labels equal) and times with CUDA events, as
 write and a spin hiding the enqueue; the mix, the mix-scatter, the gather
 and their library calls also after an L2-evicting read, which leaves no
 dirty lines for the timed call to write back. Shapes: mix W (k, 100) ·
-θ (100, 47,616) at k = 100 and 4; chip_smoke's cohort, 50 slots (42
+θ (100, 47,616) at k = 100, 50 and 4 (the tile route); the train step's
+mix at stablelm-1.6b's widest leaf, (k, 4) · (4, 205,520,896) at k = 4,
+2 and 1, f32 through the kernel and bf16 through the tree's aggregation
+rules on a one-leaf tree (``user_centric``, ``mix_centroids``,
+``fedavg``: in a tree without bf16 θ, its f32 copy and cast back
+included), beside ``w.to(θ.dtype) @ θ`` and, where the tree has the
+few-row route, its tile route; chip_smoke's cohort, 50 slots (42
 members, 8 pads) of the (100, 47,616) slab, for masked_mix_scatter
 (library: ``w_live @ theta`` then ``index_copy_``) and cohort_gather
 (library: ``index_select``); kmeans_assign of 100 points of width 100
@@ -27,8 +33,10 @@ one-element ``zero_()``, the launch floor. A tree whose gram has the
 few-row route (``pairwise_delta.rows_plan``) also times its two routes
 against each other at m = 4, 8, 12 and 16 (the crossover behind M_ROWS)
 over 47,616 and 2^27 columns. Each turn also hashes (sha256) the outputs
-of the mix, the mix-scatter, the gather and gram at m = 100 and 512 (the
-tensor-core route) on these fixed inputs, and keeps the ``ptxas`` lines of
+of the mix (the tile route at 100 rows; the few rows at LLM width, f32 and
+bf16, whose few-row route gives the tile route's bits), the mix-scatter,
+the gather and gram at m = 100 and 512 (the tensor-core route) on these
+fixed inputs, and keeps the ``ptxas`` lines of
 its mix, mix-scatter and gram builds. Every gram output is also held to
 the plain version (within 1e-5 of the largest entry; at the few rows'
 LLM width within 5e-4 of an f64 Gram's), exactly symmetric, and to itself
@@ -79,7 +87,11 @@ def time_ms(fn, dev, reps=30, flush="write"):
 
 
 def sha256(t) -> str:
-    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+    import torch
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:  # numpy has no bf16: hash its 16-bit patterns
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
 
 
 def ptxas_lines(build, source: str) -> list:
@@ -230,6 +242,68 @@ def crossover_turn(out, dev, gen):
             torch.cuda.empty_cache()
 
 
+def few_rows_turn(out, dev, gen, d=205_520_896, reps=10):
+    """The train step's mix at stablelm-1.6b's widest leaf, (k, 4) · (4, d)
+    at k = 4, 2, 1, in f32 and bf16, each checked against the plain version
+    (f32 within 1e-5 of the largest output, bf16 within one bf16 step of
+    each output plus that) and hashed: the tree's kernel on the f32 θ; on
+    the bf16 θ the tree's ``aggregation.user_centric`` (k = 4), ``mix_centroids``
+    (k = 2) and ``fedavg`` (k = 1) over a one-leaf tree, whatever casts the
+    tree makes around the kernel (the parent's f32 copy and cast back), and,
+    where the kernel takes a bf16 θ, the kernel alone. A tree with the
+    few-row route (``mix_aggregate.rows_plan``) also times its tile route
+    (``route="tiles"``) at each shape."""
+    import torch
+    from repro_torch.core import aggregation
+    from repro_torch.kernels import mix_aggregate as mix
+    from repro_torch.kernels import ops, ref
+    theta = 0.02 * torch.randn(4, d, generator=gen, device=dev)
+    labels = torch.tensor([0, 1, 1, 0], device=dev)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        th = theta.to(dtype)
+        tree = {"leaf": th}
+        for k in (4, 2, 1):
+            # k = 1 is fedavg's mean over 4 equal clients
+            w = (torch.softmax(torch.randn(k, 4, generator=gen, device=dev), dim=1) if k > 1
+                 else torch.full((1, 4), 0.25, device=dev))
+            calls = {"kernel": lambda w=w: ops.mix_aggregate(w, th, impl="cuda")}
+            if dtype == torch.bfloat16:
+                if k == 4:
+                    calls["user_centric"] = lambda w=w: aggregation.user_centric(tree, w)
+                elif k == 2:
+                    calls["mix_centroids"] = lambda w=w: aggregation.mix_centroids(tree, w, labels)
+                else:
+                    calls["fedavg"] = lambda: aggregation.fedavg(tree, torch.ones(4, device=dev))
+                if th.dtype not in getattr(ops, "MIX_DTYPES", (torch.float32,)):
+                    del calls["kernel"]
+            want = ref.mix_aggregate(w, th)
+            for name, fn in calls.items():
+                got = fn()
+                got = got["leaf"] if isinstance(got, dict) else got
+                if name == "mix_centroids":
+                    got = got[:2]  # clients 0 and 1 hold the two rules' mixes
+                elif name == "fedavg":
+                    got = got[:1]
+                diff = (got.float() - want.float()).abs()
+                allowed = 1e-5 * float(want.float().abs().max())
+                if dtype == torch.bfloat16:
+                    allowed = allowed + 2.0 ** -7 * want.float().abs()
+                if not bool((diff <= allowed).all()):
+                    raise AssertionError(f"few rows k={k} {tag} {name}: off the plain version")
+                out[f"rows_k{k}_{tag}_{name}_sha256"] = sha256(got)
+                out[f"rows_k{k}_{tag}_{name}_ms"] = time_ms(fn, dev, reps)
+                del got, diff
+            out[f"rows_k{k}_{tag}_library_ms"] = time_ms(lambda w=w: w.to(dtype) @ th, dev, reps)
+            if hasattr(mix, "rows_plan"):
+                out[f"rows_k{k}_{tag}_tiles_ms"] = time_ms(
+                    lambda w=w: mix.mix_aggregate_cuda(w, th, route="tiles"), dev, reps)
+            del want
+            torch.cuda.empty_cache()
+        del th, tree
+    del theta
+    torch.cuda.empty_cache()
+
+
 def one_turn(tree: Path) -> dict:
     """Check and time the kernels of the port in ``tree``."""
     import torch
@@ -245,7 +319,7 @@ def one_turn(tree: Path) -> dict:
     m, d = 100, 47616
     theta = 0.05 * torch.randn(m, d, generator=gen, device=dev)
     out = {"tree": str(tree)}
-    for k in (100, 4):
+    for k in (100, 50, 4):
         w = torch.softmax(torch.randn(k, m, generator=gen, device=dev), dim=1)
         want = ref.mix_aggregate(w, theta)
         err = float((ops.mix_aggregate(w, theta, impl="cuda") - want).abs().max())
@@ -257,6 +331,8 @@ def one_turn(tree: Path) -> dict:
                 lambda w=w: ops.mix_aggregate(w, theta, impl="cuda"), dev, flush=flush)
             out[f"mix_k{k}_library{tag}_ms"] = time_ms(lambda w=w: w @ theta, dev, flush=flush)
     cohort_turn(out, dev, gen, m, d)
+    del theta
+    few_rows_turn(out, dev, gen)
     pts = torch.softmax(4.0 * torch.randn(m, m, generator=gen, device=dev), dim=1)
     for k in (4, 99):
         cents = pts[torch.randperm(m, generator=gen, device=dev)[:k]].clone()

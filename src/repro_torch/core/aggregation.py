@@ -54,12 +54,17 @@ from repro_torch.kernels import ops
 
 def _mix_tree(w, stacked):
     """Apply mixing matrix w (k, m) to a slab or to each leaf of a tree:
-    the mix of the leaf's (m, numel) f32 view, cast back to its dtype (an
-    f32 slab is mixed where it lies)."""
+    the mix of the leaf's (m, numel) view in its storage dtype where the
+    kernel takes it (f32 or bf16: f32 sums, out in the leaf's dtype, as the
+    reference's kernel reads and writes θ), else of an f32 copy cast back."""
 
     def leaf(x):
-        out = ops.mix_aggregate(w, x.reshape(x.shape[0], -1).float())
-        return out.to(x.dtype).reshape((w.shape[0],) + tuple(x.shape[1:]))
+        flat = x.reshape(x.shape[0], -1)
+        if x.dtype in ops.MIX_DTYPES:
+            out = ops.mix_aggregate(w, flat)
+        else:
+            out = ops.mix_aggregate(w, flat.float()).to(x.dtype)
+        return out.reshape((w.shape[0],) + tuple(x.shape[1:]))
 
     return pytree.tree_map(leaf, stacked)
 

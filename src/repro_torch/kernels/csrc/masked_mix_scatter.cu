@@ -16,7 +16,7 @@
 // 0.24 GFLOP on the f32 CUDA cores (3.6 us): bound by bytes.
 //
 // Design: mix_aggregate's register-tiled ring (mix_tile.cuh) with a
-// scatter epilogue, on the tile that `mix_plan(c, c, d, θ, full)` picks:
+// scatter epilogue, on the tile that `tile_plan(c, c, d, θ, full)` picks:
 // the 64-row tile T2 for 5 <= c <= 64, so a 50-slot cohort reads each
 // (50, 128) column tile of θ from HBM once and its 372 blocks are all
 // resident at once (three 256-thread blocks an SM on 132 SMs: one wave).
@@ -84,7 +84,7 @@ cudaError_t launch(const float* w, const float* theta, const int* idx, const uns
                    float* full, int c, int m, long long d, long long blocks, int smem_bytes,
                    cudaStream_t st) {
   static std::atomic<unsigned long long> done{0};
-  // the planner (mix_plan) and the kernel must agree on the tile
+  // the planner (tile_plan) and the kernel must agree on the tile
   if (!plan_agrees<T>(c, d, blocks, smem_bytes)) return cudaErrorInvalidConfiguration;
   const cudaError_t err = allow_smem<T>(masked_mix_scatter_kernel<T, VEC>, done);
   if (err != cudaSuccess) return err;
@@ -110,7 +110,7 @@ extern "C" const char* cuda_error_string(int err) {
 
 // w (c, c), theta (c, d), full (m, d): f32, row-major, contiguous;
 // idx (c,) int32, mask (c,) bytes; c > 0, d > 0. Writes full in place.
-// `tile`, `vec`, `blocks` and `smem_bytes` are mix_plan(c, c, d, theta,
+// `tile`, `vec`, `blocks` and `smem_bytes` are tile_plan(c, c, d, theta,
 // full)'s; a plan that disagrees with the kernel's own tile is refused
 // (cudaErrorInvalidConfiguration).
 extern "C" int masked_mix_scatter_f32(const float* w, const float* theta, const int* idx,

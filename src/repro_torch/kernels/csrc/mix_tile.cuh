@@ -23,7 +23,7 @@
 //     for d % 4 != 0 or θ / the output not 16-byte aligned (leaf widths,
 //     offset views): no 16-byte access ever goes past an end or misaligned.
 // The tiles are T0, T1 and T2 below; mix_aggregate.py's MIX_TILES lists
-// them by the same index, and its `mix_plan` picks one for both kernels.
+// them by the same index, and its `tile_plan` picks one for both kernels.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,7 +57,7 @@ struct Tile {
 };
 
 // the three variants, by index (MIX_TILES): which one a call takes is
-// mix_plan's choice, by k
+// tile_plan's choice, by k
 using T0 = Tile<4, 4, 1, 32, 4, 16>;  // k <= 4 (ucfl_k4's rules): 32 threads, BM 4
 using T1 = Tile<8, 8, 16, 16, 3, 2>;  // k > 64 (full ucfl): 256 threads, BM 128, row tiles
 using T2 = Tile<8, 4, 8, 32, 3, 3>;   // 5 <= k <= 64 (a 50-slot cohort): 256 threads, BM 64

@@ -5,7 +5,7 @@ and ``repro.kernels.masked_gather_mix_scatter.masked_gather_mix_scatter_pallas``
 ``full[idx[i]] = (W · θ)[i]`` for the live slots (``mask[i]`` and
 ``0 <= idx[i] < m``), written in place, O(c·d) bytes at any m. The kernel
 is mix_aggregate's register-tiled core with a scatter epilogue, launched
-on ``mix_plan(c, c, d, theta, full)`` (a 50-slot cohort takes the 64-row
+on ``tile_plan(c, c, d, theta, full)`` at every c (a 50-slot cohort takes the 64-row
 tile: θ read once, one wave of blocks).
 """
 from __future__ import annotations
@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mix_aggregate import mix_plan
+from repro_torch.kernels.mix_aggregate import tile_plan
 
 MIX_SCATTER = _build.Kernel("masked_mix_scatter.cu", "masked_mix_scatter_f32", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -62,7 +62,7 @@ def masked_mix_scatter_cuda(w, theta, idx, mask, full):
     w = w.to(torch.float32).contiguous()
     idx = idx.to(torch.int32).contiguous()
     mask = (mask if mask.dtype == torch.bool else mask != 0).contiguous()
-    plan = mix_plan(c, c, d, theta.data_ptr(), full.data_ptr())
+    plan = tile_plan(c, c, d, theta.data_ptr(), full.data_ptr())
     MIX_SCATTER(full.device, _build.ptr(w), _build.ptr(theta), _build.ptr(idx),
                 _build.ptr(mask), _build.ptr(full), c, m, d, plan.tile, int(plan.vec),
                 plan.blocks, plan.smem_bytes)

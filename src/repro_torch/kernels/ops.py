@@ -22,10 +22,11 @@ from repro_torch.kernels.flash_attention import check_args as check_flash_args
 from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention_cuda, needs_grad
 from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda
 from repro_torch.kernels.masked_mix_scatter import masked_mix_scatter_cuda
-from repro_torch.kernels.mix_aggregate import mix_aggregate_cuda
+from repro_torch.kernels.mix_aggregate import ELEM_BYTES, mix_aggregate_cuda
 from repro_torch.kernels.pairwise_delta import gram_cuda
 
 ALIGN = 128  # slab width multiple, kept from the reference's TPU lane width
+MIX_DTYPES = tuple(ELEM_BYTES)  # θ's dtypes the mix kernel takes: float32, bfloat16
 
 
 def aligned_dim(d: int) -> int:
@@ -45,7 +46,18 @@ def _impl(impl, tensor):
 
 
 def mix_aggregate(w, theta, *, impl=None):
-    """out[i] = sum_j w[i,j] theta[j];  w (k, m), theta (m, d) -> (k, d)."""
+    """out[i] = sum_j w[i,j] theta[j];  w (k, m), theta (m, d) -> (k, d) in
+    θ's dtype, W cast to f32 and every sum in f32.
+
+    The kernel takes θ in float32 or bfloat16 (``MIX_DTYPES``) where it
+    lies, and reads a bf16 θ in its storage dtype. Two routes, picked from
+    k and m (``mix_aggregate.mix_plan``): at k, m <= 16 the few-row route,
+    a stream of θ at the HBM rate; else the register-tiled route, f32 θ
+    (a bf16 θ through an f32 copy). Each output is one FMA chain from +0
+    over j in order on either route, so an f32 output has the same bits on
+    both and a bf16 output is that f32 sum rounded once to nearest-even.
+    The plain version sums in cuBLAS's or the CPU's order instead.
+    """
     if _impl(impl, theta) == "ref":
         return ref.mix_aggregate(w, theta)
     return mix_aggregate_cuda(w, theta)

@@ -324,7 +324,7 @@ def _gram(g):
 def _mix(w, theta):
     _meta(w, theta)
     (k, m), d = w.shape, theta.shape[1]
-    out = _new((k, d), torch.float32, theta)
+    out = _new((k, d), theta.dtype, theta)
     if k and d and m:
         current().kernel("mix_aggregate",
                          roofline.mix_aggregate_work(k, m, d, theta.element_size()), out)

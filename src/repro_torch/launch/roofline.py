@@ -83,8 +83,9 @@ def gram_work(m: int, width: int, elem: int = 4, useful_width: int | None = None
 
 
 def mix_aggregate_work(k: int, m: int, d: int, elem: int = 4) -> Work:
-    """W (k, m) f32 · θ (m, d) -> (k, d) f32."""
-    return Work(4 * k * m + elem * m * d + 4 * k * d, 2 * k * m * d)
+    """W (k, m) f32 · θ (m, d) -> (k, d) in θ's dtype, ``elem`` bytes an
+    element of θ and of the output; the sums in f32 on the CUDA cores."""
+    return Work(4 * k * m + elem * (m * d + k * d), 2 * k * m * d)
 
 
 def kmeans_assign_work(m: int, k: int, f: int) -> Work:

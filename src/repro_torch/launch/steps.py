@@ -13,9 +13,10 @@ Every leaf carries a leading client axis (m, ...), inputs are (m, B, ...),
 and the reference's ``vmap`` over clients is that axis written out
 (batched products over clients, clients folded into the attention
 kernel's batch). Each mix is the engine's (:mod:`repro_torch.core.aggregation`):
-leaf by leaf on the mix kernel over the leaf's (m, numel) f32 view, cast
-back to the leaf's dtype, with W and the centroid rules rounded to the
-params' dtype first, as the reference rounds them. Momentum buffers stay
+leaf by leaf on the mix kernel over the leaf's (m, numel) view in its
+storage dtype (bf16 or f32; f32 sums, the result in the leaf's dtype),
+with W and the centroid rules rounded to the params' dtype first, as the
+reference rounds them. Momentum buffers stay
 client-local and are never mixed. ``federated=False`` serves one model
 with the reference's shapes. ``abstract_params``, ``abstract_opt``,
 ``input_specs`` and ``abstract_cache`` build the steps' arguments as

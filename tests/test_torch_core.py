@@ -144,6 +144,42 @@ def test_kmeans_empty_cluster_keeps_its_centroid():
     np.testing.assert_array_equal(n(res.labels), 0)
 
 
+@pytest.mark.parametrize("rule", ["user_centric", "mix_centroids", "fedavg"])
+def test_mix_tree_hands_bf16_leaves_to_the_kernel_unconverted(monkeypatch, rule):
+    """Each leaf reaches ops.mix_aggregate as its (m, numel) view in its
+    storage dtype where the kernel takes it (bf16, f32), and the result is
+    bit for bit the former f32 copy's mix cast back; a dtype the kernel
+    does not take (f16) is still mixed through an f32 copy."""
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(11)
+    m = 4
+    tree = {"a": torch.tensor(rng.normal(size=(m, 6, 5)).astype(np.float32)).to(torch.bfloat16),
+            "b": torch.tensor(rng.normal(size=(m, 9)).astype(np.float32)),
+            "c": torch.tensor(rng.normal(size=(m, 7)).astype(np.float32)).to(torch.float16)}
+    w = torch.tensor(rng.dirichlet(np.ones(m), size=m).astype(np.float32))
+    labels = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
+    rules = torch.tensor(rng.dirichlet(np.ones(m), size=2).astype(np.float32))
+    seen = []
+    real = ops.mix_aggregate
+    monkeypatch.setattr(ops, "mix_aggregate",
+                        lambda w_, x, **kw: seen.append((x.dtype, x.dim())) or real(w_, x, **kw))
+    if rule == "user_centric":
+        got, mix = aggregation.user_centric(tree, w), w
+    elif rule == "mix_centroids":
+        got, mix = aggregation.mix_centroids(tree, rules, labels), rules
+    else:
+        got, mix = aggregation.fedavg(tree, torch.ones(m)), torch.full((1, m), 1.0 / m)
+    assert seen == [(torch.bfloat16, 2), (torch.float32, 2), (torch.float32, 2)]
+    for key, x in tree.items():
+        before = ref.mix_aggregate(mix, x.reshape(m, -1).float()).to(x.dtype)
+        if rule == "mix_centroids":
+            before = before[labels.long()]
+        elif rule == "fedavg":
+            before = before.expand(m, -1)
+        assert got[key].dtype == x.dtype and got[key].shape == x.shape
+        assert torch.equal(got[key].reshape(m, -1), before), key
+
+
 def test_dense_rules_match_reference():
     rng = np.random.default_rng(5)
     m, k = 7, 3

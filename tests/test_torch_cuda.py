@@ -17,7 +17,12 @@ a plan it cannot take is refused. The mix and the masked
 mix-scatter run one register-tiled core (``csrc/mix_tile.cuh``) whose sums
 run in order, so their bits are exact where the order is the same: two
 calls, W with zero pad columns against the unpadded W, and the identity
-scatter against mix_aggregate. flash_attention: in f32 atol
+scatter against mix_aggregate. The mix's few-row route (k, m <= 16,
+``csrc/mix_aggregate.cu``'s mix_rows_kernel) sums in the tile route's
+order: its f32 output is bit for bit the tile route's (``route="tiles"``),
+its bf16 output bit for bit the tile route's f32 output cast to bf16, on
+both its paths (16-byte packs and the scalar path of odd widths and
+offset views) and past 2^31 elements of θ. flash_attention: in f32 atol
 2e-5 (outputs are averages of unit-scale v; the kernel's online softmax
 sums in another order than the plain version's whole row); in bfloat16
 both compute in f32 from the same inputs and round once, so they differ
@@ -50,7 +55,8 @@ from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.flash_attention import FLASH_DEC, FLASH_FMA, FLASH_TC, flash_route
 from repro_torch.kernels.kmeans_assign import ASSIGN, kmeans_plan
 from repro_torch.kernels.masked_mix_scatter import MIX_SCATTER
-from repro_torch.kernels.mix_aggregate import MIX, mix_plan
+from repro_torch.kernels.mix_aggregate import (MIX, ROUTE_ROWS, ROUTE_TILES, mix_aggregate_cuda,
+                                               mix_plan)
 from repro_torch.kernels import pairwise_delta
 from repro_torch.kernels.cohort_gather import GATHER
 from repro_torch.kernels.pairwise_delta import GRAM, M_ROWS
@@ -320,6 +326,100 @@ def test_cuda_mix_aggregate_is_deterministic_and_ignores_zero_columns(k, m, d):
     assert torch.equal(first, ops.mix_aggregate(w_pad, th_pad, impl="cuda"))
 
 
+MIX_ROWS_CASES = [  # (k, m, d): the few-row route at the train step's and the engine's shapes
+    (4, 4, 1_048_576),  # user_centric over a leaf, 16-byte packs
+    (2, 4, 65_536),     # the centroid rules
+    (1, 4, 47_616),     # fedavg's mean; the engine's (1, 4) combine
+    (2, 2, 131_072),    # families-agree's two clients
+    (16, 16, 4_096),    # the route's most rows
+    (3, 7, 1_000),      # f32 packs, bf16 scalar (1,000 % 8 != 0)
+    (4, 4, 4_099),      # an odd width: the scalar path
+    (1, 1, 5),          # narrower than a pack
+    (5, 13, 2_056),
+]
+
+
+def mix_inputs(k, m, d, dtype, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed + k * 100 + m)
+    w = torch.softmax(torch.randn(k, m, generator=gen), dim=1).to(dev)
+    th = torch.randn(m, d, generator=gen).to(dtype).to(dev)
+    return w, th
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m,d", MIX_ROWS_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mix_rows_matches_plain_and_the_tile_route(k, m, d, dtype):
+    """The few-row route against the plain version (f32 within 1e-5 of the
+    largest output; bf16 within one bf16 step of each output plus that f32
+    allowance: the two f32 sums, in other orders, may round to neighbouring
+    bf16 values, and where the terms cancel the sums differ by more than a
+    step of the small result), and bit for
+    bit against the tile route: f32 its output, bf16 its f32 output on the
+    widened θ cast to bf16. One launch a call, θ's dtype out."""
+    dev = cuda_device()
+    w, th = mix_inputs(k, m, d, dtype, dev)
+    assert mix_plan(k, m, d, th.data_ptr(), 0, elem=th.element_size()).route == "rows"
+    before = MIX.launches
+    got = ops.mix_aggregate(w, th, impl="cuda")
+    assert MIX.launches - before == 1 and got.dtype == dtype and got.shape == (k, d)
+    want = ref.mix_aggregate(w, th)
+    tiles = mix_aggregate_cuda(w, th.float(), route="tiles")
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        assert torch.equal(got, tiles)
+    else:
+        err = (got.float() - want.float()).abs()
+        allowed = 2.0 ** -7 * want.float().abs() + 1e-5 * float(want.float().abs().max())
+        assert bool((err <= allowed).all())
+        assert torch.equal(got, tiles.to(torch.bfloat16))
+        assert torch.equal(got, mix_aggregate_cuda(w, th, route="tiles"))
+    assert torch.equal(got, ops.mix_aggregate(w, th, impl="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 1), (torch.bfloat16, 1),
+                                          (torch.bfloat16, 4), (torch.float32, 4)])
+def test_cuda_mix_rows_offset_view_takes_the_scalar_path(dtype, offset):
+    """θ ``offset`` elements into its buffer (d a multiple of every pack):
+    the plan takes the scalar path unless the view lies on a 16-byte
+    boundary, and the bits are the aligned copy's and the tile route's."""
+    dev = cuda_device()
+    k, m, d = 2, 4, 8_192
+    w, th = mix_inputs(k, m, d, dtype, dev, seed=7)
+    buf = torch.empty(m * d + offset, dtype=dtype, device=dev)
+    view = buf[offset:].view(m, d)
+    view.copy_(th)
+    vec = (offset * th.element_size()) % 16 == 0
+    assert mix_plan(k, m, d, view.data_ptr(), 0, elem=th.element_size()).vec == vec
+    got = ops.mix_aggregate(w, view, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.mix_aggregate(w, th, impl="cuda"))
+    assert torch.equal(got, mix_aggregate_cuda(w, view.float(), route="tiles").to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mix_rows_past_2_31_elements(dtype):
+    """A (2, 2)·(2, 2^30 + 2,056) θ, 2^31 + 4,112 elements (mamba2's widest
+    leaf passes 2^31 at 4 rows): the route addresses rows, runs and packs
+    with 64-bit offsets. Columns near the end, past 2^31 elements of θ's
+    buffer, against the plain version on a slice."""
+    dev = cuda_device()
+    k, m, d = 2, 2, 2**30 + 2_056
+    th = torch.empty(m, d, dtype=dtype, device=dev)
+    th.normal_(generator=torch.Generator(device=dev).manual_seed(5))
+    w = torch.tensor([[0.25, 0.75], [0.5, 0.5]], device=dev)
+    got = ops.mix_aggregate(w, th, impl="cuda")
+    for c0 in (0, d // 2, d - 4_096):
+        part = th[:, c0: c0 + 4_096]
+        want = mix_aggregate_cuda(w, part.float().contiguous(), route="tiles").to(dtype)
+        assert torch.equal(got[:, c0: c0 + 4_096], want), c0
+    del th, got
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 def test_cuda_mix_and_kmeans_refuse_a_plan_they_do_not_take():
     """A plan that disagrees with the kernel's own layout is refused by the
@@ -328,11 +428,23 @@ def test_cuda_mix_and_kmeans_refuse_a_plan_they_do_not_take():
     w = torch.rand(4, 8, device=dev)
     th = torch.rand(8, 256, device=dev)
     out = torch.empty(4, 256, device=dev)
-    plan = mix_plan(4, 8, 256, th.data_ptr(), out.data_ptr())
+    plan = mix_plan(4, 20, 256, th.data_ptr(), out.data_ptr())
     before = MIX.launches
+    w20, th20 = torch.rand(4, 20, device=dev), torch.rand(20, 256, device=dev)
     with pytest.raises(RuntimeError, match="launch failed"):
-        MIX(dev, _build.ptr(w), _build.ptr(th), _build.ptr(out), 4, 8, 256, plan.tile,
-            int(plan.vec), plan.blocks, plan.smem_bytes + 4)
+        MIX(dev, _build.ptr(w20), _build.ptr(th20), _build.ptr(out), 4, 20, 256, ROUTE_TILES, 0,
+            plan.tile, int(plan.vec), plan.blocks, plan.smem_bytes + 4, 0)
+    rows = mix_plan(4, 8, 256, th.data_ptr(), out.data_ptr())
+    for m, d, bf16, blocks, run in ((8, 256, 0, rows.blocks + 1, rows.run),  # an empty block
+                                    (8, 256, 0, rows.blocks, rows.run + 4),  # half a bf16 pack
+                                    (17, 256, 0, rows.blocks, rows.run),     # too many rows
+                                    (8, 252, 1, rows.blocks, rows.run)):     # 252 % 8 != 0
+        with pytest.raises(RuntimeError, match="launch failed"):
+            MIX(dev, _build.ptr(w), _build.ptr(th), _build.ptr(out), 4, m, d, ROUTE_ROWS, bf16,
+                0, 1, blocks, 0, run)
+    with pytest.raises(RuntimeError, match="launch failed"):  # θ one float in: no 16-byte path
+        MIX(dev, _build.ptr(w), ctypes.c_void_p(th.data_ptr() + 4), _build.ptr(out), 4, 8, 252,
+            ROUTE_ROWS, 0, 0, 1, 1, 0, rows.run)
     assert MIX.launches == before
     p = torch.rand(10, 8, device=dev)
     labels = torch.empty(10, dtype=torch.int32, device=dev)

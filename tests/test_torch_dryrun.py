@@ -47,6 +47,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import configs
 from repro_torch.configs.base import INPUT_SHAPES, InputShape
 from repro_torch.core.pytree import leaves
+from repro_torch.kernels import ops
 from repro_torch.launch import attribute, dryrun, op_analysis, roofline, steps, summarize
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -155,6 +156,24 @@ def test_gram_work_takes_the_route_kind(m, d, want):
     assert roofline.gram_work(M_ROWS, d).kind == "float32"
     assert roofline.gram_work(M_ROWS + 1, d).kind == "tf32x3"
     assert roofline.gram_work(512, 47_616).kind == "tf32x3"
+
+
+@pytest.mark.parametrize("dtype,elem", [(torch.float32, 4), (torch.bfloat16, 2)])
+def test_mix_stand_in_keeps_theta_dtype(dtype, elem):
+    """The meta stand-in of the mix returns θ's dtype, as the kernel does,
+    and counts ``mix_aggregate_work(k, m, d, elem)``: W's f32 floats, θ
+    and the output at θ's element bytes; the f32 count as before."""
+    w = torch.empty(2, 4, device="meta")
+    theta = torch.empty(4, 1000, dtype=dtype, device="meta")
+    with op_analysis.counting() as c:
+        out = ops.mix_aggregate(w, theta)
+    assert out.is_meta and out.dtype == dtype and tuple(out.shape) == (2, 1000)
+    work = roofline.mix_aggregate_work(2, 4, 1000, elem)
+    assert work.bytes == 4 * 8 + elem * (4 + 2) * 1000 and work.flops == 2 * 2 * 4 * 1000
+    assert c.analysis.kernel_calls == {"mix_aggregate": 1}
+    assert c.analysis.kernel_bytes == work.bytes and c.analysis.kernel_flops == work.flops
+    f32 = roofline.mix_aggregate_work(100, 100, 47616)
+    assert f32.bytes == 4 * 100 * 100 + 4 * 100 * 47616 + 4 * 100 * 47616
 
 
 def test_h100_constants_are_the_data_sheet_figures():

@@ -1,5 +1,7 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax``, the reference package ``repro`` or
+"""The port stands alone: no file of ``src/repro_torch/`` and none of its
+card scripts (``chip_smoke.py``, ``kernel_turns.py``, ``serve_turns.py``,
+``gram_variants.py``, ``mix_variants.py``) imports ``jax``, the reference
+package ``repro`` or
 ``msgpack`` (the card's machine has none of them; the checkpoints carry
 their own msgpack subset), and ``import repro_torch`` works in a process
 where none of them was ever loaded."""
@@ -12,7 +14,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / name for name in ("chip_smoke.py", "kernel_turns.py", "serve_turns.py",
+                             "gram_variants.py", "mix_variants.py")]
 
 
 def _forbidden(module: str) -> bool:

@@ -2,9 +2,10 @@
 
 ``mix_plan`` and ``kmeans_plan`` are functions of host ints that decide a
 launch: the register tile or lane groups, the 16-byte or scalar path, the
-grid and the dynamic shared memory. ``mix_plan`` serves both kernels of
-``csrc/mix_tile.cuh``: mix_aggregate, and the masked mix-scatter with
-``mix_plan(c, c, d, theta, full)``. The kernels refuse a plan that
+grid and the dynamic shared memory. ``mix_plan``'s tile route
+(``tile_plan``) serves both kernels of ``csrc/mix_tile.cuh``:
+mix_aggregate, and the masked mix-scatter with ``tile_plan(c, c, d,
+theta, full)``. The kernels refuse a plan that
 disagrees with their own layout (checked on the card by
 ``tests/test_torch_cuda.py``); here the plans are held to what the kernels
 need: every row, column and point covered once, rows 16-byte aligned on
@@ -19,7 +20,14 @@ tensor-core route, whose tiles' 64 x 64 jobs cover every element with
 row <= col < m once and no job lies wholly below the diagonal, each
 tile's splits cover d in chunks of whole ring stages, and the grid is one
 wave of one block an SM; ``gram_aligned`` picks the path that both routes
-can read (16-byte base and row stride) or the padded copy.
+can read (16-byte base and row stride) or the padded copy. ``mix_plan``
+also picks a route, from k and m: at k, m <= MIX_ROWS the few-row route,
+whose runs cover d once, each whole 16-byte packs of either dtype, a
+block each (at LLM width a sweep of a block's loads, else up to two
+blocks an SM; up to 2^33 columns), on 16-byte packs where d is
+a multiple of the pack (4 f32, 8 bf16) and both pointers are aligned;
+above it the tile route, which the masked mix-scatter takes at every c
+through ``tile_plan``.
 """
 import ctypes
 import itertools
@@ -28,7 +36,13 @@ import pytest
 
 from repro_torch.kernels.kmeans_assign import (MAX_SMEM_BYTES, SMEM_BYTES, WARPS, kmeans_plan,
                                                row_stride)
-from repro_torch.kernels.mix_aggregate import BK, MIX_TILES, mix_plan
+from repro_torch.kernels import masked_mix_scatter
+from repro_torch.kernels.mix_aggregate import (BK, MIX_ROWS, MIX_TILES, ROW_BLOCKS_PER_SM,
+                                               ROW_LOADS, RUN_ALIGN, mix_plan, sweep_columns)
+from repro_torch.kernels.mix_aggregate import ROW_THREADS as MIX_THREADS
+from repro_torch.kernels.mix_aggregate import RUN_MIN as MIX_RUN_MIN
+from repro_torch.kernels.mix_aggregate import rows_plan as mix_rows_plan
+from repro_torch.kernels.mix_aggregate import tile_plan as mix_tile_plan
 from repro_torch.kernels.pairwise_delta import (DEPTH, HALF, M_ROWS, MAX_WIDTH, ROW_THREADS,
                                                 RUN_MIN, TILE, WINDOW, gram_aligned, gram_plan,
                                                 rows_plan, tile_jobs, tile_plan)
@@ -44,10 +58,22 @@ def tile_rule(k):
     return 0 if k <= 4 else 2 if k <= 64 else 1
 
 
+def route_rule(k, m):
+    """The route mix_plan must pick: the few rows at k, m <= 16, else tiles."""
+    return "rows" if k <= 16 and m <= 16 else "tiles"
+
+
 @pytest.mark.parametrize("k,m,d", list(itertools.product((1, 4, 100, 150, 511), (3, 100, 512),
                                                          (5, 97, 47_616))))
 def test_mix_plan_covers_the_output(k, m, d):
     plan = mix_plan(k, m, d, *ALIGNED)
+    assert plan.route == route_rule(k, m)
+    if plan.route == "rows":  # m = 3 rows at k = 1 and 4: the runs cover d once
+        assert plan.blocks * plan.run >= d > (plan.blocks - 1) * plan.run
+        assert plan.run % RUN_ALIGN == 0 and plan.run >= MIX_RUN_MIN
+        assert plan.threads == MIX_THREADS and plan.blocks <= ROW_BLOCKS_PER_SM * SMS
+        assert plan.vec == (d % 4 == 0)
+        return
     tile = MIX_TILES[plan.tile]
     assert plan.tile == tile_rule(k)
     assert plan.row_tiles * tile.rows >= k > (plan.row_tiles - 1) * tile.rows
@@ -75,6 +101,82 @@ def test_mix_plan_at_the_main_path():
 def test_mix_plan_tile_choice(k, tile, row_tiles):
     plan = mix_plan(k, 100, 1000, *ALIGNED)
     assert (plan.tile, plan.row_tiles) == (tile, row_tiles) and tile == tile_rule(k)
+    assert plan == mix_tile_plan(k, 100, 1000, *ALIGNED)
+
+
+@pytest.mark.parametrize("k,m", [(1, 2), (1, 4), (2, 4), (4, 4), (2, 2), (16, 16), (1, 16),
+                                 (16, 1), (17, 4), (4, 17), (1, 50), (16, 50), (100, 100),
+                                 (50, 50), (4, 100)])
+@pytest.mark.parametrize("elem", [4, 2])
+def test_mix_plan_route_rule(k, m, elem):
+    """The few-row route at k, m <= MIX_ROWS = 16 in either dtype, else the
+    tile route (whose plan is tile_plan's, of the f32 θ)."""
+    assert MIX_ROWS == 16
+    plan = mix_plan(k, m, 47_616, *ALIGNED, elem=elem)
+    assert plan.route == route_rule(k, m)
+    if plan.route == "rows":
+        assert plan == mix_rows_plan(k, m, 47_616, *ALIGNED, elem, SMS) and plan.elem == elem
+    else:
+        assert plan == mix_tile_plan(k, m, 47_616, *ALIGNED)
+
+
+@pytest.mark.parametrize("d", [1, 5, 8, 97, 1_024, 4_099, 47_616, 65_536, 427_136,
+                               205_520_896, 557_842_432, 2**31 + 8, 3 * 2**30 + 1_004, 2**33])
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("m", [4, 2])
+def test_mix_rows_plan_covers_d_once(d, elem, m):
+    """The few-row runs: a positive multiple of RUN_ALIGN columns (whole
+    16-byte packs of f32 or bf16), at least RUN_MIN, a block each, covering
+    d once with none empty, up to 2^33 columns (the kernel's offsets are
+    64-bit) within the grid's limit; values exact Python ints. Where d
+    fills ROW_BLOCKS_PER_SM blocks an SM with a sweep each (256 threads x
+    ROW_LOADS // m packs of every row), a run is one sweep; a narrower d
+    takes at most that many blocks. The 16-byte path at d a multiple of
+    the pack, 4 columns of f32 or 8 of bf16; the scalar path otherwise."""
+    plan = mix_rows_plan(4, m, d, *ALIGNED, elem, SMS)
+    sweep = MIX_THREADS * (ROW_LOADS // m) * (16 // elem)
+    assert sweep_columns(m, elem) == sweep and sweep % RUN_ALIGN == 0
+    assert plan.run % RUN_ALIGN == 0 and plan.run >= MIX_RUN_MIN and (16 // elem) <= RUN_ALIGN
+    assert plan.blocks * plan.run >= d > (plan.blocks - 1) * plan.run
+    assert 1 <= plan.blocks <= 2**31 - 1
+    if d >= ROW_BLOCKS_PER_SM * SMS * sweep:  # wide: a sweep a block, the blocks in order
+        assert plan.run == sweep and plan.blocks >= ROW_BLOCKS_PER_SM * SMS
+    else:
+        assert plan.blocks <= ROW_BLOCKS_PER_SM * SMS
+    assert plan.vec == (d % (16 // elem) == 0)
+    assert all(isinstance(v, int) for v in (plan.blocks, plan.run))
+
+
+@pytest.mark.parametrize("theta_off,out_off,elem,vec", [
+    (0, 0, 4, True), (0, 0, 2, True), (4, 0, 4, False), (2, 0, 2, False), (0, 8, 2, False),
+    (16, 16, 2, True), (0, 12, 4, False)])
+def test_mix_rows_plan_needs_both_pointers_aligned(theta_off, out_off, elem, vec):
+    """An offset view of θ (or an output not on a 16-byte boundary) takes
+    the scalar path in either dtype."""
+    plan = mix_rows_plan(2, 4, 8_192, ALIGNED[0] + theta_off, ALIGNED[1] + out_off, elem, SMS)
+    assert plan.vec == vec
+
+
+def test_mix_rows_plan_refuses_what_the_route_does_not_take():
+    for k, m in ((17, 4), (4, 17), (0, 4), (4, 0)):
+        with pytest.raises(ValueError, match="rows_plan"):
+            mix_rows_plan(k, m, 1_000, *ALIGNED, 4, SMS)
+    with pytest.raises(ValueError, match="bytes"):
+        mix_plan(4, 4, 1_000, *ALIGNED, elem=8)
+
+
+@pytest.mark.parametrize("c,want", [
+    (4, (0, True, 1, 372, 372, 32, 33_792)),    # row 5b's c = 4: the 4-row tile, not the few rows
+    (50, (2, True, 1, 372, 372, 256, 37_632)),  # a 50-slot cohort: the 64-row tile
+    (109, (1, True, 1, 372, 372, 256, 49_920)),  # the 109-row buffer: the 128-row tile
+])
+def test_mix_scatter_plan_is_the_tile_plan_at_every_c(c, want):
+    """The masked mix-scatter launches on tile_plan(c, c, d, θ, full) at
+    every c, the few-row sizes included: its plan and its bits stay the
+    register tiles'."""
+    assert masked_mix_scatter.tile_plan is mix_tile_plan
+    plan = mix_tile_plan(c, c, 47_616, *ALIGNED)
+    assert plan.route == "tiles" and tuple(plan) == want
 
 
 def test_mix_tiles_shared_memory():
@@ -105,11 +207,11 @@ def test_mix_tiles_shared_memory():
 
 
 def test_mix_scatter_plan_at_the_main_path():
-    """The cohort phase's mix-scatter, mix_plan(c, c, d) at c = 50 slots of
+    """The cohort phase's mix-scatter, tile_plan(c, c, d) at c = 50 slots of
     the 47,616-wide slab: the 64-row tile, one row tile (θ crosses HBM
     once), 372 blocks of 256 threads, the 16-byte path, and all 372 blocks
     resident at once on 132 SMs at three blocks an SM (one wave)."""
-    plan = mix_plan(50, 50, 47_616, *ALIGNED)
+    plan = mix_tile_plan(50, 50, 47_616, *ALIGNED)
     assert (plan.tile, plan.vec, plan.row_tiles, plan.col_tiles, plan.blocks,
             plan.threads) == (2, True, 1, 372, 372, 256)
     assert plan.smem_bytes == MIX_TILES[2].smem_bytes == 37_632
@@ -123,9 +225,9 @@ def test_mix_scatter_plan_at_the_main_path():
 def test_mix_scatter_plan_needs_full_aligned(full_off, vec):
     """The scatter stores whole float4s into full's rows, so the 16-byte
     path needs full (not only θ) on a 16-byte boundary."""
-    plan = mix_plan(50, 50, 47_616, ALIGNED[0], ALIGNED[1] + full_off)
+    plan = mix_tile_plan(50, 50, 47_616, ALIGNED[0], ALIGNED[1] + full_off)
     assert plan.vec == vec
-    assert mix_plan(50, 50, 97, *ALIGNED).vec is False  # d % 4 != 0
+    assert mix_tile_plan(50, 50, 97, *ALIGNED).vec is False  # d % 4 != 0
 
 
 @pytest.mark.parametrize("d,theta_off,out_off,vec", [
@@ -140,14 +242,19 @@ def test_mix_scatter_plan_needs_full_aligned(full_off, vec):
     (4, 0, 0, True),
 ])
 def test_mix_plan_path(d, theta_off, out_off, vec):
+    """(3, 5) is the few-row route's: the 16-byte path under the tile
+    route's f32 rule (d % 4 == 0, both pointers aligned)."""
     plan = mix_plan(3, 5, d, ALIGNED[0] + theta_off, ALIGNED[1] + out_off)
-    assert plan.vec == vec
+    assert plan.route == "rows" and plan.vec == vec
+    assert mix_tile_plan(3, 5, d, ALIGNED[0] + theta_off, ALIGNED[1] + out_off).vec == vec
 
 
 def test_mix_plan_rejects_empty_shapes():
-    for k, m, d in ((0, 3, 5), (3, 0, 5), (3, 5, 0)):
+    for k, m, d in ((0, 3, 5), (3, 0, 5), (3, 5, 0), (0, 30, 5), (30, 30, 0)):
         with pytest.raises(ValueError, match="positive"):
             mix_plan(k, m, d, *ALIGNED)
+        with pytest.raises(ValueError, match="positive"):
+            mix_tile_plan(k, m, d, *ALIGNED)
 
 
 @pytest.mark.parametrize("f", [1, 3, 4, 5, 8, 32, 97, 100, 128, 512])

@@ -6,6 +6,7 @@ interpret mode, as ``tests/test_kernels.py`` does. Tolerances: f32 sums in
 another order, so rtol 1e-5 (atol 1e-5 for values near 0); k-means labels
 are exact.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,6 +27,28 @@ def test_mix_aggregate_matches_reference(k, m, d):
     got = ops.mix_aggregate(t(w), t(th))
     assert got.dtype == torch.float32 and got.shape == (k, d)
     np.testing.assert_allclose(n(got), n(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,m", [(1, 4), (2, 4), (4, 4), (2, 2), (16, 16)])
+@pytest.mark.parametrize("d", [513, 4_099, 8_192])
+def test_mix_aggregate_bf16_matches_reference(k, m, d):
+    """A bf16 θ (the train step's leaves, mixed in their storage dtype)
+    against the reference's ``mix_aggregate_pallas`` in interpret mode,
+    which casts each θ block to f32 and writes θ's dtype: the port's output
+    is bf16, equal to the reference's or one bf16 step from it where the
+    two f32 sums, taken in other orders, round to neighbouring values."""
+    from repro.kernels.mix_aggregate import mix_aggregate_pallas
+    rng = np.random.default_rng(k * 1000 + m * 10 + d)
+    w = rng.dirichlet(np.ones(m), size=k).astype(np.float32)
+    th = torch.tensor(rng.normal(size=(m, d)).astype(np.float32)).to(torch.bfloat16)
+    want = mix_aggregate_pallas(f32(w), jnp.asarray(th.float().numpy(), dtype=jnp.bfloat16),
+                                interpret=True)
+    got = ops.mix_aggregate(t(w), th)
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16 and got.shape == (k, d)
+    want = torch.tensor(np.asarray(want.astype(jnp.float32)))
+    step = 2.0 ** -7 * want.abs()  # one bf16 step of each value (8 significant bits)
+    assert bool(((got.float() - want).abs() <= step).all())
+    assert float((got.float() == want).float().mean()) >= 0.99
 
 
 @pytest.mark.parametrize("m,d", [(3, 64), (7, 300), (12, 1111),

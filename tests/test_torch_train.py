@@ -204,7 +204,9 @@ def test_fedsgd_sharded_step_matches_reference_over_3_steps():
 
 def test_train_step_mixes_on_the_mix_op_one_launch_a_leaf(monkeypatch):
     """Each mixing agg calls ops.mix_aggregate once a leaf on the leaf's
-    (m, numel) f32 view, W rounded to the leaf's dtype; local never."""
+    (m, numel) view in its storage dtype (f32 here; a bf16 model's leaves
+    in bf16, with no f32 copy), W rounded to the leaf's dtype; local
+    never."""
     _, pcfg = cfgs("stablelm-1.6b")
     rcfg = ref_configs.get("stablelm-1.6b").reduced()
     tp = interop.transformer_params_from_numpy(client_params("stablelm-1.6b"), device=CPU)
@@ -222,7 +224,8 @@ def test_train_step_mixes_on_the_mix_op_one_launch_a_leaf(monkeypatch):
         step(tp, sgd_init(tp, momentum=0.9), mix, b)
         want = [] if k is None else [((k, M), torch.float32, 2)] * nleaves
         assert calls == want, agg
-    # a bf16 model: W rounded to bf16, the mix in f32, each leaf back in bf16
+    # a bf16 model: W rounded to bf16, each leaf mixed in bf16 (f32 sums),
+    # the bits of the former f32 copy's mix cast back
     bcfg = dataclasses.replace(pcfg, param_dtype="bfloat16", act_dtype="bfloat16")
     bf = transformer.tree_map(lambda x: x.to(torch.bfloat16), tp)
     w = torch.full((M, M), 1.0 / 3)
@@ -232,7 +235,7 @@ def test_train_step_mixes_on_the_mix_op_one_launch_a_leaf(monkeypatch):
     x = bf["lm_head"]["w"]
     want = (w.to(torch.bfloat16).float() @ x.reshape(M, -1).float()).to(torch.bfloat16)
     assert torch.equal(mixed["lm_head"]["w"].reshape(M, -1), want)
-    assert calls == [((M, M), torch.float32, 2)] * nleaves
+    assert calls == [((M, M), torch.bfloat16, 2)] * nleaves
 
 
 def test_train_step_refusals():
